@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `csrc/` are compiled at first use with nvcc for
+sm_90a into one shared library with a plain C interface, and loaded with
+ctypes. The library lands in `_build/` under a name keyed by a hash of
+the sources and flags, so an edited source builds anew and an unchanged
+one is reused. Tensor pointers (`data_ptr()`) and the current CUDA
+stream are passed as `c_void_p`; every C entry point returns
+`cudaGetLastError()`, which `check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# C entry points: name -> argtypes (all return int, the CUDA error code).
+SIGNATURES = {
+    # out, src, starts, n_blocks, block_bytes, stream
+    "tt_gather_row_blocks": [_P, _P, _P, _L, _L, _P],
+    # rows, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream
+    "tt_lambda_stats_packed": [_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+    # rows, u_planes, lamb_init, lamb_out, g_out, lam, mid, t, part, dpart,
+    # active, gpart, B, W, K, nsplit_w, nsplit_b, local_iters, local_tol,
+    # beta_a, beta_b, warm_start, approx_div, accel, stream
+    "tt_fused_local_solve": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_I] * 3
+                            + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None       # wall time of the nvcc run, None if reused
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libtt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hash-named library unless it exists.
+    The ptxas report (registers, spills) is kept beside it as .log."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, cu)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.time() - t0
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def require_cuda(name: str, *tensors, dtypes) -> None:
+    """Validate device, dtype and contiguity of a kernel's inputs."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if torch.cuda.get_device_capability(dev)[0] < 9:
+        raise RuntimeError(f"{name}: the kernels are built for sm_90a")

@@ -1,0 +1,189 @@
+"""Genotype dataset container + eval-set carve (port of
+terastructure_tpu/data/dataset.py).
+
+Training genotypes live 2-bit packed, SNP-major: uint8 (L, ceil(N/4)).
+Validation and heldout entries are re-coded MISSING in the training
+matrix and kept as COO (ind_idx, snp_idx, x) arrays for scoring. All of
+this is host numpy and draws the same split as the reference for the
+same seed, so both packages fit and score the same data.
+
+`from_bed` and the device-resident carve wait for the I/O slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Optional
+
+import numpy as np
+
+from terastructure_tpu_torch.data.pack import pack2bit, packed_width
+from terastructure_tpu_torch.models.psd import MISSING
+
+log = logging.getLogger("terastructure_tpu_torch")
+
+# per-byte count of 2-bit codes equal to MISSING (0b11)
+_MISS_LUT = np.array(
+    [sum(((b >> (2 * s)) & 3) == MISSING for s in range(4))
+     for b in range(256)], dtype=np.uint8)
+
+
+@dataclasses.dataclass
+class EntrySet:
+    """A COO set of (individual, SNP, genotype) entries."""
+
+    ind_idx: np.ndarray   # (M,) int32
+    snp_idx: np.ndarray   # (M,) int32
+    x: np.ndarray         # (M,) int8 in {0,1,2}
+
+    def __len__(self):
+        return len(self.x)
+
+
+def _lookup_packed(packed: np.ndarray, i: np.ndarray, j: np.ndarray):
+    """Genotype codes at entries (i, j) of the packed (L, W) matrix."""
+    byte = packed[j, i >> 2]
+    shift = (2 * (i & 3)).astype(np.uint8)
+    return ((byte >> shift) & 3).astype(np.int8)
+
+
+def _recode_missing_packed(packed: np.ndarray, i: np.ndarray, j: np.ndarray):
+    """Set entries (i, j) to MISSING in place (MISSING = 0b11: OR mask)."""
+    shift = (2 * (i & 3)).astype(np.uint8)
+    np.bitwise_or.at(packed, (j, i >> 2), np.uint8(3) << shift)
+
+
+def _missing_rate(packed: np.ndarray, n: int, l: int,
+                  rng: np.random.Generator) -> float:
+    """Fraction of MISSING among the n*l real entries: exact by a per-byte
+    popcount when the matrix is small, a sampled estimate otherwise."""
+    if packed.size <= (1 << 24):
+        total_missing = int(_MISS_LUT[packed].sum())
+        pad = (4 * packed.shape[1] - n) * l      # padding codes are MISSING
+        return max(total_missing - pad, 0) / max(n * l, 1)
+    probe = 1 << 20
+    pi = rng.integers(0, n, size=probe)
+    pj = rng.integers(0, l, size=probe)
+    return float((_lookup_packed(packed, pi, pj) == MISSING).mean())
+
+
+def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
+                   n_held: int, rng: np.random.Generator,
+                   snp_pool: int = 0):
+    """Sample distinct non-missing entries, split validation/heldout and
+    recode them MISSING in `packed` (in place). Returns (validation,
+    heldout).
+
+    Rejection sampling against the packed matrix; the loop stops when
+    rounds stop finding new entries and truncates with a warning.
+    snp_pool > 0 restricts the entries to a random pool of that many SNPs,
+    which bounds the 'local' lambda mode's per-check eval re-solve.
+    """
+    want = n_val + n_held
+    if not want:
+        return None, None
+    pool = None
+    if snp_pool and snp_pool < l:
+        pool = rng.choice(l, size=snp_pool, replace=False).astype(np.int64)
+    miss_rate = _missing_rate(packed, n, l, rng)
+    ii = np.empty(0, np.int64)
+    stall = 0
+    while len(ii) < want and stall < 3:
+        m = int((want - len(ii) + 1024) / max(1.0 - miss_rate, 1e-6) * 1.2)
+        ci = rng.integers(0, n, size=m)
+        if pool is None:
+            cj = rng.integers(0, l, size=m)
+        else:
+            cj = pool[rng.integers(0, len(pool), size=m)]
+        ok = _lookup_packed(packed, ci, cj) != MISSING
+        cand = np.concatenate([ii, cj[ok] * np.int64(n) + ci[ok]])
+        new = np.unique(cand)                            # sorted, distinct
+        stall = stall + 1 if len(new) == len(ii) else 0
+        ii = new
+    if len(ii) < want:
+        log.warning(
+            "eval carve: only %d distinct non-missing entries found "
+            "(requested %d); truncating eval sets proportionally",
+            len(ii), want)
+        n_val = int(round(len(ii) * n_val / want))
+        n_held = len(ii) - n_val
+        want = len(ii)
+    ii = rng.permutation(ii)[:want]
+    obs_j = (ii // n).astype(np.int32)
+    obs_i = (ii % n).astype(np.int32)
+
+    def make(sel):
+        i, j = obs_i[sel], obs_j[sel]
+        es = EntrySet(ind_idx=i, snp_idx=j, x=_lookup_packed(packed, i, j))
+        _recode_missing_packed(packed, i, j)             # exclude from training
+        return es
+
+    validation = make(slice(0, n_val)) if n_val else None
+    heldout = make(slice(n_val, want)) if n_held else None
+    return validation, heldout
+
+
+@dataclasses.dataclass
+class GenotypeData:
+    """Packed training matrix + eval sets. n individuals, l SNPs."""
+
+    n: int
+    l: int
+    packed: np.ndarray                    # uint8 (l, W) train codes
+    validation: Optional[EntrySet] = None
+    heldout: Optional[EntrySet] = None
+
+    # Per-set eval cap: ~500K entries already give MC error ~1e-3 nats.
+    MAX_EVAL_ENTRIES = 500_000
+
+    @classmethod
+    def from_packed(
+        cls,
+        packed: np.ndarray,               # uint8 (l, ceil(n/4))
+        n: int,
+        *,
+        validation_frac: float = 0.005,
+        heldout_frac: float = 0.005,
+        seed: int = 0,
+        max_eval_entries: Optional[int] = None,
+        eval_snp_pool: int = 0,
+        copy: bool = False,
+    ) -> "GenotypeData":
+        """Carve eval sets directly on a packed matrix (mutated in place
+        unless copy=True)."""
+        l = packed.shape[0]
+        if packed.shape[1] != packed_width(n):
+            raise ValueError(f"packed width {packed.shape[1]} != ceil({n}/4)")
+        if copy:
+            packed = packed.copy()
+        rng = np.random.default_rng(seed + 1_000_003)
+        cap = (cls.MAX_EVAL_ENTRIES if max_eval_entries is None
+               else max_eval_entries)
+        miss_rate = _missing_rate(packed, n, l, rng)
+        nnz = int(n * l * (1.0 - miss_rate))
+        n_val = min(int(round(validation_frac * nnz)), cap)
+        n_held = min(int(round(heldout_frac * nnz)), cap)
+        validation, heldout = _carve_entries(
+            packed, n, l, n_val, n_held, rng, snp_pool=eval_snp_pool)
+        return cls(n=n, l=l, packed=packed, validation=validation,
+                   heldout=heldout)
+
+    @classmethod
+    def from_dense(
+        cls,
+        x: np.ndarray,                    # (n, l) int in {0,1,2,MISSING}
+        *,
+        validation_frac: float = 0.005,
+        heldout_frac: float = 0.005,
+        seed: int = 0,
+        max_eval_entries: Optional[int] = None,
+        eval_snp_pool: int = 0,
+    ) -> "GenotypeData":
+        n, _ = x.shape
+        xt = np.ascontiguousarray(x.T).astype(np.int8)   # (l, n) SNP-major
+        return cls.from_packed(
+            pack2bit(xt), n,
+            validation_frac=validation_frac, heldout_frac=heldout_frac,
+            seed=seed, max_eval_entries=max_eval_entries,
+            eval_snp_pool=eval_snp_pool)

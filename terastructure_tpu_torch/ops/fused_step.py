@@ -1,0 +1,190 @@
+"""The fused SVI local solve — kernel K1 (port of
+terastructure_tpu/ops/fused_step.py, `fused_local_solve`).
+
+One call runs the whole phi <-> lambda coordinate ascent for a minibatch
+of packed rows and emits the converged lambda_B plus the planar gamma
+statistic. CUDA: csrc/fused_step.cu (a fixed sequence of launches on the
+current stream, no host sync). CPU: `fused_local_solve_twin`, the same
+schedule in plain PyTorch.
+
+Schedule (identical to stats_dense.solve_schedule): cold start at the
+Beta prior (or warm start from lamb_init); a tol-gated loop of passes
+t = exp(psi(lam) - psi(lam0 + lam1)), D = [T1; T0] U^T,
+R = A / (D + 1e-30), lam <- prior + t * (R U); with accel the loop stops
+at local_iters - 2 passes and two tail passes plus one clamped Aitken
+step follow; then one exact pass emits lambda and g = R^T T.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from terastructure_tpu_torch import _build
+from terastructure_tpu_torch.ops.stats_dense import solve_schedule
+from terastructure_tpu_torch.ops.stats_packed import (
+    check_shapes, grid_split, plane_counts, ratios_planar)
+
+
+def digamma(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's digamma for x > 0 (fused_step.py:43-66 of the
+    reference, and `tt::digamma` in csrc/psd_common.cuh): six conditional
+    recurrence shifts to x >= 6, then the asymptotic series. Holds to
+    ~1e-6 down to the 1e-3 lambda floor that aitken_final enforces."""
+    acc = torch.zeros_like(x)
+    for _ in range(6):
+        small = x < 6.0
+        acc = acc - torch.where(small, 1.0 / x, 0.0)
+        x = torch.where(small, x + 1.0, x)
+    inv = 1.0 / x
+    inv2 = inv * inv
+    series = (torch.log(x) - 0.5 * inv
+              - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)))
+    return acc + series
+
+
+def exp_elog_beta_kernel(lam: torch.Tensor):
+    """(t1, t0) from (B, K, 2) Beta params with the kernel's digamma."""
+    lam0, lam1 = lam[..., 0], lam[..., 1]
+    tot = digamma(lam0 + lam1)
+    return torch.exp(digamma(lam0) - tot), torch.exp(digamma(lam1) - tot)
+
+
+# --- the reference's shape gate ------------------------------------------
+# Whether a step takes the fused solve or the big-N per-iteration path
+# changes the algorithm (the big-N path subsamples individuals), so the
+# port reproduces the reference's decision exactly: the arithmetic of
+# fused_step.supports / pick_config / kernel_vmem_bytes, constants
+# included. The H100 kernel has no such budget; nothing else reads these.
+_ROWS_BUDGET = 4 * 1024 * 1024
+_SAFE_BYTES = 112 * 1024 * 1024
+_KPAD_UNITS = 11
+
+
+def _reference_footprint(b, w, k, *, tw, pre, itemsize, accel):
+    kp = 128 * ((k + 127) // 128)
+    e = (2 * b) * (4 * tw)
+    total = b * w
+    if pre:
+        sb = 2 if pre == "bf16" else 1
+        total += (2 * b) * (4 * w) * sb
+        total += e * (4 + itemsize)
+        total += e * (4 + sb)
+    else:
+        total += e * (4 + 2 * itemsize)
+    total += (_KPAD_UNITS + (2 if accel else 0)) * b * kp * 4
+    total += 2 * 4 * w * kp * 4
+    return total
+
+
+def _reference_config_fits(b, w, k, itemsize, accel):
+    for pre in ("bf16", "i8", False):
+        for tw in (512, 256, 128):
+            if w % tw or (accel and b >= 4096 and w == tw):
+                continue
+            if _reference_footprint(b, w, k, tw=tw, pre=pre,
+                                    itemsize=itemsize,
+                                    accel=accel) <= _SAFE_BYTES:
+                return True
+    return False
+
+
+def supports(b: int, w: int, k: int = 8, dtype=torch.float32,
+             accel: bool = False) -> bool:
+    """The reference's fused-path gate (fused_step.supports): True exactly
+    where the reference engine runs the fused solve at this shape."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (b * w <= _ROWS_BUDGET and w % 128 == 0 and b % 8 == 0
+            and _reference_config_fits(b, w, k, itemsize, accel))
+
+
+# --- the plain twin --------------------------------------------------------
+def fused_local_solve_twin(rows, u_planes, lamb_init, *, local_iters,
+                           local_tol, beta_a, beta_b, warm_start=False,
+                           approx_div=False, accel=False):
+    """Plain PyTorch version of K1, same signature and layouts."""
+    b = rows.shape[0]
+    k = u_planes.shape[-1]
+    u_cat = u_planes.reshape(-1, k)                          # (4W, K)
+    a1, a0 = plane_counts(rows)
+    if warm_start:
+        lam = lamb_init.float()
+    else:
+        lam = torch.stack(
+            [torch.full((b, k), beta_a, device=rows.device),
+             torch.full((b, k), beta_b, device=rows.device)], -1)
+
+    def one_pass(lam, approx):
+        t1, t0 = exp_elog_beta_kernel(lam)
+        r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx)
+        new = torch.stack([beta_a + t1 * (r1 @ u_cat),
+                           beta_b + t0 * (r0 @ u_cat)], -1)
+        return new, t1, t0, r1, r0
+
+    lam = solve_schedule(lambda x: one_pass(x, approx_div)[0], lam,
+                         local_iters=local_iters, local_tol=local_tol,
+                         accel=accel)
+    new, t1, t0, r1, r0 = one_pass(lam, False)
+    g = r1.T @ t1 + r0.T @ t0                                # (4W, K)
+    return new, g.reshape(u_planes.shape)
+
+
+# --- the wrapper -------------------------------------------------------------
+def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
+                      lamb_init: torch.Tensor, *, local_iters: int,
+                      local_tol: float, beta_a: float, beta_b: float,
+                      dtype=torch.float32, warm_start: bool = False,
+                      approx_div: bool = False, accel: bool = False):
+    """Run the fused local solve.
+
+    rows: (B, W) uint8 gathered minibatch rows (any W; bytes 0xFF decode as
+    MISSING). u_planes: (4, W, K) f32. lamb_init: (B, K, 2) f32, read iff
+    warm_start. approx_div speeds up the divides of the loop and tail
+    passes; the final pass always divides exactly. Returns
+    (new_lamb_b (B, K, 2) f32, g_planes (4, W, K) f32).
+    """
+    check_shapes("fused_local_solve", rows, u_planes)
+    b, w = rows.shape
+    k = u_planes.shape[2]
+    if lamb_init.shape != (b, k, 2):
+        raise ValueError("fused_local_solve: lamb_init must be (B, K, 2)")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "fused_local_solve computes in float32; the bf16 kernel path "
+            "is a later slice")
+    kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
+              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
+              accel=accel)
+    if rows.device.type == "cpu":
+        fused_local_solve.twin_calls += 1
+        return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
+    _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
+                        dtypes=(torch.uint8, torch.float32, torch.float32))
+    dev = rows.device
+    nsplit_w = grid_split(-(-b // 32), -(-w // 128))
+    nsplit_b = grid_split(-(-4 * w // 128), -(-b // 64))
+    nupd = -(-b * k // 256)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    lamb_out, g = f32(b, k, 2), f32(4, w, k)
+    lam, mid, t = f32(b, k, 2), f32(b, k, 2), f32(b, k, 2)
+    part, dpart = f32(nsplit_w, b, k, 2), f32(nupd, 2)
+    gpart = f32(nsplit_b, 4 * w, k)
+    active = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _build.lib().tt_fused_local_solve(
+        rows.data_ptr(), u_planes.data_ptr(), lamb_init.data_ptr(),
+        lamb_out.data_ptr(), g.data_ptr(), lam.data_ptr(), mid.data_ptr(),
+        t.data_ptr(), part.data_ptr(), dpart.data_ptr(), active.data_ptr(),
+        gpart.data_ptr(), b, w, k, nsplit_w, nsplit_b, local_iters,
+        float(local_tol), float(beta_a), float(beta_b), int(warm_start),
+        int(approx_div), int(accel), _build.stream_ptr(dev))
+    _build.check(err, "fused_local_solve")
+    fused_local_solve.launches += 1
+    return lamb_out, g
+
+
+fused_local_solve.launches = 0
+fused_local_solve.twin_calls = 0

@@ -1,0 +1,136 @@
+"""Dense sufficient statistics for PSD SVI in torch (port of
+terastructure_tpu/ops/stats_dense.py).
+
+phi for (i, j) depends only on the genotype and exp-expected-log factors:
+
+  u_ik  = exp E[log theta_ik]            (N, K)
+  t1_jk = exp E[log beta_kj]             (B, K)   t0 likewise for 1-beta
+  D1 = T1 U^T, D0 = T0 U^T               (B, N)
+  R1 = A1 / D1, R0 = A0 / D0             allele counts over denominators
+  lambda stats: L0 = t1 * (R1 U),  L1 = t0 * (R0 U)
+  gamma stats:  S  = u * (R1^T T1 + R0^T T0)
+
+This is the plain math; the kernels in ops/fused_step.py and
+ops/stats_packed.py compute the same from 2-bit packed rows.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from terastructure_tpu_torch.models.psd import MISSING, elog_beta, elog_dirichlet
+
+_EPS = 1e-30
+
+
+class BatchStats(NamedTuple):
+    gamma_stat: torch.Tensor   # (N, K)
+    lam0_stat: torch.Tensor    # (B, K) allele-1 counts
+    lam1_stat: torch.Tensor    # (B, K) allele-0 counts
+
+
+def exp_elog_theta(gamma):
+    """u = exp E[log theta] (N, K)."""
+    return torch.exp(elog_dirichlet(gamma))
+
+
+def exp_elog_beta(lamb_b):
+    """(t1, t0) = exp E[log beta], exp E[log(1-beta)], each (B, K)."""
+    e1, e0 = elog_beta(lamb_b)
+    return torch.exp(e1), torch.exp(e0)
+
+
+def allele_counts(xb, dtype=torch.float32):
+    """Genotypes (B, N) int8 -> masked allele-count matrices (A1, A0)."""
+    mask = xb != MISSING
+    xf = xb.to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=xb.device)
+    return torch.where(mask, xf, zero), torch.where(mask, 2.0 - xf, zero)
+
+
+def _ratios(a1, a0, u, t1, t0, dtype):
+    """R1, R0 (B, N): allele counts over mixture denominators."""
+    ud = u.to(dtype)
+    d1 = (t1.to(dtype) @ ud.T).float()
+    d0 = (t0.to(dtype) @ ud.T).float()
+    r1 = (a1.float() / (d1 + _EPS)).to(dtype)
+    r0 = (a0.float() / (d0 + _EPS)).to(dtype)
+    return r1, r0
+
+
+def lambda_stats(a1, a0, u, t1, t0, dtype=torch.float32):
+    """One coordinate-ascent lambda statistic: (L0, L1), each (B, K)."""
+    r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
+    ud = u.to(dtype)
+    return t1 * (r1 @ ud).float(), t0 * (r0 @ ud).float()
+
+
+def batch_stats(a1, a0, u, t1, t0, dtype=torch.float32) -> BatchStats:
+    """All sufficient statistics for a converged local solution."""
+    r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
+    ud = u.to(dtype)
+    l0 = t1 * (r1 @ ud).float()
+    l1 = t0 * (r0 @ ud).float()
+    s = u * ((r1.T @ t1.to(dtype)).float() + (r0.T @ t0.to(dtype)).float())
+    return BatchStats(gamma_stat=s, lam0_stat=l0, lam1_stat=l1)
+
+
+def aitken_final(prev, cur, new, floor=1e-3, rmax=0.9):
+    """One per-coordinate Aitken delta^2 extrapolation of the lambda fixed
+    point from three consecutive iterates, with the implied contraction
+    ratio clamped at rmax and the result floored (see the reference for
+    the measurements behind both guards)."""
+    d1 = new - cur
+    d0 = cur - prev
+    den = d0 - d1
+    ok = den.abs() > 1e-12
+    step = torch.where(ok, d1 * d1 / torch.where(ok, den, 1.0), 0.0)
+    cap = (rmax / (1.0 - rmax)) * d1.abs()
+    step = torch.minimum(torch.maximum(step, -cap), cap)
+    return torch.clamp_min(new + step, floor)
+
+
+def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel):
+    """The local-solve schedule shared by every coordinate-ascent path.
+
+    plain: up to `local_iters` passes, stopping after the first pass whose
+    mean relative lambda change is not above local_tol.
+    accel (needs local_iters >= 3): that loop capped at local_iters-2
+    passes, then two passes that always run and one clamped Aitken
+    extrapolation.
+
+    The tol-gated while loop of the reference becomes device-side
+    masking: every pass runs and `lam = where(active, new, lam)` keeps the
+    result of the last pass the loop would have taken. The result is
+    identical and the host never reads a device value.
+    """
+    accel = accel and local_iters >= 3
+    loop_iters = local_iters - 2 if accel else local_iters
+    lam = lamb0
+    active = torch.ones((), dtype=torch.bool, device=lamb0.device)
+    for _ in range(loop_iters):
+        new = iterate(lam)
+        delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
+        lam = torch.where(active, new, lam)
+        active = active & (delta > local_tol)
+    if accel:
+        mid = iterate(lam)
+        new = iterate(mid)
+        lam = aitken_final(lam, mid, new)
+    return lam
+
+
+def local_solve(a1, a0, u, lamb_b, *, beta_a, beta_b, local_iters,
+                local_tol, dtype=torch.float32, accel=False):
+    """Local coordinate ascent phi <-> lambda for the minibatch SNPs on
+    `solve_schedule`. Returns the converged lamb_b (B, K, 2)."""
+
+    def iterate(lam):
+        t1, t0 = exp_elog_beta(lam)
+        l0, l1 = lambda_stats(a1, a0, u, t1, t0, dtype)
+        return torch.stack([beta_a + l0, beta_b + l1], -1)
+
+    return solve_schedule(iterate, lamb_b, local_iters=local_iters,
+                          local_tol=local_tol, accel=accel)

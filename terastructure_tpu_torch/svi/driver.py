@@ -1,0 +1,150 @@
+"""Fit driver: the host-side outer loop with convergence assessment (port
+of terastructure_tpu/svi/driver.py, resident single-process path).
+
+Every `rfreq` steps the validation predictive log-likelihood is computed;
+the fit has converged when the relative improvement stays below
+`conv_tol` for `conv_patience` consecutive checks (or it decreases). The
+trace keeps each check's metrics, with the phase budget `chunk_s` (the
+chunk of rfreq steps until its result is host-visible) and `eval_s` (the
+validation scorer).
+
+Not yet ported (NotImplementedError): stream=True (slice S5),
+step_fn_factory (multi-GPU, S8), checkpoint_dir (S9), init="spectral"
+(S7), lambda_mode="stored".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from terastructure_tpu_torch.config import SVIConfig
+from terastructure_tpu_torch.data.dataset import GenotypeData
+from terastructure_tpu_torch.svi import engine
+from terastructure_tpu_torch.svi.postprocess import compute_lambda
+
+log = logging.getLogger("terastructure_tpu_torch")
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: engine.SVIState
+    trace: List[dict]                 # per-check metrics
+    converged: bool
+    steps: int
+    validation_ll: float
+    heldout_ll: Optional[float]
+    wall_s: float
+
+
+def _not_ported(what, slice_):
+    raise NotImplementedError(f"{what} is not ported yet ({slice_})")
+
+
+def fit(
+    cfg: SVIConfig,
+    data: GenotypeData,
+    *,
+    device=None,
+    step_fn_factory: Optional[Callable] = None,
+    checkpoint_dir: Optional[str] = None,
+    stream: bool = False,
+) -> FitResult:
+    """Run SVI until convergence or cfg.max_steps on one device.
+
+    device: where the fit runs (default: the first CUDA card if there is
+    one, else the CPU). The width-padded packed matrix moves there once.
+    """
+    if cfg.n != data.n or cfg.l != data.l:
+        raise ValueError("config/data shape mismatch")
+    if stream:
+        _not_ported("stream=True", "slice S5, streaming")
+    if step_fn_factory is not None:
+        _not_ported("step_fn_factory", "slice S8, multi-GPU")
+    if checkpoint_dir is not None:
+        _not_ported("checkpoint_dir", "slice S9, I/O")
+    if cfg.init != "random":
+        _not_ported(f"init={cfg.init!r}", "slice S7, spectral init")
+    if cfg.lambda_mode != "local":
+        _not_ported("lambda_mode='stored'", "the stored-lambda slice")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+
+    packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
+    packed = packed.to(device)
+    state = engine.init_state(cfg, l_padded=packed.shape[0], device=device)
+    run_chunk = engine.make_run_chunk(cfg, cfg.rfreq, int(packed.shape[0]))
+
+    def make_scorer(es):
+        """(state -> mean ll) for an entry set: the lambdas of its SNPs
+        are re-solved from the current gamma."""
+        if es is None or not len(es):
+            return None
+        uniq, inv = np.unique(es.snp_idx, return_inverse=True)
+        rows = engine.pad_width(np.asarray(data.packed)[uniq])
+        f = engine.make_entry_loglik_recompute(
+            cfg, rows, inv.astype(np.int64), es.ind_idx, es.x, device=device)
+        return lambda st: float(f(st.gamma))
+
+    val_scorer = make_scorer(data.validation)
+
+    trace: List[dict] = []
+    best_ll = -np.inf
+    stall = 0
+    converged = False
+    t0 = time.time()
+    while state.t < cfg.max_steps:
+        tc = time.time()
+        state = run_chunk(state, packed)
+        # the chunk only enqueues work: read one value to wait for it
+        float(state.gamma[0, 0])
+        tc = time.time() - tc
+        rec = {
+            "step": state.t,
+            "wall_s": round(time.time() - t0, 3),
+            "rho": float(cfg.rho(float(state.t))),
+            "chunk_s": round(tc, 3),
+        }
+        if not trace:
+            rec["predictive"] = cfg.predictive
+        if val_scorer is not None:
+            te = time.time()
+            ll = val_scorer(state)
+            rec["eval_s"] = round(time.time() - te, 3)
+            rec["validation_ll"] = ll
+            if not np.isfinite(ll):
+                log.error("validation ll is not finite at step %d", state.t)
+                break
+            rel = (ll - best_ll) / (abs(best_ll) + 1e-12)
+            if ll > best_ll:
+                best_ll = ll
+            stall = stall + 1 if rel < cfg.conv_tol else 0
+            if stall >= cfg.conv_patience:
+                converged = True
+        trace.append(rec)
+        log.info("step %(step)d  val_ll %(validation_ll).6f",
+                 {**{"validation_ll": float("nan")}, **rec})
+        if converged:
+            break
+
+    # lambda is derived state in the local mode: materialize it for export
+    state = state._replace(lamb=compute_lambda(cfg, state.gamma, packed))
+
+    held_scorer = make_scorer(data.heldout)
+    held_ll = held_scorer(state) if held_scorer is not None else None
+    return FitResult(
+        state=state,
+        trace=trace,
+        converged=converged,
+        steps=state.t,
+        validation_ll=(float(trace[-1].get("validation_ll", np.nan))
+                       if trace else np.nan),
+        heldout_ll=held_ll,
+        wall_s=time.time() - t0,
+    )

@@ -1,0 +1,89 @@
+"""Each CUDA kernel of the port against its plain PyTorch twin, on the card.
+
+These need a CUDA card of compute capability 9.0 and skip elsewhere.
+They import no JAX, so they run on a machine without it:
+
+    TERA_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
+
+(TERA_TEST_TPU=1 stops tests/conftest.py from importing JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from terastructure_tpu_torch.data.pack import pack2bit
+from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
+from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
+
+TOL = dict(rtol=2e-4, atol=2e-4)           # f32, sum order differs
+
+K1_CASES = {
+    "cold_plain": dict(local_iters=6, local_tol=-1.0),
+    "cold_accel": dict(local_iters=6, local_tol=-1.0, accel=True),
+    "warm_plain": dict(local_iters=4, local_tol=-1.0, warm_start=True),
+    "tol_fires_accel": dict(local_iters=7, local_tol=1e-3, accel=True),
+    "approx_div": dict(local_iters=7, local_tol=-1.0, approx_div=True),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _problem(dev, b, n, k, seed):
+    rng = np.random.default_rng(seed)
+    rows = torch.from_numpy(pack2bit(rng.integers(0, 4, (b, n)).astype(
+        np.int8))).to(dev)
+    gamma = torch.from_numpy(rng.uniform(0.3, 3.0, (n, k)).astype(
+        np.float32)).to(dev)
+    up = stats_packed.u_to_planes(exp_elog_theta(gamma))
+    lamb = torch.from_numpy(rng.uniform(0.5, 3.0, (b, k, 2)).astype(
+        np.float32)).to(dev)
+    return rows, up, lamb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+@pytest.mark.parametrize("shape", [(64, 512, 8), (40, 700, 3)])  # ragged B, W
+def test_fused_kernel_matches_twin(cuda_device, case, shape):
+    rows, up, lamb = _problem(cuda_device, *shape, seed=len(case))
+    kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0)
+    before = fused_step.fused_local_solve.launches
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    assert fused_step.fused_local_solve.launches == before + 1
+    tol = dict(rtol=5e-3, atol=5e-3) if kw.get("approx_div") else TOL
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **tol)
+    if not kw.get("accel"):   # the clamped Aitken step amplifies sum order
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [100, 640])       # byte and 16-byte copies
+def test_gather_kernel_matches_twin(cuda_device, w):
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.integers(0, 256, (4096, w), dtype=np.uint8))
+    starts = torch.from_numpy(rng.integers(0, 512, 64).astype(np.int32))
+    src, starts = src.to(cuda_device), starts.to(cuda_device)
+    assert torch.equal(gather.gather_row_blocks(src, starts),
+                       gather.gather_row_blocks_twin(src, starts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+def test_lambda_stats_kernel_matches_twin(cuda_device, approx_div):
+    rows, up, lamb = _problem(cuda_device, 100, 700, 5, seed=2)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    got = stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                           approx_div=approx_div)
+    want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
+                                                 approx_div=approx_div)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)

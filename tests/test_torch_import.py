@@ -1,0 +1,55 @@
+"""The port and chip_smoke.py import and run with jax blocked: the machine
+with the card has no JAX."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None          # any "import jax" now raises
+import numpy as np
+import chip_smoke
+from terastructure_tpu_torch import SVIConfig
+from terastructure_tpu_torch.data import GenotypeData, simulate_psd
+from terastructure_tpu_torch.svi import fit
+_, _, x = simulate_psd(32, 128, 2, seed=1)
+data = GenotypeData.from_dense(x, validation_frac=0.02, heldout_frac=0.02,
+                               seed=1)
+res = fit(SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20, max_steps=40,
+                    seed=1), data, device="cpu")
+assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+assert "jax" not in {m.split(".")[0] for m in sys.modules
+                     if sys.modules[m] is not None}
+sys.exit(chip_smoke.main())        # no CUDA card here: must refuse
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr[-3000:]
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
+def test_no_jax_import_statement_in_the_port():
+    files = sorted(p for p in (ROOT / "terastructure_tpu_torch").rglob("*.py")
+                   if "_build" not in p.parts)      # build outputs
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] != "jax", (path, name)
+                if name.startswith("terastructure_tpu."):
+                    assert name in ("terastructure_tpu.config",
+                                    "terastructure_tpu.utils.labels"), (
+                        path, name)
