@@ -12,8 +12,13 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
    theta MAE < 0.05, heldout within 0.02 of the oracle;
 3. the TGP-shape fit (2504 x 1M, K=8, B=4096, 200 steps): SNP-updates/s,
-   launch counts of every kernel > 0 with no twin run, and one chunk
-   re-run twice from the same state bitwise equal.
+   launch counts of K1, K3 and K4 > 0 with no twin run, and one chunk
+   re-run twice from the same state bitwise equal;
+4. the big-N fit (100K x 100K, K=10, B=4096, snp_group=8, 300 steps),
+   which the fused gate refuses: K1 never launches, K3, K4, K7 and K8 do
+   with no twin run; then one step each with stats_kernel "pair" (K4 +
+   K5), "fused" (K6) and "fused_v2" (K7) from one state, their gammas
+   within 1e-4, and one chunk re-run twice bitwise equal.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
@@ -55,7 +60,24 @@ KERNELS = {
         fn=stats_packed.lambda_stats_packed,
         source="terastructure_tpu_torch/csrc/stats_packed.cu",
         replaces="terastructure_tpu/ops/stats_pallas.py:152"),
+    "gamma_stats_packed": dict(
+        fn=stats_packed.gamma_stats_packed,
+        source="terastructure_tpu_torch/csrc/stats_gamma.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:194"),
+    "batch_stats_fused_packed": dict(
+        fn=stats_packed.batch_stats_fused_packed,
+        source="terastructure_tpu_torch/csrc/stats_fused.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:263"),
+    "batch_stats_fused_v2_packed": dict(
+        fn=stats_packed.batch_stats_fused_v2_packed,
+        source="terastructure_tpu_torch/csrc/stats_fused.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:355"),
+    "lambda_stats_acat": dict(
+        fn=stats_packed.lambda_stats_acat,
+        source="terastructure_tpu_torch/csrc/stats_acat.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:463"),
 }
+BIGN = (4096, 25_088, 10)   # B, W, K of the big-N step (100K individuals)
 
 
 def log(msg):
@@ -67,6 +89,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+        spec["fn"].twin_calls = 0
+
+
+def read_counts(rec, path, expect, absent=()):
+    """Add the launches of a main-path run to rec; fail where a kernel of
+    `expect` did not launch, one of `absent` did, or any twin ran."""
+    counts = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    log(f"  {path} launches: {counts}")
+    for name, spec in KERNELS.items():
+        rec[name]["launches"] = rec[name].get("launches", 0) + counts[name]
+        if spec["fn"].twin_calls:
+            raise AssertionError(f"{path}: {name} ran its twin")
+    for name in expect:
+        if counts[name] <= 0:
+            raise AssertionError(f"{path}: {name} never launched")
+    for name in absent:
+        if counts[name]:
+            raise AssertionError(f"{path}: {name} launched {counts[name]}x")
 
 
 def time_ms(fn, reps=20):
@@ -186,6 +231,92 @@ def phase_kernels(dev, rec):
     r["plain_ms"] = time_ms(
         lambda: stats_packed.lambda_stats_packed_twin(rows, up, t1, t0))
     log(f"  K4: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+    phase_kernels_bign(dev, rec)
+
+
+def _stats_inputs(b, w, k, seed, dev):
+    rows, up, lamb = _solve_inputs(b, w, k, seed, dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    return rows, up, stats_packed.planes_to_flat(up).contiguous(), t1, t0
+
+
+def _timed(rec, label, kernel, twin, reps=5):
+    """Kernel and twin times at the main-path shape; twin run and freed
+    before the next (the big-N twins hold ~10 GB)."""
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(twin, reps)
+    torch.cuda.empty_cache()
+    log(f"  {label}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    rec["ms"], rec["plain_ms"] = ms, plain_ms
+
+
+def phase_kernels_bign(dev, rec):
+    """K5-K8 against their twins at the big-N step's shapes and at a
+    ragged small shape (B=12, W=384, K=3)."""
+    shapes = [("big-N", BIGN), ("ragged", (12, 384, 3))]
+    sub = (BIGN[0], 2048, BIGN[2])          # K8: the 8192-column subsample
+    for name in ("gamma_stats_packed", "batch_stats_fused_packed",
+                 "batch_stats_fused_v2_packed", "lambda_stats_acat"):
+        rec[name]["max_abs_err"] = 0.0
+
+    def check(name, label, got_fn, want_fn, tol):
+        err = compare(label, got_fn(), want_fn(), tol)
+        torch.cuda.empty_cache()          # the twin's ~10 GB of temporaries
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    def twin_stats(rows, up, t1, t0, approx_div=False):
+        g, l0, l1 = stats_packed.batch_stats_fused_twin(
+            rows, up, t1, t0, approx_div=approx_div)
+        u = stats_packed.planes_to_flat(up)
+        return u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1
+
+    for tag, (b, w, k) in shapes:
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+        shape = f"B={b} W={w} K={k}"
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            check("batch_stats_fused_v2_packed",
+                  f"K7 {shape} approx={approx}",
+                  lambda: stats_packed.batch_stats_fused_v2_packed(
+                      rows, u, t1, t0, approx_div=approx),
+                  lambda: twin_stats(rows, up, t1, t0, approx), tol)
+        check("batch_stats_fused_packed", f"K6 {shape}",
+              lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
+              lambda: twin_stats(rows, up, t1, t0), TOL)
+        check("gamma_stats_packed", f"K5 {shape}",
+              lambda: [stats_packed.gamma_stats_packed(rows, up, t1, t0)],
+              lambda: [stats_packed.gamma_stats_packed_twin(rows, up, t1,
+                                                            t0)], TOL)
+        if tag == "big-N":
+            _timed(rec["batch_stats_fused_v2_packed"], f"K7 {shape}",
+                   lambda: stats_packed.batch_stats_fused_v2_packed(
+                       rows, u, t1, t0),
+                   lambda: twin_stats(rows, up, t1, t0))
+            _timed(rec["batch_stats_fused_packed"], f"K6 {shape}",
+                   lambda: stats_packed.batch_stats_fused_packed(
+                       rows, u, t1, t0),
+                   lambda: twin_stats(rows, up, t1, t0))
+            _timed(rec["gamma_stats_packed"], f"K5 {shape}",
+                   lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0),
+                   lambda: stats_packed.gamma_stats_packed_twin(
+                       rows, up, t1, t0))
+        del rows, up, u, t1, t0
+
+    for tag, (b, w, k) in (("big-N", sub), shapes[1]):
+        rows, up, _, t1, t0 = _stats_inputs(b, w, k, b + w, dev)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            check("lambda_stats_acat",
+                  f"K8 B={b} (4, {w}) K={k} approx={approx}",
+                  lambda: stats_packed.lambda_stats_acat(
+                      a1, a0, up, t1, t0, approx_div=approx),
+                  lambda: stats_packed.lambda_stats_acat_twin(
+                      a1, a0, up, t1, t0, approx_div=approx), tol)
+        if tag == "big-N":
+            _timed(rec["lambda_stats_acat"], f"K8 B={b} (4, {w}) K={k}",
+                   lambda: stats_packed.lambda_stats_acat(
+                       a1, a0, up, t1, t0, approx_div=True),
+                   lambda: stats_packed.lambda_stats_acat_twin(
+                       a1, a0, up, t1, t0, approx_div=True), reps=20)
 
 
 def phase_canonical(dev):
@@ -220,15 +351,10 @@ def phase_tgp(dev, rec):
     log(f"  TGP data: simulate + carve {time.time() - t0:.1f} s")
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=50, max_steps=200,
                     seed=0)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
-        spec["fn"].twin_calls = 0
+    reset_counts()
     res = fit(cfg, data, device=dev)
-    for name, spec in KERNELS.items():
-        rec[name]["launches"] = spec["fn"].launches
-        if spec["fn"].launches <= 0 or spec["fn"].twin_calls:
-            raise AssertionError(f"{name}: launches={spec['fn'].launches} "
-                                 f"twin_calls={spec['fn'].twin_calls}")
+    read_counts(rec, "TGP fit", ("fused_local_solve", "gather_row_blocks",
+                                 "lambda_stats_packed"))
     chunk_s = sum(r["chunk_s"] for r in res.trace)
     eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
     th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
@@ -248,6 +374,62 @@ def phase_tgp(dev, rec):
     if not torch.equal(a, b):
         raise AssertionError("same-seed chunk re-run is not bitwise equal")
     log("  same-seed chunk re-run: gamma bitwise equal")
+
+
+def phase_bign(dev, rec):
+    """The big-N per-iteration path through fit, at full width."""
+    n = l = 100_000
+    k = 10
+    t0 = time.time()
+    packed, theta = simulate_packed_device(n, l, k, seed=0, device=dev)
+    data = GenotypeData.from_packed(
+        packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
+        max_eval_entries=200_000, eval_snp_pool=2048)
+    del packed
+    log(f"  big-N data: simulate + carve {time.time() - t0:.1f} s")
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=100,
+                    max_steps=300, seed=0, snp_group=8)
+    reset_counts()
+    res = fit(cfg, data, device=dev)
+    read_counts(rec, "big-N fit",
+                ("gather_row_blocks", "lambda_stats_packed",
+                 "batch_stats_fused_v2_packed", "lambda_stats_acat"),
+                absent=("fused_local_solve",))
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
+    log(f"  big-N fit: steps={res.steps} chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
+        f"snp_updates_per_s={res.steps * cfg.batch_size / chunk_s:.1f} "
+        f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
+        f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError("big-N fit scores are not finite")
+
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    del data
+    state = res.state
+    gammas = {}
+    for sk in ("pair", "fused", "fused_v2"):
+        reset_counts()
+        gammas[sk] = engine.make_step(cfg.replace(stats_kernel=sk))(
+            state, packed_d).gamma
+        want = {"pair": ("gamma_stats_packed", "lambda_stats_packed"),
+                "fused": ("batch_stats_fused_packed",),
+                "fused_v2": ("batch_stats_fused_v2_packed",)}[sk]
+        read_counts(rec, f"big-N step stats_kernel={sk}",
+                    want + ("lambda_stats_acat",),
+                    absent=("fused_local_solve",))
+    for sk in ("pair", "fused"):
+        compare(f"big-N step gamma {sk} vs fused_v2", [gammas[sk]],
+                [gammas["fused_v2"]], 1e-4)
+    chunk = engine.make_run_chunk(cfg, cfg.rfreq, int(packed_d.shape[0]))
+    a = chunk(state, packed_d).gamma.cpu()
+    b = chunk(state, packed_d).gamma.cpu()
+    if not torch.equal(a, b):
+        raise AssertionError("big-N same-seed chunk re-run is not bitwise "
+                             "equal")
+    log("  big-N same-seed chunk re-run: gamma bitwise equal")
 
 
 def main() -> int:
@@ -275,6 +457,8 @@ def main() -> int:
     phase_canonical(dev)
     log("phase 3: TGP shape")
     phase_tgp(dev, rec)
+    log("phase 4: big-N shape")
+    phase_bign(dev, rec)
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],
                     replaces=spec["replaces"], **rec[name])

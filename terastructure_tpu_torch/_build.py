@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `csrc/` are compiled at first use with nvcc for
-sm_90a into one shared library with a plain C interface, and loaded with
-ctypes. The library lands in `_build/` under a name keyed by a hash of
-the sources and flags, so an edited source builds anew and an unchanged
-one is reused. Tensor pointers (`data_ptr()`) and the current CUDA
+sm_90a, one nvcc process per source, all started together, and linked
+into one shared library with a plain C interface, loaded with ctypes.
+The library lands in `_build/` under a name keyed by a hash of the
+sources and flags, so an edited source builds anew and an unchanged one
+is reused. Tensor pointers (`data_ptr()`) and the current CUDA
 stream are passed as `c_void_p`; every C entry point returns
 `cudaGetLastError()`, which `check` turns into an exception.
 
@@ -26,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -43,6 +45,15 @@ SIGNATURES = {
     # beta_a, beta_b, warm_start, approx_div, accel, stream
     "tt_fused_local_solve": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_I] * 3
                             + [_P],
+    # a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream
+    "tt_lambda_stats_acat": [_P] * 8 + [_I] * 5 + [_P],
+    # rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream
+    "tt_gamma_stats_packed": [_P] * 6 + [_I] * 4 + [_P],
+    # rows, u_planes, t1, t0, l0, l1, g, lpart, gpart, B, W, K, tile_rows,
+    # tile_cols, approx, stream
+    "tt_batch_stats_fused_v2": [_P] * 9 + [_I] * 6 + [_P],
+    # rows, u_planes, t1, t0, l0, l1, g, gpart, B, W, K, stream
+    "tt_batch_stats_fused": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -85,16 +96,34 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cu]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                               "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for p, o in zip(cu, objs)]
+    logs, failed = [], []
+    for p, proc in zip(cu, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {p.name}\n{out}{err}")
+        if proc.returncode:
+            failed.append(f"{p.name} ({proc.returncode}):\n{err[-4000:]}")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
     build_seconds = time.time() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    so.with_suffix(".log").write_text("\n".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -13,9 +13,10 @@
 //     flag that later passes read (no host sync, no early return to the
 //     host: the launch sequence is fixed by local_iters);
 //   - the gamma statistic g = R^T T, a sum over all B rows:
-//     `gamma_pass_kernel` gives each thread one individual and loops over
-//     a slice of rows in order; `gamma_reduce_kernel` adds the slices in
-//     order. No atomics anywhere, so a seed reproduces a fit bitwise.
+//     `tt::gamma_pass_kernel` (psd_common.cuh, shared with K5) gives each
+//     thread one individual and loops over a slice of rows in order;
+//     `gamma_reduce_kernel` adds the slices in order. No atomics anywhere,
+//     so a seed reproduces a fit bitwise.
 //
 // Launch sequence (same schedule as stats_dense.solve_schedule):
 //   init                       lam = prior or lamb_init, t = T(lam)
@@ -153,81 +154,6 @@ delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
   }
 }
 
-constexpr int kGThreads = 128;  // individuals per gamma CTA
-constexpr int kGRows = 64;      // rows of t staged in shared memory at once
-
-// Partial planar gamma statistic over rows [y*bchunk, (y+1)*bchunk):
-// gpart[y, i, k] = sum_b r1[b,i] t1[b,k] + r0[b,i] t0[b,k] for the planar
-// individual i = s*W + w. One thread per individual: u[i,:] and the K
-// sums stay in registers, rows of t are staged in shared memory and read
-// as broadcasts, and a warp's packed-byte reads are coalesced.
-template <int KM>
-__global__ void __launch_bounds__(kGThreads)
-gamma_pass_kernel(const uint8_t* __restrict__ rows,
-                  const float* __restrict__ up, const float* __restrict__ t,
-                  float* __restrict__ gpart, int B, int W, int K, int bchunk) {
-  __shared__ float ts[kGRows * KM * 2];
-  const int i = blockIdx.x * kGThreads + threadIdx.x;
-  const bool ok = i < 4 * W;
-  const int s = ok ? i / W : 0;
-  const int w = ok ? i % W : 0;
-  float uk[KM], g[KM];
-#pragma unroll
-  for (int k = 0; k < KM; ++k) {
-    uk[k] = ok && k < K ? up[(long long)i * K + k] : 0.f;
-    g[k] = 0.f;
-  }
-  const int bbeg = blockIdx.y * bchunk;
-  const int bend = min(B, bbeg + bchunk);
-  for (int c0 = bbeg; c0 < bend; c0 += kGRows) {
-    const int nr = min(kGRows, bend - c0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < nr * KM * 2; j += kGThreads) {
-      const int r = j / (KM * 2), rem = j % (KM * 2);
-      const int k = rem / 2;
-      ts[j] = k < K ? t[((long long)(c0 + r) * K + k) * 2 + rem % 2] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < nr; ++r) {
-      const uint32_t code =
-          ok ? (rows[(long long)(c0 + r) * W + w] >> (2 * s)) & 3u : 3u;
-      if (code == 3u) continue;
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      const float* tr = ts + r * KM * 2;
-      float d1 = 0.f, d0 = 0.f;
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        d1 = fmaf(tr[2 * k], uk[k], d1);
-        d0 = fmaf(tr[2 * k + 1], uk[k], d0);
-      }
-      const float r1 = a1 / (d1 + tt::kEps);
-      const float r0 = a0 / (d0 + tt::kEps);
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        g[k] = fmaf(r1, tr[2 * k], g[k]);
-        g[k] = fmaf(r0, tr[2 * k + 1], g[k]);
-      }
-    }
-  }
-  if (!ok) return;
-  float* out = gpart + ((long long)blockIdx.y * 4 * W + i) * K;
-#pragma unroll
-  for (int k = 0; k < KM; ++k)
-    if (k < K) out[k] = g[k];
-}
-
-// g[j] = sum_y gpart[y, j], y in order.
-__global__ void gamma_reduce_kernel(const float* __restrict__ gpart,
-                                    int nsplit, long long n,
-                                    float* __restrict__ g) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float a = 0.f;
-  for (int y = 0; y < nsplit; ++y) a += gpart[(long long)y * n + j];
-  g[j] = a;
-}
-
 }  // namespace
 
 extern "C" int tt_fused_local_solve(
@@ -250,8 +176,10 @@ extern "C" int tt_fused_local_solve(
 
   auto pass = [&](int approx, const int* gate) -> int {
 #define TT_LAUNCH(KM)                                                      \
-  tt::lambda_pass_kernel<KM><<<pgrid, tt::kThreads, 0, stream>>>(          \
-      rows, up, t, t + 1, 2 * K, 2, part, B, W, K, wchunk, approx, gate)
+  tt::lambda_pass_kernel<KM, tt::PackedLoader>                            \
+      <<<pgrid, tt::kThreads, 0, stream>>>(tt::PackedLoader{rows}, up, t,  \
+                                           t + 1, 2 * K, 2, part, B, W, K, \
+                                           wchunk, approx, gate)
     TT_DISPATCH_KM(km, TT_LAUNCH)
 #undef TT_LAUNCH
     TT_CHECK_LAUNCH();
@@ -284,18 +212,11 @@ extern "C" int tt_fused_local_solve(
   if ((err = pass(0, nullptr))) return err;
   if ((err = update(kFinal))) return err;
 
-  const int ngx = (4 * W + kGThreads - 1) / kGThreads;
-  const int bchunk = (B + nsplit_b - 1) / nsplit_b;
-  const dim3 ggrid(ngx, nsplit_b);
-#define TT_LAUNCH(KM)                                                  \
-  gamma_pass_kernel<KM><<<ggrid, kGThreads, 0, stream>>>(rows, up, t,  \
-                                                         gpart, B, W, K, bchunk)
+#define TT_LAUNCH(KM)                                                    \
+  err = tt::gamma_stats<KM>(rows, up, t, t + 1, 2 * K, 2, gpart, g, B, W, K, \
+                            nsplit_b, stream)
   TT_DISPATCH_KM(km, TT_LAUNCH)
 #undef TT_LAUNCH
-  TT_CHECK_LAUNCH();
-  const long long ng = 4LL * W * K;
-  gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nsplit_b, ng, g);
-  TT_CHECK_LAUNCH();
+  if (err) return err;
   return 0;
 }

@@ -1,0 +1,33 @@
+// K5: gamma_stats_packed — the planar gamma statistic from packed rows.
+//
+// Replaces terastructure_tpu/ops/stats_pallas.py `gamma_stats_packed`
+// (`_gamma_kernel`, pallas_call at :204). The TPU kernel walks a
+// (W/TW, B/TB) grid and accumulates g (4, W, K) in its output block over
+// the batch axis, in order. Here it is K1's last pass,
+// `tt::gamma_pass_kernel` (psd_common.cuh): one thread per individual
+// holds u[n,:] and the K sums in registers and loops over a slice of the
+// rows, staging t in shared memory; `gamma_reduce_kernel` adds the row
+// slices in order (no atomics). With K4 it forms the `stats_kernel="pair"`
+// statistics pass of the big-N step.
+//
+// Bound on the H100: issue (4K FMAs and two divides per row and
+// individual). At the big-N shape (B=4096, W=25,088, K=10) that is
+// ~16 G FMA and ~0.8 G divides against 103 MB of packed rows.
+
+#include "psd_common.cuh"
+
+extern "C" int tt_gamma_stats_packed(const uint8_t* rows, const float* up,
+                                     const float* t1, const float* t0,
+                                     float* g, float* gpart, int B, int W,
+                                     int K, int nsplit, cudaStream_t stream) {
+  const int km = tt::pick_km(K);
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km == 0)
+    return (int)cudaErrorInvalidValue;
+  int err;
+#define TT_LAUNCH(KM)                                                      \
+  err = tt::gamma_stats<KM>(rows, up, t1, t0, K, 1, gpart, g, B, W, K,      \
+                            nsplit, stream)
+  TT_DISPATCH_KM(km, TT_LAUNCH)
+#undef TT_LAUNCH
+  return err;
+}

@@ -5,33 +5,15 @@
 // (B/TB, W/TW) grid in order and accumulates (l0, l1) in its output block
 // across the W axis. Here the pass body is `tt::lambda_pass_kernel`
 // (psd_common.cuh, shared with K1): CTAs own 32 rows each and a slice of
-// W, write partial sums, and `split_reduce_kernel` adds the slices in a
+// W, write partial sums, and `tt::split_reduce_kernel` adds the slices in a
 // fixed order into (l0, l1).
+// K8 (stats_acat.cu) runs the same body over pre-decoded count planes.
 //
 // Bound on the H100: the same as K1's pass, issue-bound on FMAs and
 // divides (at the eval shape B=1024, W=640, K=8: ~84 M FMA, ~5 M divides,
 // 0.66 MB of rows). The split over W keeps ~2 CTAs per SM at B=1024.
 
 #include "psd_common.cuh"
-
-namespace {
-
-// l0[i] = sum_s part[s, i, 0], l1[i] = sum_s part[s, i, 1], s in order.
-__global__ void split_reduce_kernel(const float* __restrict__ part,
-                                    int nsplit, int bk, float* __restrict__ l0,
-                                    float* __restrict__ l1) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= bk) return;
-  float a = 0.f, c = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    a += part[((long long)s * bk + i) * 2];
-    c += part[((long long)s * bk + i) * 2 + 1];
-  }
-  l0[i] = a;
-  l1[i] = c;
-}
-
-}  // namespace
 
 extern "C" int tt_lambda_stats_packed(const uint8_t* rows, const float* up,
                                       const float* t1, const float* t0,
@@ -44,13 +26,15 @@ extern "C" int tt_lambda_stats_packed(const uint8_t* rows, const float* up,
   const dim3 grid((B + tt::kRowsPerCta - 1) / tt::kRowsPerCta, nsplit);
   const int wchunk = tt::split_chunk(W, nsplit);
 #define TT_LAUNCH(KM)                                                     \
-  tt::lambda_pass_kernel<KM><<<grid, tt::kThreads, 0, stream>>>(          \
-      rows, up, t1, t0, K, 1, part, B, W, K, wchunk, approx, nullptr)
+  tt::lambda_pass_kernel<KM, tt::PackedLoader>                           \
+      <<<grid, tt::kThreads, 0, stream>>>(tt::PackedLoader{rows}, up, t1,  \
+                                          t0, K, 1, part, B, W, K, wchunk, \
+                                          approx, nullptr)
   TT_DISPATCH_KM(km, TT_LAUNCH)
 #undef TT_LAUNCH
   TT_CHECK_LAUNCH();
   const int bk = B * K;
-  split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit, bk,
+  tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit, bk,
                                                             l0, l1);
   TT_CHECK_LAUNCH();
   return 0;

@@ -6,9 +6,19 @@ s, `(byte >> 2s) & 3`, holds individuals {4w+s}. u is kept as
 `u_planes (4, W, K)` with u_planes[s, w] = u[4w+s], so a kernel decodes a
 byte with shifts and masks and reads u for the same (s, w).
 
-`lambda_stats_packed` (kernel K4, csrc/stats_packed.cu) is one raw
-λ-statistic pass; `local_solve_packed` drives it through the shared
-solve schedule. On CPU tensors K4 runs its plain twin.
+Kernels (each wrapper runs its plain twin on CPU tensors, launches its
+CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
+
+- K4 `lambda_stats_packed` (csrc/stats_packed.cu): one raw λ pass;
+  `local_solve_packed` drives it through the shared solve schedule.
+- K8 `lambda_stats_acat` (csrc/stats_acat.cu): the same pass over the
+  count planes of `decode_count_planes`; `local_solve_acat` drives it.
+- K5 `gamma_stats_packed` (csrc/stats_gamma.cu): the planar γ statistic;
+  with K4 it is the pair, `batch_stats_packed`.
+- K7 `batch_stats_fused_v2_packed` and K6 `batch_stats_fused_packed`
+  (csrc/stats_fused.cu): λ and γ statistics from one D per entry.
+
+The last four carry the big-N step (svi/engine.step_core_packed).
 """
 
 from __future__ import annotations
@@ -66,6 +76,47 @@ def lambda_stats_packed_twin(rows, u_planes, t1, t0, *, approx_div=False):
     return r1 @ u_cat, r0 @ u_cat
 
 
+def decode_count_planes(rows: torch.Tensor):
+    """Packed rows (B, W) uint8 -> allele-count planes (a1, a0), each
+    (B, 4, W) bf16 with a1[b, s, w] the count of individual 4w+s (exact:
+    counts are {0, 1, 2}; MISSING is 0 in both). The reference's layout
+    (stats_pallas.decode_count_planes); plain torch there and here."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=rows.device)
+    x = (rows[:, None, :] >> shifts[:, None]) & 0x3            # (B, 4, W)
+    miss = x == 3
+    xf = x.to(torch.bfloat16)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=rows.device)
+    return torch.where(miss, zero, xf), torch.where(miss, zero, 2.0 - xf)
+
+
+def lambda_stats_acat_twin(a1, a0, u_planes, t1, t0, *, approx_div=False):
+    """Plain PyTorch version of K8: K4's (l0, l1) over count planes."""
+    u_cat = u_planes.reshape(-1, u_planes.shape[-1])
+    b = a1.shape[0]
+    r1, r0 = ratios_planar(a1.reshape(b, -1).float(),
+                           a0.reshape(b, -1).float(), u_cat, t1, t0,
+                           approx_div)
+    return r1 @ u_cat, r0 @ u_cat
+
+
+def gamma_stats_packed_twin(rows, u_planes, t1, t0):
+    """Plain PyTorch version of K5: g (4, W, K) = R1^T T1 + R0^T T0."""
+    u_cat = u_planes.reshape(-1, u_planes.shape[-1])
+    a1, a0 = plane_counts(rows)
+    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0)
+    return (r1.T @ t1 + r0.T @ t0).reshape(u_planes.shape)
+
+
+def batch_stats_fused_twin(rows, u_planes, t1, t0, *, approx_div=False):
+    """Plain PyTorch version of K7 and K6: one R feeds both statistics.
+    Returns (g (4, W, K), l0_raw (B, K), l1_raw (B, K))."""
+    u_cat = u_planes.reshape(-1, u_planes.shape[-1])
+    a1, a0 = plane_counts(rows)
+    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx_div)
+    g = (r1.T @ t1 + r0.T @ t0).reshape(u_planes.shape)
+    return g, r1 @ u_cat, r0 @ u_cat
+
+
 def pad_individuals(u: torch.Tensor, w: int) -> torch.Tensor:
     """u (N, K) -> (4W, K), padding individuals with 1.0: their genotypes
     decode as MISSING, so they add nothing."""
@@ -83,6 +134,19 @@ def check_shapes(name, rows, u_planes):
                          f"{tuple(u_planes.shape)}")
     if not 1 <= u_planes.shape[2] <= KMAX:
         raise ValueError(f"{name}: K must be in [1, {KMAX}]")
+
+
+def check_t(name, b, k, t1, t0):
+    """Validate the (B, K) t1, t0 of a kernel call."""
+    if t1.shape != (b, k) or t0.shape != (b, k):
+        raise ValueError(f"{name}: t1, t0 must be (B, K) = ({b}, {k})")
+
+
+def _device_of(name, x):
+    """'cpu' (run the twin) or 'cuda' (launch the kernel); else raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
 
 
 def grid_split(n_primary: int, max_split: int, target: int = 264) -> int:
@@ -103,18 +167,15 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     t1 / t0.
     """
     check_shapes("lambda_stats_packed", rows, u_planes)
-    if rows.device.type == "cpu":
+    b, w = rows.shape
+    k = u_planes.shape[2]
+    check_t("lambda_stats_packed", b, k, t1, t0)
+    if _device_of("lambda_stats_packed", rows) == "cpu":
         lambda_stats_packed.twin_calls += 1
         return lambda_stats_packed_twin(rows, u_planes, t1, t0,
                                         approx_div=approx_div)
-    if rows.device.type != "cuda":
-        raise ValueError(f"lambda_stats_packed: unsupported device {rows.device}")
     _build.require_cuda("lambda_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
-    b, w = rows.shape
-    k = u_planes.shape[2]
-    if t1.shape != (b, k) or t0.shape != (b, k):
-        raise ValueError("lambda_stats_packed: t1, t0 must be (B, K)")
     nsplit = grid_split(-(-b // 32), -(-w // 128))
     dev = rows.device
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -154,3 +215,188 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
     return solve_schedule(iterate, lamb_b, local_iters=local_iters,
                           local_tol=local_tol, accel=accel)
+
+
+def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
+                      u_planes: torch.Tensor, t1: torch.Tensor,
+                      t0: torch.Tensor, *, approx_div: bool = False):
+    """Raw λ statistics from pre-decoded count planes.
+
+    a1, a0 (B, 4, W) bf16 (`decode_count_planes`); u_planes (4, W, K) f32;
+    t1, t0 (B, K) f32. Returns (l0_raw, l1_raw), each (B, K) f32.
+    """
+    if a1.dim() != 3 or a1.shape[1] != 4 or a0.shape != a1.shape:
+        raise ValueError("lambda_stats_acat: a1, a0 must be (B, 4, W)")
+    check_shapes("lambda_stats_acat", a1[:, 0], u_planes)
+    b, _, w = a1.shape
+    k = u_planes.shape[2]
+    check_t("lambda_stats_acat", b, k, t1, t0)
+    if _device_of("lambda_stats_acat", a1) == "cpu":
+        lambda_stats_acat.twin_calls += 1
+        return lambda_stats_acat_twin(a1, a0, u_planes, t1, t0,
+                                      approx_div=approx_div)
+    _build.require_cuda("lambda_stats_acat", a1, a0, u_planes, t1, t0,
+                        dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
+    nsplit = grid_split(-(-b // 32), -(-w // 128))
+    dev = a1.device
+    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    l1 = torch.empty_like(l0)
+    part = torch.empty((nsplit, b, k, 2), dtype=torch.float32, device=dev)
+    err = _build.lib().tt_lambda_stats_acat(
+        a1.data_ptr(), a0.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
+        t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k,
+        nsplit, int(approx_div), _build.stream_ptr(dev))
+    _build.check(err, "lambda_stats_acat")
+    lambda_stats_acat.launches += 1
+    return l0, l1
+
+
+lambda_stats_acat.launches = 0
+lambda_stats_acat.twin_calls = 0
+
+
+def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
+                     local_tol, stat_scale=1.0, approx_div=False,
+                     accel=False):
+    """`local_solve_packed` with the counts decoded once up front: the
+    schedule iterates K8 over the planes instead of unpacking the rows
+    every pass. Same arguments and result."""
+    u_planes = u_to_planes(u)
+    a1, a0 = decode_count_planes(rows)
+
+    def iterate(lam):
+        e1, e0 = elog_beta(lam)
+        t1, t0 = torch.exp(e1), torch.exp(e0)
+        l0, l1 = lambda_stats_acat(a1, a0, u_planes, t1, t0,
+                                   approx_div=approx_div)
+        return torch.stack([beta_a + stat_scale * t1 * l0,
+                            beta_b + stat_scale * t0 * l1], -1)
+
+    return solve_schedule(iterate, lamb_b, local_iters=local_iters,
+                          local_tol=local_tol, accel=accel)
+
+
+def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
+                       t1: torch.Tensor, t0: torch.Tensor) -> torch.Tensor:
+    """Raw planar γ statistic (4, W, K) f32 = Σ_b Rᵀ [T1; T0] (exact
+    divide); the caller re-interleaves with planes_to_flat and multiplies
+    by u."""
+    check_shapes("gamma_stats_packed", rows, u_planes)
+    b, w = rows.shape
+    k = u_planes.shape[2]
+    check_t("gamma_stats_packed", b, k, t1, t0)
+    if _device_of("gamma_stats_packed", rows) == "cpu":
+        gamma_stats_packed.twin_calls += 1
+        return gamma_stats_packed_twin(rows, u_planes, t1, t0)
+    _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
+                        dtypes=(torch.uint8,) + (torch.float32,) * 3)
+    nsplit = grid_split(-(-4 * w // 128), -(-b // 64))
+    dev = rows.device
+    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
+    gpart = torch.empty((nsplit, 4 * w, k), dtype=torch.float32, device=dev)
+    err = _build.lib().tt_gamma_stats_packed(
+        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
+        g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
+        _build.stream_ptr(dev))
+    _build.check(err, "gamma_stats_packed")
+    gamma_stats_packed.launches += 1
+    return g
+
+
+gamma_stats_packed.launches = 0
+gamma_stats_packed.twin_calls = 0
+
+
+def batch_stats_packed(rows, u, t1, t0):
+    """All sufficient statistics from packed rows with the pair K4 + K5.
+
+    u (4W, K) (caller pads); t1, t0 (B, K) from the converged λ. Returns
+    (gamma_stat (4W, K), l0 (B, K), l1 (B, K)), the λ statistics already
+    scaled by t, as stats_dense.batch_stats.
+    """
+    u_planes = u_to_planes(u)
+    l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0)
+    g = gamma_stats_packed(rows, u_planes, t1, t0)
+    return u * planes_to_flat(g), t1 * l0, t0 * l1
+
+
+V2_TILE_ROWS = 256   # K7's CTA tile: rows ...
+V2_TILE_COLS = 256   # ... x byte columns (4 x 256 individuals)
+
+
+def _stats_args(name, rows, u, t1, t0):
+    """Validate a statistics pass's arguments: (u_planes, B, W, K)."""
+    u_planes = u_to_planes(u)
+    check_shapes(name, rows, u_planes)
+    b, w = rows.shape
+    check_t(name, b, u.shape[1], t1, t0)
+    return u_planes, b, w, u.shape[1]
+
+
+def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
+                                t1: torch.Tensor, t0: torch.Tensor, *,
+                                approx_div: bool = False):
+    """The exact full-N statistics pass in one kernel (K7): each D feeds
+    the λ sums (per-W-tile partials) and the γ sums (per-B-tile
+    partials), both added in tile order. Same returns as
+    `batch_stats_packed`. approx_div: fast divide (stats_approx_div)."""
+    name = "batch_stats_fused_v2_packed"
+    u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    if _device_of(name, rows) == "cpu":
+        batch_stats_fused_v2_packed.twin_calls += 1
+        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
+                                           approx_div=approx_div)
+        return u * planes_to_flat(g), t1 * l0, t0 * l1
+    _build.require_cuda(name, rows, u_planes, t1, t0,
+                        dtypes=(torch.uint8,) + (torch.float32,) * 3)
+    dev = rows.device
+    nwt, nbt = -(-w // V2_TILE_COLS), -(-b // V2_TILE_ROWS)
+    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    l1 = torch.empty_like(l0)
+    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
+    lpart = torch.empty((nwt, b, k, 2), dtype=torch.float32, device=dev)
+    gpart = torch.empty((nbt, 4 * w, k), dtype=torch.float32, device=dev)
+    err = _build.lib().tt_batch_stats_fused_v2(
+        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
+        l0.data_ptr(), l1.data_ptr(), g.data_ptr(), lpart.data_ptr(),
+        gpart.data_ptr(), b, w, k, V2_TILE_ROWS, V2_TILE_COLS,
+        int(approx_div), _build.stream_ptr(dev))
+    _build.check(err, name)
+    batch_stats_fused_v2_packed.launches += 1
+    return u * planes_to_flat(g), t1 * l0, t0 * l1
+
+
+batch_stats_fused_v2_packed.launches = 0
+batch_stats_fused_v2_packed.twin_calls = 0
+
+
+def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
+                             t1: torch.Tensor, t0: torch.Tensor):
+    """The exact full-N statistics pass, v1 (K6): a CTA owns 32 rows and
+    walks all of W in order with λ in registers; γ goes out as per-row-
+    tile partials added in order. Same returns as `batch_stats_packed`."""
+    name = "batch_stats_fused_packed"
+    u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    if _device_of(name, rows) == "cpu":
+        batch_stats_fused_packed.twin_calls += 1
+        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0)
+        return u * planes_to_flat(g), t1 * l0, t0 * l1
+    _build.require_cuda(name, rows, u_planes, t1, t0,
+                        dtypes=(torch.uint8,) + (torch.float32,) * 3)
+    dev = rows.device
+    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    l1 = torch.empty_like(l0)
+    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
+    gpart = torch.empty((-(-b // 32), 4 * w, k), dtype=torch.float32,
+                        device=dev)
+    err = _build.lib().tt_batch_stats_fused(
+        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
+        l0.data_ptr(), l1.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w, k,
+        _build.stream_ptr(dev))
+    _build.check(err, name)
+    batch_stats_fused_packed.launches += 1
+    return u * planes_to_flat(g), t1 * l0, t0 * l1
+
+
+batch_stats_fused_packed.launches = 0
+batch_stats_fused_packed.twin_calls = 0

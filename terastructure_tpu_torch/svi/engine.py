@@ -3,7 +3,9 @@ terastructure_tpu/svi/engine.py).
 
     repeat:
       sample the SNP minibatch and gather its packed rows   (_sample_rows)
-      local step: phi <-> lambda_B                         (fused_local_solve)
+      local step: phi <-> lambda_B and the gamma statistic
+          (fused_local_solve, or step_core_packed where the fused gate
+           refuses the shape: the big-N per-iteration path)
       global step: gamma <- (1 - rho) gamma + rho (alpha + L/B * stat)
 
 Plain functions on tensors with an explicit device. The state is a
@@ -12,10 +14,11 @@ generator seeded from (seed, t), so a run is reproducible and resumable
 and the chunk itself never reads the device.
 
 Ported: the resident, single-process, local-lambda path with kernel
-"auto"/"fused" (K1, and K3 at biobank L) or "dense". Not yet ported, and
-raising NotImplementedError: lambda_mode="stored", kernel="pallas" and
-the big-N per-iteration path the fused gate falls back to (slice S4), the
-bf16 kernel path, snp_group >= 8 group DMA (K2).
+"auto"/"fused" (K1, and K3 at biobank L), "pallas" (the big-N
+per-iteration path: K8, K4, and K7, K5 or K6 for the statistics) or
+"dense". Not yet ported, and raising NotImplementedError:
+lambda_mode="stored", the bf16 kernel path, snp_group >= 8 group DMA (K2)
+in the fused branch.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from terastructure_tpu_torch.data.pack import unpack2bit_torch
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step
 from terastructure_tpu_torch.ops import stats_dense as ops
+from terastructure_tpu_torch.ops import stats_packed as pk
 from terastructure_tpu_torch.ops.gather import gather_row_blocks
 from terastructure_tpu_torch.ops.stats_packed import (pad_individuals,
                                                       planes_to_flat,
@@ -74,10 +78,12 @@ def state_from_reference(gamma, lamb, t, seed, device="cpu") -> SVIState:
         t=int(t), seed=int(seed))
 
 
-def step_generator(seed: int, t: int, device) -> torch.Generator:
+def step_generator(seed: int, t: int, device, *tags: int) -> torch.Generator:
     """The generator of step t: seeded from (seed, t), like the
-    reference's fold_in(key, t). Its draws differ from JAX's."""
-    s = np.random.SeedSequence([seed & 0xFFFFFFFF, t]).generate_state(
+    reference's fold_in(key, t); extra tags give a separate stream of the
+    same step, like fold_in(fold_in(key, t), tag). Its draws differ from
+    JAX's."""
+    s = np.random.SeedSequence([seed & 0xFFFFFFFF, t, *tags]).generate_state(
         2, dtype=np.uint32)
     return torch.Generator(device=device).manual_seed(
         int(s[0]) << 31 ^ int(s[1]))
@@ -116,16 +122,16 @@ def _sample_rows(cfg: SVIConfig, packed, gen, l_sample):
     return idx, packed[idx.long()]
 
 
+SUB_TAG = 0x5B      # the column subsample's stream: fold_in(kb, 0x5B)
+
+
 def _resolve_kernel(cfg: SVIConfig) -> str:
     """"auto" is the fused solve on every device: K1 on CUDA, its twin on
     the CPU (the reference picks fused only on the TPU)."""
     if cfg.kernel == "auto":
         return "fused"
-    if cfg.kernel in ("fused", "dense"):
+    if cfg.kernel in ("fused", "dense", "pallas"):
         return cfg.kernel
-    if cfg.kernel == "pallas":
-        raise NotImplementedError(
-            "kernel='pallas' (per-iteration big-N path) is slice S4")
     raise ValueError(f"unknown kernel {cfg.kernel!r}")
 
 
@@ -143,6 +149,91 @@ def step_core_fused(cfg: SVIConfig, gamma, rows):
         dtype=getattr(torch, cfg.compute_dtype), warm_start=False,
         approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
     return new_lamb_b, (u * planes_to_flat(g))[: gamma.shape[0]]
+
+
+def _prior_lamb(cfg: SVIConfig, b: int, device) -> torch.Tensor:
+    """The cold start of a local solve: (B, K, 2) at the Beta prior."""
+    lamb = torch.empty((b, cfg.k, 2), dtype=torch.float32, device=device)
+    lamb[..., 0] = cfg.beta_a
+    lamb[..., 1] = cfg.beta_b
+    return lamb
+
+
+def subsample_columns(cfg: SVIConfig, wp: int, gen) -> torch.Tensor | None:
+    """The big-N column subsample: sub_w distinct byte columns of the
+    padded width wp (4 individuals each), or None where it does not
+    engage (local_sub_n below 512 or wp < 4 sub_w), as the reference's
+    step_core_packed decides."""
+    sub_w = (cfg.local_sub_n // 4 // 128) * 128
+    if sub_w < 128 or wp < 4 * sub_w:
+        return None
+    return torch.randperm(wp, generator=gen, device=gen.device)[:sub_w]
+
+
+def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None):
+    """Local solve + statistics from packed rows (B, W): the big-N
+    per-iteration path (the reference's engine.step_core_packed).
+
+    The coordinate-ascent passes run on a byte-aligned column subsample
+    of ~local_sub_n individuals with N/Ns-scaled statistics (K8 over
+    count planes decoded once, or K4 with sub_decode_once=False; fast
+    divide with local_sub_approx_div), optionally one exact full-N K4
+    sweep (local_refine_full), then one exact full-N statistics pass
+    chosen by stats_kernel: "fused_v2" (K7), "pair" (K4 + K5) or "fused"
+    (K6). Without a subsample (gen and idx_w both None, or N too small)
+    the whole solve runs K4 at full N.
+
+    gen draws the subsample; idx_w (sub_w,) injects it instead (tests).
+    Any B: the kernels need no batch padding. (The reference pads B to a
+    multiple of 8 with all-MISSING rows, which only dilutes the tol
+    test's two means alike; their ratio moves by ~1/mean|lambda|.)
+    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
+    """
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' (the bf16 kernel path) is a later "
+            "slice; the big-N path computes in float32")
+    b, w = rows.shape
+    n = gamma.shape[0]
+    if w % 128:        # the reference's padded width: same subsample range
+        rows = torch.cat([rows, rows.new_full((b, (-w) % 128), 0xFF)], 1)
+    wp = rows.shape[1]
+    u = pad_individuals(ops.exp_elog_theta(gamma), wp)
+    lamb_b = _prior_lamb(cfg, b, rows.device)
+    kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b)
+    if idx_w is None and gen is not None:
+        idx_w = subsample_columns(cfg, wp, gen)
+    if idx_w is not None:
+        sub_w = idx_w.shape[0]
+        idx_w = idx_w.to(rows.device)
+        rows_sub = rows[:, idx_w].contiguous()
+        u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
+        solve = (pk.local_solve_acat if cfg.sub_decode_once
+                 else pk.local_solve_packed)
+        lamb_b = solve(rows_sub, u_sub, lamb_b, local_iters=cfg.local_iters,
+                       local_tol=cfg.local_tol, stat_scale=wp / sub_w,
+                       approx_div=cfg.local_sub_approx_div,
+                       accel=cfg.local_accel, **kw)
+        if cfg.local_refine_full:
+            lamb_b = pk.local_solve_packed(rows, u, lamb_b, local_iters=1,
+                                           local_tol=0.0, **kw)
+    else:
+        lamb_b = pk.local_solve_packed(rows, u, lamb_b,
+                                       local_iters=cfg.local_iters,
+                                       local_tol=cfg.local_tol,
+                                       accel=cfg.local_accel, **kw)
+    t1, t0 = ops.exp_elog_beta(lamb_b)
+    if cfg.stats_kernel == "fused_v2":
+        gamma_stat, l0, l1 = pk.batch_stats_fused_v2_packed(
+            rows, u, t1, t0, approx_div=cfg.stats_approx_div)
+    elif cfg.stats_kernel in ("pair", "fused"):
+        stats_fn = {"pair": pk.batch_stats_packed,
+                    "fused": pk.batch_stats_fused_packed}[cfg.stats_kernel]
+        gamma_stat, l0, l1 = stats_fn(rows, u, t1, t0)
+    else:
+        raise ValueError(f"unknown stats_kernel {cfg.stats_kernel!r}")
+    new_lamb_b = torch.stack([cfg.beta_a + l0, cfg.beta_b + l1], -1)
+    return new_lamb_b, gamma_stat[:n]
 
 
 def step_core_dense(cfg: SVIConfig, gamma, xb, lamb_b):
@@ -179,13 +270,26 @@ def _global_update(cfg: SVIConfig, gamma, gamma_stat, t: int, l_sample: int):
     return float(np.float32(1.0) - np.float32(rho)) * gamma + rho * gamma_target
 
 
+def step_impl(cfg: SVIConfig, w: int) -> str:
+    """The local step a step of width w runs: "fused", "pallas" (big-N)
+    or "dense". The reference's order (engine.py:336-346): a shape the
+    fused kernel's gate refuses takes the big-N path; group DMA (K2) is a
+    variant of the fused branch only."""
+    impl = _resolve_kernel(cfg)
+    if impl == "fused" and not fused_step.supports(
+            cfg.batch_size, w, cfg.k, getattr(torch, cfg.compute_dtype),
+            accel=cfg.local_accel):
+        return "pallas"
+    return impl
+
+
 def make_step(cfg: SVIConfig, l_sample: int | None = None):
     """The single-device SVI step: (state, packed) -> state.
 
     l_sample: the SNP range to sample over (the padded row count when the
     packed matrix has padding rows; defaults to cfg.l).
     """
-    impl_req = _resolve_kernel(cfg)
+    _resolve_kernel(cfg)            # an unknown kernel name fails here
     l_s = l_sample or cfg.l
     if cfg.lambda_mode != "local":
         raise NotImplementedError(
@@ -194,13 +298,8 @@ def make_step(cfg: SVIConfig, l_sample: int | None = None):
     def step(state: SVIState, packed) -> SVIState:
         gamma = state.gamma
         b, w = cfg.batch_size, packed.shape[1]
-        if impl_req == "fused":
-            dtype = getattr(torch, cfg.compute_dtype)
-            if not fused_step.supports(b, w, cfg.k, dtype,
-                                       accel=cfg.local_accel):
-                raise NotImplementedError(
-                    f"B={b}, W={w}, K={cfg.k} is outside the fused gate: the "
-                    "big-N per-iteration path is slice S4")
+        impl = step_impl(cfg, w)
+        if impl == "fused":
             g = cfg.snp_group
             if (g >= 8 and g % 8 == 0 and l_s % g == 0 and b % g == 0
                     and l_s > 65536):
@@ -208,14 +307,16 @@ def make_step(cfg: SVIConfig, l_sample: int | None = None):
                     "snp_group >= 8 (group DMA, kernel K2) is not ported")
         gen = step_generator(state.seed, state.t, packed.device)
         _, rows = _sample_rows(cfg, packed, gen, l_s)
-        if impl_req == "fused":
+        if impl == "fused":
             _, gamma_stat = step_core_fused(cfg, gamma, rows)
+        elif impl == "pallas":
+            sub_gen = step_generator(state.seed, state.t, packed.device,
+                                     SUB_TAG)
+            _, gamma_stat = step_core_packed(cfg, gamma, rows, gen=sub_gen)
         else:
-            lamb_b = torch.empty((b, cfg.k, 2), device=packed.device)
-            lamb_b[..., 0] = cfg.beta_a
-            lamb_b[..., 1] = cfg.beta_b
             xb = unpack2bit_torch(rows, cfg.n)
-            _, gamma_stat = step_core_dense(cfg, gamma, xb, lamb_b)
+            _, gamma_stat = step_core_dense(
+                cfg, gamma, xb, _prior_lamb(cfg, b, packed.device))
         gamma = _global_update(cfg, gamma, gamma_stat, state.t, l_s)
         return state._replace(gamma=gamma, t=state.t + 1)
 

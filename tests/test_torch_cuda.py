@@ -87,3 +87,62 @@ def test_lambda_stats_kernel_matches_twin(cuda_device, approx_div):
     tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+
+
+# The big-N kernels on ragged shapes (B not a multiple of 32, W of the
+# tiles): K8 over decoded planes, K5, and the statistics passes K7 and K6.
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("shape", [(12, 384, 3), (100, 700, 10)])
+def test_lambda_acat_kernel_matches_twin(cuda_device, approx_div, shape):
+    rows, up, lamb = _problem(cuda_device, shape[0], 4 * shape[1], shape[2],
+                              seed=5)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    before = stats_packed.lambda_stats_acat.launches
+    got = stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                         approx_div=approx_div)
+    want = stats_packed.lambda_stats_acat_twin(a1, a0, up, t1, t0,
+                                               approx_div=approx_div)
+    assert stats_packed.lambda_stats_acat.launches == before + 1
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 384, 3), (300, 700, 10)])
+def test_gamma_stats_kernel_matches_twin(cuda_device, shape):
+    rows, up, lamb = _problem(cuda_device, shape[0], 4 * shape[1], shape[2],
+                              seed=6)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    got = stats_packed.gamma_stats_packed(rows, up, t1, t0)
+    want = stats_packed.gamma_stats_packed_twin(rows, up, t1, t0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,approx_div", [
+    ("batch_stats_fused_v2_packed", False),
+    ("batch_stats_fused_v2_packed", True),
+    ("batch_stats_fused_packed", False),
+])
+@pytest.mark.parametrize("shape", [(12, 384, 3), (300, 700, 10)])
+def test_stats_pass_kernels_match_twin(cuda_device, name, approx_div, shape):
+    rows, up, lamb = _problem(cuda_device, shape[0], 4 * shape[1], shape[2],
+                              seed=7)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    kw = dict(approx_div=True) if approx_div else {}
+    fn = getattr(stats_packed, name)
+    before = fn.launches
+    got = fn(rows, u, t1, t0, **kw)
+    assert fn.launches == before + 1
+    g, l0, l1 = stats_packed.batch_stats_fused_twin(rows, up, t1, t0, **kw)
+    want = (u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol)
+    if not approx_div:      # no atomics: a second launch is bitwise equal
+        for a, b in zip(got, fn(rows, u, t1, t0)):
+            assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 """The port's engine against the reference's on one state: a step with
 injected minibatch indices, the eval scorer and compute_lambda, the bf16
-statistic rounding, determinism, block sampling and the options that are
-not ported yet (CPU)."""
+statistic rounding, determinism, block sampling, the options that are
+not ported yet and those that now take the big-N step (CPU)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,7 @@ from terastructure_tpu.ops import stats_dense as ref_ops
 from terastructure_tpu.ops import stats_pallas as ref_pk
 from terastructure_tpu.svi import engine as ref_engine
 from terastructure_tpu.svi import postprocess as ref_post
-from terastructure_tpu_torch.ops import gather
+from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.svi import engine, postprocess
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -221,8 +221,6 @@ def test_block_sampling_engages_at_biobank_l(l, blocks):
 
 @pytest.mark.parametrize("change", [
     dict(lambda_mode="stored"),
-    dict(kernel="pallas"),
-    dict(batch_size=12),                    # outside the fused gate: S4
     dict(compute_dtype="bfloat16"),
     dict(snp_group=8, l=65544),             # group DMA, K2
 ])
@@ -231,3 +229,26 @@ def test_unported_options_raise(change):
     packed = torch.full((cfg.l, 128), 0xFF, dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
         engine.make_step(cfg)(engine.init_state(cfg), packed)
+
+
+@pytest.mark.parametrize("change", [
+    dict(kernel="pallas"),
+    dict(batch_size=12),                    # outside the fused gate
+])
+def test_big_n_options_run_the_per_iteration_step(change):
+    """kernel="pallas", and a shape the fused gate refuses, run one step
+    through the big-N path: the subsampled K8 solve and the K7 statistics
+    pass, never K1."""
+    cfg = SVIConfig(n=2048, l=256, k=2, batch_size=16,
+                    local_sub_n=512).replace(**change)
+    packed = torch.randint(0, 256, (cfg.l, 512), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    fns = (fused_step.fused_local_solve, stats_packed.lambda_stats_acat,
+           stats_packed.batch_stats_fused_v2_packed)
+    before = [f.twin_calls for f in fns]
+    state = engine.make_step(cfg)(engine.init_state(cfg), packed)
+    after = [f.twin_calls for f in fns]
+    assert after[0] == before[0]
+    assert after[1] - before[1] == cfg.local_iters
+    assert after[2] == before[2] + 1
+    assert state.t == 1 and bool(torch.isfinite(state.gamma).all())
