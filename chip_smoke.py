@@ -8,9 +8,13 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and the nvcc build of csrc/*.cu;
 1. every kernel of the main path against its plain PyTorch twin on the
-   same inputs at main-path shapes, with errors and times;
+   same inputs at main-path shapes, with errors, times, the library
+   call's time where one exists, and each kernel's bound (the larger of
+   its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s); K2
+   also bitwise against K1 on the gathered rows;
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
-   theta MAE < 0.05, heldout within 0.02 of the oracle;
+   theta MAE < 0.05, heldout within 0.02 of the oracle; 2b. the same in
+   the stored lambda mode (K1 warm-started, no K4);
 3. the TGP-shape fit (2504 x 1M, K=8, B=4096, 200 steps): SNP-updates/s,
    launch counts of K1, K3 and K4 > 0 with no twin run, and one chunk
    re-run twice from the same state bitwise equal;
@@ -18,7 +22,14 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    which the fused gate refuses: K1 never launches, K3, K4, K7 and K8 do
    with no twin run; then one step each with stats_kernel "pair" (K4 +
    K5), "fused" (K6) and "fused_v2" (K7) from one state, their gammas
-   within 1e-4, and one chunk re-run twice bitwise equal.
+   within 1e-4, and one chunk re-run twice bitwise equal;
+5. config #3 as the reference's acceptance runner sets it (2504 x 1M,
+   K=8, B=1024, snp_group=8; phase 3's data): (a) 200 steps in the local
+   mode, K2 once a step, K1 and K3 never, K4 for the eval; (b) 100 steps
+   in the stored mode from a fresh state, K2 warm-started, the lambda
+   rows of the sampled groups off the prior and every other row bitwise
+   at it; (c) one chunk re-run twice from a cloned state, bitwise equal,
+   in each mode.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
@@ -28,30 +39,37 @@ is no CUDA card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from terastructure_tpu.utils.labels import mean_abs_theta_error
 from terastructure_tpu_torch import SVIConfig, _build
+from terastructure_tpu_torch.converge import card_line
 from terastructure_tpu_torch.data import (GenotypeData, simulate_packed_device,
                                           simulate_psd)
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
 from terastructure_tpu_torch.svi import engine, fit
+from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
 TOL = 2e-4          # f32 kernel vs twin (sum order differs), as the reference's
 TOL_APPROX = 5e-3   # approx_div: fast divide vs the twin's reciprocal
+
+FP32_FLOPS = 67e12  # H100 SXM: FP32 outside the tensor cores (data sheet)
+HBM_BYTES = 3.35e12  # H100 SXM: HBM3 bytes/s
 
 KERNELS = {
     "fused_local_solve": dict(
         fn=fused_step.fused_local_solve,
         source="terastructure_tpu_torch/csrc/fused_step.cu",
         replaces="terastructure_tpu/ops/fused_step.py:423"),
+    "fused_local_solve_dma": dict(
+        fn=fused_step.fused_local_solve_dma,
+        source="terastructure_tpu_torch/csrc/fused_step_dma.cu",
+        replaces="terastructure_tpu/ops/fused_step.py:493"),
     "gather_row_blocks": dict(
         fn=gather.gather_row_blocks,
         source="terastructure_tpu_torch/csrc/gather.cu",
@@ -78,17 +96,11 @@ KERNELS = {
         replaces="terastructure_tpu/ops/stats_pallas.py:463"),
 }
 BIGN = (4096, 25_088, 10)   # B, W, K of the big-N step (100K individuals)
+TGP = (2504, 1_000_000, 8)  # N, L, K of the TGP shape (config #3)
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def reset_counts():
@@ -99,7 +111,8 @@ def reset_counts():
 
 def read_counts(rec, path, expect, absent=()):
     """Add the launches of a main-path run to rec; fail where a kernel of
-    `expect` did not launch, one of `absent` did, or any twin ran."""
+    `expect` did not launch, one of `absent` did, or any twin ran.
+    Returns the run's counts."""
     counts = {name: spec["fn"].launches for name, spec in KERNELS.items()}
     log(f"  {path} launches: {counts}")
     for name, spec in KERNELS.items():
@@ -112,6 +125,7 @@ def read_counts(rec, path, expect, absent=()):
     for name in absent:
         if counts[name]:
             raise AssertionError(f"{path}: {name} launched {counts[name]}x")
+    return counts
 
 
 def time_ms(fn, reps=20):
@@ -127,6 +141,75 @@ def time_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def present(rows):
+    """Entries of packed rows (B, W) that are not MISSING: the entries a
+    pass does work for."""
+    return sum(int((((rows >> (2 * s)) & 3) != 3).sum()) for s in range(4))
+
+
+def set_bound(r, flops, nbytes_):
+    """r's bound_ms: the larger of the operations at the FP32 peak and
+    the bytes (each input read once, each output written once) at the
+    memory rate, and which of the two binds. A divide counts as one
+    operation, an FMA as two."""
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes_ / HBM_BYTES * 1e3
+    r["bound_ms"] = max(t_ops, t_bytes)
+    r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    r.setdefault("library_ms", None)
+    log(f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{flops / 1e9:.3f} G operations, {nbytes_ / 1e6:.3f} MB)")
+
+
+def lambda_pass_flops(k):
+    """Per present entry of a lambda pass: D1, D0 and the two K-sums (4K
+    FMAs) and two divides. A gamma pass does the same count."""
+    return 8 * k + 2
+
+
+def solve_passes(rows, up, lamb, *, local_iters, local_tol, beta_a, beta_b,
+                 accel=False, warm_start=False, approx_div=False):
+    """Lambda passes the fused solve does work for on these inputs: loop
+    passes until the batch-wide change is not above local_tol, the accel
+    tail's two, and the exact final one (the twin's schedule replayed)."""
+    acc = accel and local_iters >= 3
+    k = up.shape[-1]
+    u = up.reshape(-1, k)
+    a1, a0 = stats_packed.plane_counts(rows)
+    lam = lamb if warm_start else torch.stack(
+        [torch.full_like(lamb[..., 0], beta_a),
+         torch.full_like(lamb[..., 1], beta_b)], -1)
+    ran = 0
+    for _ in range(local_iters - 2 if acc else local_iters):
+        t1, t0 = fused_step.exp_elog_beta_kernel(lam)
+        r1, r0 = stats_packed.ratios_planar(a1, a0, u, t1, t0, approx_div)
+        new = torch.stack([beta_a + t1 * (r1 @ u), beta_b + t0 * (r0 @ u)],
+                          -1)
+        ran += 1
+        delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
+        lam = new
+        if not float(delta) > local_tol:
+            break
+    return ran + (2 if acc else 0) + 1
+
+
+def solve_bound(r, rows, up, lamb, kw, extra_bytes=0):
+    """The fused solve's bound: its lambda passes and the gamma pass over
+    the present entries; rows, u, lamb_init (when read) in, lambda_B and
+    g out."""
+    k = up.shape[-1]
+    passes = solve_passes(rows, up, lamb, **kw)
+    flops = present(rows) * lambda_pass_flops(k) * (passes + 1)
+    moved = nbytes(rows, up, up) + lamb.numel() * 4 * (
+        2 if kw.get("warm_start") else 1) + extra_bytes
+    log(f"  {passes} lambda passes + 1 gamma pass")
+    set_bound(r, flops, moved)
 
 
 def compare(name, got, want, tol, outlier_frac=0.0):
@@ -195,6 +278,7 @@ def phase_kernels(dev, rec):
             log(f"  {label}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
             if "ms" not in r:           # the TGP step shape
                 r["ms"], r["plain_ms"] = ms, plain_ms
+                solve_bound(r, rows, up, lamb, kw)
 
     # K3: 8-row blocks out of a 1M-row matrix, bitwise
     g = torch.Generator(device=dev).manual_seed(3)
@@ -206,12 +290,20 @@ def phase_kernels(dev, rec):
     want = gather.gather_row_blocks_twin(src, starts)
     if not torch.equal(got, want):
         raise AssertionError("gather_row_blocks differs from its twin")
+    # the library call that computes the same function (a yardstick only)
+    def library():
+        return src.view(-1, 8 * src.shape[1]).index_select(0, starts)
+
+    if not torch.equal(library().view_as(got), got):
+        raise AssertionError("index_select differs from gather_row_blocks")
     r = rec["gather_row_blocks"]
     r["max_abs_err"] = 0.0
     r["ms"] = time_ms(lambda: gather.gather_row_blocks(src, starts))
     r["plain_ms"] = time_ms(lambda: gather.gather_row_blocks_twin(src, starts))
+    r["library_ms"] = time_ms(library)
     log(f"  K3 L=1M B=4096 W=640: bitwise equal; kernel {r['ms']:.4f} ms, "
-        f"twin {r['plain_ms']:.4f} ms")
+        f"twin {r['plain_ms']:.4f} ms, index_select {r['library_ms']:.4f} ms")
+    set_bound(r, 0, nbytes(starts, got, got))
     del src
 
     # K4: the eval/export block shape
@@ -231,7 +323,60 @@ def phase_kernels(dev, rec):
     r["plain_ms"] = time_ms(
         lambda: stats_packed.lambda_stats_packed_twin(rows, up, t1, t0))
     log(f"  K4: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+    set_bound(r, present(rows) * lambda_pass_flops(k),
+              nbytes(rows, up, t1, t0, t1, t0))
     phase_kernels_bign(dev, rec)
+    phase_kernels_dma(dev, rec)
+
+
+def phase_kernels_dma(dev, rec):
+    """K2 at config #3's step shape: packed (1M, 640), B=1024, g=8, K=8.
+    Against its twin, and bitwise against K1 on the gathered rows; times
+    of K2, of K1 on the gathered rows, and of K3 + K1."""
+    l, w, k, b, g = 1_000_000, 640, 8, 1024, 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    packed = torch.randint(0, 256, (l, w), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    gamma = 0.3 + 2.7 * torch.rand((4 * w, k), generator=gen, device=dev)
+    up = stats_packed.u_to_planes(exp_elog_theta(gamma))
+    idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                         dtype=torch.int32) * g
+    idx = (idx0.long()[:, None] + torch.arange(g, device=dev)).reshape(b)
+    lamb = 0.5 + 2.5 * torch.rand((b, k, 2), generator=gen, device=dev)
+    rows = packed[idx]
+    plain = dict(local_iters=7, local_tol=-1.0, accel=False)
+    main = dict(local_iters=7, local_tol=1e-4, accel=True)
+    cases = [("plain7", plain, TOL, 0.0), ("accel7", main, TOL, 1e-2),
+             ("warm_start", dict(plain, warm_start=True), TOL, 0.0),
+             ("approx_div", dict(plain, approx_div=True), TOL_APPROX, 0.0)]
+    r = rec["fused_local_solve_dma"]
+    r["max_abs_err"] = 0.0
+    for label, extra, tol, frac in cases:
+        kw = dict(beta_a=1.0, beta_b=1.0, **extra)
+        got = fused_step.fused_local_solve_dma(idx0, packed, up, lamb,
+                                               group=g, **kw)
+        want = fused_step.fused_local_solve_dma_twin(idx0, packed, up, lamb,
+                                                     group=g, **kw)
+        label = f"K2 B={b} W={w} K={k} g={g} {label}"
+        compare(f"{label} g", got[1:], want[1:], tol)
+        err = compare(f"{label} lambda", got[:1], want[:1], tol, frac)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        k1 = fused_step.fused_local_solve(rows, up, lamb, **kw)
+        if not all(torch.equal(a, c) for a, c in zip(got, k1)):
+            raise AssertionError(f"{label}: K2 differs from K1 on the "
+                                 "gathered rows")
+    log("  K2 bitwise equal to K1 on the gathered rows in every case")
+    kw = dict(beta_a=1.0, beta_b=1.0, **main)
+    r["ms"] = time_ms(lambda: fused_step.fused_local_solve_dma(
+        idx0, packed, up, lamb, group=g, **kw))
+    r["plain_ms"] = time_ms(lambda: fused_step.fused_local_solve_dma_twin(
+        idx0, packed, up, lamb, group=g, **kw))
+    k1_ms = time_ms(lambda: fused_step.fused_local_solve(rows, up, lamb, **kw))
+    k3k1_ms = time_ms(lambda: fused_step.fused_local_solve(
+        gather.gather_row_blocks(packed, idx0 // 8), up, lamb, **kw))
+    log(f"  K2 accel7: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms; "
+        f"K1 on the gathered rows {k1_ms:.4f} ms, K3 + K1 {k3k1_ms:.4f} ms")
+    solve_bound(r, rows, up, lamb, kw, extra_bytes=nbytes(idx0))
 
 
 def _stats_inputs(b, w, k, seed, dev):
@@ -240,14 +385,15 @@ def _stats_inputs(b, w, k, seed, dev):
     return rows, up, stats_packed.planes_to_flat(up).contiguous(), t1, t0
 
 
-def _timed(rec, label, kernel, twin, reps=5):
-    """Kernel and twin times at the main-path shape; twin run and freed
-    before the next (the big-N twins hold ~10 GB)."""
+def _timed(rec, label, kernel, twin, flops, moved, reps=5):
+    """Kernel and twin times at the main-path shape, and the bound; twin
+    run and freed before the next (the big-N twins hold ~10 GB)."""
     ms = time_ms(kernel, reps)
     plain_ms = time_ms(twin, reps)
     torch.cuda.empty_cache()
     log(f"  {label}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
     rec["ms"], rec["plain_ms"] = ms, plain_ms
+    set_bound(rec, flops, moved)
 
 
 def phase_kernels_bign(dev, rec):
@@ -287,18 +433,26 @@ def phase_kernels_bign(dev, rec):
               lambda: [stats_packed.gamma_stats_packed_twin(rows, up, t1,
                                                             t0)], TOL)
         if tag == "big-N":
+            pr = present(rows)
+            # K7, K6: D, the lambda sums and the gamma sums (6K FMAs) and
+            # two divides per present entry; g, l0, l1 out
+            fused_flops = pr * (12 * k + 2)
+            fused_bytes = nbytes(rows, u, t1, t0, u, t1, t0)
             _timed(rec["batch_stats_fused_v2_packed"], f"K7 {shape}",
                    lambda: stats_packed.batch_stats_fused_v2_packed(
                        rows, u, t1, t0),
-                   lambda: twin_stats(rows, up, t1, t0))
+                   lambda: twin_stats(rows, up, t1, t0),
+                   fused_flops, fused_bytes)
             _timed(rec["batch_stats_fused_packed"], f"K6 {shape}",
                    lambda: stats_packed.batch_stats_fused_packed(
                        rows, u, t1, t0),
-                   lambda: twin_stats(rows, up, t1, t0))
+                   lambda: twin_stats(rows, up, t1, t0),
+                   fused_flops, fused_bytes)
             _timed(rec["gamma_stats_packed"], f"K5 {shape}",
                    lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0),
                    lambda: stats_packed.gamma_stats_packed_twin(
-                       rows, up, t1, t0))
+                       rows, up, t1, t0),
+                   pr * lambda_pass_flops(k), nbytes(rows, up, t1, t0, up))
         del rows, up, u, t1, t0
 
     for tag, (b, w, k) in (("big-N", sub), shapes[1]):
@@ -316,33 +470,52 @@ def phase_kernels_bign(dev, rec):
                    lambda: stats_packed.lambda_stats_acat(
                        a1, a0, up, t1, t0, approx_div=True),
                    lambda: stats_packed.lambda_stats_acat_twin(
-                       a1, a0, up, t1, t0, approx_div=True), reps=20)
+                       a1, a0, up, t1, t0, approx_div=True),
+                   int(((a1 + a0) > 0).sum()) * lambda_pass_flops(k),
+                   nbytes(a1, a0, up, t1, t0, t1, t0), reps=20)
 
 
-def phase_canonical(dev):
-    """Config #1 through fit, as the verify skill's canonical drive."""
+def phase_canonical(dev, rec, lambda_mode="local"):
+    """Config #1 through fit, as the verify skill's canonical drive. The
+    stored mode warm-starts K1 from the stored lambda and scores it
+    directly: no lambda re-solve (K4)."""
     theta_true, beta_true, x = simulate_psd(1000, 10_000, 3, seed=11)
     data = GenotypeData.from_dense(x, validation_frac=0.005,
                                    heldout_frac=0.005, seed=11)
     cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=50,
-                    max_steps=3000, seed=11)
+                    max_steps=3000, seed=11, lambda_mode=lambda_mode)
+    reset_counts()
     res = fit(cfg, data, device=dev)
+    stored = lambda_mode == "stored"
+    read_counts(rec, f"config #1 {lambda_mode}",
+                ("fused_local_solve",) + (() if stored
+                                          else ("lambda_stats_packed",)),
+                absent=("fused_local_solve_dma", "gather_row_blocks")
+                + (("lambda_stats_packed",) if stored else ()))
     th = psd.theta_mean(res.state.gamma[: cfg.n]).cpu().numpy()
     err = mean_abs_theta_error(th, theta_true)
     h = data.heldout
     p = (theta_true[h.ind_idx] * beta_true[h.snp_idx]).sum(-1)
     oracle = float(psd.binomial2_loglik(
         torch.from_numpy(h.x), torch.from_numpy(p).float()).mean())
-    log(f"  config #1: converged={res.converged} steps={res.steps} "
-        f"wall_s={res.wall_s:.2f} theta_mae={err:.4f} "
+    log(f"  config #1 {lambda_mode}: converged={res.converged} "
+        f"steps={res.steps} wall_s={res.wall_s:.2f} theta_mae={err:.4f} "
         f"heldout={res.heldout_ll:.5f} oracle={oracle:.5f}")
     if not (res.converged and err < 0.05 and res.heldout_ll > oracle - 0.02):
         raise AssertionError("canonical drive failed its quality checks")
 
 
+def fit_rates(res, b):
+    """(sum of chunk_s, sum of eval_s, SNP-updates/s over the chunks)."""
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+    return chunk_s, eval_s, res.steps * b / chunk_s
+
+
 def phase_tgp(dev, rec):
-    """TGP shape through fit, with the kernels' launch counts."""
-    n, l, k = 2504, 1_000_000, 8
+    """TGP shape through fit, with the kernels' launch counts. Returns
+    the data and the true theta for phase 5."""
+    n, l, k = TGP
     t0 = time.time()
     packed, theta = simulate_packed_device(n, l, k, seed=0, device=dev)
     data = GenotypeData.from_packed(
@@ -354,13 +527,13 @@ def phase_tgp(dev, rec):
     reset_counts()
     res = fit(cfg, data, device=dev)
     read_counts(rec, "TGP fit", ("fused_local_solve", "gather_row_blocks",
-                                 "lambda_stats_packed"))
-    chunk_s = sum(r["chunk_s"] for r in res.trace)
-    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+                                 "lambda_stats_packed"),
+                absent=("fused_local_solve_dma",))
+    chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
     th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
     log(f"  TGP fit: steps={res.steps} chunk_s={chunk_s:.3f} "
         f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
-        f"snp_updates_per_s={res.steps * cfg.batch_size / chunk_s:.1f} "
+        f"snp_updates_per_s={rate:.1f} "
         f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
         f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
@@ -374,6 +547,7 @@ def phase_tgp(dev, rec):
     if not torch.equal(a, b):
         raise AssertionError("same-seed chunk re-run is not bitwise equal")
     log("  same-seed chunk re-run: gamma bitwise equal")
+    return data, theta
 
 
 def phase_bign(dev, rec):
@@ -394,13 +568,12 @@ def phase_bign(dev, rec):
     read_counts(rec, "big-N fit",
                 ("gather_row_blocks", "lambda_stats_packed",
                  "batch_stats_fused_v2_packed", "lambda_stats_acat"),
-                absent=("fused_local_solve",))
-    chunk_s = sum(r["chunk_s"] for r in res.trace)
-    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+                absent=("fused_local_solve", "fused_local_solve_dma"))
+    chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
     th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
     log(f"  big-N fit: steps={res.steps} chunk_s={chunk_s:.3f} "
         f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
-        f"snp_updates_per_s={res.steps * cfg.batch_size / chunk_s:.1f} "
+        f"snp_updates_per_s={rate:.1f} "
         f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
         f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
@@ -419,7 +592,7 @@ def phase_bign(dev, rec):
                 "fused_v2": ("batch_stats_fused_v2_packed",)}[sk]
         read_counts(rec, f"big-N step stats_kernel={sk}",
                     want + ("lambda_stats_acat",),
-                    absent=("fused_local_solve",))
+                    absent=("fused_local_solve", "fused_local_solve_dma"))
     for sk in ("pair", "fused"):
         compare(f"big-N step gamma {sk} vs fused_v2", [gammas[sk]],
                 [gammas["fused_v2"]], 1e-4)
@@ -430,6 +603,73 @@ def phase_bign(dev, rec):
         raise AssertionError("big-N same-seed chunk re-run is not bitwise "
                              "equal")
     log("  big-N same-seed chunk re-run: gamma bitwise equal")
+
+
+def clone(state):
+    return state._replace(gamma=state.gamma.clone(), lamb=state.lamb.clone())
+
+
+def phase_config3(dev, rec, data, theta):
+    """Config #3 as the reference's runner sets it: B=1024, snp_group=8,
+    so every step takes the group-addressed solve (K2)."""
+    n, l, k = TGP
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=1024, rfreq=100,
+                    max_steps=200, seed=0, snp_group=8)
+    reset_counts()
+    res = fit(cfg, data, device=dev)
+    counts = read_counts(rec, "config #3 local",
+                         ("fused_local_solve_dma", "lambda_stats_packed"),
+                         absent=("fused_local_solve", "gather_row_blocks"))
+    if counts["fused_local_solve_dma"] != res.steps:
+        raise AssertionError("config #3: K2 did not run once a step")
+    chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
+    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
+    log(f"  config #3 local: steps={res.steps} chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
+        f"snp_updates_per_s={rate:.1f} validation_ll={res.validation_ll:.5f} "
+        f"heldout={res.heldout_ll:.5f} "
+        f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError("config #3 local scores are not finite")
+
+    scfg = cfg.replace(lambda_mode="stored", max_steps=100, rfreq=50)
+    reset_counts()
+    res = fit(scfg, data, device=dev)
+    counts = read_counts(rec, "config #3 stored", ("fused_local_solve_dma",),
+                         absent=("fused_local_solve", "gather_row_blocks",
+                                 "lambda_stats_packed"))
+    if counts["fused_local_solve_dma"] != res.steps:
+        raise AssertionError("config #3 stored: K2 did not run once a step")
+    sampled = torch.zeros(l, dtype=torch.bool, device=dev)
+    for t in range(res.steps):
+        _, idx = engine._draw_groups(
+            scfg, engine.step_generator(scfg.seed, t, dev), l, dev)
+        sampled[idx.long()] = True
+    prior = torch.tensor([scfg.beta_a, scfg.beta_b], device=dev)
+    at_prior = (res.state.lamb == prior).all(-1).all(-1)
+    if not torch.equal(at_prior, ~sampled):
+        raise AssertionError("config #3 stored: lambda rows moved off the "
+                             "prior are not exactly the sampled rows")
+    chunk_s, eval_s, rate = fit_rates(res, scfg.batch_size)
+    log(f"  config #3 stored: steps={res.steps} sampled rows "
+        f"{int(sampled.sum())} off the prior, the other "
+        f"{int(at_prior.sum())} bitwise at it; chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} snp_updates_per_s={rate:.1f} "
+        f"validation_ll={res.validation_ll:.5f} "
+        f"heldout={res.heldout_ll:.5f}")
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError("config #3 stored scores are not finite")
+
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    for c in (cfg, scfg):
+        state = engine.init_state(c, l_padded=l, device=dev)
+        chunk = engine.make_run_chunk(c, 100, l)
+        a, b = chunk(clone(state), packed_d), chunk(clone(state), packed_d)
+        if not (torch.equal(a.gamma, b.gamma) and torch.equal(a.lamb, b.lamb)):
+            raise AssertionError(f"config #3 {c.lambda_mode}: same-seed "
+                                 "chunk re-run is not bitwise equal")
+        log(f"  config #3 {c.lambda_mode}: same-seed chunk re-run from a "
+            "cloned state: gamma and lambda bitwise equal")
 
 
 def main() -> int:
@@ -454,11 +694,16 @@ def main() -> int:
     log("phase 1: kernels vs twins")
     phase_kernels(dev, rec)
     log("phase 2: canonical drive, config #1")
-    phase_canonical(dev)
+    phase_canonical(dev, rec)
+    log("phase 2b: config #1, stored lambda mode")
+    phase_canonical(dev, rec, lambda_mode="stored")
     log("phase 3: TGP shape")
-    phase_tgp(dev, rec)
+    tgp = phase_tgp(dev, rec)
     log("phase 4: big-N shape")
     phase_bign(dev, rec)
+    log("phase 5: config #3, group-addressed solve (K2)")
+    phase_config3(dev, rec, *tgp)
+    log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],
                     replaces=spec["replaces"], **rec[name])

@@ -45,6 +45,9 @@ SIGNATURES = {
     # beta_a, beta_b, warm_start, approx_div, accel, stream
     "tt_fused_local_solve": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_I] * 3
                             + [_P],
+    # idx0, packed, L, group, then as tt_fused_local_solve from u_planes
+    "tt_fused_local_solve_dma": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
+                                + [_F] * 3 + [_I] * 3 + [_P],
     # a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream
     "tt_lambda_stats_acat": [_P] * 8 + [_I] * 5 + [_P],
     # rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream

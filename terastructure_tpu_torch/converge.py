@@ -1,0 +1,119 @@
+"""Fit one of the reference's acceptance configurations to convergence on
+the card and report its quality and rates.
+
+    python -m terastructure_tpu_torch.converge --config 3
+    python -m terastructure_tpu_torch.converge --config 5 --scale 0.1
+
+The configurations are those of the reference's acceptance runner
+(benchmarks/baseline_configs.py): the published shapes (config 5 cut by
+--scale, as the runner's own option does), its batch sizes, rfreq 100,
+at most 20,000 steps, snp_group 8, seed 0, so configs 2 and 3 take the
+group-addressed fused solve (K2) and config 5 the big-N path. The
+genotypes are simulated on the card (`simulate_packed_device`, the
+reference's structured theta) and carved as the runner carves them: 0.5%
+validation and heldout entries, at most 200,000 each, over a pool of
+2,048 SNPs at biobank N or L. Prints the
+card (nvidia-smi name and power limit) and one JSON line: steps,
+converged, theta MAE against the truth, heldout and validation
+log-likelihood, the oracle's heldout log-likelihood (the true theta and
+beta), fit wall, the sums of chunk_s and eval_s, SNP-updates/s over the
+chunks, and the kernels' launch counts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from terastructure_tpu_torch import SVIConfig
+from terastructure_tpu_torch.data import GenotypeData, simulate_packed_device
+from terastructure_tpu_torch.data.simulate import simulated_beta
+from terastructure_tpu_torch.models import psd
+from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
+from terastructure_tpu_torch.svi import fit
+from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
+
+CONFIGS = {        # benchmarks/baseline_configs.py:31-38
+    2: dict(n=940, l=640_000, k=7, batch=1024),          # HGDP shape
+    3: dict(n=2504, l=1_000_000, k=8, batch=1024),       # TGP shape
+    5: dict(n=1_000_000, l=1_000_000, k=10, batch=4096),  # big-N regime
+}
+COUNTED = (fused_step.fused_local_solve_dma, fused_step.fused_local_solve,
+           gather.gather_row_blocks, stats_packed.lambda_stats_packed)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
+        batch_size: int | None = None) -> dict:
+    """Simulate, carve and fit `config`; return the record. scale shrinks
+    N and L (keeping N % 4 == 0 and L % 8 == 0); batch_size overrides the
+    config's (a small rehearsal)."""
+    spec = CONFIGS[config]
+    n = max(4, int(spec["n"] * scale) // 4 * 4)
+    l = max(8, int(spec["l"] * scale) // 8 * 8)
+    k = spec["k"]
+    t0 = time.time()
+    packed, theta = simulate_packed_device(n, l, k, seed=0, device=device)
+    data = GenotypeData.from_packed(
+        packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
+        max_eval_entries=min(max(int(0.005 * n * l), 100), 200_000),
+        eval_snp_pool=2048 if (n >= 50_000 or l >= 131_072) else 0)
+    sim_s = time.time() - t0
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(batch_size or spec["batch"],
+                                                  l),
+                    rfreq=100, max_steps=max_steps, seed=0, snp_group=8)
+    for f in COUNTED:
+        f.launches = f.twin_calls = 0
+    res = fit(cfg, data, device=device)
+    counts = {f.__name__: (f.launches, f.twin_calls) for f in COUNTED}
+
+    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
+    h = data.heldout
+    beta = simulated_beta(n, l, k, seed=0)
+    p = (theta[h.ind_idx] * beta[h.snp_idx]).sum(-1)
+    oracle = float(psd.binomial2_loglik(torch.from_numpy(h.x),
+                                        torch.from_numpy(p)).mean())
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    return dict(
+        config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
+        device=str(torch.device(device)), steps=res.steps,
+        converged=res.converged, theta_mae=mean_abs_theta_error(th, theta),
+        heldout_ll=res.heldout_ll, oracle_ll=oracle,
+        validation_ll=res.validation_ll, wall_s=res.wall_s,
+        chunk_s=chunk_s, eval_s=sum(r.get("eval_s", 0.0) for r in res.trace),
+        checks=len(res.trace), sim_s=sim_s,
+        snp_updates_per_s=res.steps * cfg.batch_size / chunk_s,
+        launches={name: c[0] for name, c in counts.items()},
+        twin_calls={name: c[1] for name, c in counts.items()})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=3)
+    ap.add_argument("--max-steps", type=int, default=20_000)
+    ap.add_argument("--scale", type=float, default=1.0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("converge: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps(run(args.config, device="cuda", max_steps=args.max_steps,
+                         scale=args.scale)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,228 @@
+// The launch sequence of the fused local solve — the whole phi <-> lambda
+// local solve of one SVI step, and the gamma statistic — shared by K1
+// (fused_step.cu) and K2 (fused_step_dma.cu), which differ only in where
+// the passes read the batch's rows (`Rows`, psd_common.cuh). Each entry
+// lives in its own source so that nvcc builds the two in parallel.
+//
+// K1 replaces terastructure_tpu/ops/fused_step.py `fused_local_solve`
+// (pallas_call at :459; body `_make_kernel.body_common` :223-365). On the
+// TPU one program holds the minibatch in VMEM and loops in place. Here
+// the rows are independent inside the solve, so each pass is one launch
+// of `tt::lambda_pass_kernel` (psd_common.cuh) over CTAs of 32 rows, and
+// only two things couple CTAs, both reduced in a fixed order:
+//   - the batch-wide relative change that ends the tol-gated loop:
+//     `update_kernel` writes per-CTA sums of |new - lam| and |lam|,
+//     `delta_kernel` adds them in order and clears a device-side `active`
+//     flag that later passes read (no host sync, no early return to the
+//     host: the launch sequence is fixed by local_iters);
+//   - the gamma statistic g = R^T T, a sum over all B rows:
+//     `tt::gamma_pass_kernel` (psd_common.cuh, shared with K5) gives each
+//     thread one individual and loops over a slice of rows in order;
+//     `gamma_reduce_kernel` adds the slices in order. No atomics anywhere,
+//     so a seed reproduces a fit bitwise.
+//
+// Launch sequence (same schedule as stats_dense.solve_schedule):
+//   init                       lam = prior or lamb_init, t = T(lam)
+//   loop_iters x [pass, update(LOOP), delta]
+//   accel: pass, update(MID), pass, update(AITKEN)
+//   pass (exact divide), update(FINAL) -> lamb_out
+//   gamma_pass, gamma_reduce -> g
+//
+// Bound on the H100: at the TGP shape (B=4096, W=640, K=8) each pass is
+// ~0.34 G FMA and ~21 M divides over 2.6 MB of rows that stay in L2, so
+// the solve is issue-bound on FP32 FMAs and divides, not on bytes. The
+// design keeps t and the statistics in registers and u reads as
+// broadcasts; tensor cores are a later PR.
+
+#pragma once
+
+#include "psd_common.cuh"
+
+namespace {
+
+enum UpdateMode { kLoop = 0, kMid = 1, kAitken = 2, kFinal = 3 };
+
+constexpr int kUpd = 256;  // threads per update CTA (one per (b, k))
+
+__device__ __forceinline__ float aitken(float prev, float cur, float nw) {
+  // stats_dense.aitken_final with floor 1e-3, rmax 0.9
+  const float d1 = nw - cur;
+  const float d0 = cur - prev;
+  const float den = d0 - d1;
+  const bool ok = fabsf(den) > 1e-12f;
+  float step = ok ? d1 * d1 / den : 0.f;
+  const float cap = (float)(0.9 / (1.0 - 0.9)) * fabsf(d1);
+  step = fminf(fmaxf(step, -cap), cap);
+  return fmaxf(nw + step, 1e-3f);
+}
+
+// lam = warm ? lamb_init : (beta_a, beta_b); t = T(lam); active = 1.
+__global__ void init_kernel(const float* __restrict__ lamb_init, int warm,
+                            float beta_a, float beta_b, float* __restrict__ lam,
+                            float* __restrict__ t, int* __restrict__ active,
+                            int bk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) *active = 1;
+  if (i >= bk) return;
+  const float l0 = warm ? lamb_init[2 * i] : beta_a;
+  const float l1 = warm ? lamb_init[2 * i + 1] : beta_b;
+  lam[2 * i] = l0;
+  lam[2 * i + 1] = l1;
+  tt::exp_elog_beta(l0, l1, t[2 * i], t[2 * i + 1]);
+}
+
+// new = prior + t * (sum over splits of part), then by mode:
+//   LOOP   (if *active): per-CTA |new - lam| and |lam| sums; lam = new
+//   MID:    mid = new
+//   AITKEN: lam = aitken(lam, mid, new)
+//   FINAL:  out = new
+// and t = T(the lambda the next pass reads) for every mode but FINAL.
+__global__ void __launch_bounds__(kUpd)
+update_kernel(int mode, const float* __restrict__ part, int nsplit, int bk,
+              float beta_a, float beta_b, float* __restrict__ lam,
+              float* __restrict__ mid, float* __restrict__ t,
+              float* __restrict__ out, float* __restrict__ dpart,
+              const int* __restrict__ active) {
+  if (mode == kLoop && *active == 0) return;
+  __shared__ float sdiff[kUpd], smag[kUpd];
+  const int i = blockIdx.x * kUpd + threadIdx.x;
+  float diff = 0.f, mag = 0.f;
+  if (i < bk) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      s0 += part[((long long)s * bk + i) * 2];
+      s1 += part[((long long)s * bk + i) * 2 + 1];
+    }
+    const float n0 = beta_a + t[2 * i] * s0;
+    const float n1 = beta_b + t[2 * i + 1] * s1;
+    float l0 = n0, l1 = n1;  // the lambda the next pass reads
+    if (mode == kLoop) {
+      const float p0 = lam[2 * i], p1 = lam[2 * i + 1];
+      diff = fabsf(n0 - p0) + fabsf(n1 - p1);
+      mag = fabsf(p0) + fabsf(p1);
+      lam[2 * i] = n0;
+      lam[2 * i + 1] = n1;
+    } else if (mode == kMid) {
+      mid[2 * i] = n0;
+      mid[2 * i + 1] = n1;
+    } else if (mode == kAitken) {
+      l0 = aitken(lam[2 * i], mid[2 * i], n0);
+      l1 = aitken(lam[2 * i + 1], mid[2 * i + 1], n1);
+      lam[2 * i] = l0;
+      lam[2 * i + 1] = l1;
+    } else {
+      out[2 * i] = n0;
+      out[2 * i + 1] = n1;
+    }
+    if (mode != kFinal) tt::exp_elog_beta(l0, l1, t[2 * i], t[2 * i + 1]);
+  }
+  if (mode != kLoop) return;
+  sdiff[threadIdx.x] = diff;
+  smag[threadIdx.x] = mag;
+  for (int h = kUpd / 2; h > 0; h >>= 1) {  // fixed-shape tree
+    __syncthreads();
+    if (threadIdx.x < h) {
+      sdiff[threadIdx.x] += sdiff[threadIdx.x + h];
+      smag[threadIdx.x] += smag[threadIdx.x + h];
+    }
+  }
+  if (threadIdx.x == 0) {
+    dpart[2 * blockIdx.x] = sdiff[0];
+    dpart[2 * blockIdx.x + 1] = smag[0];
+  }
+}
+
+// delta = mean|new - lam| / (mean|lam| + 1); active &= delta > tol.
+__global__ void __launch_bounds__(kUpd)
+delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
+             int* __restrict__ active) {
+  if (*active == 0) return;
+  __shared__ float sdiff[kUpd], smag[kUpd];
+  float diff = 0.f, mag = 0.f;
+  for (int j = threadIdx.x; j < nblk; j += kUpd) {
+    diff += dpart[2 * j];
+    mag += dpart[2 * j + 1];
+  }
+  sdiff[threadIdx.x] = diff;
+  smag[threadIdx.x] = mag;
+  for (int h = kUpd / 2; h > 0; h >>= 1) {
+    __syncthreads();
+    if (threadIdx.x < h) {
+      sdiff[threadIdx.x] += sdiff[threadIdx.x + h];
+      smag[threadIdx.x] += smag[threadIdx.x + h];
+    }
+  }
+  if (threadIdx.x == 0) {
+    const float n = 2.f * (float)bk;
+    const float delta = (sdiff[0] / n) / (smag[0] / n + 1.f);
+    if (!(delta > tol)) *active = 0;  // NaN ends the loop, as in the reference
+  }
+}
+
+// The launch sequence of K1 and K2: they differ only in where the passes
+// read the batch's rows (`Rows`, psd_common.cuh).
+template <class Rows>
+int fused_solve(Rows src, const float* up, const float* lamb_init,
+                float* lamb_out, float* g, float* lam, float* mid, float* t,
+                float* part, float* dpart, int* active, float* gpart, int B,
+                int W, int K, int nsplit_w, int nsplit_b, int local_iters,
+                float local_tol, float beta_a, float beta_b, int warm_start,
+                int approx_div, int accel, cudaStream_t stream) {
+  const int km = tt::pick_km(K);
+  if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 || km == 0 ||
+      local_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  const bool acc = accel && local_iters >= 3;
+  const int loop_iters = acc ? local_iters - 2 : local_iters;
+  const int bk = B * K;
+  const int nupd = (bk + kUpd - 1) / kUpd;
+  const dim3 pgrid((B + tt::kRowsPerCta - 1) / tt::kRowsPerCta, nsplit_w);
+  const int wchunk = tt::split_chunk(W, nsplit_w);
+  using Loader = tt::PackedLoader<Rows>;
+
+  auto pass = [&](int approx, const int* gate) -> int {
+#define TT_LAUNCH(KM)                                                        \
+  tt::lambda_pass_kernel<KM, Loader><<<pgrid, tt::kThreads, 0, stream>>>(    \
+      Loader{src}, up, t, t + 1, 2 * K, 2, part, B, W, K, wchunk, approx,    \
+      gate)
+    TT_DISPATCH_KM(km, TT_LAUNCH)
+#undef TT_LAUNCH
+    TT_CHECK_LAUNCH();
+    return 0;
+  };
+  auto update = [&](int mode) -> int {
+    update_kernel<<<nupd, kUpd, 0, stream>>>(mode, part, nsplit_w, bk, beta_a,
+                                            beta_b, lam, mid, t, lamb_out,
+                                            dpart, active);
+    TT_CHECK_LAUNCH();
+    return 0;
+  };
+  int err;
+
+  init_kernel<<<nupd, kUpd, 0, stream>>>(lamb_init, warm_start, beta_a, beta_b,
+                                         lam, t, active, bk);
+  TT_CHECK_LAUNCH();
+  for (int it = 0; it < loop_iters; ++it) {
+    if ((err = pass(approx_div, active))) return err;
+    if ((err = update(kLoop))) return err;
+    delta_kernel<<<1, kUpd, 0, stream>>>(dpart, nupd, bk, local_tol, active);
+    TT_CHECK_LAUNCH();
+  }
+  if (acc) {
+    if ((err = pass(approx_div, nullptr))) return err;
+    if ((err = update(kMid))) return err;
+    if ((err = pass(approx_div, nullptr))) return err;
+    if ((err = update(kAitken))) return err;
+  }
+  if ((err = pass(0, nullptr))) return err;
+  if ((err = update(kFinal))) return err;
+
+#define TT_LAUNCH(KM)                                                       \
+  err = tt::gamma_stats<KM>(src, up, t, t + 1, 2 * K, 2, gpart, g, B, W, K, \
+                            nsplit_b, stream)
+  TT_DISPATCH_KM(km, TT_LAUNCH)
+#undef TT_LAUNCH
+  return err;
+}
+
+}  // namespace

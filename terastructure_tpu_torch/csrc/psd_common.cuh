@@ -1,4 +1,4 @@
-// Device code shared by the port's kernels: K1 (fused_step.cu), K4
+// Device code shared by the port's kernels: K1 and K2 (fused_solve.cuh), K4
 // (stats_packed.cu), K5 (stats_gamma.cu), K7/K6 (stats_fused.cu) and K8
 // (stats_acat.cu).
 //
@@ -9,9 +9,15 @@
 //     D1 = sum_k t1[b,k] u[n,k],  D0 = sum_k t0[b,k] u[n,k]
 //     S1[b,k] += a1 / (D1 + 1e-30) * u[n,k],  S0[b,k] += a0 / (D0 + 1e-30) * u[n,k]
 //
-// The Loader says where the counts come from: `PackedLoader` decodes
-// 2-bit packed rows (K1, K4), `AcatLoader` reads pre-decoded bf16 count
-// planes (K8). Everything else is one body.
+// The Loader says where the counts come from: `PackedLoader<Rows>`
+// decodes 2-bit packed rows (K1, K2, K4), `AcatLoader` reads pre-decoded
+// bf16 count planes (K8). Everything else is one body.
+//
+// `Rows` says where each packed row of the batch lies: `ContiguousRows`
+// is a gathered (B, W) matrix (K1, K4, K5); `GroupedRows` is K2's batch,
+// B/g groups of g consecutive rows read straight out of the packed
+// (L, W) matrix at the group starts idx0. A CTA looks its rows' starts up
+// once, into a table in shared memory, so the pass code is one.
 //
 // Layout: one lane per row (32 rows per CTA), so t and the two K-vectors
 // of sums sit in the lane's registers for the whole pass and every u[n,:]
@@ -24,7 +30,7 @@
 // The 8 warps' sums are added in warp order. No atomics: the result is
 // bitwise reproducible.
 //
-// `gamma_pass_kernel<KM>` is the planar gamma statistic
+// `gamma_pass_kernel<KM, Rows>` is the planar gamma statistic
 // g[s*W+w, k] = sum_b r1[b,n] t1[b,k] + r0[b,n] t0[b,k] over a slice of
 // rows (K1's last pass and K5); `gamma_reduce_kernel` adds the slices in
 // order.
@@ -80,22 +86,55 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
   return approx ? __fdividef(a, d + kEps) : a / (d + kEps);
 }
 
-// 2-bit packed rows (B, W) uint8. A tile is 512 byte columns; a unit is
-// one 32-bit word (4 columns x 4 planes), skipped whole when all MISSING.
+// Batch row b of a gathered (B, W) matrix starts at rows + b*W.
+struct ContiguousRows {
+  const uint8_t* rows;
+  __device__ __forceinline__ const uint8_t* row(int b, int W) const {
+    return rows + (long long)b * W;
+  }
+};
+
+// K2's batch: B/group groups of `group` consecutive rows of the packed
+// (L, W) matrix; group j starts at row idx0[j]. A start that is not a
+// multiple of `group` in [0, L - group] gives an all-MISSING group
+// (nullptr), so the kernel never reads outside the matrix.
+struct GroupedRows {
+  const uint8_t* packed;
+  const int* idx0;
+  int group;
+  long long L;
+  __device__ __forceinline__ const uint8_t* row(int b, int W) const {
+    const long long s = idx0[b / group];
+    if (s < 0 || s > L - group || s % group) return nullptr;
+    return packed + (s + b % group) * W;
+  }
+};
+
+// 2-bit packed rows, located by `Rows`. A tile is 512 byte columns; a
+// unit is one 32-bit word (4 columns x 4 planes), skipped whole when all
+// MISSING. `prepare` fills the CTA's row table (rowp, in shared memory)
+// once; `stage` reads the rows through it (a null row reads as MISSING).
+template <class Rows>
 struct PackedLoader {
   static constexpr int kCols = 512;
   static constexpr int kColsPerUnit = 4;
   static constexpr int kStride = kCols / 4 + 1;          // words, odd
   static constexpr int kSmemWords = kRowsPerCta * kStride;
-  const uint8_t* rows;
+  Rows src;
 
-  __device__ void stage(uint32_t* tile, int b0, int B, int W, int w0,
-                        int nb) const {
+  __device__ void prepare(const uint8_t** rowp, int b0, int B, int W) const {
+    const int r = threadIdx.x;
+    if (r < kRowsPerCta) rowp[r] = b0 + r < B ? src.row(b0 + r, W) : nullptr;
+  }
+
+  __device__ void stage(uint32_t* tile, const uint8_t* const* rowp, int b0,
+                        int B, int W, int w0, int nb) const {
     uint8_t* tb = reinterpret_cast<uint8_t*>(tile);
     for (int i = threadIdx.x; i < kRowsPerCta * kCols; i += kThreads) {
       const int r = i / kCols, c = i % kCols;
+      const uint8_t* p = rowp[r];
       uint8_t v = 0xFF;  // outside the matrix: MISSING
-      if (b0 + r < B && c < nb) v = rows[(long long)(b0 + r) * W + w0 + c];
+      if (p != nullptr && c < nb) v = p[w0 + c];
       tb[r * kStride * 4 + c] = v;
     }
   }
@@ -131,8 +170,10 @@ struct AcatLoader {
   const uint16_t* a1;
   const uint16_t* a0;
 
-  __device__ void stage(uint32_t* tile, int b0, int B, int W, int w0,
-                        int nb) const {
+  __device__ void prepare(const uint8_t**, int, int, int) const {}
+
+  __device__ void stage(uint32_t* tile, const uint8_t* const*, int b0, int B,
+                        int W, int w0, int nb) const {
     for (int i = threadIdx.x; i < kRowsPerCta * 4 * kCols; i += kThreads) {
       const int r = i / (4 * kCols), rem = i % (4 * kCols);
       const int s = rem / kCols, c = rem % kCols;
@@ -171,6 +212,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
   if (active != nullptr && *active == 0) return;
   __shared__ uint32_t tile[Loader::kSmemWords];
   __shared__ float red[kRowsPerCta * KM * 2];
+  __shared__ const uint8_t* rowp[kRowsPerCta];  // PackedLoader's row table
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -180,6 +222,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
   const int wbeg = blockIdx.y * wchunk;
   const int wend = min(W, wbeg + wchunk);
 
+  ld.prepare(rowp, b0, B, W);  // visible after the first tile's barrier
   float t1[KM], t0[KM], s1[KM], s0[KM];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
@@ -193,7 +236,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
   for (int w0 = wbeg; w0 < wend; w0 += Loader::kCols) {
     const int nb = min(Loader::kCols, wend - w0);
     __syncthreads();  // the previous tile is consumed
-    ld.stage(tile, b0, B, W, w0, nb);
+    ld.stage(tile, rowp, b0, B, W, w0, nb);
     __syncthreads();
     const int nunits = (nb + Loader::kColsPerUnit - 1) / Loader::kColsPerUnit;
     for (int unit = warp; unit < nunits; unit += kWarps) {
@@ -248,15 +291,17 @@ constexpr int kGRows = 64;      // rows of t staged in shared memory at once
 // gpart[y, i, k] = sum_b r1[b,i] t1[b,k] + r0[b,i] t0[b,k] for the planar
 // individual i = s*W + w, t1[b*ts + k*tk] and t0 likewise (exact divide).
 // One thread per individual: u[i,:] and the K sums stay in registers,
-// rows of t are staged in shared memory and read as broadcasts, and a
-// warp's packed-byte reads are coalesced.
-template <int KM>
+// rows of t and the rows' starts (located by `Rows`) are staged in shared
+// memory and read as broadcasts, and a warp's packed-byte reads are
+// coalesced.
+template <int KM, class Rows>
 __global__ void __launch_bounds__(kGThreads)
-gamma_pass_kernel(const uint8_t* __restrict__ rows,
-                  const float* __restrict__ up, const float* __restrict__ t1g,
+gamma_pass_kernel(Rows src, const float* __restrict__ up,
+                  const float* __restrict__ t1g,
                   const float* __restrict__ t0g, int ts, int tk,
                   float* __restrict__ gpart, int B, int W, int K, int bchunk) {
   __shared__ float tsm[kGRows * KM * 2];
+  __shared__ const uint8_t* rowp[kGRows];
   const int i = blockIdx.x * kGThreads + threadIdx.x;
   const bool ok = i < 4 * W;
   const int s = ok ? i / W : 0;
@@ -278,10 +323,12 @@ gamma_pass_kernel(const uint8_t* __restrict__ rows,
       const float* tg = rem % 2 ? t0g : t1g;
       tsm[j] = k < K ? tg[(long long)(c0 + r) * ts + k * tk] : 0.f;
     }
+    for (int r = threadIdx.x; r < nr; r += kGThreads)
+      rowp[r] = src.row(c0 + r, W);
     __syncthreads();
     for (int r = 0; r < nr; ++r) {
-      const uint32_t code =
-          ok ? (rows[(long long)(c0 + r) * W + w] >> (2 * s)) & 3u : 3u;
+      const uint8_t* p = rowp[r];
+      const uint32_t code = ok && p != nullptr ? (p[w] >> (2 * s)) & 3u : 3u;
       if (code == 3u) continue;
       const float a1 = (float)code;
       const float a0 = 2.f - a1;
@@ -340,14 +387,14 @@ __global__ void split_reduce_kernel(const float* __restrict__ part,
 
 // Launch the gamma pass over `nsplit` row slices and their reduction.
 // gpart (nsplit, 4W, K) scratch, g (4, W, K).
-template <int KM>
-int gamma_stats(const uint8_t* rows, const float* up, const float* t1g,
+template <int KM, class Rows>
+int gamma_stats(Rows src, const float* up, const float* t1g,
                 const float* t0g, int ts, int tk, float* gpart, float* g,
                 int B, int W, int K, int nsplit, cudaStream_t stream) {
   const int bchunk = (B + nsplit - 1) / nsplit;
   const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit);
-  gamma_pass_kernel<KM><<<grid, kGThreads, 0, stream>>>(
-      rows, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+  gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
+      src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(

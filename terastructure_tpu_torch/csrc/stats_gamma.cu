@@ -25,8 +25,8 @@ extern "C" int tt_gamma_stats_packed(const uint8_t* rows, const float* up,
     return (int)cudaErrorInvalidValue;
   int err;
 #define TT_LAUNCH(KM)                                                      \
-  err = tt::gamma_stats<KM>(rows, up, t1, t0, K, 1, gpart, g, B, W, K,      \
-                            nsplit, stream)
+  err = tt::gamma_stats<KM>(tt::ContiguousRows{rows}, up, t1, t0, K, 1,     \
+                            gpart, g, B, W, K, nsplit, stream)
   TT_DISPATCH_KM(km, TT_LAUNCH)
 #undef TT_LAUNCH
   return err;

@@ -25,11 +25,11 @@ extern "C" int tt_lambda_stats_packed(const uint8_t* rows, const float* up,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((B + tt::kRowsPerCta - 1) / tt::kRowsPerCta, nsplit);
   const int wchunk = tt::split_chunk(W, nsplit);
+  using Loader = tt::PackedLoader<tt::ContiguousRows>;
 #define TT_LAUNCH(KM)                                                     \
-  tt::lambda_pass_kernel<KM, tt::PackedLoader>                           \
-      <<<grid, tt::kThreads, 0, stream>>>(tt::PackedLoader{rows}, up, t1,  \
-                                          t0, K, 1, part, B, W, K, wchunk, \
-                                          approx, nullptr)
+  tt::lambda_pass_kernel<KM, Loader><<<grid, tt::kThreads, 0, stream>>>(  \
+      Loader{{rows}}, up, t1, t0, K, 1, part, B, W, K, wchunk, approx,     \
+      nullptr)
   TT_DISPATCH_KM(km, TT_LAUNCH)
 #undef TT_LAUNCH
   TT_CHECK_LAUNCH();

@@ -66,6 +66,30 @@ def simulate_psd(
     return theta, beta, x
 
 
+def _structured_theta(rng, n, k):
+    """The reference's structured theta draw (n, k) f32 from rng."""
+    dominant = rng.integers(0, k, size=n)
+    conc = np.full((n, k), 0.2)
+    conc[np.arange(n), dominant] = 5.0
+    theta = np.empty((n, k), np.float32)
+    for i in range(0, n, 1 << 16):
+        sl = slice(i, min(i + (1 << 16), n))
+        g = rng.gamma(conc[sl], 1.0)
+        theta[sl] = (g / g.sum(1, keepdims=True)).astype(np.float32)
+    return theta
+
+
+def _beta_chunks(rng, n, l, k, chunk):
+    """((j0, j1), beta (j1 - j0, k) f32) per SNP chunk, drawn from rng."""
+    if chunk <= 0:
+        # a handful of (C, N) f32 temps per chunk, ~256 MB each at most
+        chunk = int(max(8, min(1 << 16, (1 << 28) // (4 * n))))
+    for j0 in range(0, l, chunk):
+        j1 = min(j0 + chunk, l)
+        yield (j0, j1), np.clip(rng.beta(1, 1, size=(j1 - j0, k)), 1e-4,
+                                1 - 1e-4).astype(np.float32)
+
+
 def simulate_packed_device(n, l, k, *, seed: int = 0,
                            missing_frac: float = 0.0, chunk: int = 0,
                            device="cuda"):
@@ -76,32 +100,20 @@ def simulate_packed_device(n, l, k, *, seed: int = 0,
     come from one uniform per entry by inverse CDF,
     x = [u >= (1-p)^2] + [u >= 1-p^2], drawn with a torch generator on
     `device` and packed there; beta ~ U(0, 1) per SNP is drawn on the
-    host per chunk and not returned. Requires n % 4 == 0.
+    host per chunk and not returned (`simulated_beta` replays it).
+    Requires n % 4 == 0.
     """
     if n % 4:
         raise ValueError("simulate_packed_device requires n % 4 == 0")
     device = torch.device(device)
-    if chunk <= 0:
-        # a handful of (C, N) f32 temps per chunk, ~256 MB each at most
-        chunk = int(max(8, min(1 << 16, (1 << 28) // (4 * n))))
     rng = np.random.default_rng(seed)
-    dominant = rng.integers(0, k, size=n)
-    conc = np.full((n, k), 0.2)
-    conc[np.arange(n), dominant] = 5.0
-    theta = np.empty((n, k), np.float32)
-    for i in range(0, n, 1 << 16):
-        sl = slice(i, min(i + (1 << 16), n))
-        g = rng.gamma(conc[sl], 1.0)
-        theta[sl] = (g / g.sum(1, keepdims=True)).astype(np.float32)
+    theta = _structured_theta(rng, n, k)
     theta_d = torch.from_numpy(theta).to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     w = n // 4
     shifts = torch.arange(0, 8, 2, dtype=torch.int32, device=device)
     packed = np.empty((l, w), np.uint8)
-    for j0 in range(0, l, chunk):
-        j1 = min(j0 + chunk, l)
-        beta = np.clip(rng.beta(1, 1, size=(j1 - j0, k)), 1e-4,
-                       1 - 1e-4).astype(np.float32)
+    for (j0, j1), beta in _beta_chunks(rng, n, l, k, chunk):
         p = (torch.from_numpy(beta).to(device) @ theta_d.T).clamp_(0.0, 1.0)
         u = torch.rand(p.shape, generator=gen, device=device)
         x = ((u >= (1.0 - p) * (1.0 - p)).to(torch.int32)
@@ -113,3 +125,13 @@ def simulate_packed_device(n, l, k, *, seed: int = 0,
         rows = (q[..., 0] | q[..., 1] | q[..., 2] | q[..., 3]).to(torch.uint8)
         packed[j0:j1] = rows.cpu().numpy()
     return packed, theta
+
+
+def simulated_beta(n, l, k, *, seed: int = 0, chunk: int = 0) -> np.ndarray:
+    """The beta (l, k) f32 behind `simulate_packed_device` with the same
+    arguments: its numpy generator replayed (the genotype uniforms come
+    from the torch generator and are not needed). For the oracle
+    log-likelihood of a fit on that draw."""
+    rng = np.random.default_rng(seed)
+    _structured_theta(rng, n, k)
+    return np.concatenate([b for _, b in _beta_chunks(rng, n, l, k, chunk)])

@@ -1,10 +1,15 @@
-"""The fused SVI local solve — kernel K1 (port of
-terastructure_tpu/ops/fused_step.py, `fused_local_solve`).
+"""The fused SVI local solve — kernels K1 and K2 (port of
+terastructure_tpu/ops/fused_step.py, `fused_local_solve` and
+`fused_local_solve_dma`).
 
 One call runs the whole phi <-> lambda coordinate ascent for a minibatch
 of packed rows and emits the converged lambda_B plus the planar gamma
-statistic. CUDA: csrc/fused_step.cu (a fixed sequence of launches on the
-current stream, no host sync). CPU: `fused_local_solve_twin`, the same
+statistic. K1 takes the gathered rows (B, W); K2 takes the packed matrix
+(L, W) and the starts of B/g groups of g consecutive rows, and its passes
+read the rows there (no gathered copy). CUDA: csrc/fused_step.cu (K1)
+and csrc/fused_step_dma.cu (K2), one launch sequence in
+csrc/fused_solve.cuh (fixed, on the current stream, no host sync). CPU:
+`fused_local_solve_twin` and `fused_local_solve_dma_twin`, the same
 schedule in plain PyTorch.
 
 Schedule (identical to stats_dense.solve_schedule): cold start at the
@@ -128,40 +133,36 @@ def fused_local_solve_twin(rows, u_planes, lamb_init, *, local_iters,
     return new, g.reshape(u_planes.shape)
 
 
-# --- the wrapper -------------------------------------------------------------
-def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
-                      lamb_init: torch.Tensor, *, local_iters: int,
-                      local_tol: float, beta_a: float, beta_b: float,
-                      dtype=torch.float32, warm_start: bool = False,
-                      approx_div: bool = False, accel: bool = False):
-    """Run the fused local solve.
+def fused_local_solve_dma_twin(idx0, packed, u_planes, lamb_init, *, group,
+                               **kw):
+    """Plain PyTorch version of K2: gather the groups, then K1's twin."""
+    l, w = packed.shape
+    b = idx0.shape[0] * group
+    rows = packed.view(l // group, group * w)[idx0.long() // group]
+    return fused_local_solve_twin(rows.view(b, w), u_planes, lamb_init, **kw)
 
-    rows: (B, W) uint8 gathered minibatch rows (any W; bytes 0xFF decode as
-    MISSING). u_planes: (4, W, K) f32. lamb_init: (B, K, 2) f32, read iff
-    warm_start. approx_div speeds up the divides of the loop and tail
-    passes; the final pass always divides exactly. Returns
-    (new_lamb_b (B, K, 2) f32, g_planes (4, W, K) f32).
-    """
-    check_shapes("fused_local_solve", rows, u_planes)
-    b, w = rows.shape
+
+# --- the wrappers ------------------------------------------------------------
+def _check_solve_args(name, rows, u_planes, lamb_init, b, dtype):
+    """Validate a fused solve's rows ((B, W), or K2's packed (L, W)),
+    u_planes and lamb_init for a batch of b rows."""
+    check_shapes(name, rows, u_planes)
     k = u_planes.shape[2]
     if lamb_init.shape != (b, k, 2):
-        raise ValueError("fused_local_solve: lamb_init must be (B, K, 2)")
+        raise ValueError(f"{name}: lamb_init must be (B, K, 2)")
     if dtype != torch.float32:
         raise NotImplementedError(
-            "fused_local_solve computes in float32; the bf16 kernel path "
-            "is a later slice")
-    kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
-              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
-              accel=accel)
-    if rows.device.type == "cpu":
-        fused_local_solve.twin_calls += 1
-        return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
-    if rows.device.type != "cuda":
-        raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
-    _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
-                        dtypes=(torch.uint8, torch.float32, torch.float32))
-    dev = rows.device
+            f"{name} computes in float32; the bf16 kernel path is a later "
+            "slice")
+
+
+def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
+                  local_tol, beta_a, beta_b, warm_start, approx_div, accel):
+    """Allocate the solve's outputs and scratch and call the C entry
+    `entry` (tt_fused_local_solve or tt_fused_local_solve_dma) with
+    `lead_args` (its row arguments) first. Returns (lamb_out, g)."""
+    dev = u_planes.device
+    k = u_planes.shape[2]
     nsplit_w = grid_split(-(-b // 32), -(-w // 128))
     nsplit_b = grid_split(-(-4 * w // 128), -(-b // 64))
     nupd = -(-b * k // 256)
@@ -174,17 +175,107 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
     part, dpart = f32(nsplit_w, b, k, 2), f32(nupd, 2)
     gpart = f32(nsplit_b, 4 * w, k)
     active = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _build.lib().tt_fused_local_solve(
-        rows.data_ptr(), u_planes.data_ptr(), lamb_init.data_ptr(),
+    err = getattr(_build.lib(), entry)(
+        *lead_args, u_planes.data_ptr(), lamb_init.data_ptr(),
         lamb_out.data_ptr(), g.data_ptr(), lam.data_ptr(), mid.data_ptr(),
         t.data_ptr(), part.data_ptr(), dpart.data_ptr(), active.data_ptr(),
         gpart.data_ptr(), b, w, k, nsplit_w, nsplit_b, local_iters,
         float(local_tol), float(beta_a), float(beta_b), int(warm_start),
         int(approx_div), int(accel), _build.stream_ptr(dev))
-    _build.check(err, "fused_local_solve")
-    fused_local_solve.launches += 1
+    _build.check(err, entry)
     return lamb_out, g
+
+
+def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
+                      lamb_init: torch.Tensor, *, local_iters: int,
+                      local_tol: float, beta_a: float, beta_b: float,
+                      dtype=torch.float32, warm_start: bool = False,
+                      approx_div: bool = False, accel: bool = False):
+    """Run the fused local solve (K1).
+
+    rows: (B, W) uint8 gathered minibatch rows (any W; bytes 0xFF decode as
+    MISSING). u_planes: (4, W, K) f32. lamb_init: (B, K, 2) f32, read iff
+    warm_start. approx_div speeds up the divides of the loop and tail
+    passes; the final pass always divides exactly. Returns
+    (new_lamb_b (B, K, 2) f32, g_planes (4, W, K) f32).
+    """
+    _check_solve_args("fused_local_solve", rows, u_planes, lamb_init,
+                      rows.shape[0], dtype)
+    kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
+              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
+              accel=accel)
+    if rows.device.type == "cpu":
+        fused_local_solve.twin_calls += 1
+        return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
+    _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
+                        dtypes=(torch.uint8, torch.float32, torch.float32))
+    out = _launch_solve("tt_fused_local_solve", (rows.data_ptr(),), u_planes,
+                        lamb_init, *rows.shape, **kw)
+    fused_local_solve.launches += 1
+    return out
 
 
 fused_local_solve.launches = 0
 fused_local_solve.twin_calls = 0
+
+
+def fused_local_solve_dma(idx0: torch.Tensor, packed: torch.Tensor,
+                          u_planes: torch.Tensor, lamb_init: torch.Tensor, *,
+                          group: int, local_iters: int, local_tol: float,
+                          beta_a: float, beta_b: float, dtype=torch.float32,
+                          warm_start: bool = False, approx_div: bool = False,
+                          accel: bool = False):
+    """Run the fused local solve on B = len(idx0) * group rows read
+    straight out of the packed matrix (K2).
+
+    idx0: (B/group,) int32 group starts, multiples of `group` in
+    [0, L - group]; batch row b is packed row idx0[b // group] + b % group.
+    packed: (L, W) uint8. group: a multiple of 8. Other arguments and the
+    returns as `fused_local_solve`. Raises ValueError where the reference
+    does (group % 8, or a shape outside the fused gate `supports`). The
+    starts are checked on CPU tensors; on the card they are not read back
+    (that would wait for the device), and a start out of range reads as an
+    all-MISSING group, never outside the matrix.
+    """
+    name = "fused_local_solve_dma"
+    if idx0.dim() != 1 or packed.dim() != 2:
+        raise ValueError(f"{name}: idx0 (B/group,), packed (L, W)")
+    l, w = packed.shape
+    b = idx0.shape[0] * group
+    k = u_planes.shape[-1]
+    if group % 8 or not supports(b, w, k, dtype, accel=accel):
+        raise ValueError(f"{name}: unsupported B={b}, W={w}, group={group}")
+    if l % group:
+        raise ValueError(f"{name}: L={l} is not a multiple of group={group}")
+    if idx0.dtype != torch.int32 or not idx0.is_contiguous():
+        raise TypeError(f"{name}: idx0 must be contiguous int32")
+    if idx0.device != packed.device:
+        raise ValueError(f"{name}: idx0 on {idx0.device}, packed on "
+                         f"{packed.device}")
+    _check_solve_args(name, packed, u_planes, lamb_init, b, dtype)
+    kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
+              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
+              accel=accel)
+    if packed.device.type == "cpu":
+        if b and (idx0.min() < 0 or idx0.max() > l - group
+                  or bool((idx0 % group).any())):
+            raise ValueError(f"{name}: group starts must be multiples of "
+                             f"{group} in [0, {l - group}]")
+        fused_local_solve_dma.twin_calls += 1
+        return fused_local_solve_dma_twin(idx0, packed, u_planes, lamb_init,
+                                          group=group, **kw)
+    if packed.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {packed.device}")
+    _build.require_cuda(name, packed, u_planes, lamb_init,
+                        dtypes=(torch.uint8, torch.float32, torch.float32))
+    out = _launch_solve("tt_fused_local_solve_dma",
+                        (idx0.data_ptr(), packed.data_ptr(), l, group),
+                        u_planes, lamb_init, b, w, **kw)
+    fused_local_solve_dma.launches += 1
+    return out
+
+
+fused_local_solve_dma.launches = 0
+fused_local_solve_dma.twin_calls = 0

@@ -1,0 +1,102 @@
+"""Where a step's time goes on the card: a chunk of SVI steps under
+torch.profiler, with the device time of each kernel and the device's
+busy share.
+
+    python -m terastructure_tpu_torch.profile_step --config 3 --steps 50
+
+The configuration is one of converge.CONFIGS at its published shape
+(cut by --scale; its batch size, snp_group 8, seed 0), simulated on the
+card. One chunk of `--steps` steps warms up, then the same number is
+timed unprofiled (host clock around the chunk and a synchronize) and
+once under the profiler. Prints the card line and one JSON line: ms a step unprofiled,
+the profiled window's wall and kernel time, the busy share (kernel time
+over wall), and each kernel's total ms, calls and share of kernel time,
+largest first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from terastructure_tpu_torch import SVIConfig
+from terastructure_tpu_torch.converge import CONFIGS, card_line
+from terastructure_tpu_torch.data import simulate_packed_device
+from terastructure_tpu_torch.svi import engine
+
+
+def device_ms(evt) -> float:
+    """An event's device time in ms (the attribute's name differs across
+    torch versions)."""
+    us = getattr(evt, "device_time_total", None)
+    if us is None:
+        us = evt.cuda_time_total
+    return us / 1e3
+
+
+def run(config: int, *, steps: int, lambda_mode: str = "local",
+        scale: float = 1.0) -> dict:
+    spec = CONFIGS[config]
+    n = int(spec["n"] * scale) // 4 * 4
+    l = int(spec["l"] * scale) // 8 * 8
+    k, b = spec["k"], spec["batch"]
+    dev = torch.device("cuda")
+    packed, _ = simulate_packed_device(n, l, k, seed=0, device=dev)
+    packed = torch.from_numpy(engine.pad_width(packed)).to(dev)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=0, snp_group=8,
+                    lambda_mode=lambda_mode)
+    chunk = engine.make_run_chunk(cfg, steps, l)
+    state = chunk(engine.init_state(cfg, l_padded=l, device=dev), packed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = chunk(state, packed)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / steps * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        state = chunk(state, packed)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(device_ms(e) for e in kernels)
+    rows = sorted(((device_ms(e), e.count, e.key) for e in kernels),
+                  reverse=True)
+    return dict(
+        config=config, n=n, l=l, k=k, batch_size=b, lambda_mode=lambda_mode,
+        steps=steps, step_ms_unprofiled=step_ms,
+        snp_updates_per_s=b / step_ms * 1e3,
+        profiled_wall_ms=wall_ms, kernel_ms=total,
+        busy_share=total / wall_ms if wall_ms else None,
+        kernels=[dict(name=name[:120], ms=ms, calls=calls,
+                      share=ms / total if total else None)
+                 for ms, calls, name in rows])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=3)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--lambda-mode", choices=("local", "stored"),
+                    default="local")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps(run(args.config, steps=args.steps,
+                         lambda_mode=args.lambda_mode, scale=args.scale)),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

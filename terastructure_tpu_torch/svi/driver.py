@@ -8,9 +8,16 @@ trace keeps each check's metrics, with the phase budget `chunk_s` (the
 chunk of rfreq steps until its result is host-visible) and `eval_s` (the
 validation scorer).
 
+lambda_mode "local" scores by re-solving the eval SNPs' lambdas from the
+current gamma and materializes lambda at the end; "stored" scores the
+stored lambda (engine.entry_loglik), which is the result.
+
+`fit` runs on the first CUDA card unless the caller names a device;
+device="cpu" runs the kernels' plain twins.
+
 Not yet ported (NotImplementedError): stream=True (slice S5),
 step_fn_factory (multi-GPU, S8), checkpoint_dir (S9), init="spectral"
-(S7), lambda_mode="stored".
+(S7).
 """
 
 from __future__ import annotations
@@ -57,8 +64,9 @@ def fit(
 ) -> FitResult:
     """Run SVI until convergence or cfg.max_steps on one device.
 
-    device: where the fit runs (default: the first CUDA card if there is
-    one, else the CPU). The width-padded packed matrix moves there once.
+    device: where the fit runs. None means the first CUDA card, and
+    raises RuntimeError where there is none; pass device="cpu" to run on
+    the CPU. The width-padded packed matrix moves there once.
     """
     if cfg.n != data.n or cfg.l != data.l:
         raise ValueError("config/data shape mismatch")
@@ -70,11 +78,13 @@ def fit(
         _not_ported("checkpoint_dir", "slice S9, I/O")
     if cfg.init != "random":
         _not_ported(f"init={cfg.init!r}", "slice S7, spectral init")
-    if cfg.lambda_mode != "local":
-        _not_ported("lambda_mode='stored'", "the stored-lambda slice")
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("fit: no CUDA card; pass device='cpu' to run "
+                               "on the CPU")
+        device = "cuda"
     device = torch.device(device)
+    local_mode = cfg.lambda_mode == "local"
 
     packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
     packed = packed.to(device)
@@ -82,10 +92,17 @@ def fit(
     run_chunk = engine.make_run_chunk(cfg, cfg.rfreq, int(packed.shape[0]))
 
     def make_scorer(es):
-        """(state -> mean ll) for an entry set: the lambdas of its SNPs
-        are re-solved from the current gamma."""
+        """(state -> mean ll) for an entry set. Local mode: the lambdas of
+        its SNPs are re-solved from the current gamma. Stored mode: the
+        stored lambda is read."""
         if es is None or not len(es):
             return None
+        if not local_mode:
+            i, j, xv = (torch.as_tensor(np.asarray(a)).to(device)
+                        for a in (es.ind_idx, es.snp_idx, es.x))
+            i, j = i.long(), j.long()
+            return lambda st: float(engine.entry_loglik(
+                st.gamma, st.lamb, i, j, xv, form=cfg.predictive))
         uniq, inv = np.unique(es.snp_idx, return_inverse=True)
         rows = engine.pad_width(np.asarray(data.packed)[uniq])
         f = engine.make_entry_loglik_recompute(
@@ -133,8 +150,10 @@ def fit(
         if converged:
             break
 
-    # lambda is derived state in the local mode: materialize it for export
-    state = state._replace(lamb=compute_lambda(cfg, state.gamma, packed))
+    if local_mode:
+        # lambda is derived state in the local mode: materialize it for
+        # export (the stored mode's lambda is the result)
+        state = state._replace(lamb=compute_lambda(cfg, state.gamma, packed))
 
     held_scorer = make_scorer(data.heldout)
     held_ll = held_scorer(state) if held_scorer is not None else None

@@ -2,27 +2,31 @@
 terastructure_tpu/svi/engine.py).
 
     repeat:
-      sample the SNP minibatch and gather its packed rows   (_sample_rows)
+      sample the SNP minibatch                       (_sample_rows, K2's
+                                                      group draw, or
+                                                      _gather_batch)
       local step: phi <-> lambda_B and the gamma statistic
-          (fused_local_solve, or step_core_packed where the fused gate
+          (fused_local_solve K1, fused_local_solve_dma K2 on groups of
+           the packed matrix, or step_core_packed where the fused gate
            refuses the shape: the big-N per-iteration path)
       global step: gamma <- (1 - rho) gamma + rho (alpha + L/B * stat)
+      stored lambda mode: scatter lambda_B back into the (L, K, 2) array
 
 Plain functions on tensors with an explicit device. The state is a
 NamedTuple; `t` is a host int and the per-step draws come from a torch
 generator seeded from (seed, t), so a run is reproducible and resumable
 and the chunk itself never reads the device.
 
-Ported: the resident, single-process, local-lambda path with kernel
-"auto"/"fused" (K1, and K3 at biobank L), "pallas" (the big-N
+Ported: the resident, single-process path with kernel "auto"/"fused"
+(K1, K3 at biobank L, K2 with snp_group >= 8), "pallas" (the big-N
 per-iteration path: K8, K4, and K7, K5 or K6 for the statistics) or
-"dense". Not yet ported, and raising NotImplementedError:
-lambda_mode="stored", the bf16 kernel path, snp_group >= 8 group DMA (K2)
-in the fused branch.
+"dense", in both lambda modes. Not yet ported, and raising
+NotImplementedError: the bf16 kernel path.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -99,6 +103,77 @@ def _sample_batch(gen, l_real, batch_size, device):
                          device=device, dtype=torch.int32)
 
 
+def _group_size(cfg: SVIConfig, l_sample: int) -> int:
+    """Effective SNP-group granularity of the stored mode's gather (1 =
+    independent per-SNP draws), as the reference's _group_size."""
+    g = cfg.snp_group
+    if (g <= 1 or l_sample <= 65536 or l_sample % g
+            or cfg.batch_size % g):
+        return 1
+    return g
+
+
+def _gather_batch(cfg: SVIConfig, packed, lamb, gen, l_sample, *, draw=None):
+    """Sample the minibatch and gather its packed rows and lambda rows
+    (the stored mode's big-N and dense branches).
+
+    Group-sampled at biobank L (see SVIConfig.snp_group): B/G groups of G
+    consecutive SNPs, gathered as B/G rows of a (L/G, G*W) view. `draw`
+    injects the draw instead of gen's (tests): the group indices (B/G,)
+    when grouped, the row indices (B,) otherwise.
+
+    Returns (idx (B,), rows (B, W), lamb_b (B, K, 2), scatter) where
+    scatter(new_lamb_b) writes the new lambda rows into `lamb` in place.
+    """
+    b = cfg.batch_size
+    g = _group_size(cfg, l_sample)
+    dev = packed.device
+    if g == 1:
+        idx = (_sample_batch(gen, l_sample, b, dev) if draw is None
+               else draw.to(dev)).long()
+
+        def scatter(new):
+            lamb[idx] = new
+
+        return idx, packed[idx], lamb[idx], scatter
+
+    lg, ng = l_sample // g, b // g
+    w, k = packed.shape[1], lamb.shape[1]
+    gidx = (torch.randint(0, lg, (ng,), generator=gen, device=dev,
+                          dtype=torch.int32) if draw is None
+            else draw.to(dev)).long()
+    idx = (gidx[:, None] * g + torch.arange(g, device=dev)).reshape(b)
+    rows = packed[:l_sample].view(lg, g * w)[gidx].view(b, w)
+    lamb_g = lamb[:l_sample].view(lg, g, k, 2)
+
+    def scatter(new):
+        lamb_g[gidx] = new.view(ng, g, k, 2)
+
+    return idx, rows, lamb_g[gidx].view(b, k, 2), scatter
+
+
+def uses_group_dma(cfg: SVIConfig, l_sample: int) -> bool:
+    """Whether the fused branch reads its minibatch as groups straight
+    out of the packed matrix (K2): the reference's gate
+    (svi/engine.py:343-346) without its `not interpret` term, so the
+    choice depends on the config and the shape only."""
+    g = cfg.snp_group
+    return (g >= 8 and g % 8 == 0 and l_sample % g == 0
+            and cfg.batch_size % g == 0 and l_sample > 65536)
+
+
+def _draw_groups(cfg: SVIConfig, gen, l_sample, device):
+    """K2's minibatch: B/g uniform group starts idx0 (multiples of g) and
+    the rows they cover, idx (B,)."""
+    g = cfg.snp_group
+    gidx = torch.randint(0, l_sample // g, (cfg.batch_size // g,),
+                         generator=gen, device=device, dtype=torch.int32)
+    idx0 = gidx * g
+    idx = (idx0[:, None] + torch.arange(g, dtype=torch.int32, device=device)
+           ).reshape(-1)
+    return idx0, idx
+
+
 def _sample_rows(cfg: SVIConfig, packed, gen, l_sample):
     """Sample the SNP minibatch and gather its packed rows.
 
@@ -135,20 +210,43 @@ def _resolve_kernel(cfg: SVIConfig) -> str:
     raise ValueError(f"unknown kernel {cfg.kernel!r}")
 
 
-def step_core_fused(cfg: SVIConfig, gamma, rows):
-    """Fused local solve (K1) from packed rows (B, W), cold start.
+def _fused_solve(cfg: SVIConfig, gamma, w, b, device, lamb_init, solve):
+    """The glue K1 and K2 share: u = exp E[log theta] padded to 4W
+    individuals in planes, the gamma statistic out. solve(u_planes,
+    lamb_init, **kw) is the kernel call. lamb_init None is a cold start:
+    the solve is handed zeros it never reads, as the reference does.
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
-    b, w = rows.shape
     u = pad_individuals(ops.exp_elog_theta(gamma), w)
-    lamb_init = torch.zeros((b, cfg.k, 2), dtype=torch.float32,
-                            device=rows.device)
-    new_lamb_b, g = fused_step.fused_local_solve(
-        rows, u_to_planes(u), lamb_init,
-        local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-        beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-        dtype=getattr(torch, cfg.compute_dtype), warm_start=False,
+    warm = lamb_init is not None
+    if not warm:
+        lamb_init = torch.zeros((b, cfg.k, 2), dtype=torch.float32,
+                                device=device)
+    new_lamb_b, g = solve(
+        u_to_planes(u), lamb_init, local_iters=cfg.local_iters,
+        local_tol=cfg.local_tol, beta_a=cfg.beta_a, beta_b=cfg.beta_b,
+        dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
         approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
     return new_lamb_b, (u * planes_to_flat(g))[: gamma.shape[0]]
+
+
+def step_core_fused(cfg: SVIConfig, gamma, rows, lamb_init=None):
+    """Fused local solve (K1) from packed rows (B, W); warm start from
+    lamb_init (B, K, 2) where given, else cold at the prior.
+    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
+    b, w = rows.shape
+    return _fused_solve(cfg, gamma, w, b, rows.device, lamb_init,
+                        functools.partial(fused_step.fused_local_solve, rows))
+
+
+def step_core_fused_dma(cfg: SVIConfig, gamma, packed, idx0, lamb_init=None):
+    """Fused local solve (K2) on the B/g groups of g = cfg.snp_group rows
+    of packed (L, W) that start at idx0; no gathered copy. Warm start as
+    step_core_fused. Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
+    g = cfg.snp_group
+    return _fused_solve(
+        cfg, gamma, packed.shape[1], idx0.shape[0] * g, packed.device,
+        lamb_init, functools.partial(fused_step.fused_local_solve_dma, idx0,
+                                     packed, group=g))
 
 
 def _prior_lamb(cfg: SVIConfig, b: int, device) -> torch.Tensor:
@@ -170,7 +268,8 @@ def subsample_columns(cfg: SVIConfig, wp: int, gen) -> torch.Tensor | None:
     return torch.randperm(wp, generator=gen, device=gen.device)[:sub_w]
 
 
-def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None):
+def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
+                     lamb_b=None):
     """Local solve + statistics from packed rows (B, W): the big-N
     per-iteration path (the reference's engine.step_core_packed).
 
@@ -184,6 +283,8 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None):
     the whole solve runs K4 at full N.
 
     gen draws the subsample; idx_w (sub_w,) injects it instead (tests).
+    lamb_b (B, K, 2) warm-starts the solve (the stored lambda mode); None
+    starts it at the prior.
     Any B: the kernels need no batch padding. (The reference pads B to a
     multiple of 8 with all-MISSING rows, which only dilutes the tol
     test's two means alike; their ratio moves by ~1/mean|lambda|.)
@@ -199,7 +300,8 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None):
         rows = torch.cat([rows, rows.new_full((b, (-w) % 128), 0xFF)], 1)
     wp = rows.shape[1]
     u = pad_individuals(ops.exp_elog_theta(gamma), wp)
-    lamb_b = _prior_lamb(cfg, b, rows.device)
+    if lamb_b is None:
+        lamb_b = _prior_lamb(cfg, b, rows.device)
     kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b)
     if idx_w is None and gen is not None:
         idx_w = subsample_columns(cfg, wp, gen)
@@ -274,7 +376,7 @@ def step_impl(cfg: SVIConfig, w: int) -> str:
     """The local step a step of width w runs: "fused", "pallas" (big-N)
     or "dense". The reference's order (engine.py:336-346): a shape the
     fused kernel's gate refuses takes the big-N path; group DMA (K2) is a
-    variant of the fused branch only."""
+    variant of the fused branch only (uses_group_dma)."""
     impl = _resolve_kernel(cfg)
     if impl == "fused" and not fused_step.supports(
             cfg.batch_size, w, cfg.k, getattr(torch, cfg.compute_dtype),
@@ -288,35 +390,56 @@ def make_step(cfg: SVIConfig, l_sample: int | None = None):
 
     l_sample: the SNP range to sample over (the padded row count when the
     packed matrix has padding rows; defaults to cfg.l).
+
+    In the stored lambda mode the step scatters the minibatch's new
+    lambda rows into state.lamb in place: it consumes its input state,
+    as the reference's chunk runner donates it (donate_argnums). Clone
+    the state first to run a step twice from it. Duplicate rows in a
+    batch (draws with replacement, a group drawn twice) carry bitwise
+    equal values, so the scatter's write order does not matter.
     """
     _resolve_kernel(cfg)            # an unknown kernel name fails here
     l_s = l_sample or cfg.l
-    if cfg.lambda_mode != "local":
-        raise NotImplementedError(
-            "lambda_mode='stored' is a later slice; the port runs 'local'")
+    local_mode = cfg.lambda_mode == "local"
+    if not local_mode and cfg.lambda_mode != "stored":
+        raise ValueError(f"unknown lambda_mode {cfg.lambda_mode!r}")
 
     def step(state: SVIState, packed) -> SVIState:
-        gamma = state.gamma
-        b, w = cfg.batch_size, packed.shape[1]
-        impl = step_impl(cfg, w)
+        gamma, lamb = state.gamma, state.lamb
+        b = cfg.batch_size
+        dev = packed.device
+        impl = step_impl(cfg, packed.shape[1])
+        gen = step_generator(state.seed, state.t, dev)
         if impl == "fused":
-            g = cfg.snp_group
-            if (g >= 8 and g % 8 == 0 and l_s % g == 0 and b % g == 0
-                    and l_s > 65536):
-                raise NotImplementedError(
-                    "snp_group >= 8 (group DMA, kernel K2) is not ported")
-        gen = step_generator(state.seed, state.t, packed.device)
-        _, rows = _sample_rows(cfg, packed, gen, l_s)
-        if impl == "fused":
-            _, gamma_stat = step_core_fused(cfg, gamma, rows)
-        elif impl == "pallas":
-            sub_gen = step_generator(state.seed, state.t, packed.device,
-                                     SUB_TAG)
-            _, gamma_stat = step_core_packed(cfg, gamma, rows, gen=sub_gen)
+            if uses_group_dma(cfg, l_s):
+                idx0, idx = _draw_groups(cfg, gen, l_s, dev)
+                new_lamb_b, gamma_stat = step_core_fused_dma(
+                    cfg, gamma, packed, idx0,
+                    None if local_mode else lamb[idx.long()])
+            else:
+                idx, rows = _sample_rows(cfg, packed, gen, l_s)
+                new_lamb_b, gamma_stat = step_core_fused(
+                    cfg, gamma, rows, None if local_mode else lamb[idx.long()])
+            if not local_mode:
+                lamb[idx.long()] = new_lamb_b
         else:
-            xb = unpack2bit_torch(rows, cfg.n)
-            _, gamma_stat = step_core_dense(
-                cfg, gamma, xb, _prior_lamb(cfg, b, packed.device))
+            if local_mode:
+                _, rows = _sample_rows(cfg, packed, gen, l_s)
+                lamb_b, scatter = None, None
+            else:
+                _, rows, lamb_b, scatter = _gather_batch(cfg, packed, lamb,
+                                                         gen, l_s)
+            if impl == "pallas":
+                sub_gen = step_generator(state.seed, state.t, dev, SUB_TAG)
+                new_lamb_b, gamma_stat = step_core_packed(
+                    cfg, gamma, rows, gen=sub_gen, lamb_b=lamb_b)
+            else:
+                xb = unpack2bit_torch(rows, cfg.n)
+                new_lamb_b, gamma_stat = step_core_dense(
+                    cfg, gamma, xb,
+                    _prior_lamb(cfg, b, dev) if lamb_b is None else lamb_b)
+            if scatter is not None:
+                scatter(new_lamb_b)
         gamma = _global_update(cfg, gamma, gamma_stat, state.t, l_s)
         return state._replace(gamma=gamma, t=state.t + 1)
 
@@ -325,7 +448,8 @@ def make_step(cfg: SVIConfig, l_sample: int | None = None):
 
 def make_run_chunk(cfg: SVIConfig, nsteps: int, l_sample: int | None = None):
     """Runner of `nsteps` SVI steps. It enqueues device work only: the
-    host never waits on the device inside a chunk."""
+    host never waits on the device inside a chunk. In the stored lambda
+    mode it consumes its input state (make_step)."""
     step = make_step(cfg, l_sample)
 
     def run_chunk(state: SVIState, packed) -> SVIState:
@@ -334,6 +458,14 @@ def make_run_chunk(cfg: SVIConfig, nsteps: int, l_sample: int | None = None):
         return state
 
     return run_chunk
+
+
+def entry_loglik(gamma, lamb, ind_idx, snp_idx, x, form="plugin"):
+    """Mean per-entry predictive log-likelihood of an entry set from the
+    stored lambda (the stored mode's scorer). form: "plugin" or
+    "variational" (models/psd.predictive_loglik). Returns a 0-d tensor."""
+    return psd.predictive_loglik(gamma, lamb, ind_idx, snp_idx, x,
+                                 form=form).mean()
 
 
 def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,

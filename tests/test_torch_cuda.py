@@ -64,6 +64,65 @@ def test_fused_kernel_matches_twin(cuda_device, case, shape):
                                    want[0].cpu().numpy(), **tol)
 
 
+def _groups(dev, l, b, g, seed):
+    """K2's inputs: packed (L, W) and B/g group starts (with a repeat)."""
+    rng = np.random.default_rng(seed)
+    idx0 = rng.integers(0, l // g, b // g) * g
+    idx0[-1] = idx0[0]                          # a group drawn twice
+    return torch.from_numpy(idx0.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+@pytest.mark.parametrize("g", [8, 16])
+def test_group_dma_kernel_matches_twin_and_k1(cuda_device, case, g):
+    """K2 against its twin, and bitwise against K1 on the gathered rows
+    (the same pass code over the same bytes in the same order)."""
+    b, n, k, l = 64, 512, 8, 4096
+    packed, up, lamb = _problem(cuda_device, l, n, k, seed=len(case) + g)
+    idx0 = _groups(cuda_device, l, b, g, seed=g)
+    idx = (idx0.long()[:, None] + torch.arange(g, device=cuda_device)
+           ).reshape(-1)
+    lamb = lamb[idx].contiguous()
+    kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0)
+    before = fused_step.fused_local_solve_dma.launches
+    got = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                           **kw)
+    assert fused_step.fused_local_solve_dma.launches == before + 1
+    want = fused_step.fused_local_solve_dma_twin(idx0, packed, up, lamb,
+                                                 group=g, **kw)
+    tol = dict(rtol=5e-3, atol=5e-3) if kw.get("approx_div") else TOL
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **tol)
+    if not kw.get("accel"):
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), **tol)
+    k1 = fused_step.fused_local_solve(packed[idx], up, lamb, **kw)
+    for a, c in zip(got, k1):
+        assert torch.equal(a, c)
+    assert torch.equal(got[0][:g], got[0][-g:])     # the repeated group
+
+
+@pytest.mark.cuda
+def test_group_dma_kernel_reads_no_row_outside_the_matrix(cuda_device):
+    """A group start out of range reads as an all-MISSING group."""
+    b, n, k, l, g = 32, 512, 3, 1024, 8
+    packed, up, lamb = _problem(cuda_device, l, n, k, seed=3)
+    lamb = lamb[:b].contiguous()
+    idx0 = _groups(cuda_device, l, b, g, seed=4)
+    bad = idx0.clone()
+    bad[1] = l                                   # past the end
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+    got = fused_step.fused_local_solve_dma(bad, packed, up, lamb, group=g,
+                                           **kw)
+    rows = packed[(bad.long().clamp(max=l - g)[:, None]
+                   + torch.arange(g, device=cuda_device)).reshape(-1)]
+    rows[g:2 * g] = 0xFF
+    want = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [100, 640])       # byte and 16-byte copies
 def test_gather_kernel_matches_twin(cuda_device, w):

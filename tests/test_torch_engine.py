@@ -1,7 +1,9 @@
 """The port's engine against the reference's on one state: a step with
 injected minibatch indices, the eval scorer and compute_lambda, the bf16
-statistic rounding, determinism, block sampling, the options that are
-not ported yet and those that now take the big-N step (CPU)."""
+statistic rounding, determinism, block sampling, the option that is not
+ported yet and those that now take the big-N step (CPU). The group-DMA
+step (K2) and the stored lambda mode have their own files,
+test_torch_group_dma.py and test_torch_stored.py."""
 
 import jax
 import jax.numpy as jnp
@@ -220,9 +222,7 @@ def test_block_sampling_engages_at_biobank_l(l, blocks):
 
 
 @pytest.mark.parametrize("change", [
-    dict(lambda_mode="stored"),
     dict(compute_dtype="bfloat16"),
-    dict(snp_group=8, l=65544),             # group DMA, K2
 ])
 def test_unported_options_raise(change):
     cfg = SVIConfig(n=64, l=256, k=2, batch_size=16).replace(**change)

@@ -1,5 +1,7 @@
-"""The port and chip_smoke.py import and run with jax blocked: the machine
-with the card has no JAX."""
+"""The port and chip_smoke.py import and run with jax and the JAX package
+blocked: the machine with the card has no JAX, and the port keeps its own
+copies of what it needs (config, label alignment). `fit` without a device
+runs on the card, and raises where there is none."""
 
 import ast
 import subprocess
@@ -11,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any "import jax" now raises
+sys.modules["terastructure_tpu"] = None      # and any import of the reference
 import numpy as np
 import chip_smoke
 from terastructure_tpu_torch import SVIConfig
@@ -22,8 +25,8 @@ data = GenotypeData.from_dense(x, validation_frac=0.02, heldout_frac=0.02,
 res = fit(SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20, max_steps=40,
                     seed=1), data, device="cpu")
 assert res.steps == 40 and np.isfinite(res.heldout_ll), res
-assert "jax" not in {m.split(".")[0] for m in sys.modules
-                     if sys.modules[m] is not None}
+assert not {"jax", "terastructure_tpu"} & {
+    m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 sys.exit(chip_smoke.main())        # no CUDA card here: must refuse
 """
 
@@ -48,8 +51,24 @@ def test_no_jax_import_statement_in_the_port():
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             for name in names:
-                assert name.split(".")[0] != "jax", (path, name)
-                if name.startswith("terastructure_tpu."):
-                    assert name in ("terastructure_tpu.config",
-                                    "terastructure_tpu.utils.labels"), (
-                        path, name)
+                assert name.split(".")[0] not in ("jax", "terastructure_tpu"), (
+                    path, name)
+
+
+def test_fit_without_device_raises_without_a_card():
+    """No device named means the first CUDA card; here there is none."""
+    import numpy as np
+    import pytest
+    import torch
+
+    from terastructure_tpu_torch import SVIConfig
+    from terastructure_tpu_torch.data import GenotypeData
+    from terastructure_tpu_torch.svi import fit
+
+    assert not torch.cuda.is_available()
+    x = np.random.default_rng(0).integers(0, 3, (64, 16)).astype(np.int8)
+    data = GenotypeData.from_dense(x, validation_frac=0.05,
+                                   heldout_frac=0.05, seed=0)
+    cfg = SVIConfig(n=64, l=16, k=2, batch_size=8, max_steps=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(cfg, data)
