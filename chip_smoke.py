@@ -11,7 +11,12 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    same inputs at main-path shapes, with errors, times, the library
    call's time where one exists, and each kernel's bound (the larger of
    its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s); K2
-   also bitwise against K1 on the gathered rows;
+   also bitwise against K1 on the gathered rows; the lambda pass alone
+   (one launch of the body K1, K2, K4 and K8 share) timed at the shapes
+   the paths run it, beside its bound; K1, K2, K4 and K8 against their
+   twins on ragged B, odd W, K = 3..33, whole rows MISSING and a null
+   group, with a bitwise re-run of each; K3 against `index_select` in
+   turns;
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
    theta MAE < 0.05, heldout within 0.02 of the oracle; 2b. the same in
    the stored lambda mode (K1 warm-started, no K4);
@@ -34,6 +39,13 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card.
+
+    python3 chip_smoke.py --kernels
+
+stops after phase 1 and prints the kernels' line (without launch counts)
+and the card line: the quick check and timing of a changed kernel. It also
+times the lambda pass at other column splits than the one `lambda_grid`
+chooses.
 """
 
 from __future__ import annotations
@@ -143,6 +155,27 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=100):
+    """Mean device time of fn() with the host out of the way: reps calls
+    captured into one CUDA graph (the wrappers' allocations included),
+    replayed once to warm up and once under CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -238,8 +271,9 @@ def _solve_inputs(b, w, k, seed, dev):
     return rows, up, lamb
 
 
-def phase_kernels(dev, rec):
-    """Each kernel against its twin at the main path's shapes."""
+def phase_kernels(dev, rec, sweep=False):
+    """Each kernel against its twin at the main path's shapes. sweep: also
+    time the lambda pass at other column splits than the chosen one."""
     # K1 at the TGP and config #1 step shapes, warm start, approx_div.
     # Without accel every entry holds 2e-4. The accel tail's clamped
     # Aitken step is discontinuous where d0 - d1 changes sign (its size is
@@ -298,11 +332,16 @@ def phase_kernels(dev, rec):
         raise AssertionError("index_select differs from gather_row_blocks")
     r = rec["gather_row_blocks"]
     r["max_abs_err"] = 0.0
-    r["ms"] = time_ms(lambda: gather.gather_row_blocks(src, starts))
     r["plain_ms"] = time_ms(lambda: gather.gather_row_blocks_twin(src, starts))
-    r["library_ms"] = time_ms(library)
-    log(f"  K3 L=1M B=4096 W=640: bitwise equal; kernel {r['ms']:.4f} ms, "
-        f"twin {r['plain_ms']:.4f} ms, index_select {r['library_ms']:.4f} ms")
+    # kernel and library call in turns (A-B-A-B), 200 launches each
+    turns = [time_ms(fn, 200) for fn in
+             (lambda: gather.gather_row_blocks(src, starts), library) * 2]
+    r["ms"] = (turns[0] + turns[2]) / 2
+    r["library_ms"] = (turns[1] + turns[3]) / 2
+    r["turns_ms"] = turns
+    log(f"  K3 L=1M B=4096 W=640: bitwise equal; twin {r['plain_ms']:.4f} ms; "
+        f"kernel, index_select in turns: "
+        + ", ".join(f"{t:.4f}" for t in turns) + " ms")
     set_bound(r, 0, nbytes(starts, got, got))
     del src
 
@@ -325,8 +364,132 @@ def phase_kernels(dev, rec):
     log(f"  K4: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
     set_bound(r, present(rows) * lambda_pass_flops(k),
               nbytes(rows, up, t1, t0, t1, t0))
+    phase_lambda_pass(dev, rec, sweep)
     phase_kernels_bign(dev, rec)
     phase_kernels_dma(dev, rec)
+    phase_kernels_tiling(dev, rec)
+
+
+# B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
+# at config #3 and K4 in eval and export; K1 at config #1.
+PASS_SHAPES = [(4096, 640, 8), (1024, 640, 8), (256, 256, 3)]
+
+
+def phase_lambda_pass(dev, rec, sweep=False):
+    """The lambda pass alone, through K4's entry (one launch of the pass
+    body plus the split reduction), at the shapes the paths run it, with
+    the exact and the fast divide, beside its bound. The wrapper's host
+    work (~0.05 ms) exceeds the pass at these sizes, so the device time is
+    taken from a CUDA graph of 100 calls; the eager time stands beside it."""
+    r = rec["lambda_stats_packed"]
+    r["passes"] = []
+    for b, w, k in PASS_SHAPES:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        e = dict(shape=f"B={b} W={w} K={k}")
+        for key, approx in (("ms", False), ("approx_ms", True)):
+            e[key] = device_ms(lambda: stats_packed.lambda_stats_packed(
+                rows, up, t1, t0, approx_div=approx))
+        e["eager_ms"] = time_ms(lambda: stats_packed.lambda_stats_packed(
+            rows, up, t1, t0), 100)
+        log(f"  lambda pass {e['shape']}: {e['ms']:.4f} ms, fast divide "
+            f"{e['approx_ms']:.4f} ms (device time, launches replayed from "
+            f"a CUDA graph); launched eagerly {e['eager_ms']:.4f} ms")
+        set_bound(e, present(rows) * lambda_pass_flops(k),
+                  nbytes(rows, up, t1, t0, t1, t0))
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        log(f"  share of the bound {e['share_of_bound']:.4f}")
+        r["passes"].append(e)
+        if sweep:
+            # the same pass at other column splits (chunks of 16..256 byte
+            # columns), beside the split `lambda_grid` chose
+            chosen = stats_packed.lambda_grid(b, w)[0]
+            e["split_sweep_ms"] = {}
+            for chunk in (16, 32, 48, 64, 96, 128, 256):
+                nsplit = -(-w // chunk)
+                if nsplit in e["split_sweep_ms"]:
+                    continue
+                e["split_sweep_ms"][nsplit] = device_ms(
+                    lambda: stats_packed.launch_lambda_stats_packed(
+                        rows, up, t1, t0, nsplit, False))
+            log(f"  column splits (chosen {chosen}): " + ", ".join(
+                f"{n}: {t:.4f}" for n, t in e["split_sweep_ms"].items())
+                + " ms")
+
+
+def phase_kernels_tiling(dev, rec):
+    """What the lambda pass's tiling can break: ragged row blocks, byte
+    widths that no chunk divides, K across the instantiated widths, whole
+    rows MISSING, a null group (K2), the exact and the fast divide. K1,
+    K4 and K8 against their twins, K2 bitwise against K1 on the gathered
+    rows, and every kernel bitwise against its own second run."""
+    def twice(label, fn):
+        got = fn()
+        if not all(torch.equal(a, c) for a, c in zip(got, fn())):
+            raise AssertionError(f"{label}: a second run is not bitwise equal")
+        return got
+
+    def hold(name, label, got, want, tol, frac=0.0):
+        err = compare(label, got, want, tol, frac)
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    plain = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+    for b, w, k in ((33, 235, 3), (1000, 626, 7), (33, 626, 10),
+                    (1000, 235, 16), (72, 640, 33)):
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        rows[5] = 0xFF                      # whole rows MISSING
+        rows[-1] = 0xFF
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        shape = f"B={b} W={w} K={k}"
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            got = twice(f"K4 {shape}",
+                        lambda: stats_packed.lambda_stats_packed(
+                            rows, up, t1, t0, approx_div=approx))
+            hold("lambda_stats_packed", f"K4 {shape} approx={approx}", got,
+                 stats_packed.lambda_stats_packed_twin(
+                     rows, up, t1, t0, approx_div=approx), tol)
+            got = twice(f"K8 {shape}",
+                        lambda: stats_packed.lambda_stats_acat(
+                            a1, a0, up, t1, t0, approx_div=approx))
+            hold("lambda_stats_acat", f"K8 {shape} approx={approx}", got,
+                 stats_packed.lambda_stats_acat_twin(
+                     a1, a0, up, t1, t0, approx_div=approx), tol)
+            kw = dict(plain, approx_div=approx)
+            got = twice(f"K1 {shape}", lambda: fused_step.fused_local_solve(
+                rows, up, lamb, **kw))
+            hold("fused_local_solve", f"K1 {shape} approx={approx}", got,
+                 fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
+
+    # K2 where its gate admits the shape (W % 128 = 0, B % 8 = 0)
+    g, l = 8, 4096
+    for b, w, k in ((1000, 640, 8), (40, 256, 3), (72, 128, 10),
+                    (136, 384, 16), (1000, 640, 33)):
+        packed, up, lamb = _solve_inputs(l, w, k, b + w + k, dev)
+        lamb = lamb[:b].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(b)
+        idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                             dtype=torch.int32) * g
+        packed[int(idx0[0]) + 3] = 0xFF     # a whole row MISSING
+        idx0[1] = l                         # a null group: reads as MISSING
+        idx = (idx0.long().clamp(max=l - g)[:, None]
+               + torch.arange(g, device=dev)).reshape(b)
+        rows = packed[idx]
+        rows[g:2 * g] = 0xFF
+        shape = f"B={b} W={w} K={k} g={g}"
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            kw = dict(plain, approx_div=approx, warm_start=True)
+            got = twice(f"K2 {shape}",
+                        lambda: fused_step.fused_local_solve_dma(
+                            idx0, packed, up, lamb, group=g, **kw))
+            k1 = fused_step.fused_local_solve(rows, up, lamb, **kw)
+            if not all(torch.equal(a, c) for a, c in zip(got, k1)):
+                raise AssertionError(f"K2 {shape}: differs from K1 on the "
+                                     "gathered rows")
+            hold("fused_local_solve_dma", f"K2 {shape} approx={approx}", got,
+                 fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
+    log("  tiling cases: every second run bitwise equal; K2 bitwise equal "
+        "to K1 on the gathered rows")
 
 
 def phase_kernels_dma(dev, rec):
@@ -672,7 +835,10 @@ def phase_config3(dev, rec, data, theta):
             "cloned state: gamma and lambda bitwise equal")
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    if list(argv) not in ([], ["--kernels"]):
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -692,7 +858,13 @@ def main() -> int:
     rec = {name: {} for name in KERNELS}
 
     log("phase 1: kernels vs twins")
-    phase_kernels(dev, rec)
+    phase_kernels(dev, rec, sweep=bool(argv))
+    if argv:
+        log(f"phases 0 and 1 in {time.time() - t0:.1f} s")
+        print(json.dumps({"kernels": [dict(name=name, **rec[name])
+                                      for name in KERNELS]}))
+        print(card)
+        return 0
     log("phase 2: canonical drive, config #1")
     phase_canonical(dev, rec)
     log("phase 2b: config #1, stored lambda mode")
@@ -717,4 +889,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

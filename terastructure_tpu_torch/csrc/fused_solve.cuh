@@ -8,8 +8,9 @@
 // (pallas_call at :459; body `_make_kernel.body_common` :223-365). On the
 // TPU one program holds the minibatch in VMEM and loops in place. Here
 // the rows are independent inside the solve, so each pass is one launch
-// of `tt::lambda_pass_kernel` (psd_common.cuh) over CTAs of 32 rows, and
-// only two things couple CTAs, both reduced in a fixed order:
+// of `tt::lambda_pass_kernel` (psd_common.cuh; a lane per row, a warp per
+// 32 rows and a chunk of columns), and only two things couple CTAs, both
+// reduced in a fixed order:
 //   - the batch-wide relative change that ends the tol-gated loop:
 //     `update_kernel` writes per-CTA sums of |new - lam| and |lam|,
 //     `delta_kernel` adds them in order and clears a device-side `active`
@@ -30,9 +31,18 @@
 //
 // Bound on the H100: at the TGP shape (B=4096, W=640, K=8) each pass is
 // ~0.34 G FMA and ~21 M divides over 2.6 MB of rows that stay in L2, so
-// the solve is issue-bound on FP32 FMAs and divides, not on bytes. The
-// design keeps t and the statistics in registers and u reads as
-// broadcasts; tensor cores are a later PR.
+// the solve is bound by the FP32 rate, not by bytes; what it loses beyond
+// that is latency and launches. The lambda pass (its design note is in
+// psd_common.cuh) keeps t and the sums in registers, reads u from shared
+// memory and overlaps neighbouring entries; `lambda_grid`
+// (ops/stats_packed.py) splits the columns so that the card is full at
+// B=1024 too. The partial sums of the column splits (nsplit_w of them, 40
+// at B=1024) are added in split order by `update_kernel`. The loop and
+// tail passes use the hardware reciprocal, bare with approx_div
+// (tt::kDivFast) and with one Newton step without it (tt::kDivNewton,
+// within 1 ulp); the final pass and the gamma pass always give the bits
+// of the IEEE divide (tt::kDivExact). The f32 path stays outside the
+// tensor cores; bf16 is its own slice.
 
 #pragma once
 
@@ -176,19 +186,15 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   const int loop_iters = acc ? local_iters - 2 : local_iters;
   const int bk = B * K;
   const int nupd = (bk + kUpd - 1) / kUpd;
-  const dim3 pgrid((B + tt::kRowsPerCta - 1) / tt::kRowsPerCta, nsplit_w);
-  const int wchunk = tt::split_chunk(W, nsplit_w);
-  using Loader = tt::PackedLoader<Rows>;
+  const tt::PackedLoader<Rows> loader{src};
 
-  auto pass = [&](int approx, const int* gate) -> int {
-#define TT_LAUNCH(KM)                                                        \
-  tt::lambda_pass_kernel<KM, Loader><<<pgrid, tt::kThreads, 0, stream>>>(    \
-      Loader{src}, up, t, t + 1, 2 * K, 2, part, B, W, K, wchunk, approx,    \
-      gate)
-    TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-    TT_CHECK_LAUNCH();
-    return 0;
+  // the loop and tail passes' divide; the final pass divides exactly
+  const int loop_div = approx_div ? tt::kDivFast : tt::kDivNewton;
+
+  auto pass = [&](int div, const int* gate) -> int {
+    return tt::launch_lambda_pass<tt::PackedLoader<Rows>, true>(
+        loader, up, t, t + 1, 2 * K, 2, part, B, W, K, nsplit_w, div, gate,
+        stream);
   };
   auto update = [&](int mode) -> int {
     update_kernel<<<nupd, kUpd, 0, stream>>>(mode, part, nsplit_w, bk, beta_a,
@@ -203,18 +209,18 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
                                          lam, t, active, bk);
   TT_CHECK_LAUNCH();
   for (int it = 0; it < loop_iters; ++it) {
-    if ((err = pass(approx_div, active))) return err;
+    if ((err = pass(loop_div, active))) return err;
     if ((err = update(kLoop))) return err;
     delta_kernel<<<1, kUpd, 0, stream>>>(dpart, nupd, bk, local_tol, active);
     TT_CHECK_LAUNCH();
   }
   if (acc) {
-    if ((err = pass(approx_div, nullptr))) return err;
+    if ((err = pass(loop_div, nullptr))) return err;
     if ((err = update(kMid))) return err;
-    if ((err = pass(approx_div, nullptr))) return err;
+    if ((err = pass(loop_div, nullptr))) return err;
     if ((err = update(kAitken))) return err;
   }
-  if ((err = pass(0, nullptr))) return err;
+  if ((err = pass(tt::kDivExact, nullptr))) return err;
   if ((err = update(kFinal))) return err;
 
 #define TT_LAUNCH(KM)                                                       \

@@ -2,7 +2,7 @@
 // (stats_packed.cu), K5 (stats_gamma.cu), K7/K6 (stats_fused.cu) and K8
 // (stats_acat.cu).
 //
-// `lambda_pass_kernel<KM, Loader>` is one raw lambda-statistic pass:
+// `lambda_pass_kernel<KM, Loader, kDiv>` is one raw lambda-statistic pass:
 //
 //   for every row b and individual n (byte w = n / 4, plane s = n % 4):
 //     a1, a0 = the allele counts of (b, n)  (MISSING counts 0 for both)
@@ -19,25 +19,47 @@
 // (L, W) matrix at the group starts idx0. A CTA looks its rows' starts up
 // once, into a table in shared memory, so the pass code is one.
 //
-// Layout: one lane per row (32 rows per CTA), so t and the two K-vectors
-// of sums sit in the lane's registers for the whole pass and every u[n,:]
-// read is a broadcast (all lanes read the same address). The CTA stages
-// its 32 rows in shared memory a tile of columns at a time, with an odd
-// word stride so the 32 lanes' word reads hit 32 different banks; its 8
-// warps take interleaved units of the tile. The column range of a row is
-// split over gridDim.y CTAs to fill the card at small B; each CTA writes
-// its partial sums and `split_reduce_kernel` adds them in split order.
-// The 8 warps' sums are added in warp order. No atomics: the result is
-// bitwise reproducible.
+// It replaces the one-pass bodies of the TPU kernels
+// terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass` (:252-308)
+// and ops/stats_pallas.py `_lambda_kernel` (:96-112), which run the two
+// products on the MXU over VMEM tiles. The f32 path here stays outside the
+// tensor cores (TF32 would change its numbers), and wgmma and TMA do not
+// apply to an f32 FMA pass whose products are K = 3..10 deep.
+//
+// What bounds it on the H100: 4K FMAs and two divides an entry against
+// two bits of input, so the FP32 rate, never bytes. What keeps a plain
+// version far below that is latency: a u row read from global memory is
+// an L2 round trip an entry (nothing is reused inside a CTA), an entry is
+// two dependent FMA chains and a divide, a branch around each entry keeps
+// the compiler from overlapping them, an IEEE divide takes its slow path
+// for a zero count, and at B = 1024 a coarse grid leaves most SMs one CTA.
+//
+// Layout: one lane per row and one warp per 32 rows, for a whole
+// chunk of byte columns, so t and the two K-vectors of sums sit in the
+// lane's registers for the pass and no sum crosses a warp. A CTA is
+// kRowWarps such warps on neighbouring rows. Per tile of columns it
+// stages, once for all its rows, the rows' packed words (word-wide loads,
+// odd word stride: the lanes' reads hit 32 banks) and the tile's u rows
+// padded to KM floats (so a lane reads u[n,:] as float4 broadcasts from
+// shared memory and the inner loops carry no `k < K` test). Entries are
+// decoded without a branch (MISSING counts 0 for both alleles, which adds
+// exactly 0) and taken `G` at a time, so the D chains and the divides of
+// neighbouring entries overlap. The column range of a row is split over
+// gridDim.y CTAs (`lambda_grid` in ops/stats_packed.py: chunks of 16 to
+// 128 byte columns, about 16 warps an SM where the batch allows); each
+// CTA writes its partial sums and `split_reduce_kernel` or the solve's
+// `update_kernel` adds them in split order. No atomics: a lane adds its
+// entries in column order, so the result is bitwise reproducible.
 //
 // `gamma_pass_kernel<KM, Rows>` is the planar gamma statistic
 // g[s*W+w, k] = sum_b r1[b,n] t1[b,k] + r0[b,n] t0[b,k] over a slice of
 // rows (K1's last pass and K5); `gamma_reduce_kernel` adds the slices in
 // order.
 //
-// Bound on the H100: per individual and row, 4K FMAs, two divides and K
-// shared/L1 broadcast loads; a pass is bound by issue (FMA + divide), not
-// by bytes (PERF.md). Tensor cores (wgmma) are the later step.
+// The divides (`ratio`, `Div`): an exact pass gives the bits of the IEEE
+// divide as count x IEEE reciprocal; the others use the hardware
+// reciprocal, bare (approx_div) or with one Newton step (the fused
+// solve's loop passes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,9 +74,9 @@
 namespace tt {
 
 constexpr float kEps = 1e-30f;
-constexpr int kRowsPerCta = 32;                 // one row per lane
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kRowWarps = 2;                    // warps of a lambda-pass CTA
+constexpr int kThreads = 32 * kRowWarps;
+constexpr int kRowsPerCta = kThreads;           // one row per lane
 
 // Digamma for x > 0: the reference kernel's (fused_step.py:43-66) six
 // conditional recurrence shifts to x >= 6, then the asymptotic series.
@@ -82,8 +104,33 @@ __device__ __forceinline__ void exp_elog_beta(float l0, float l1, float& t1,
   t0 = expf(digamma(l1) - tot);
 }
 
+// a / (d + 1e-30) for an allele count a, three ways:
+//   kDivExact   a * RN(1 / x). The counts are 0, 1 or 2, so this is the
+//               correctly rounded quotient itself (scaling by a power of
+//               two is exact): the bits of the true divide without the
+//               divide's slow path, which a zero numerator takes.
+//   kDivFast    the hardware reciprocal (__fdividef, ~2 ulp): approx_div.
+//   kDivNewton  the hardware reciprocal and one Newton step, within 1 ulp
+//               of RN(1 / x): the IEEE reciprocal's own instructions
+//               without its range test and branch, which x = d + 1e-30 in
+//               [1e-30, ~K] never needs. The loop and tail passes of the
+//               fused solve use it when approx_div is off.
+// The final pass of a solve, the gamma pass and every exact call of K4,
+// K7 and K8 use kDivExact.
+enum Div { kDivExact = 0, kDivFast = 1, kDivNewton = 2 };
+
+template <int kDiv>
+__device__ __forceinline__ float ratio(float a, float d) {
+  const float x = d + kEps;
+  if (kDiv == kDivFast) return __fdividef(a, x);
+  if (kDiv == kDivExact) return a * __frcp_rn(x);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return a * fmaf(r, fmaf(-x, r, 1.f), r);
+}
+
 __device__ __forceinline__ float ratio(float a, float d, int approx) {
-  return approx ? __fdividef(a, d + kEps) : a / (d + kEps);
+  return approx ? ratio<kDivFast>(a, d) : ratio<kDivExact>(a, d);
 }
 
 // Batch row b of a gathered (B, W) matrix starts at rows + b*W.
@@ -110,16 +157,32 @@ struct GroupedRows {
   }
 };
 
-// 2-bit packed rows, located by `Rows`. A tile is 512 byte columns; a
-// unit is one 32-bit word (4 columns x 4 planes), skipped whole when all
-// MISSING. `prepare` fills the CTA's row table (rowp, in shared memory)
-// once; `stage` reads the rows through it (a null row reads as MISSING).
+// A Loader stages a tile of the CTA's rows in shared memory and hands a
+// lane its row's entries a unit at a time:
+//   cols(km)          byte columns of a tile (sized so that the tile and
+//                     the tile's u rows fit the 48 KB of static shared memory)
+//   words(tc)         shared-memory words of a tile of tc columns
+//   kEntries          entries of a unit, kWords its staged words
+//   units(nb)         units of a tile of nb columns
+//   load<TC>(...)     the unit's words; false when nothing in it is present
+//   entry<TC>(...)    entry e of the unit: its u row in the tile
+//                     (plane * TC + column) and its two counts
+//
+// 2-bit packed rows, located by `Rows`. A unit is one 32-bit word (4
+// columns x 4 planes), skipped whole when all MISSING. `prepare` fills the
+// CTA's row table (rowp, in shared memory) once; `stage` reads the rows
+// through it, a word at a time where the row is word-aligned (a null row
+// reads as MISSING).
 template <class Rows>
 struct PackedLoader {
-  static constexpr int kCols = 512;
-  static constexpr int kColsPerUnit = 4;
-  static constexpr int kStride = kCols / 4 + 1;          // words, odd
-  static constexpr int kSmemWords = kRowsPerCta * kStride;
+  static constexpr int kEntries = 16;
+  static constexpr int kWords = 1;
+  __host__ __device__ static constexpr int cols(int km) {
+    return km <= 32 ? 64 : 32;
+  }
+  __host__ __device__ static constexpr int words(int tc) {
+    return kRowsPerCta * (tc / 4 + 1);
+  }
   Rows src;
 
   __device__ void prepare(const uint8_t** rowp, int b0, int B, int W) const {
@@ -127,97 +190,153 @@ struct PackedLoader {
     if (r < kRowsPerCta) rowp[r] = b0 + r < B ? src.row(b0 + r, W) : nullptr;
   }
 
+  template <int TC>
   __device__ void stage(uint32_t* tile, const uint8_t* const* rowp, int b0,
                         int B, int W, int w0, int nb) const {
-    uint8_t* tb = reinterpret_cast<uint8_t*>(tile);
-    for (int i = threadIdx.x; i < kRowsPerCta * kCols; i += kThreads) {
-      const int r = i / kCols, c = i % kCols;
+    constexpr int kStride = TC / 4 + 1;                  // words, odd
+    const int nw = (nb + 3) >> 2;
+    for (int i = threadIdx.x; i < kRowsPerCta * nw; i += kThreads) {
+      const int r = i / nw, wd = i - r * nw;
       const uint8_t* p = rowp[r];
-      uint8_t v = 0xFF;  // outside the matrix: MISSING
-      if (p != nullptr && c < nb) v = p[w0 + c];
-      tb[r * kStride * 4 + c] = v;
+      uint32_t v = 0xFFFFFFFFu;  // outside the matrix: MISSING
+      if (p != nullptr) {
+        const uint8_t* q = p + w0 + 4 * wd;
+        if (4 * wd + 4 <= nb && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+          v = __ldg(reinterpret_cast<const uint32_t*>(q));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (4 * wd + j < nb) {
+              v &= ~(0xFFu << (8 * j));
+              v |= (uint32_t)__ldg(q + j) << (8 * j);
+            }
+          }
+        }
+      }
+      tile[r * kStride + wd] = v;
     }
   }
 
-  // f(col, s, a1, a0) for each present entry of `unit` in lane's row.
-  template <class F>
-  __device__ __forceinline__ void visit(const uint32_t* tile, int lane,
-                                        int unit, F&& f) const {
-    const uint32_t word = tile[lane * kStride + unit];
-    if (word == 0xFFFFFFFFu) return;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const uint32_t code = (word >> (8 * c + 2 * s)) & 3u;
-        if (code == 3u) continue;
-        const float a1 = (float)code;
-        f(unit * 4 + c, s, a1, 2.f - a1);
-      }
-    }
+  __device__ static int units(int nb) { return (nb + 3) >> 2; }
+
+  template <int TC>
+  __device__ __forceinline__ static bool load(const uint32_t* tile, int r,
+                                              int unit,
+                                              uint32_t (&w)[kWords]) {
+    w[0] = tile[r * (TC / 4 + 1) + unit];
+    return w[0] != 0xFFFFFFFFu;
+  }
+
+  template <int TC>
+  __device__ __forceinline__ static void entry(const uint32_t (&w)[kWords],
+                                               int unit, int e, int& urow,
+                                               float& a1, float& a0) {
+    const int c = e >> 2, s = e & 3;
+    const uint32_t code = (w[0] >> (8 * c + 2 * s)) & 3u;
+    const bool missing = code == 3u;
+    const float x = (float)code;
+    urow = s * TC + 4 * unit + c;
+    a1 = missing ? 0.f : x;
+    a0 = missing ? 0.f : 2.f - x;
   }
 };
 
 // Pre-decoded count planes a1, a0 (B, 4, W) bf16 (raw bits as uint16).
-// A tile is 32 columns x 4 planes; each staged word holds the pair
-// (a1 bits, a0 bits), 0 where both counts are 0 (nothing to add). A unit
-// is one column.
+// Each staged word holds the pair (a1 bits, a0 bits), 0 where both counts
+// are 0 (nothing to add). A unit is one column (4 planes). `stage` reads
+// 8 columns of a plane at a time where the planes are 16-byte aligned.
 struct AcatLoader {
-  static constexpr int kCols = 32;
-  static constexpr int kColsPerUnit = 1;
-  static constexpr int kStride = 4 * kCols + 1;          // words, odd
-  static constexpr int kSmemWords = kRowsPerCta * kStride;
+  static constexpr int kEntries = 4;
+  static constexpr int kWords = 4;
+  __host__ __device__ static constexpr int cols(int) { return 16; }
+  __host__ __device__ static constexpr int words(int tc) {
+    return kRowsPerCta * (4 * tc + 1);
+  }
   const uint16_t* a1;
   const uint16_t* a0;
 
   __device__ void prepare(const uint8_t**, int, int, int) const {}
 
+  template <int TC>
   __device__ void stage(uint32_t* tile, const uint8_t* const*, int b0, int B,
                         int W, int w0, int nb) const {
-    for (int i = threadIdx.x; i < kRowsPerCta * 4 * kCols; i += kThreads) {
-      const int r = i / (4 * kCols), rem = i % (4 * kCols);
-      const int s = rem / kCols, c = rem % kCols;
-      uint32_t v = 0;
-      if (b0 + r < B && c < nb) {
-        const long long off = ((long long)(b0 + r) * 4 + s) * W + w0 + c;
-        v = (uint32_t)a1[off] | ((uint32_t)a0[off] << 16);
+    constexpr int kStride = 4 * TC + 1;                  // words, odd
+    constexpr int kOct = TC / 8;
+    for (int i = threadIdx.x; i < kRowsPerCta * 4 * kOct; i += kThreads) {
+      const int r = i / (4 * kOct), s = (i / kOct) % 4, c = (i % kOct) * 8;
+      if (c >= nb) continue;                             // never visited
+      uint32_t* dst = tile + r * kStride + s * TC + c;
+      const long long off = ((long long)(b0 + r) * 4 + s) * W + w0 + c;
+      uint32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (b0 + r < B) {
+        if (c + 8 <= nb &&
+            ((reinterpret_cast<uintptr_t>(a1 + off) |
+              reinterpret_cast<uintptr_t>(a0 + off)) & 15) == 0) {
+          const uint4 x = __ldg(reinterpret_cast<const uint4*>(a1 + off));
+          const uint4 y = __ldg(reinterpret_cast<const uint4*>(a0 + off));
+          const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+          const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[2 * j] = (xs[j] & 0xFFFFu) | (ys[j] << 16);
+            v[2 * j + 1] = (xs[j] >> 16) | (ys[j] & 0xFFFF0000u);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (c + j < nb)
+              v[j] = (uint32_t)a1[off + j] | ((uint32_t)a0[off + j] << 16);
+          }
+        }
       }
-      tile[r * kStride + s * kCols + c] = v;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[j] = v[j];
     }
   }
 
-  template <class F>
-  __device__ __forceinline__ void visit(const uint32_t* tile, int lane,
-                                        int unit, F&& f) const {
+  __device__ static int units(int nb) { return nb; }
+
+  template <int TC>
+  __device__ __forceinline__ static bool load(const uint32_t* tile, int r,
+                                              int unit,
+                                              uint32_t (&w)[kWords]) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const uint32_t v = tile[lane * kStride + s * kCols + unit];
-      if (v == 0u) continue;
-      f(unit, s, __uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
-    }
+    for (int s = 0; s < 4; ++s) w[s] = tile[r * (4 * TC + 1) + s * TC + unit];
+    return (w[0] | w[1] | w[2] | w[3]) != 0u;
+  }
+
+  template <int TC>
+  __device__ __forceinline__ static void entry(const uint32_t (&w)[kWords],
+                                               int unit, int e, int& urow,
+                                               float& a1, float& a0) {
+    urow = e * TC + unit;
+    a1 = __uint_as_float(w[e] << 16);
+    a0 = __uint_as_float(w[e] & 0xFFFF0000u);
   }
 };
 
-// One raw lambda pass. grid (ceil(B/32), nsplit), block kThreads.
+// One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit), block kThreads.
 // t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0] = S1 (the
 // lambda0 statistic), [...,1] = S0. `active` (may be null): skip the pass
-// when *active == 0. approx: fast divide (__fdividef).
-template <int KM, class Loader>
+// when *active == 0. kDiv: how `ratio` divides.
+template <int KM, class Loader, int kDiv>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_kernel(Loader ld, const float* __restrict__ up,
                    const float* __restrict__ t1g,
                    const float* __restrict__ t0g, int ts, int tk,
                    float* __restrict__ part, int B, int W, int K, int wchunk,
-                   int approx, const int* __restrict__ active) {
+                   const int* __restrict__ active) {
   if (active != nullptr && *active == 0) return;
-  __shared__ uint32_t tile[Loader::kSmemWords];
-  __shared__ float red[kRowsPerCta * KM * 2];
-  __shared__ const uint8_t* rowp[kRowsPerCta];  // PackedLoader's row table
+  constexpr int TC = Loader::cols(KM);
+  // entries a lane works on at once: their u rows sit in registers
+  constexpr int G = KM <= 8 ? 4 : KM <= 16 ? 2 : 1;
+  __shared__ uint32_t tile[Loader::words(TC)];
+  __shared__ __align__(16) float us[4 * TC * KM];  // u rows, padded to KM
+  __shared__ const uint8_t* rowp[kRowsPerCta];     // PackedLoader's row table
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int r = threadIdx.x;                       // the lane's row in the CTA
   const int b0 = blockIdx.x * kRowsPerCta;
-  const int b = b0 + lane;
+  const int b = b0 + r;
   const bool row_ok = b < B;
   const int wbeg = blockIdx.y * wchunk;
   const int wend = min(W, wbeg + wchunk);
@@ -233,55 +352,74 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
     s0[k] = 0.f;
   }
 
-  for (int w0 = wbeg; w0 < wend; w0 += Loader::kCols) {
-    const int nb = min(Loader::kCols, wend - w0);
+  for (int w0 = wbeg; w0 < wend; w0 += TC) {
+    const int nb = min(TC, wend - w0);
     __syncthreads();  // the previous tile is consumed
-    ld.stage(tile, rowp, b0, B, W, w0, nb);
-    __syncthreads();
-    const int nunits = (nb + Loader::kColsPerUnit - 1) / Loader::kColsPerUnit;
-    for (int unit = warp; unit < nunits; unit += kWarps) {
-      ld.visit(tile, lane, unit, [&](int col, int s, float a1, float a0) {
-        const float* u = up + ((long long)s * W + w0 + col) * K;
-        float uk[KM];
-        float d1 = 0.f, d0 = 0.f;
+    ld.template stage<TC>(tile, rowp, b0, B, W, w0, nb);
+    // u rows of the tile's columns, zero beyond K and beyond nb (a packed
+    // word reaches up to 3 columns past nb; they read as MISSING)
+    const int nc = min(TC, (nb + 3) & ~3);
 #pragma unroll
-        for (int k = 0; k < KM; ++k) {
-          uk[k] = k < K ? __ldg(u + k) : 0.f;
-          d1 = fmaf(t1[k], uk[k], d1);
-          d0 = fmaf(t0[k], uk[k], d0);
-        }
-        const float r1 = ratio(a1, d1, approx);
-        const float r0 = ratio(a0, d0, approx);
-#pragma unroll
-        for (int k = 0; k < KM; ++k) {
-          s1[k] = fmaf(r1, uk[k], s1[k]);
-          s0[k] = fmaf(r0, uk[k], s0[k]);
-        }
-      });
+    for (int s = 0; s < 4; ++s) {
+      const float* ug = up + ((long long)s * W + w0) * K;
+      for (int i = threadIdx.x; i < nc * KM; i += kThreads) {
+        const int c = i / KM, k = i % KM;
+        us[(s * TC + c) * KM + k] =
+            c < nb && k < K ? __ldg(ug + c * K + k) : 0.f;
+      }
     }
-  }
-
-  // Add the warps' sums in warp order (deterministic).
-  for (int j = 0; j < kWarps; ++j) {
     __syncthreads();
-    if (warp == j) {
+    const int nunits = Loader::units(nb);
+    for (int unit = 0; unit < nunits; ++unit) {
+      uint32_t w[Loader::kWords];
+      if (!Loader::template load<TC>(tile, r, unit, w)) continue;
 #pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        float* r = red + (lane * KM + k) * 2;
-        r[0] = j ? r[0] + s1[k] : s1[k];
-        r[1] = j ? r[1] + s0[k] : s0[k];
+      for (int e0 = 0; e0 < Loader::kEntries; e0 += G) {
+        float a1[G], a0[G], d1[G], d0[G], uk[G][KM];
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          int urow;
+          Loader::template entry<TC>(w, unit, e0 + i, urow, a1[i], a0[i]);
+          const float4* q = reinterpret_cast<const float4*>(us + urow * KM);
+#pragma unroll
+          for (int k4 = 0; k4 < KM / 4; ++k4) {
+            const float4 v = q[k4];
+            uk[i][4 * k4] = v.x;
+            uk[i][4 * k4 + 1] = v.y;
+            uk[i][4 * k4 + 2] = v.z;
+            uk[i][4 * k4 + 3] = v.w;
+          }
+          d1[i] = 0.f;
+          d0[i] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            d1[i] = fmaf(t1[k], uk[i][k], d1[i]);
+            d0[i] = fmaf(t0[k], uk[i][k], d0[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const float r1 = ratio<kDiv>(a1[i], d1[i]);
+          const float r0 = ratio<kDiv>(a0[i], d0[i]);
+#pragma unroll
+          for (int k = 0; k < KM; ++k) {
+            s1[k] = fmaf(r1, uk[i][k], s1[k]);
+            s0[k] = fmaf(r0, uk[i][k], s0[k]);
+          }
+        }
       }
     }
   }
-  __syncthreads();
-  float* out = part + (long long)blockIdx.y * B * K * 2;
-  for (int i = threadIdx.x; i < kRowsPerCta * K * 2; i += kThreads) {
-    const int r = i / (2 * K), rem = i % (2 * K);
-    if (b0 + r < B) {
-      out[(long long)(b0 + r) * K * 2 + rem] =
-          red[(r * KM + rem / 2) * 2 + rem % 2];
-    }
-  }
+
+  if (!row_ok) return;
+  float2* out = reinterpret_cast<float2*>(
+      part + ((long long)blockIdx.y * B + b) * K * 2);
+#pragma unroll
+  for (int k = 0; k < KM; ++k)
+    if (k < K) out[k] = make_float2(s1[k], s0[k]);
 }
 
 constexpr int kGThreads = 128;  // individuals per gamma CTA
@@ -339,8 +477,8 @@ gamma_pass_kernel(Rows src, const float* __restrict__ up,
         d1 = fmaf(tr[2 * k], uk[k], d1);
         d0 = fmaf(tr[2 * k + 1], uk[k], d0);
       }
-      const float r1 = a1 / (d1 + kEps);
-      const float r0 = a0 / (d0 + kEps);
+      const float r1 = ratio<kDivExact>(a1, d1);
+      const float r0 = ratio<kDivExact>(a0, d0);
 #pragma unroll
       for (int k = 0; k < KM; ++k) {
         g[k] = fmaf(r1, tr[2 * k], g[k]);
@@ -429,3 +567,40 @@ inline int pick_km(int K) {
     case 64: F(64); break;           \
     default: return (int)cudaErrorInvalidValue; \
   }
+
+namespace tt {
+
+// Launch one lambda pass over `nsplit` column splits; part (nsplit, B, K,
+// 2) takes the partial sums. `div` is a `Div` (kDivNewton only where
+// kNewton is set: only the fused solve builds it); `active` as in
+// `lambda_pass_kernel`.
+template <class Loader, bool kNewton = false>
+int launch_lambda_pass(Loader ld, const float* up, const float* t1,
+                       const float* t0, int ts, int tk, float* part, int B,
+                       int W, int K, int nsplit, int div, const int* active,
+                       cudaStream_t stream) {
+  const int km = pick_km(K);
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km == 0 ||
+      (div == kDivNewton && !kNewton))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
+  const int wchunk = split_chunk(W, nsplit);
+#define TT_PASS(KM, DIV)                                                  \
+  lambda_pass_kernel<KM, Loader, DIV><<<grid, kThreads, 0, stream>>>(     \
+      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
+#define TT_LAUNCH(KM)                                 \
+  if (div == kDivFast) {                              \
+    TT_PASS(KM, kDivFast);                            \
+  } else if (div == kDivExact) {                      \
+    TT_PASS(KM, kDivExact);                           \
+  } else if constexpr (kNewton) {                     \
+    TT_PASS(KM, kDivNewton);                          \
+  }
+  TT_DISPATCH_KM(km, TT_LAUNCH)
+#undef TT_LAUNCH
+#undef TT_PASS
+  TT_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace tt

@@ -6,10 +6,11 @@
 // the column subsample of its rows once into a1, a0 (B, 4, W) bf16
 // (`decode_count_planes`) and runs this pass local_iters times over them.
 // The body is K4's, `tt::lambda_pass_kernel` (psd_common.cuh), with
-// `tt::AcatLoader`: a CTA stages 32 rows x 32 columns x 4 planes of both
-// planes as (a1, a0) bf16 pairs in shared memory (odd word stride, so the
-// lanes' reads are conflict-free) instead of unpacking bytes. Partial
-// sums over column splits are added in split order (no atomics).
+// `tt::AcatLoader`: a CTA stages 64 rows x 16 columns x 4 planes of both
+// planes as (a1, a0) bf16 pairs in shared memory (16-byte loads; odd word
+// stride, so the lanes' reads are conflict-free) instead of unpacking
+// bytes. Partial sums over column splits are added in split order (no
+// atomics).
 //
 // Bound on the H100: at the big-N shape (B=4096, 4 x 2048 individuals of
 // the subsample, K=10) a pass is ~1.3 G FMA and ~67 M divides against
@@ -25,19 +26,10 @@ extern "C" int tt_lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
                                     float* part, int B, int W, int K,
                                     int nsplit, int approx,
                                     cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km == 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + tt::kRowsPerCta - 1) / tt::kRowsPerCta, nsplit);
-  const int wchunk = tt::split_chunk(W, nsplit);
-#define TT_LAUNCH(KM)                                                     \
-  tt::lambda_pass_kernel<KM, tt::AcatLoader>                             \
-      <<<grid, tt::kThreads, 0, stream>>>(tt::AcatLoader{a1, a0}, up, t1,  \
-                                          t0, K, 1, part, B, W, K, wchunk, \
-                                          approx, nullptr)
-  TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-  TT_CHECK_LAUNCH();
+  if (const int err = tt::launch_lambda_pass(
+          tt::AcatLoader{a1, a0}, up, t1, t0, K, 1, part, B, W, K, nsplit,
+          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream))
+    return err;
   const int bk = B * K;
   tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit,
                                                                 bk, l0, l1);

@@ -27,7 +27,8 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_shapes, grid_split, plane_counts, ratios_planar)
+    check_kmax, check_shapes, grid_split, lambda_grid, plane_counts,
+    ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +164,7 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     `lead_args` (its row arguments) first. Returns (lamb_out, g)."""
     dev = u_planes.device
     k = u_planes.shape[2]
-    nsplit_w = grid_split(-(-b // 32), -(-w // 128))
+    nsplit_w, _ = lambda_grid(b, w)
     nsplit_b = grid_split(-(-4 * w // 128), -(-b // 64))
     nupd = -(-b * k // 256)
 
@@ -209,6 +210,7 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
         return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
     if rows.device.type != "cuda":
         raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
+    check_kmax("fused_local_solve", u_planes.shape[2])
     _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
     out = _launch_solve("tt_fused_local_solve", (rows.data_ptr(),), u_planes,
@@ -268,6 +270,7 @@ def fused_local_solve_dma(idx0: torch.Tensor, packed: torch.Tensor,
                                           group=group, **kw)
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
+    check_kmax(name, k)
     _build.require_cuda(name, packed, u_planes, lamb_init,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
     out = _launch_solve("tt_fused_local_solve_dma",

@@ -132,8 +132,17 @@ def check_shapes(name, rows, u_planes):
     if u_planes.shape[1] != rows.shape[1]:
         raise ValueError(f"{name}: W mismatch {rows.shape} vs "
                          f"{tuple(u_planes.shape)}")
-    if not 1 <= u_planes.shape[2] <= KMAX:
-        raise ValueError(f"{name}: K must be in [1, {KMAX}]")
+    if u_planes.shape[2] < 1:
+        raise ValueError(f"{name}: K must be at least 1")
+
+
+def check_kmax(name, k):
+    """The CUDA branches' K limit (the twins take any K >= 1)."""
+    if k > KMAX:
+        raise ValueError(
+            f"{name}: the CUDA kernels take K <= {KMAX}, got K={k}; a "
+            "K-chunked pass body is the first open repair of ROADMAP.md's "
+            "Queue 3")
 
 
 def check_t(name, b, k, t1, t0):
@@ -157,6 +166,27 @@ def grid_split(n_primary: int, max_split: int, target: int = 264) -> int:
     return max(1, min(max_split, -(-target // max(n_primary, 1))))
 
 
+LAMBDA_ROWS = 64        # rows of a lambda-pass CTA: 2 warps, a row a lane
+SM_COUNT = 132          # H100 SXM
+
+
+def lambda_grid(b: int, w: int):
+    """The lambda pass's column split at a batch of b rows of w bytes:
+    (nsplit, chunk), with CTA (i, j) taking rows [64 i, 64 i + 64) and byte
+    columns [j chunk, (j + 1) chunk). A warp walks its 32 rows' chunk
+    alone, so the chunk sets how many warps there are: it is a multiple
+    of 16 between 16 and 128 columns, chosen so that about 16 warps an SM
+    are in flight where the batch allows. A function of the shape only,
+    so the summation order, and the result, never depend on anything
+    else."""
+    row_warps = -(-b // 32)
+    chunk = w * row_warps // (16 * SM_COUNT) // 16 * 16
+    chunk = max(16, min(128, chunk))
+    nsplit = -(-w // chunk)
+    # the chunk the kernels derive from nsplit (csrc: tt::split_chunk)
+    return nsplit, -(-(-(-w // nsplit)) // 16) * 16
+
+
 def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
                         t1: torch.Tensor, t0: torch.Tensor, *,
                         approx_div: bool = False):
@@ -174,9 +204,21 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
         lambda_stats_packed.twin_calls += 1
         return lambda_stats_packed_twin(rows, u_planes, t1, t0,
                                         approx_div=approx_div)
+    check_kmax("lambda_stats_packed", k)
     _build.require_cuda("lambda_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
-    nsplit = grid_split(-(-b // 32), -(-w // 128))
+    out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
+                                     lambda_grid(b, w)[0], approx_div)
+    lambda_stats_packed.launches += 1
+    return out
+
+
+def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div):
+    """K4's launch at a given column split (validated CUDA tensors).
+    `lambda_stats_packed` passes `lambda_grid`'s; chip_smoke.py's sweep
+    passes others to show where the chosen split stands."""
+    b, w = rows.shape
+    k = u_planes.shape[2]
     dev = rows.device
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
@@ -186,7 +228,6 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
         l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k, nsplit,
         int(approx_div), _build.stream_ptr(dev))
     _build.check(err, "lambda_stats_packed")
-    lambda_stats_packed.launches += 1
     return l0, l1
 
 
@@ -235,9 +276,10 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
         lambda_stats_acat.twin_calls += 1
         return lambda_stats_acat_twin(a1, a0, u_planes, t1, t0,
                                       approx_div=approx_div)
+    check_kmax("lambda_stats_acat", k)
     _build.require_cuda("lambda_stats_acat", a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
-    nsplit = grid_split(-(-b // 32), -(-w // 128))
+    nsplit, _ = lambda_grid(b, w)
     dev = a1.device
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
@@ -288,6 +330,7 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     if _device_of("gamma_stats_packed", rows) == "cpu":
         gamma_stats_packed.twin_calls += 1
         return gamma_stats_packed_twin(rows, u_planes, t1, t0)
+    check_kmax("gamma_stats_packed", k)
     _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     nsplit = grid_split(-(-4 * w // 128), -(-b // 64))
@@ -347,6 +390,7 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
         g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
                                            approx_div=approx_div)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
+    check_kmax(name, k)
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
@@ -381,6 +425,7 @@ def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
         batch_stats_fused_packed.twin_calls += 1
         g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
+    check_kmax(name, k)
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device

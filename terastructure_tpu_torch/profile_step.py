@@ -6,12 +6,14 @@ busy share.
 
 The configuration is one of converge.CONFIGS at its published shape
 (cut by --scale; its batch size, snp_group 8, seed 0), simulated on the
-card. One chunk of `--steps` steps warms up, then the same number is
-timed unprofiled (host clock around the chunk and a synchronize) and
-once under the profiler. Prints the card line and one JSON line: ms a step unprofiled,
-the profiled window's wall and kernel time, the busy share (kernel time
-over wall), and each kernel's total ms, calls and share of kernel time,
-largest first.
+card. `--batch-size 4096 --snp-group 1` with config 3 is the TGP shape as
+the throughput runs set it (the block gather K3 and K1 instead of K2).
+One chunk of `--steps` steps warms up, then the same number is timed
+unprofiled (host clock around the chunk and a synchronize) and once under
+the profiler. Prints the card line and one JSON line: ms a step
+unprofiled, the profiled window's wall and kernel time, the busy share
+(kernel time over wall), and each kernel's total ms, calls and share of
+kernel time, largest first.
 """
 
 from __future__ import annotations
@@ -39,16 +41,16 @@ def device_ms(evt) -> float:
 
 
 def run(config: int, *, steps: int, lambda_mode: str = "local",
-        scale: float = 1.0) -> dict:
+        scale: float = 1.0, batch_size: int = 0, snp_group: int = 8) -> dict:
     spec = CONFIGS[config]
     n = int(spec["n"] * scale) // 4 * 4
     l = int(spec["l"] * scale) // 8 * 8
-    k, b = spec["k"], spec["batch"]
+    k, b = spec["k"], batch_size or spec["batch"]
     dev = torch.device("cuda")
     packed, _ = simulate_packed_device(n, l, k, seed=0, device=dev)
     packed = torch.from_numpy(engine.pad_width(packed)).to(dev)
-    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=0, snp_group=8,
-                    lambda_mode=lambda_mode)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=0,
+                    snp_group=snp_group, lambda_mode=lambda_mode)
     chunk = engine.make_run_chunk(cfg, steps, l)
     state = chunk(engine.init_state(cfg, l_padded=l, device=dev), packed)
     torch.cuda.synchronize()
@@ -70,7 +72,8 @@ def run(config: int, *, steps: int, lambda_mode: str = "local",
     rows = sorted(((device_ms(e), e.count, e.key) for e in kernels),
                   reverse=True)
     return dict(
-        config=config, n=n, l=l, k=k, batch_size=b, lambda_mode=lambda_mode,
+        config=config, n=n, l=l, k=k, batch_size=b, snp_group=snp_group,
+        lambda_mode=lambda_mode,
         steps=steps, step_ms_unprofiled=step_ms,
         snp_updates_per_s=b / step_ms * 1e3,
         profiled_wall_ms=wall_ms, kernel_ms=total,
@@ -87,13 +90,18 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--lambda-mode", choices=("local", "stored"),
                     default="local")
+    ap.add_argument("--batch-size", type=int, default=0,
+                    help="0: the configuration's own")
+    ap.add_argument("--snp-group", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
     print(json.dumps(run(args.config, steps=args.steps,
-                         lambda_mode=args.lambda_mode, scale=args.scale)),
+                         lambda_mode=args.lambda_mode, scale=args.scale,
+                         batch_size=args.batch_size,
+                         snp_group=args.snp_group)),
           flush=True)
     return 0
 

@@ -35,6 +35,10 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
     one exact full-N pass. Pass a fixed seed so eval scores stay
     deterministic across checks.
     """
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' (the bf16 kernel path) is a later "
+            "slice; the lambda re-solve computes in float32")
     dev = u.device
     s, w = packed_rows.shape
     wp = u.shape[0] // 4

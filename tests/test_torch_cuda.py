@@ -205,3 +205,102 @@ def test_stats_pass_kernels_match_twin(cuda_device, name, approx_div, shape):
     if not approx_div:      # no atomics: a second launch is bitwise equal
         for a, b in zip(got, fn(rows, u, t1, t0)):
             assert torch.equal(a, b)
+
+
+# What the lambda pass's tiling can break: ragged row blocks, byte widths
+# that no chunk divides, K across the instantiated widths, whole rows
+# MISSING. K1, K4 and K8 against their twins, each bitwise against its own
+# second run.
+TILING_SHAPES = [(33, 235, 3), (1000, 626, 7), (33, 626, 10),
+                 (1000, 235, 16), (72, 640, 33)]          # B, W, K
+
+
+def _tiling_problem(dev, b, w, k):
+    rows, up, lamb = _problem(dev, b, 4 * w, k, seed=b + w + k)
+    rows[5] = 0xFF
+    rows[-1] = 0xFF
+    return rows, up, lamb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("shape", TILING_SHAPES)
+def test_lambda_pass_tiling_k4_k8(cuda_device, shape, approx_div):
+    rows, up, lamb = _tiling_problem(cuda_device, *shape)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    got = stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                           approx_div=approx_div)
+    want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
+                                                 approx_div=approx_div)
+    again = stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                             approx_div=approx_div)
+    got8 = stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                          approx_div=approx_div)
+    again8 = stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                            approx_div=approx_div)
+    for g, g8, w, a, a8 in zip(got, got8, want, again, again8):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+        np.testing.assert_allclose(g8.cpu().numpy(), w.cpu().numpy(), **tol)
+        assert torch.equal(g, a) and torch.equal(g8, a8)
+    assert float(got[0][5].abs().max()) == 0.0      # a MISSING row adds 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("shape", TILING_SHAPES)
+def test_lambda_pass_tiling_k1(cuda_device, shape, approx_div):
+    rows, up, lamb = _tiling_problem(cuda_device, *shape)
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              approx_div=approx_div)
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    again = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    for g, w, a in zip(got, want, again):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 640, 8), (40, 256, 3),
+                                   (72, 128, 10), (136, 384, 16),
+                                   (1000, 640, 33)])
+def test_lambda_pass_tiling_k2_bitwise_k1(cuda_device, shape):
+    """K2 where its gate admits the shape, with a whole row MISSING and a
+    null group: bitwise K1 on the gathered rows, and on a second run."""
+    b, w, k = shape
+    g, l = 8, 4096
+    packed, up, lamb = _problem(cuda_device, l, 4 * w, k, seed=b + w + k)
+    lamb = lamb[:b].contiguous()
+    idx0 = _groups(cuda_device, l, b, g, seed=b)
+    packed[int(idx0[0]) + 3] = 0xFF
+    idx0[1] = l                                  # reads as all MISSING
+    idx = (idx0.long().clamp(max=l - g)[:, None]
+           + torch.arange(g, device=cuda_device)).reshape(-1)
+    rows = packed[idx]
+    rows[g:2 * g] = 0xFF
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              warm_start=True)
+    got = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                           **kw)
+    again = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                             **kw)
+    k1 = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    for a, c, d, w_ in zip(got, again, k1, want):
+        assert torch.equal(a, c) and torch.equal(a, d)
+        np.testing.assert_allclose(a.cpu().numpy(), w_.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_k_above_the_kernels_limit_raises_on_the_card(cuda_device):
+    rows, up, lamb = _problem(cuda_device, 16, 512, stats_packed.KMAX + 8,
+                              seed=1)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    with pytest.raises(ValueError, match="Queue 3"):
+        stats_packed.lambda_stats_packed(rows, up, t1, t0)
+    with pytest.raises(ValueError, match="Queue 3"):
+        fused_step.fused_local_solve(rows, up, lamb, local_iters=3,
+                                     local_tol=0.0, beta_a=1.0, beta_b=1.0)

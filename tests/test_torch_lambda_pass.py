@@ -1,0 +1,185 @@
+"""The lambda pass's grid, the K limit that only the CUDA branches have,
+and the float32-only lambda re-solve (CPU).
+
+K = 72 is above the widest CUDA instantiation (64): on CPU tensors the
+wrappers run their twins, which take any K, and match the reference's
+kernels in interpret mode. On CUDA tensors the wrappers raise
+(tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from terastructure_tpu.config import SVIConfig
+from terastructure_tpu.data import GenotypeData as RefData
+from terastructure_tpu.data import simulate_psd
+from terastructure_tpu.data.pack import pack2bit
+from terastructure_tpu.ops import fused_step as ref_fused
+from terastructure_tpu.ops import stats_dense as ref_ops
+from terastructure_tpu.ops import stats_pallas as ref_pk
+from terastructure_tpu.svi import engine as ref_engine
+from terastructure_tpu_torch.data import GenotypeData
+from terastructure_tpu_torch.ops import fused_step, stats_packed
+from terastructure_tpu_torch.svi import engine, fit, postprocess
+
+TOL = dict(rtol=2e-4, atol=2e-4)    # f32, the two packages' sum orders
+K_WIDE = 72
+
+
+# --- the grid -----------------------------------------------------------
+PATH_SHAPES = [(1024, 640), (4096, 640), (256, 256), (4096, 2048), (33, 235)]
+
+
+@pytest.mark.parametrize("b,w", PATH_SHAPES)
+def test_lambda_grid_covers_w_in_16_byte_chunks(b, w):
+    nsplit, chunk = stats_packed.lambda_grid(b, w)
+    assert chunk % 16 == 0 and 16 <= chunk <= 128
+    assert nsplit * chunk >= w               # the splits cover W ...
+    assert (nsplit - 1) * chunk < w          # ... and none is empty
+    # what the kernels derive from nsplit (tt::split_chunk)
+    assert chunk == -(-(-(-w // nsplit)) // 16) * 16
+
+
+@pytest.mark.parametrize("b,w", PATH_SHAPES)
+def test_lambda_grid_is_a_function_of_the_shape_only(b, w):
+    first = stats_packed.lambda_grid(b, w)
+    torch.manual_seed(b)                     # no hidden state enters
+    stats_packed.lambda_stats_packed.launches += 1
+    assert stats_packed.lambda_grid(b, w) == first
+    stats_packed.lambda_stats_packed.launches -= 1
+    # the rows of a ragged last warp change nothing
+    assert stats_packed.lambda_grid(32 * (-(-b // 32)), w) == first
+
+
+def test_lambda_grid_fills_the_card_at_config3():
+    nsplit, _ = stats_packed.lambda_grid(1024, 640)
+    assert (1024 // stats_packed.LAMBDA_ROWS) * nsplit >= 2 * 132
+    # and a bigger batch takes wider chunks, not more partial sums
+    assert (stats_packed.lambda_grid(4096, 640)[1]
+            > stats_packed.lambda_grid(1024, 640)[1])
+
+
+# --- K above the CUDA kernels' limit, on the CPU ---------------------------
+def _problem(b=16, n=512, k=K_WIDE, seed=0):
+    rng = np.random.default_rng(seed)
+    rows = pack2bit(rng.integers(0, 4, size=(b, n)).astype(np.int8))
+    gamma = rng.uniform(0.3, 3.0, size=(n, k)).astype(np.float32)
+    u = np.asarray(ref_ops.exp_elog_theta(jnp.asarray(gamma)))
+    up = np.array(ref_pk.u_to_planes(jnp.asarray(u)))
+    lamb = rng.uniform(0.5, 3.0, size=(b, k, 2)).astype(np.float32)
+    return rows, up, lamb
+
+
+def test_check_kmax_names_the_open_item():
+    stats_packed.check_kmax("lambda_stats_packed", stats_packed.KMAX)
+    with pytest.raises(ValueError, match="Queue 3"):
+        stats_packed.check_kmax("lambda_stats_packed", stats_packed.KMAX + 1)
+
+
+def test_lambda_stats_twin_takes_k72():
+    rows, up, lamb = _problem(b=24, n=1024, seed=6)
+    t1, t0 = (np.array(t) for t in ref_ops.exp_elog_beta(jnp.asarray(lamb)))
+    before = stats_packed.lambda_stats_packed.twin_calls
+    got = stats_packed.lambda_stats_packed(
+        torch.from_numpy(rows), torch.from_numpy(up), torch.from_numpy(t1),
+        torch.from_numpy(t0))
+    assert stats_packed.lambda_stats_packed.twin_calls == before + 1
+    tb, tw = ref_pk.pick_tiles(*rows.shape)
+    want = ref_pk.lambda_stats_packed(
+        jnp.asarray(rows), jnp.asarray(up), jnp.asarray(t1), jnp.asarray(t0),
+        tb=tb, tw=tw, dtype=jnp.float32, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_fused_twin_takes_k72():
+    rows, up, lamb = _problem(seed=1)
+    kw = dict(local_iters=5, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+    before = fused_step.fused_local_solve.twin_calls
+    got = fused_step.fused_local_solve(torch.from_numpy(rows),
+                                       torch.from_numpy(up),
+                                       torch.from_numpy(lamb), **kw)
+    assert fused_step.fused_local_solve.twin_calls == before + 1
+    want = ref_fused.fused_local_solve(
+        jnp.asarray(rows), jnp.asarray(up), jnp.asarray(lamb),
+        dtype=jnp.float32, interpret=True, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_group_dma_twin_takes_k72():
+    b, n, l, g = 32, 512, 128, 8
+    packed, up, _ = _problem(b=l, n=n, seed=2)
+    rng = np.random.default_rng(3)
+    idx0 = (rng.integers(0, l // g, size=b // g) * g).astype(np.int32)
+    lamb = rng.uniform(0.5, 3.0, size=(b, K_WIDE, 2)).astype(np.float32)
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              warm_start=True)
+    before = fused_step.fused_local_solve_dma.twin_calls
+    got = fused_step.fused_local_solve_dma(
+        torch.from_numpy(idx0), torch.from_numpy(packed),
+        torch.from_numpy(up), torch.from_numpy(lamb), group=g, **kw)
+    assert fused_step.fused_local_solve_dma.twin_calls == before + 1
+    want = ref_fused.fused_local_solve_dma(
+        jnp.asarray(idx0), jnp.asarray(packed), jnp.asarray(up),
+        jnp.asarray(lamb), group=g, dtype=jnp.float32, interpret=True, **kw)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+
+
+def test_step_at_k72_matches_reference_with_injected_indices():
+    n, l, k, b, t = 96, 300, K_WIDE, 32, 4
+    _, _, x = simulate_psd(n, l, 3, seed=5)
+    data = RefData.from_dense(x, validation_frac=0.02, heldout_frac=0.02,
+                              seed=5)
+    packed = engine.pad_width(data.packed)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=5, local_accel=False,
+                    local_iters=6)
+    s0 = ref_engine.init_state(cfg)._replace(t=jnp.int32(t))
+    idx = np.random.default_rng(t).choice(l, b, replace=False)
+    rows = packed[idx]
+
+    u = ref_ops.exp_elog_theta(s0.gamma)
+    u = jnp.pad(u, ((0, 4 * packed.shape[1] - n), (0, 0)),
+                constant_values=1.0)
+    _, g = ref_fused.fused_local_solve(
+        jnp.asarray(rows), ref_pk.u_to_planes(u),
+        jnp.zeros((b, k, 2), jnp.float32), local_iters=cfg.local_iters,
+        local_tol=cfg.local_tol, beta_a=1.0, beta_b=1.0, dtype=jnp.float32,
+        interpret=True, accel=False)
+    stat = (u * ref_pk.planes_to_flat(g))[:n]
+    want = ref_engine._global_update(cfg, s0.gamma, stat, s0.t, l)
+
+    st = engine.state_from_reference(s0.gamma, s0.lamb, s0.t, cfg.seed)
+    _, got_stat = engine.step_core_fused(cfg, st.gamma, torch.from_numpy(rows))
+    got = engine._global_update(cfg, st.gamma, got_stat, st.t, l)
+    np.testing.assert_allclose(got_stat.numpy(), np.asarray(stat), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --- the lambda re-solve computes in float32 only ---------------------------
+def test_compute_lambda_refuses_bfloat16():
+    cfg = SVIConfig(n=64, l=40, k=2, kernel="dense",
+                    compute_dtype="bfloat16")
+    gamma = torch.ones((64, 2))
+    packed = torch.full((40, 16), 0xFF, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="lambda re-solve"):
+        postprocess.solve_lambda_blocks(cfg, torch.ones((64, 2)), packed)
+    with pytest.raises(NotImplementedError):
+        postprocess.compute_lambda(cfg, gamma, packed)
+    with pytest.raises(NotImplementedError):
+        postprocess.compute_beta(cfg, gamma, packed)
+
+
+def test_dense_bfloat16_fit_fails_at_its_first_check():
+    """The dense step would run in bf16 and the eval re-solve in f32: the
+    fit stops at the first check instead of mixing the two."""
+    n, l, k = 64, 128, 2
+    _, _, x = simulate_psd(n, l, k, seed=2)
+    data = GenotypeData.from_dense(x, validation_frac=0.02,
+                                   heldout_frac=0.02, seed=2)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=16, rfreq=5, max_steps=10,
+                    seed=2, kernel="dense", compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="lambda re-solve"):
+        fit(cfg, data, device="cpu")
