@@ -16,10 +16,15 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    the paths run it, beside its bound; K1, K2, K4 and K8 against their
    twins on ragged B, odd W, K = 3..33, whole rows MISSING and a null
    group, with a bitwise re-run of each; K3 against `index_select` in
-   turns;
+   turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
+   and G = 1; the K-chunked bodies of K > 64 (K1, K2, K4 and K8 at K = 72
+   and 256, K5, K6 and K7 at K = 72, 130 and 256, against their twins and
+   their own second runs; one timed shape per family);
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
    theta MAE < 0.05, heldout within 0.02 of the oracle; 2b. the same in
-   the stored lambda mode (K1 warm-started, no K4);
+   the stored lambda mode (K1 warm-started, no K4); 2c. one chunk at
+   K = 72 through the fused branch (K1's wide bodies, no twin), re-run
+   bitwise equal;
 3. the TGP-shape fit (2504 x 1M, K=8, B=4096, 200 steps): SNP-updates/s,
    launch counts of K1, K3 and K4 > 0 with no twin run, and one chunk
    re-run twice from the same state bitwise equal;
@@ -27,7 +32,10 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    which the fused gate refuses: K1 never launches, K3, K4, K7 and K8 do
    with no twin run; then one step each with stats_kernel "pair" (K4 +
    K5), "fused" (K6) and "fused_v2" (K7) from one state, their gammas
-   within 1e-4, and one chunk re-run twice bitwise equal;
+   within 1e-4, and one chunk re-run twice bitwise equal; 4b. one step at
+   K = 72 and B = 4,092 on the same data (the big-N path, the tol test
+   padded as the reference pads B; K8's and K7's wide bodies), re-run
+   bitwise equal;
 5. config #3 as the reference's acceptance runner sets it (2504 x 1M,
    K=8, B=1024, snp_group=8; phase 3's data): (a) 200 steps in the local
    mode, K2 once a step, K1 and K3 never, K4 for the eval; (b) 100 steps
@@ -46,6 +54,14 @@ stops after phase 1 and prints the kernels' line (without launch counts)
 and the card line: the quick check and timing of a changed kernel. It also
 times the lambda pass at other column splits than the one `lambda_grid`
 chooses.
+
+    python3 chip_smoke.py --digest
+
+prints a digest of each kernel's outputs at K <= 64 on seeded inputs, the
+eager time of the K3 and K4 wrappers and the host cost of the calls they
+make for the device and the stream, through the wrappers only: a copy of
+this script run from another tree's root (an earlier commit unpacked
+with `git archive`) prints that tree's bits and host costs.
 """
 
 from __future__ import annotations
@@ -333,16 +349,32 @@ def phase_kernels(dev, rec, sweep=False):
     r = rec["gather_row_blocks"]
     r["max_abs_err"] = 0.0
     r["plain_ms"] = time_ms(lambda: gather.gather_row_blocks_twin(src, starts))
-    # kernel and library call in turns (A-B-A-B), 200 launches each
-    turns = [time_ms(fn, 200) for fn in
-             (lambda: gather.gather_row_blocks(src, starts), library) * 2]
-    r["ms"] = (turns[0] + turns[2]) / 2
-    r["library_ms"] = (turns[1] + turns[3]) / 2
-    r["turns_ms"] = turns
+    # kernel and library call in turns (A-B-A-B): from a CUDA graph of 200
+    # calls (the device's time), then 200 eager launches each (the host's
+    # call included)
+    fns = (lambda: gather.gather_row_blocks(src, starts), library) * 2
+    graph = [device_ms(fn, 200) for fn in fns]
+    turns = [time_ms(fn, 200) for fn in fns]
+    r["ms"] = (graph[0] + graph[2]) / 2
+    r["library_ms"] = (graph[1] + graph[3]) / 2
+    r["eager_ms"] = (turns[0] + turns[2]) / 2
+    r["library_eager_ms"] = (turns[1] + turns[3]) / 2
+    r["graph_turns_ms"], r["eager_turns_ms"] = graph, turns
     log(f"  K3 L=1M B=4096 W=640: bitwise equal; twin {r['plain_ms']:.4f} ms; "
-        f"kernel, index_select in turns: "
-        + ", ".join(f"{t:.4f}" for t in turns) + " ms")
+        "kernel, index_select in turns, from a CUDA graph: "
+        + ", ".join(f"{t:.5f}" for t in graph) + " ms; eager: "
+        + ", ".join(f"{t:.5f}" for t in turns) + " ms")
     set_bound(r, 0, nbytes(starts, got, got))
+    # the byte path (odd W) and one run, bitwise
+    for w, g in ((235, 512), (235, 1), (640, 1)):
+        s_ = src[:8192, :w].contiguous()
+        st = starts[:g] % 1024
+        got = gather.gather_row_blocks(s_, st)
+        if not (torch.equal(got, gather.gather_row_blocks_twin(s_, st))
+                and torch.equal(got, s_.view(-1, 8 * w).index_select(0, st)
+                                .view_as(got))):
+            raise AssertionError(f"K3 W={w} G={g} differs from its twin")
+    log("  K3 W=235 (the byte path) and G=1: bitwise equal")
     del src
 
     # K4: the eval/export block shape
@@ -368,6 +400,7 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_bign(dev, rec)
     phase_kernels_dma(dev, rec)
     phase_kernels_tiling(dev, rec)
+    phase_kernels_wide(dev, rec)
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -638,6 +671,240 @@ def phase_kernels_bign(dev, rec):
                    nbytes(a1, a0, up, t1, t0, t1, t0), reps=20)
 
 
+def phase_kernels_wide(dev, rec):
+    """K > 64: the K-chunked bodies. K1, K2, K4 and K8 at K = 72 and 256
+    (ragged B, odd W, rows MISSING, a null group for K2, both divides),
+    K5, K6 and K7 at K = 72, 130 and 256, each against its twin and
+    bitwise against its second run; one timed shape per family beside its
+    bound."""
+    def twice(label, fn):
+        got = fn()
+        if not all(torch.equal(a, c) for a, c in zip(got, fn())):
+            raise AssertionError(f"{label}: a second run is not bitwise equal")
+        return got
+
+    def hold(name, label, got, want, tol):
+        err = compare(label, got, want, tol)
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    plain = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+    for k in (72, 256):
+        rows, up, lamb = _solve_inputs(40, 235, k, k, dev)
+        rows[5] = 0xFF
+        rows[-1] = 0xFF
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
+                                                         approx_div=approx)
+            hold("lambda_stats_packed", f"K4 wide B=40 W=235 K={k} "
+                 f"approx={approx}", twice("K4 wide", lambda: stats_packed.
+                                           lambda_stats_packed(
+                                               rows, up, t1, t0,
+                                               approx_div=approx)), want, tol)
+            hold("lambda_stats_acat",
+                 f"K8 wide B=40 W=235 K={k} approx={approx}",
+                 twice("K8 wide", lambda: stats_packed.lambda_stats_acat(
+                     a1, a0, up, t1, t0, approx_div=approx)), want, tol)
+            kw = dict(plain, approx_div=approx)
+            hold("fused_local_solve",
+                 f"K1 wide B=40 W=235 K={k} approx={approx}",
+                 twice("K1 wide", lambda: fused_step.fused_local_solve(
+                     rows, up, lamb, **kw)),
+                 fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
+
+        b, g, l = 40, 8, 1024
+        packed, up2, lamb2 = _solve_inputs(l, 256, k, k + 1, dev)
+        lamb2 = lamb2[:b].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(b)
+        idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                             dtype=torch.int32) * g
+        idx0[1] = l                         # a null group: reads as MISSING
+        rows2 = packed[(idx0.long().clamp(max=l - g)[:, None]
+                        + torch.arange(g, device=dev)).reshape(b)]
+        rows2[g:2 * g] = 0xFF
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            kw = dict(plain, approx_div=approx, warm_start=True)
+            got = twice("K2 wide", lambda: fused_step.fused_local_solve_dma(
+                idx0, packed, up2, lamb2, group=g, **kw))
+            k1 = fused_step.fused_local_solve(rows2, up2, lamb2, **kw)
+            if not all(torch.equal(a, c) for a, c in zip(got, k1)):
+                raise AssertionError("K2 wide: differs from K1 on the "
+                                     "gathered rows")
+            hold("fused_local_solve_dma", f"K2 wide B=40 W=256 K={k} g=8 "
+                 f"approx={approx}", got,
+                 fused_step.fused_local_solve_twin(rows2, up2, lamb2, **kw),
+                 tol)
+
+    def twin_stats(rows, up, t1, t0, approx_div=False):
+        g_, l0, l1 = stats_packed.batch_stats_fused_twin(
+            rows, up, t1, t0, approx_div=approx_div)
+        u = stats_packed.planes_to_flat(up)
+        return u * stats_packed.planes_to_flat(g_), t1 * l0, t0 * l1
+
+    for kk in (72, 130, 256):
+        rows3, up3, u3, t13, t03 = _stats_inputs(40, 300, kk, kk, dev)
+        rows3[3] = 0xFF
+        shape = f"B=40 W=300 K={kk}"
+        hold("gamma_stats_packed", f"K5 wide {shape}",
+             twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
+                 rows3, up3, t13, t03)]),
+             [stats_packed.gamma_stats_packed_twin(rows3, up3, t13, t03)],
+             TOL)
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            hold("batch_stats_fused_v2_packed",
+                 f"K7 wide {shape} approx={approx}",
+                 twice("K7 wide",
+                       lambda: stats_packed.batch_stats_fused_v2_packed(
+                           rows3, u3, t13, t03, approx_div=approx)),
+                 twin_stats(rows3, up3, t13, t03, approx), tol)
+        hold("batch_stats_fused_packed", f"K6 wide {shape}",
+             twice("K6 wide", lambda: stats_packed.batch_stats_fused_packed(
+                 rows3, u3, t13, t03)),
+             twin_stats(rows3, up3, t13, t03), TOL)
+    log("  wide bodies: every second run bitwise equal; K2 bitwise K1")
+
+    # one timed shape per family at K = 72 and 256, beside its bound (the
+    # work of the function: 8K+2 operations per present entry for a lambda
+    # or gamma pass, 12K+2 for K6/K7, whatever the chunks recompute); the
+    # twins only at K = 72 (at K = 256 their dense (B, 4W, K) products
+    # would hold ~9 GB each)
+    for name in ("lambda_stats_packed", "gamma_stats_packed",
+                 "batch_stats_fused_v2_packed", "batch_stats_fused_packed"):
+        rec[name]["wide"] = []
+    for k in (72, 256):
+        b, w = 1024, 640
+        rows, up, lamb = _solve_inputs(b, w, k, 74, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        e = dict(shape=f"B={b} W={w} K={k}", body="wide λ pass (K4's entry)",
+                 plain_ms=None)
+        e["ms"] = device_ms(lambda: stats_packed.lambda_stats_packed(
+            rows, up, t1, t0))
+        e["approx_ms"] = device_ms(lambda: stats_packed.lambda_stats_packed(
+            rows, up, t1, t0, approx_div=True))
+        if k == 72:
+            e["plain_ms"] = time_ms(
+                lambda: stats_packed.lambda_stats_packed_twin(rows, up, t1, t0))
+        log(f"  wide λ pass {e['shape']}: {e['ms']:.4f} ms, fast divide "
+            f"{e['approx_ms']:.4f} ms (CUDA graph); twin {e['plain_ms']} ms")
+        set_bound(e, present(rows) * lambda_pass_flops(k),
+                  nbytes(rows, up, t1, t0, t1, t0))
+        rec["lambda_stats_packed"]["wide"].append(e)
+
+        b, w = 1024, 2048
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, 75, dev)
+        pr = present(rows)
+        for name, kernel, twin, flops, moved in (
+                ("gamma_stats_packed",
+                 lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0),
+                 lambda: stats_packed.gamma_stats_packed_twin(rows, up, t1,
+                                                              t0),
+                 pr * lambda_pass_flops(k), nbytes(rows, up, t1, t0, up)),
+                ("batch_stats_fused_v2_packed",
+                 lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1,
+                                                                  t0),
+                 lambda: twin_stats(rows, up, t1, t0),
+                 pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0)),
+                ("batch_stats_fused_packed",
+                 lambda: stats_packed.batch_stats_fused_packed(rows, u, t1,
+                                                               t0),
+                 lambda: twin_stats(rows, up, t1, t0),
+                 pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0))):
+            e = dict(shape=f"B={b} W={w} K={k}")
+            label = f"{name} wide {e['shape']}"
+            if k == 72:
+                _timed(e, label, kernel, twin, flops, moved)
+            else:
+                e["ms"], e["plain_ms"] = time_ms(kernel, 3), None
+                log(f"  {label}: kernel {e['ms']:.4f} ms")
+                set_bound(e, flops, moved)
+            rec[name]["wide"].append(e)
+        del rows, up, u, t1, t0
+
+    # K7 and K6 at the big-N shape with K = 72: their partial buffers
+    # (K7: B/256 row tiles of gamma; K6: B/32) beside the kernel's time
+    b, w, _ = BIGN
+    k = 72
+    rows, up, u, t1, t0 = _stats_inputs(b, w, k, 76, dev)
+    pr = present(rows)
+    for name, kernel, slices in (
+            ("batch_stats_fused_v2_packed",
+             lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1,
+                                                              t0),
+             -(-b // stats_packed.V2_TILE_ROWS)),
+            ("batch_stats_fused_packed",
+             lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
+             -(-b // 32))):
+        e = dict(shape=f"B={b} W={w} K={k}", plain_ms=None,
+                 gamma_partials_bytes=slices * 4 * w * k * 4)
+        e["ms"] = time_ms(kernel, 2)
+        log(f"  {name} wide {e['shape']}: kernel {e['ms']:.4f} ms, gamma "
+            f"partials {e['gamma_partials_bytes'] / 1e9:.3f} GB")
+        set_bound(e, pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0))
+        rec[name]["wide"].append(e)
+        torch.cuda.empty_cache()
+    del rows, up, u, t1, t0
+
+
+def phase_wide_paths(dev, rec):
+    """K = 72 through the steps a user's fit runs: one chunk of the fused
+    branch (K1's wide bodies; the reference's gate pads K to 128 lanes,
+    so it admits K = 72 where it admits K = 8), run twice from one state,
+    bitwise equal; no twin runs."""
+    n, l, k = 1000, 10_000, 72
+    _, _, x = simulate_psd(n, l, 3, seed=11)
+    data = GenotypeData.from_dense(x, validation_frac=0.005,
+                                   heldout_frac=0.005, seed=11)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=256, rfreq=20, seed=11)
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    if engine.step_impl(cfg, packed_d.shape[1]) != "fused":
+        raise AssertionError("K = 72 at B = 256: the gate refused the fused "
+                             "branch")
+    state = engine.init_state(cfg, device=dev)
+    chunk = engine.make_run_chunk(cfg, cfg.rfreq)
+    reset_counts()
+    a = chunk(state, packed_d)
+    counts = read_counts(rec, "K=72 fused chunk", ("fused_local_solve",),
+                         absent=("fused_local_solve_dma",
+                                 "lambda_stats_packed"))
+    if counts["fused_local_solve"] != cfg.rfreq:
+        raise AssertionError("K=72 fused chunk: K1 did not run once a step")
+    c = chunk(state, packed_d)
+    if not (torch.equal(a.gamma, c.gamma)
+            and bool(torch.isfinite(a.gamma).all())):
+        raise AssertionError("K=72 fused chunk: a re-run is not bitwise "
+                             "equal, or gamma is not finite")
+    log(f"  K=72 fused chunk: {cfg.rfreq} steps, K1 {counts['fused_local_solve']}"
+        " launches, no twin; re-run bitwise equal")
+
+
+def phase_wide_bign(dev, rec, cfg, packed_d):
+    """One big-N step at K = 72 and B = 4,092 on phase 4's data: the gate
+    refuses B % 8 != 0, so the step takes the big-N path, pads the tol
+    test with the reference's 4 rows, and runs K8's and K7's wide bodies.
+    Run twice from one state: bitwise equal and finite."""
+    wcfg = cfg.replace(k=72, batch_size=4092)
+    if engine.step_impl(wcfg, packed_d.shape[1]) != "pallas":
+        raise AssertionError("B=4092: the gate took the fused branch")
+    if engine.batch_pad_rows(wcfg.batch_size) != 4:
+        raise AssertionError("B=4092: not the pad path")
+    state = engine.init_state(wcfg, l_padded=int(packed_d.shape[0]),
+                              device=dev)
+    step = engine.make_step(wcfg, int(packed_d.shape[0]))
+    reset_counts()
+    a = step(state, packed_d)
+    read_counts(rec, "big-N step K=72 B=4092",
+                ("lambda_stats_acat", "batch_stats_fused_v2_packed"),
+                absent=("fused_local_solve", "fused_local_solve_dma"))
+    c = step(state, packed_d)
+    if not (torch.equal(a.gamma, c.gamma)
+            and bool(torch.isfinite(a.gamma).all())):
+        raise AssertionError("big-N step K=72: a re-run is not bitwise "
+                             "equal, or gamma is not finite")
+    log("  big-N step K=72 B=4092 (4 pad rows in the tol test): K8 and K7 "
+        "wide, re-run bitwise equal, gamma finite")
+
+
 def phase_canonical(dev, rec, lambda_mode="local"):
     """Config #1 through fit, as the verify skill's canonical drive. The
     stored mode warm-starts K1 from the stored lambda and scores it
@@ -766,6 +1033,8 @@ def phase_bign(dev, rec):
         raise AssertionError("big-N same-seed chunk re-run is not bitwise "
                              "equal")
     log("  big-N same-seed chunk re-run: gamma bitwise equal")
+    log("phase 4b: big-N step at K = 72, B = 4,092 (the pad path)")
+    phase_wide_bign(dev, rec, cfg, packed_d)
 
 
 def clone(state):
@@ -835,9 +1104,92 @@ def phase_config3(dev, rec, data, theta):
             "cloned state: gamma and lambda bitwise equal")
 
 
+def digests(dev):
+    """sha256 of each kernel's outputs at K <= 64 on seeded inputs, through
+    the wrappers only, so that another tree's package can run it: two
+    trees whose kernels give the same bits print the same digests."""
+    import hashlib
+
+    def h(*ts):
+        d = hashlib.sha256()
+        for t in ts:
+            d.update(t.contiguous().cpu().numpy().tobytes())
+        return d.hexdigest()[:16]
+
+    out = {}
+    for b, w, k in ((4096, 640, 8), (1000, 235, 7), (72, 640, 33)):
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        shape = f"B={b} W={w} K={k}"
+        for approx in (False, True):
+            out[f"K1 {shape} accel approx={approx}"] = h(
+                *fused_step.fused_local_solve(
+                    rows, up, lamb, local_iters=7, local_tol=1e-4,
+                    beta_a=1.0, beta_b=1.0, accel=True, approx_div=approx))
+            out[f"K4 {shape} approx={approx}"] = h(
+                *stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                                  approx_div=approx))
+            out[f"K8 {shape} approx={approx}"] = h(
+                *stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                                approx_div=approx))
+    packed, up, lamb = _solve_inputs(4096, 640, 8, 5, dev)
+    idx0 = torch.arange(0, 4096, 32, dtype=torch.int32, device=dev)
+    out["K2 B=1024 W=640 K=8 g=8"] = h(*fused_step.fused_local_solve_dma(
+        idx0, packed, up, lamb[:1024].contiguous(), group=8, local_iters=7,
+        local_tol=1e-4, beta_a=1.0, beta_b=1.0, accel=True))
+    out["K3 L=4096 W=640 G=128"] = h(gather.gather_row_blocks(
+        packed, idx0 // 8))
+    for b, w, k in ((1024, 2048, 10), (40, 300, 33)):
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w, dev)
+        shape = f"B={b} W={w} K={k}"
+        out[f"K5 {shape}"] = h(stats_packed.gamma_stats_packed(
+            rows, up, t1, t0))
+        out[f"K6 {shape}"] = h(*stats_packed.batch_stats_fused_packed(
+            rows, u, t1, t0))
+        for approx in (False, True):
+            out[f"K7 {shape} approx={approx}"] = h(
+                *stats_packed.batch_stats_fused_v2_packed(
+                    rows, u, t1, t0, approx_div=approx))
+    return out
+
+
+def wrapper_eager_ms(dev):
+    """Eager ms a call of the K3 and K4 wrappers (1,000 launches each, the
+    host's call included) at the TGP and eval shapes: the host path, which
+    --digest times in whichever tree's package is imported."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    src = torch.randint(0, 256, (1_000_000, 640), generator=g, device=dev,
+                        dtype=torch.uint8)
+    starts = torch.randint(0, 1_000_000 // 8, (512,), generator=g,
+                           device=dev, dtype=torch.int32)
+    rows, up, lamb = _solve_inputs(1024, 640, 8, 4, dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+
+    def host_us(fn, n=20_000):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    return {"K3 L=1M G=512 W=640": time_ms(
+                lambda: gather.gather_row_blocks(src, starts), 1000),
+            "K4 B=1024 W=640 K=8": time_ms(
+                lambda: stats_packed.lambda_stats_packed(rows, up, t1, t0),
+                1000),
+            # host microseconds of a call of what a wrapper used to ask
+            # every launch (the capability, the stream as a Stream object)
+            # and of what it asks now (the raw stream)
+            "get_device_capability_us": host_us(
+                lambda: torch.cuda.get_device_capability(dev)),
+            "current_stream_us": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "stream_ptr_us": host_us(lambda: _build.stream_ptr(dev))}
+
+
 def main(argv=()) -> int:
-    if list(argv) not in ([], ["--kernels"]):
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    if list(argv) not in ([], ["--kernels"], ["--digest"]):
+        print("usage: chip_smoke.py [--kernels | --digest]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -856,9 +1208,14 @@ def main(argv=()) -> int:
     log(f"  kernels built in {time.time() - t0:.1f} s "
         f"(nvcc {_build.build_seconds} s) -> {_build.library_path().name}")
     rec = {name: {} for name in KERNELS}
+    if argv == ["--digest"]:
+        print(json.dumps({"digests": digests(dev),
+                          "wrapper_eager_ms": wrapper_eager_ms(dev)}))
+        print(card)
+        return 0
 
     log("phase 1: kernels vs twins")
-    phase_kernels(dev, rec, sweep=bool(argv))
+    phase_kernels(dev, rec, sweep=argv == ["--kernels"])
     if argv:
         log(f"phases 0 and 1 in {time.time() - t0:.1f} s")
         print(json.dumps({"kernels": [dict(name=name, **rec[name])
@@ -869,6 +1226,8 @@ def main(argv=()) -> int:
     phase_canonical(dev, rec)
     log("phase 2b: config #1, stored lambda mode")
     phase_canonical(dev, rec, lambda_mode="stored")
+    log("phase 2c: K = 72 through the fused branch")
+    phase_wide_paths(dev, rec)
     log("phase 3: TGP shape")
     tgp = phase_tgp(dev, rec)
     log("phase 4: big-N shape")

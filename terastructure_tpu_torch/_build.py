@@ -132,8 +132,11 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Once loaded it is
+    returned without taking the lock: every kernel launch calls this."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -146,7 +149,11 @@ def lib() -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The device's current CUDA stream as an int, from torch's raw query:
+    `torch.cuda.current_stream` makes a Stream object a call (~5 µs)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(err: int, name: str) -> None:
@@ -155,8 +162,12 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+_sm90 = {}                 # device -> whether it runs sm_90a code
+
+
 def require_cuda(name: str, *tensors, dtypes) -> None:
-    """Validate device, dtype and contiguity of a kernel's inputs."""
+    """Validate device, dtype and contiguity of a kernel's inputs. The
+    device's compute capability is asked once per device."""
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
         if t.device != dev:
@@ -165,5 +176,8 @@ def require_cuda(name: str, *tensors, dtypes) -> None:
             raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.cuda.get_device_capability(dev)[0] < 9:
+    ok = _sm90.get(dev)
+    if ok is None:
+        ok = _sm90[dev] = torch.cuda.get_device_capability(dev)[0] >= 9
+    if not ok:
         raise RuntimeError(f"{name}: the kernels are built for sm_90a")

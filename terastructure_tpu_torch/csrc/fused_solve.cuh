@@ -42,7 +42,8 @@
 // (tt::kDivFast) and with one Newton step without it (tt::kDivNewton,
 // within 1 ulp); the final pass and the gamma pass always give the bits
 // of the IEEE divide (tt::kDivExact). The f32 path stays outside the
-// tensor cores; bf16 is its own slice.
+// tensor cores; bf16 is its own slice. K > 64 runs the K-chunked λ and
+// γ bodies of psd_wide.cuh through the same launchers.
 
 #pragma once
 
@@ -178,9 +179,8 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
                 int W, int K, int nsplit_w, int nsplit_b, int local_iters,
                 float local_tol, float beta_a, float beta_b, int warm_start,
                 int approx_div, int accel, cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 || km == 0 ||
-      local_iters < 0)
+  if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 ||
+      tt::pick_km(K) < 0 || local_iters < 0)
     return (int)cudaErrorInvalidValue;
   const bool acc = accel && local_iters >= 3;
   const int loop_iters = acc ? local_iters - 2 : local_iters;
@@ -223,12 +223,8 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   if ((err = pass(tt::kDivExact, nullptr))) return err;
   if ((err = update(kFinal))) return err;
 
-#define TT_LAUNCH(KM)                                                       \
-  err = tt::gamma_stats<KM>(src, up, t, t + 1, 2 * K, 2, gpart, g, B, W, K, \
-                            nsplit_b, stream)
-  TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-  return err;
+  return tt::launch_gamma_stats(src, up, t, t + 1, 2 * K, 2, gpart, g, B, W,
+                                K, nsplit_b, stream);
 }
 
 }  // namespace

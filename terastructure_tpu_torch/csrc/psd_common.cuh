@@ -60,6 +60,10 @@
 // divide as count x IEEE reciprocal; the others use the hardware
 // reciprocal, bare (approx_div) or with one Newton step (the fused
 // solve's loop passes).
+//
+// These bodies are instantiated for K-widths KM = 4..64 (`pick_km`). K > 64
+// goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
+// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -547,15 +551,20 @@ inline int split_chunk(int W, int nsplit) {
   return (c + 15) / 16 * 16;
 }
 
-// Smallest instantiated K-width holding K; 0 when K is too large.
+// The K-width a pass runs at: the smallest instantiated KM holding K,
+// kWide for K > 64 (psd_wide.cuh), -1 for K < 1.
+constexpr int kWide = 0;
 inline int pick_km(int K) {
   static const int kms[] = {4, 8, 16, 32, 64};
+  if (K < 1) return -1;
   for (int km : kms)
-    if (K >= 1 && K <= km) return km;
-  return 0;
+    if (K <= km) return km;
+  return kWide;
 }
 
 }  // namespace tt
+
+#include "psd_wide.cuh"
 
 // Expand F(KM) for the instantiated K-widths (switch on km).
 #define TT_DISPATCH_KM(km, F)        \
@@ -580,9 +589,12 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        int W, int K, int nsplit, int div, const int* active,
                        cudaStream_t stream) {
   const int km = pick_km(K);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km == 0 ||
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 ||
       (div == kDivNewton && !kNewton))
     return (int)cudaErrorInvalidValue;
+  if (km == kWide)
+    return launch_lambda_pass_wide<Loader, kNewton>(
+        ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
   const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
   const int wchunk = split_chunk(W, nsplit);
 #define TT_PASS(KM, DIV)                                                  \
@@ -601,6 +613,27 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
 #undef TT_PASS
   TT_CHECK_LAUNCH();
   return 0;
+}
+
+// Launch the gamma pass (gamma_stats, or gamma_stats_wide for K > 64).
+template <class Rows>
+int launch_gamma_stats(Rows src, const float* up, const float* t1g,
+                       const float* t0g, int ts, int tk, float* gpart,
+                       float* g, int B, int W, int K, int nsplit,
+                       cudaStream_t stream) {
+  const int km = pick_km(K);
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0)
+    return (int)cudaErrorInvalidValue;
+  if (km == kWide)
+    return gamma_stats_wide(src, up, t1g, t0g, ts, tk, gpart, g, B, W, K,
+                            nsplit, stream);
+  int err = 0;
+#define TT_LAUNCH(KM)                                                     \
+  err = gamma_stats<KM>(src, up, t1g, t0g, ts, tk, gpart, g, B, W, K,     \
+                        nsplit, stream)
+  TT_DISPATCH_KM(km, TT_LAUNCH)
+#undef TT_LAUNCH
+  return err;
 }
 
 }  // namespace tt

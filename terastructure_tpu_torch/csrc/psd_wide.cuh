@@ -1,0 +1,359 @@
+// The K-chunked ("wide") bodies of the lambda pass and the gamma pass, for
+// K > 64. Included by psd_common.cuh after the K <= 64 bodies, whose
+// loaders, row sources and divides they reuse; K6/K7's wide body is in
+// stats_fused.cu.
+//
+// They stand for the same TPU kernels as the K <= 64 bodies: the lambda
+// pass for terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass`
+// (:252-308, K1 and K2) and ops/stats_pallas.py `_lambda_kernel` (K4) and
+// `_lambda_acat_kernel` (K8); the gamma pass for K1's last pass and
+// stats_pallas.py `_gamma_kernel` (K5). On the TPU K is padded to 128
+// lanes (fused_step.py:141), so K = 65..128 costs the reference nothing
+// more than K = 8 does.
+//
+// Why a second body: the K <= 64 bodies keep KM floats per K-vector in
+// registers (t1, t0, s1, s0 in the lambda pass; u, g in the gamma pass).
+// KM = 64 already spills, and KM = 128 would not fit the 48 KB of static
+// shared memory either. So a wide CTA splits the K output columns into
+// chunks of kKC = 32 (blockIdx.z), which hold in registers what KM = 32
+// holds. Each CTA computes the whole D1 = sum_k t1[b,k] u[n,k] (and D0)
+// over all K, then adds only its chunk's sums.
+//
+// Any K: D's operands are staged a piece at a time, piece p being the
+// columns [32p, 32p + 32) of K (the chunks' own split), and D is summed
+// over the pieces. So a CTA's shared memory does not grow with K: it is
+// static, 46 KB (lambda pass, count-plane loader) and 25 KB (gamma pass).
+// A CTA takes its own chunk's piece last, so that the staged piece serves
+// the chunk's sums too; D's sum thus starts at a different piece in each
+// chunk (the chunks' R of one entry differ in rounding only).
+//   lambda pass: per tile of kWideCols = 8 byte columns (32 individuals),
+//     a piece's t of the CTA's 64 rows (float2, k-major: a lane, one row,
+//     reads consecutive words) and u of the tile's 32 individuals (rows of
+//     32 floats, read as float4 broadcasts). A lane adds the piece into D
+//     of its row and the 32 individuals, kept in shared memory in the
+//     lane's own column (no lane reads another's); then each entry's
+//     R = A / (D + eps) goes into the chunk's sums.
+//   gamma pass: per block of kWideGRows = 32 rows, a piece's u of the
+//     CTA's 128 individuals (k-major, stride 129: a thread, one individual,
+//     reads its own column; the staging writes hit 32 banks) and t of the
+//     rows (float2 rows, read as float4 broadcasts); a thread keeps D of
+//     its individual and the 32 rows in registers.
+//
+// What bounds it at K > 64: the shared-memory load rate and the recompute.
+// D is computed ceil(K / 32) times: at K = 72, 3 x 2K + 2K = 8K FMAs an
+// entry against the 4K an unchunked pass would do, and at K = 256 8 x 2K +
+// 2K = 18K against 4K. This is a repair, not a redesign: the K <= 64
+// bodies are unchanged, and no K the reference's acceptance configs run
+// goes here.
+//
+// No atomics: each chunk writes its own k columns of the same partial-sum
+// buffers as the K <= 64 bodies (part (nsplit, B, K, 2), gpart (nsplit,
+// 4W, K)), and the split reductions add them in split order, so a re-run
+// is bitwise equal.
+#pragma once
+
+namespace tt {
+
+constexpr int kKC = 32;          // columns of K in a chunk and in a piece
+constexpr int kWideCols = 8;     // byte columns of a wide lambda-pass tile
+constexpr int kWideU = 4 * kWideCols;    // ... its individuals (u rows)
+constexpr int kWideGRows = 32;   // rows of a wide gamma CTA's block
+constexpr int kUStride = kGThreads + 1;  // wide gamma pass: u's k stride
+
+__host__ __device__ constexpr int round4(int K) { return (K + 3) & ~3; }
+inline int wide_chunks(int K) { return (K + kKC - 1) / kKC; }
+
+// Columns of piece p: 32, or what is left of K rounded up to 4.
+__device__ __forceinline__ int piece_width(int K, int p) {
+  return min(kKC, round4(K) - p * kKC);
+}
+
+// The wide lambda pass. grid (ceil(B/kRowsPerCta), nsplit, wide_chunks(K)),
+// block kThreads. Arguments as lambda_pass_kernel's; CTA z writes
+// part[..., k, :] for k in [32 z, 32 z + 32).
+template <class Loader, int kDiv>
+__global__ void __launch_bounds__(kThreads)
+lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
+                        const float* __restrict__ t1g,
+                        const float* __restrict__ t0g, int ts, int tk,
+                        float* __restrict__ part, int B, int W, int K,
+                        int wchunk, const int* __restrict__ active) {
+  if (active != nullptr && *active == 0) return;
+  constexpr int TC = kWideCols;
+  constexpr int G = 2;                             // entries at once
+  constexpr int UB = 8;                            // u rows D holds at once
+  __shared__ uint32_t tile[Loader::words(TC)];
+  __shared__ __align__(16) float2 tsm[kKC * kRowsPerCta];  // (k, row)
+  __shared__ __align__(16) float us[kWideU * kKC];         // (u row, k)
+  __shared__ float2 dsm[kWideU * kRowsPerCta];             // (u row, row)
+  __shared__ const uint8_t* rowp[kRowsPerCta];
+
+  const int r = threadIdx.x;                       // the lane's row in the CTA
+  const int b0 = blockIdx.x * kRowsPerCta;
+  const int b = b0 + r;
+  const bool row_ok = b < B;
+  const int wbeg = blockIdx.y * wchunk;
+  const int wend = min(W, wbeg + wchunk);
+  const int np = gridDim.z;                        // pieces = chunks
+  const int kc0 = blockIdx.z * kKC;
+  const int kwc = piece_width(K, blockIdx.z);      // the chunk's columns
+
+  ld.prepare(rowp, b0, B, W);  // visible after the first tile's barrier
+  float s1[kKC], s0[kKC];
+#pragma unroll
+  for (int j = 0; j < kKC; ++j) s1[j] = s0[j] = 0.f;
+
+  for (int w0 = wbeg; w0 < wend; w0 += TC) {
+    const int nb = min(TC, wend - w0);
+    const int nc = min(TC, (nb + 3) & ~3);
+    __syncthreads();  // the previous tile is consumed
+    ld.template stage<TC>(tile, rowp, b0, B, W, w0, nb);
+    for (int q = 1; q <= np; ++q) {
+      const int p = (blockIdx.z + q) % np;         // the chunk's own last
+      const int k0 = p * kKC, kw = piece_width(K, p);
+      if (q > 1) __syncthreads();                  // the last piece is read
+      for (int i = threadIdx.x; i < kw * kRowsPerCta; i += kThreads) {
+        const int k = i / kRowsPerCta, rr = i % kRowsPerCta;
+        const long long o =
+            (long long)(b0 + rr) * ts + (long long)(k0 + k) * tk;
+        tsm[i] = b0 + rr < B && k0 + k < K ? make_float2(t1g[o], t0g[o])
+                                           : make_float2(0.f, 0.f);
+      }
+      // u rows of the tile's columns, zero beyond K and beyond nb (a packed
+      // word reaches up to 3 columns past nb; they read as MISSING)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float* ug = up + ((long long)s * W + w0) * K + k0;
+        for (int i = threadIdx.x; i < nc * kw; i += kThreads) {
+          const int c = i / kw, k = i % kw;
+          us[(s * TC + c) * kKC + k] =
+              c < nb && k0 + k < K ? __ldg(ug + c * K + k) : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int u0 = 0; u0 < kWideU; u0 += UB) {
+        float d1[UB], d0[UB];
+#pragma unroll
+        for (int i = 0; i < UB; ++i) {
+          const float2 d = q > 1 ? dsm[(u0 + i) * kRowsPerCta + r]
+                                 : make_float2(0.f, 0.f);
+          d1[i] = d.x;
+          d0[i] = d.y;
+        }
+        for (int k4 = 0; k4 < kw / 4; ++k4) {
+          const float2* tk4 = tsm + 4 * k4 * kRowsPerCta + r;
+          const float2 ta = tk4[0], tb = tk4[kRowsPerCta],
+                       tc = tk4[2 * kRowsPerCta], td = tk4[3 * kRowsPerCta];
+#pragma unroll
+          for (int i = 0; i < UB; ++i) {
+            const float4 v =
+                reinterpret_cast<const float4*>(us + (u0 + i) * kKC)[k4];
+            d1[i] = fmaf(ta.x, v.x, d1[i]);
+            d0[i] = fmaf(ta.y, v.x, d0[i]);
+            d1[i] = fmaf(tb.x, v.y, d1[i]);
+            d0[i] = fmaf(tb.y, v.y, d0[i]);
+            d1[i] = fmaf(tc.x, v.z, d1[i]);
+            d0[i] = fmaf(tc.y, v.z, d0[i]);
+            d1[i] = fmaf(td.x, v.w, d1[i]);
+            d0[i] = fmaf(td.y, v.w, d0[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < UB; ++i)
+          dsm[(u0 + i) * kRowsPerCta + r] = make_float2(d1[i], d0[i]);
+      }
+    }
+    // the chunk's sums: us holds the chunk's own piece
+    const int nunits = Loader::units(nb);
+    for (int unit = 0; unit < nunits; ++unit) {
+      uint32_t w[Loader::kWords];
+      if (!Loader::template load<TC>(tile, r, unit, w)) continue;
+#pragma unroll
+      for (int e0 = 0; e0 < Loader::kEntries; e0 += G) {
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          int urow;
+          float a1, a0;
+          Loader::template entry<TC>(w, unit, e0 + i, urow, a1, a0);
+          const float2 d = dsm[urow * kRowsPerCta + r];
+          const float r1 = ratio<kDiv>(a1, d.x);
+          const float r0 = ratio<kDiv>(a0, d.y);
+          const float4* q = reinterpret_cast<const float4*>(us + urow * kKC);
+#pragma unroll
+          for (int j = 0; j < kKC / 4; ++j) {
+            if (4 * j < kwc) {                       // the same for all lanes
+              const float4 v = q[j];
+              s1[4 * j] = fmaf(r1, v.x, s1[4 * j]);
+              s0[4 * j] = fmaf(r0, v.x, s0[4 * j]);
+              s1[4 * j + 1] = fmaf(r1, v.y, s1[4 * j + 1]);
+              s0[4 * j + 1] = fmaf(r0, v.y, s0[4 * j + 1]);
+              s1[4 * j + 2] = fmaf(r1, v.z, s1[4 * j + 2]);
+              s0[4 * j + 2] = fmaf(r0, v.z, s0[4 * j + 2]);
+              s1[4 * j + 3] = fmaf(r1, v.w, s1[4 * j + 3]);
+              s0[4 * j + 3] = fmaf(r0, v.w, s0[4 * j + 3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (!row_ok) return;
+  float2* out = reinterpret_cast<float2*>(
+      part + ((long long)blockIdx.y * B + b) * K * 2);
+#pragma unroll
+  for (int j = 0; j < kKC; ++j)
+    if (kc0 + j < K) out[kc0 + j] = make_float2(s1[j], s0[j]);
+}
+
+// The wide gamma pass. grid (ceil(4W/kGThreads), nsplit, wide_chunks(K)),
+// block kGThreads. Arguments as gamma_pass_kernel's; CTA z writes
+// gpart[..., k] for k in [32 z, 32 z + 32).
+template <class Rows>
+__global__ void __launch_bounds__(kGThreads)
+gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
+                       const float* __restrict__ t1g,
+                       const float* __restrict__ t0g, int ts, int tk,
+                       float* __restrict__ gpart, int B, int W, int K,
+                       int bchunk) {
+  constexpr int R = kWideGRows;
+  __shared__ float usm[kKC * kUStride];                // (k, individual)
+  __shared__ __align__(16) float2 tsm[R * kKC];        // (row, k)
+  __shared__ const uint8_t* rowp[R];
+  const int i0 = blockIdx.x * kGThreads;
+  const int i = i0 + threadIdx.x;
+  const bool ok = i < 4 * W;
+  const int s = ok ? i / W : 0;
+  const int w = ok ? i % W : 0;
+  const int np = gridDim.z;                            // pieces = chunks
+  const int kc0 = blockIdx.z * kKC;
+  const int kwc = piece_width(K, blockIdx.z);          // the chunk's columns
+  float g[kKC];
+#pragma unroll
+  for (int j = 0; j < kKC; ++j) g[j] = 0.f;
+  const int bbeg = blockIdx.y * bchunk;
+  const int bend = min(B, bbeg + bchunk);
+  for (int c0 = bbeg; c0 < bend; c0 += R) {
+    const int nr = min(R, bend - c0);
+    float d1[R], d0[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) d1[r] = d0[r] = 0.f;
+    for (int q = 1; q <= np; ++q) {
+      const int p = (blockIdx.z + q) % np;             // the chunk's own last
+      const int k0 = p * kKC, kw = piece_width(K, p);
+      __syncthreads();                     // the last piece or block is read
+      for (int j = threadIdx.x; j < kGThreads * kw; j += kGThreads) {
+        const int n = j / kw, k = j % kw;
+        usm[k * kUStride + n] = i0 + n < 4 * W && k0 + k < K
+                                    ? up[(long long)(i0 + n) * K + k0 + k]
+                                    : 0.f;
+      }
+      for (int j = threadIdx.x; j < R * kw; j += kGThreads) {
+        const int r = j / kw, k = j % kw;
+        const long long o =
+            (long long)(c0 + r) * ts + (long long)(k0 + k) * tk;
+        tsm[r * kKC + k] = r < nr && k0 + k < K ? make_float2(t1g[o], t0g[o])
+                                                : make_float2(0.f, 0.f);
+      }
+      if (q == 1)
+        for (int r = threadIdx.x; r < nr; r += kGThreads)
+          rowp[r] = src.row(c0 + r, W);
+      __syncthreads();
+      for (int k = 0; k < kw; k += 2) {
+        const float ua = usm[k * kUStride + threadIdx.x];
+        const float ub = usm[(k + 1) * kUStride + threadIdx.x];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          // (t1, t0) of columns k and k + 1
+          const float4 t = *reinterpret_cast<const float4*>(tsm + r * kKC + k);
+          d1[r] = fmaf(t.x, ua, d1[r]);
+          d0[r] = fmaf(t.y, ua, d0[r]);
+          d1[r] = fmaf(t.z, ub, d1[r]);
+          d0[r] = fmaf(t.w, ub, d0[r]);
+        }
+      }
+    }
+    // the chunk's sums (tsm holds the chunk's own piece), four rows a step:
+    // d moves down four rows after each, so that it stays in registers with
+    // a body of four rows (unrolled over all R rows, nvcc takes ~13 s more
+    // a source)
+    for (int rb = 0; rb < nr; rb += 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rb + i;
+        const uint8_t* p = r < nr ? rowp[r] : nullptr;
+        const uint32_t code = ok && p != nullptr ? (p[w] >> (2 * s)) & 3u : 3u;
+        if (code != 3u) {
+          const float a1 = (float)code;
+          const float a0 = 2.f - a1;
+          const float r1 = ratio<kDivExact>(a1, d1[i]);
+          const float r0 = ratio<kDivExact>(a0, d0[i]);
+          const float2* tr = tsm + r * kKC;
+#pragma unroll
+          for (int j = 0; j < kKC; ++j) {
+            if (j < kwc) {                       // the same for all threads
+              const float2 t = tr[j];
+              g[j] = fmaf(r1, t.x, g[j]);
+              g[j] = fmaf(r0, t.y, g[j]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R - 4; ++i) {
+        d1[i] = d1[i + 4];
+        d0[i] = d0[i + 4];
+      }
+    }
+  }
+  if (!ok) return;
+  float* out = gpart + ((long long)blockIdx.y * 4 * W + i) * K;
+#pragma unroll
+  for (int j = 0; j < kKC; ++j)
+    if (kc0 + j < K) out[kc0 + j] = g[j];
+}
+
+// Launch the wide gamma pass over `nsplit` row slices and their reduction
+// (as gamma_stats).
+template <class Rows>
+int gamma_stats_wide(Rows src, const float* up, const float* t1g,
+                     const float* t0g, int ts, int tk, float* gpart, float* g,
+                     int B, int W, int K, int nsplit, cudaStream_t stream) {
+  const int bchunk = (B + nsplit - 1) / nsplit;
+  const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit,
+                  wide_chunks(K));
+  gamma_pass_wide_kernel<Rows><<<grid, kGThreads, 0, stream>>>(
+      src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+  TT_CHECK_LAUNCH();
+  const long long ng = 4LL * W * K;
+  gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
+      gpart, nsplit, ng, g);
+  TT_CHECK_LAUNCH();
+  return 0;
+}
+
+// Launch one wide lambda pass (as launch_lambda_pass).
+template <class Loader, bool kNewton>
+int launch_lambda_pass_wide(Loader ld, const float* up, const float* t1,
+                            const float* t0, int ts, int tk, float* part,
+                            int B, int W, int K, int nsplit, int div,
+                            const int* active, cudaStream_t stream) {
+  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit,
+                  wide_chunks(K));
+  const int wchunk = split_chunk(W, nsplit);
+#define TT_WIDE(DIV)                                                       \
+  lambda_pass_wide_kernel<Loader, DIV><<<grid, kThreads, 0, stream>>>(     \
+      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
+  if (div == kDivFast) {
+    TT_WIDE(kDivFast);
+  } else if (div == kDivExact) {
+    TT_WIDE(kDivExact);
+  } else if constexpr (kNewton) {
+    TT_WIDE(kDivNewton);
+  }
+#undef TT_WIDE
+  TT_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace tt

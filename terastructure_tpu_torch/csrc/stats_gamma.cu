@@ -12,7 +12,8 @@
 //
 // Bound on the H100: issue (4K FMAs and two divides per row and
 // individual). At the big-N shape (B=4096, W=25,088, K=10) that is
-// ~16 G FMA and ~0.8 G divides against 103 MB of packed rows.
+// ~16 G FMA and ~0.8 G divides against 103 MB of packed rows. K > 64
+// runs the K-chunked gamma body (psd_wide.cuh).
 
 #include "psd_common.cuh"
 
@@ -20,14 +21,6 @@ extern "C" int tt_gamma_stats_packed(const uint8_t* rows, const float* up,
                                      const float* t1, const float* t0,
                                      float* g, float* gpart, int B, int W,
                                      int K, int nsplit, cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km == 0)
-    return (int)cudaErrorInvalidValue;
-  int err;
-#define TT_LAUNCH(KM)                                                      \
-  err = tt::gamma_stats<KM>(tt::ContiguousRows{rows}, up, t1, t0, K, 1,     \
-                            gpart, g, B, W, K, nsplit, stream)
-  TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-  return err;
+  return tt::launch_gamma_stats(tt::ContiguousRows{rows}, up, t1, t0, K, 1,
+                                gpart, g, B, W, K, nsplit, stream);
 }

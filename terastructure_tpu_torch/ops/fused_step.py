@@ -27,8 +27,7 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_kmax, check_shapes, grid_split, lambda_grid, plane_counts,
-    ratios_planar)
+    check_shapes, grid_split, lambda_grid, plane_counts, ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -210,7 +209,6 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
         return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
     if rows.device.type != "cuda":
         raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
-    check_kmax("fused_local_solve", u_planes.shape[2])
     _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
     out = _launch_solve("tt_fused_local_solve", (rows.data_ptr(),), u_planes,
@@ -270,7 +268,6 @@ def fused_local_solve_dma(idx0: torch.Tensor, packed: torch.Tensor,
                                           group=group, **kw)
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
-    check_kmax(name, k)
     _build.require_cuda(name, packed, u_planes, lamb_init,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
     out = _launch_solve("tt_fused_local_solve_dma",

@@ -7,7 +7,8 @@ those blocks out of the packed (L, W) matrix. On the TPU the 8-row unit
 was forced by Mosaic's tiling; the port keeps it because it is the
 reference's sampling distribution at that L, not for alignment.
 
-CUDA: csrc/gather.cu. CPU: the plain fancy-index twin.
+CUDA: csrc/gather.cu (a warp copies a run, ten 16-byte words a lane in
+flight; odd W copies 8-byte words). CPU: the plain fancy-index twin.
 """
 
 from __future__ import annotations
@@ -31,19 +32,20 @@ def gather_row_blocks(src: torch.Tensor, starts: torch.Tensor, *,
     Block starts are not range-checked on the device."""
     if src.dim() != 2 or starts.dim() != 1:
         raise ValueError("gather_row_blocks: src (L, W), starts (G,)")
-    if src.device.type == "cpu":
+    dev = src.device
+    if dev.type == "cpu":
         gather_row_blocks.twin_calls += 1
         return gather_row_blocks_twin(src, starts, block=block)
-    if src.device.type != "cuda":
-        raise ValueError(f"gather_row_blocks: unsupported device {src.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gather_row_blocks: unsupported device {dev}")
     _build.require_cuda("gather_row_blocks", src, starts,
                         dtypes=(torch.uint8, torch.int32))
     g, w = starts.shape[0], src.shape[1]
-    out = torch.empty((g * block, w), dtype=torch.uint8, device=src.device)
+    out = torch.empty((g * block, w), dtype=torch.uint8, device=dev)
     if g:
         err = _build.lib().tt_gather_row_blocks(
             out.data_ptr(), src.data_ptr(), starts.data_ptr(), g, block * w,
-            _build.stream_ptr(src.device))
+            _build.stream_ptr(dev))
         _build.check(err, "gather_row_blocks")
         gather_row_blocks.launches += 1
     return out

@@ -92,7 +92,20 @@ def aitken_final(prev, cur, new, floor=1e-3, rmax=0.9):
     return torch.clamp_min(new + step, floor)
 
 
-def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel):
+def pad_share(pad_rows, k, prior, first):
+    """What `pad_rows` all-MISSING rows add to the two sums of the tol
+    test, (sum |new - lam|, sum |lam|), over their K x 2 entries. Their
+    lambda starts at 1.0 (the reference pads lambda with 1.0) and every
+    pass moves it to the prior (beta_a, beta_b): their statistics are 0."""
+    beta_a, beta_b = prior
+    if first:
+        return (pad_rows * k * (abs(beta_a - 1.0) + abs(beta_b - 1.0)),
+                pad_rows * k * 2.0)
+    return 0.0, pad_rows * k * (abs(beta_a) + abs(beta_b))
+
+
+def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
+                   pad_rows=0, prior=(1.0, 1.0)):
     """The local-solve schedule shared by every coordinate-ascent path.
 
     plain: up to `local_iters` passes, stopping after the first pass whose
@@ -105,14 +118,26 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel):
     masking: every pass runs and `lam = where(active, new, lam)` keeps the
     result of the last pass the loop would have taken. The result is
     identical and the host never reads a device value.
+
+    pad_rows: all-MISSING rows the reference would have padded the batch
+    with (the big-N step at B % 8 != 0). They are not made: their known
+    share (`pad_share`, with prior = (beta_a, beta_b)) enters both means
+    of the tol test, which then run over B + pad_rows rows as the
+    reference's do.
     """
     accel = accel and local_iters >= 3
     loop_iters = local_iters - 2 if accel else local_iters
     lam = lamb0
     active = torch.ones((), dtype=torch.bool, device=lamb0.device)
-    for _ in range(loop_iters):
+    n = lam.numel() + pad_rows * lam.shape[1] * 2
+    for i in range(loop_iters):
         new = iterate(lam)
-        delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
+        if pad_rows:
+            pd, pm = pad_share(pad_rows, lam.shape[1], prior, first=i == 0)
+            delta = (((new - lam).abs().sum() + pd) / n
+                     / (((lam.abs().sum() + pm) / n) + 1.0))
+        else:
+            delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
         lam = torch.where(active, new, lam)
         active = active & (delta > local_tol)
     if accel:

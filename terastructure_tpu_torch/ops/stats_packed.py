@@ -18,7 +18,10 @@ CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
 - K7 `batch_stats_fused_v2_packed` and K6 `batch_stats_fused_packed`
   (csrc/stats_fused.cu): λ and γ statistics from one D per entry.
 
-The last four carry the big-N step (svi/engine.step_core_packed).
+The last four carry the big-N step (svi/engine.step_core_packed). Every
+kernel takes any K the twins take: K <= 64 runs the bodies instantiated
+at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
+(csrc/psd_wide.cuh, csrc/stats_fused.cu).
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from terastructure_tpu_torch.models.psd import elog_beta
 from terastructure_tpu_torch.ops.stats_dense import solve_schedule
 
 _EPS = 1e-30
-KMAX = 64       # largest K the CUDA kernels are instantiated for
 
 
 def u_to_planes(u: torch.Tensor) -> torch.Tensor:
@@ -136,15 +138,6 @@ def check_shapes(name, rows, u_planes):
         raise ValueError(f"{name}: K must be at least 1")
 
 
-def check_kmax(name, k):
-    """The CUDA branches' K limit (the twins take any K >= 1)."""
-    if k > KMAX:
-        raise ValueError(
-            f"{name}: the CUDA kernels take K <= {KMAX}, got K={k}; a "
-            "K-chunked pass body is the first open repair of ROADMAP.md's "
-            "Queue 3")
-
-
 def check_t(name, b, k, t1, t0):
     """Validate the (B, K) t1, t0 of a kernel call."""
     if t1.shape != (b, k) or t0.shape != (b, k):
@@ -204,7 +197,6 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
         lambda_stats_packed.twin_calls += 1
         return lambda_stats_packed_twin(rows, u_planes, t1, t0,
                                         approx_div=approx_div)
-    check_kmax("lambda_stats_packed", k)
     _build.require_cuda("lambda_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
@@ -237,12 +229,13 @@ lambda_stats_packed.twin_calls = 0
 
 def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                        local_tol, stat_scale=1.0, approx_div=False,
-                       accel=False):
+                       accel=False, pad_rows=0):
     """Local coordinate ascent from packed rows on the shared schedule.
 
     u: (N, K) with N = 4 * W (caller pads); returns lamb_b (B, K, 2).
     stat_scale rescales the individual-summed statistics (N/Ns for a
-    column subsample).
+    column subsample). pad_rows: the reference's all-MISSING batch rows
+    that the tol test counts (`solve_schedule`).
     """
     u_planes = u_to_planes(u)
 
@@ -255,7 +248,8 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                             beta_b + stat_scale * t0 * l1], -1)
 
     return solve_schedule(iterate, lamb_b, local_iters=local_iters,
-                          local_tol=local_tol, accel=accel)
+                          local_tol=local_tol, accel=accel,
+                          pad_rows=pad_rows, prior=(beta_a, beta_b))
 
 
 def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
@@ -276,7 +270,6 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
         lambda_stats_acat.twin_calls += 1
         return lambda_stats_acat_twin(a1, a0, u_planes, t1, t0,
                                       approx_div=approx_div)
-    check_kmax("lambda_stats_acat", k)
     _build.require_cuda("lambda_stats_acat", a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
     nsplit, _ = lambda_grid(b, w)
@@ -299,7 +292,7 @@ lambda_stats_acat.twin_calls = 0
 
 def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                      local_tol, stat_scale=1.0, approx_div=False,
-                     accel=False):
+                     accel=False, pad_rows=0):
     """`local_solve_packed` with the counts decoded once up front: the
     schedule iterates K8 over the planes instead of unpacking the rows
     every pass. Same arguments and result."""
@@ -315,7 +308,8 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                             beta_b + stat_scale * t0 * l1], -1)
 
     return solve_schedule(iterate, lamb_b, local_iters=local_iters,
-                          local_tol=local_tol, accel=accel)
+                          local_tol=local_tol, accel=accel,
+                          pad_rows=pad_rows, prior=(beta_a, beta_b))
 
 
 def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
@@ -330,7 +324,6 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     if _device_of("gamma_stats_packed", rows) == "cpu":
         gamma_stats_packed.twin_calls += 1
         return gamma_stats_packed_twin(rows, u_planes, t1, t0)
-    check_kmax("gamma_stats_packed", k)
     _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     nsplit = grid_split(-(-4 * w // 128), -(-b // 64))
@@ -390,7 +383,6 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
         g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
                                            approx_div=approx_div)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
-    check_kmax(name, k)
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
@@ -425,7 +417,6 @@ def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
         batch_stats_fused_packed.twin_calls += 1
         g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
-    check_kmax(name, k)
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device

@@ -268,6 +268,13 @@ def subsample_columns(cfg: SVIConfig, wp: int, gen) -> torch.Tensor | None:
     return torch.randperm(wp, generator=gen, device=gen.device)[:sub_w]
 
 
+def batch_pad_rows(b: int) -> int:
+    """All-MISSING rows the reference's big-N step pads a batch of b rows
+    with: it pads to a multiple of 8 where none of its row tiles (256,
+    128, ..., 8) divides b (terastructure_tpu/svi/engine.py:178-179)."""
+    return (-b) % 8
+
+
 def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
                      lamb_b=None):
     """Local solve + statistics from packed rows (B, W): the big-N
@@ -285,9 +292,9 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     gen draws the subsample; idx_w (sub_w,) injects it instead (tests).
     lamb_b (B, K, 2) warm-starts the solve (the stored lambda mode); None
     starts it at the prior.
-    Any B: the kernels need no batch padding. (The reference pads B to a
-    multiple of 8 with all-MISSING rows, which only dilutes the tol
-    test's two means alike; their ratio moves by ~1/mean|lambda|.)
+    Any B: the kernels need no batch padding. Where the reference pads B
+    (`batch_pad_rows`), the solve's tol test counts the pad rows' known
+    share, so the loop exits at the reference's pass.
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
     """
     if cfg.compute_dtype != "float32":
@@ -302,7 +309,8 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     u = pad_individuals(ops.exp_elog_theta(gamma), wp)
     if lamb_b is None:
         lamb_b = _prior_lamb(cfg, b, rows.device)
-    kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b)
+    kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b,
+              pad_rows=batch_pad_rows(b))
     if idx_w is None and gen is not None:
         idx_w = subsample_columns(cfg, wp, gen)
     if idx_w is not None:

@@ -21,6 +21,7 @@ from terastructure_tpu_torch.data import GenotypeData
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step
 from terastructure_tpu_torch.ops import stats_packed as pk
+from terastructure_tpu_torch.ops.stats_dense import pad_share
 from terastructure_tpu_torch.svi import engine, fit
 
 N, K = 4096, 3          # W = 1024 byte columns; local_sub_n=512 -> 128
@@ -33,8 +34,9 @@ def _inputs(b, seed):
     return rows, gamma
 
 
-def _both(cfg, rows, gamma, seed):
-    """(port, reference) step_core_packed results from one subsample."""
+def _both(cfg, rows, gamma, seed, which="both"):
+    """(port, reference) step_core_packed results from one subsample;
+    which="port" or "ref" runs only that side (the other is None)."""
     key = jax.random.PRNGKey(seed)
     wp = rows.shape[1]
     sub_w = (cfg.local_sub_n // 4 // 128) * 128
@@ -42,13 +44,16 @@ def _both(cfg, rows, gamma, seed):
     b = rows.shape[0]
     lamb_b = jnp.stack([jnp.full((b, K), cfg.beta_a, jnp.float32),
                         jnp.full((b, K), cfg.beta_b, jnp.float32)], -1)
-    want = ref_engine.step_core_packed(cfg, jnp.asarray(gamma),
-                                       jnp.asarray(rows), lamb_b,
-                                       interpret=True, key=key)
-    got = engine.step_core_packed(cfg, torch.from_numpy(gamma),
-                                  torch.from_numpy(rows),
-                                  idx_w=torch.from_numpy(idx_w.copy()))
-    return [g.numpy() for g in got], [np.asarray(w) for w in want]
+    got = want = None
+    if which != "port":
+        want = [np.asarray(w) for w in ref_engine.step_core_packed(
+            cfg, jnp.asarray(gamma), jnp.asarray(rows), lamb_b,
+            interpret=True, key=key)]
+    if which != "ref":
+        got = [g.numpy() for g in engine.step_core_packed(
+            cfg, torch.from_numpy(gamma), torch.from_numpy(rows),
+            idx_w=torch.from_numpy(idx_w.copy()))]
+    return got, want
 
 
 @pytest.mark.parametrize("b", [16, 12])
@@ -151,3 +156,94 @@ def test_big_n_fit_matches_reference_fit():
     ref_mae = mean_abs_theta_error(
         np.asarray(ref_psd.theta_mean(ref.state.gamma)), theta_true)
     assert mae < 0.1 and abs(mae - ref_mae) < 0.03, (mae, ref_mae)
+
+
+# --- the tol test at B % 8 != 0 ----------------------------------------------
+def _exit_pass(run, m_max):
+    """The pass at which a solve's tol loop exits: the fewest local_iters
+    whose result is bitwise the result at m_max (the loop keeps the exit
+    pass's lambda however many passes local_iters allows beyond it)."""
+    final = run(m_max)
+    for m in range(1, m_max + 1):
+        if all(np.array_equal(a, c) for a, c in zip(run(m), final)):
+            return m, final
+    raise AssertionError("unreachable")
+
+
+def test_step_core_packed_tol_exit_at_b12_matches_reference(monkeypatch):
+    """B = 12: the reference pads the batch with 4 all-MISSING rows, and
+    its tol test averages over them. local_tol = 400 lies between the
+    first pass's relative change with those rows (~351) and without them
+    (~455), so the pass at which the loop exits hangs on them. The port
+    exits where the reference does, and its lambda and gamma statistic
+    match the reference's to 3e-5 (f32 sum order, as the cases above)."""
+    b, seed = 12, 12
+    cfg = SVIConfig(n=N, l=100, k=K, batch_size=b, local_sub_n=512,
+                    local_accel=False, local_sub_approx_div=False,
+                    beta_a=2.0, beta_b=0.5, local_tol=400.0)
+    assert engine.batch_pad_rows(b) == 4
+    rows, gamma = _inputs(b, seed=seed)
+
+    def run(which, m):
+        got, want = _both(cfg.replace(local_iters=m), rows, gamma, seed,
+                          which=which)
+        return got if which == "port" else want
+
+    port_pass, got = _exit_pass(lambda m: run("port", m), 3)
+    ref_pass, want = _exit_pass(lambda m: run("ref", m), 3)
+    with monkeypatch.context() as mp:            # the pad share left out
+        mp.setattr(engine, "batch_pad_rows", lambda b: 0)
+        unpadded_pass, _ = _exit_pass(lambda m: run("port", m), 3)
+    assert unpadded_pass != ref_pass
+    assert port_pass == ref_pass == 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("prior", [(1.0, 1.0), (2.0, 0.5)])
+def test_pad_share_equals_a_solve_over_padded_rows(prior):
+    """The closed-form share of the pad rows (stats_dense.pad_share)
+    against rows really padded: all-MISSING rows with lambda 1.0 give
+    those sums on the first pass and on every later one, and a solve over
+    B rows with pad_rows = 4 gives the padded solve's lambda at a tol that
+    the pad rows decide."""
+    b, pad, n, k = 12, 4, 512, 3
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(pack2bit(rng.integers(0, 4, (b, n)).astype(
+        np.int8)))
+    u = torch.from_numpy(rng.uniform(0.2, 1.0, (n, k)).astype(np.float32))
+    lamb = torch.empty((b, k, 2))
+    lamb[..., 0], lamb[..., 1] = prior
+    padded = torch.cat([rows, rows.new_full((pad, rows.shape[1]), 0xFF)])
+    lamb_p = torch.cat([lamb, torch.ones((pad, k, 2))])
+    kw = dict(beta_a=prior[0], beta_b=prior[1], stat_scale=8.0)
+
+    lam = lamb_p
+    for first in (True, False, False):
+        new = pk.local_solve_packed(padded, u, lam, local_iters=1,
+                                    local_tol=0.0, **kw)
+        got = (float((new[b:] - lam[b:]).abs().sum()),
+               float(lam[b:].abs().sum()))
+        assert got == pytest.approx(pad_share(pad, k, prior, first),
+                                    rel=1e-6, abs=1e-6)
+        lam = new
+
+    # the first pass's relative change with and without the pad rows
+    # brackets local_tol: the exit pass hangs on them
+    deltas = []
+    for x, l0 in ((padded, lamb_p), (rows, lamb)):
+        new = pk.local_solve_packed(x, u, l0, local_iters=1, local_tol=0.0,
+                                    **kw)
+        deltas.append(float((new - l0).abs().mean()
+                            / (l0.abs().mean() + 1.0)))
+    tol = sum(deltas) / 2
+    assert min(deltas) < tol < max(deltas)
+    for m in (1, 2, 3):
+        solve = dict(kw, local_iters=m, local_tol=tol)
+        want = pk.local_solve_packed(padded, u, lamb_p, **solve)[:b]
+        got = pk.local_solve_packed(rows, u, lamb, pad_rows=pad, **solve)
+        unpadded = pk.local_solve_packed(rows, u, lamb, **solve)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        if m > 1:
+            assert not torch.allclose(unpadded, want, rtol=1e-4, atol=1e-4)

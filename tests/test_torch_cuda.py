@@ -124,14 +124,21 @@ def test_group_dma_kernel_reads_no_row_outside_the_matrix(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [100, 640])       # byte and 16-byte copies
-def test_gather_kernel_matches_twin(cuda_device, w):
-    rng = np.random.default_rng(1)
+@pytest.mark.parametrize("w,g", [(100, 64), (640, 64), (640, 1), (235, 512),
+                                 (235, 1)])
+def test_gather_kernel_matches_twin(cuda_device, w, g):
+    """Runs of 8W bytes: 16-byte aligned (W even), not (odd W, the byte
+    path); one run (G = 1) and many; bitwise the twin and index_select."""
+    rng = np.random.default_rng(w + g)
     src = torch.from_numpy(rng.integers(0, 256, (4096, w), dtype=np.uint8))
-    starts = torch.from_numpy(rng.integers(0, 512, 64).astype(np.int32))
+    starts = torch.from_numpy(rng.integers(0, 512, g).astype(np.int32))
     src, starts = src.to(cuda_device), starts.to(cuda_device)
-    assert torch.equal(gather.gather_row_blocks(src, starts),
-                       gather.gather_row_blocks_twin(src, starts))
+    before = gather.gather_row_blocks.launches
+    got = gather.gather_row_blocks(src, starts)
+    assert gather.gather_row_blocks.launches == before + 1
+    assert torch.equal(got, gather.gather_row_blocks_twin(src, starts))
+    assert torch.equal(got, src.view(-1, 8 * w).index_select(0, starts.long())
+                       .view_as(got))
 
 
 @pytest.mark.cuda
@@ -294,13 +301,90 @@ def test_lambda_pass_tiling_k2_bitwise_k1(cuda_device, shape):
         np.testing.assert_allclose(a.cpu().numpy(), w_.cpu().numpy(), **TOL)
 
 
+# K above the widest instantiated K-width (64): the K-chunked ("wide")
+# bodies, at ragged B and odd W, each against its twin.
 @pytest.mark.cuda
-def test_k_above_the_kernels_limit_raises_on_the_card(cuda_device):
-    rows, up, lamb = _problem(cuda_device, 16, 512, stats_packed.KMAX + 8,
-                              seed=1)
+@pytest.mark.parametrize("k", [72, 256])
+@pytest.mark.parametrize("approx_div", [False, True])
+def test_k_above_64_runs_the_wide_lambda_pass(cuda_device, approx_div, k):
+    """K = 72 and 256 (3 and 8 pieces of K): K4, K8 and K1 (wide λ and γ
+    passes) at B = 40, W = 235 with whole rows MISSING; K2 at a shape its
+    gate admits, with a null group, bitwise K1 on the gathered rows."""
+    rows, up, lamb = _tiling_problem(cuda_device, 40, 235, k)
     t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
-    with pytest.raises(ValueError, match="Queue 3"):
-        stats_packed.lambda_stats_packed(rows, up, t1, t0)
-    with pytest.raises(ValueError, match="Queue 3"):
-        fused_step.fused_local_solve(rows, up, lamb, local_iters=3,
-                                     local_tol=0.0, beta_a=1.0, beta_b=1.0)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
+                                                 approx_div=approx_div)
+    for got in (stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                                 approx_div=approx_div),
+                stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                               approx_div=approx_div)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       **tol)
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              approx_div=approx_div)
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+
+    b, g, l = 40, 8, 1024
+    packed, up, lamb = _problem(cuda_device, l, 4 * 256, k, seed=9)
+    lamb = lamb[:b].contiguous()
+    idx0 = _groups(cuda_device, l, b, g, seed=9)
+    idx0[1] = l                                  # reads as all MISSING
+    rows = packed[(idx0.long().clamp(max=l - g)[:, None]
+                   + torch.arange(g, device=cuda_device)).reshape(-1)]
+    rows[g:2 * g] = 0xFF
+    kw["warm_start"] = True
+    got = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                           **kw)
+    k1 = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    for a, c, w in zip(got, k1, want):
+        assert torch.equal(a, c)
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_wide_fused_solve_reruns_bitwise(cuda_device):
+    """K1 at K = 72 with the accel tail and a tol exit: no atomics in the
+    wide bodies, so a second run is bitwise equal."""
+    rows, up, lamb = _problem(cuda_device, 256, 4 * 256, 72, seed=11)
+    kw = dict(local_iters=7, local_tol=1e-3, accel=True, beta_a=1.0,
+              beta_b=1.0)
+    before = fused_step.fused_local_solve.launches
+    a = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    c = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    assert fused_step.fused_local_solve.launches == before + 2
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [72, 130, 256, 1000])
+def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
+    """K5, K7 (both divides) and K6 at K = 72, 130, 256 and 1000, B = 40,
+    W = 300: shared memory does not grow with K."""
+    rows, up, lamb = _problem(cuda_device, 40, 4 * 300, k, seed=k)
+    rows[3] = 0xFF
+    u = stats_packed.planes_to_flat(up).contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    np.testing.assert_allclose(
+        stats_packed.gamma_stats_packed(rows, up, t1, t0).cpu().numpy(),
+        stats_packed.gamma_stats_packed_twin(rows, up, t1, t0).cpu().numpy(),
+        **TOL)
+    for name, approx_div in (("batch_stats_fused_v2_packed", False),
+                             ("batch_stats_fused_v2_packed", True),
+                             ("batch_stats_fused_packed", False)):
+        kw = dict(approx_div=True) if approx_div else {}
+        got = getattr(stats_packed, name)(rows, u, t1, t0, **kw)
+        g, l0, l1 = stats_packed.batch_stats_fused_twin(rows, up, t1, t0,
+                                                        **kw)
+        want = (u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1)
+        tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       **tol)

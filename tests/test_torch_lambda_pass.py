@@ -1,10 +1,10 @@
-"""The lambda pass's grid, the K limit that only the CUDA branches have,
-and the float32-only lambda re-solve (CPU).
+"""The lambda pass's grid, the twins at K above the widest instantiated
+K-width, and the float32-only lambda re-solve (CPU).
 
-K = 72 is above the widest CUDA instantiation (64): on CPU tensors the
+K = 72 is above the widest instantiated K-width (64): on CPU tensors the
 wrappers run their twins, which take any K, and match the reference's
-kernels in interpret mode. On CUDA tensors the wrappers raise
-(tests/test_torch_cuda.py)."""
+kernels in interpret mode. On CUDA tensors they launch the K-chunked
+("wide") bodies, held to the twins in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,10 +71,38 @@ def _problem(b=16, n=512, k=K_WIDE, seed=0):
     return rows, up, lamb
 
 
-def test_check_kmax_names_the_open_item():
-    stats_packed.check_kmax("lambda_stats_packed", stats_packed.KMAX)
-    with pytest.raises(ValueError, match="Queue 3"):
-        stats_packed.check_kmax("lambda_stats_packed", stats_packed.KMAX + 1)
+K_ANY = 256     # a K whose wide bodies stage D's operands in 8 pieces
+
+
+@pytest.mark.parametrize("name", ["lambda_stats_packed", "lambda_stats_acat",
+                                  "gamma_stats_packed",
+                                  "batch_stats_fused_v2_packed",
+                                  "batch_stats_fused_packed"])
+def test_twins_take_k256_as_the_reference_kernels(name):
+    """K = 256: the twins the card's wide bodies are held to (at this K in
+    tests/test_torch_cuda.py) against the reference's kernels in interpret
+    mode, to this file's tolerance."""
+    rows, up, lamb = _problem(b=16, n=1024, k=K_ANY, seed=256)
+    t1, t0 = (np.array(t) for t in ref_ops.exp_elog_beta(jnp.asarray(lamb)))
+    u = np.array(ref_pk.planes_to_flat(jnp.asarray(up)))
+    tb, tw = ref_pk.pick_tiles(*rows.shape)
+    kw = dict(tb=tb, tw=tw, dtype=jnp.float32, interpret=True)
+    fn = getattr(stats_packed, name)
+    before = fn.twin_calls
+    if name == "lambda_stats_acat":
+        a1, a0 = stats_packed.decode_count_planes(torch.from_numpy(rows))
+        got = fn(a1, a0, *map(torch.from_numpy, (up, t1, t0)))
+        want = ref_pk.lambda_stats_acat(
+            *ref_pk.decode_count_planes(jnp.asarray(rows)), up, t1, t0, **kw)
+    else:
+        x = u if name.startswith("batch") else up
+        got = fn(*map(torch.from_numpy, (rows, x, t1, t0)))
+        want = getattr(ref_pk, name)(rows, x, t1, t0, **kw)
+    assert fn.twin_calls == before + 1
+    if name == "gamma_stats_packed":
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
 def test_lambda_stats_twin_takes_k72():
