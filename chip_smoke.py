@@ -12,8 +12,12 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    call's time where one exists, and each kernel's bound (the larger of
    its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s); K2
    also bitwise against K1 on the gathered rows; the lambda pass alone
-   (one launch of the body K1, K2, K4 and K8 share) timed at the shapes
-   the paths run it, beside its bound; K1, K2, K4 and K8 against their
+   (one launch of the body K1, K2, K4 and K8 share) and the gamma pass
+   alone (K1's and K2's last pass, through K5's entry) timed at the
+   shapes the paths run them, beside their bounds; K7 at the big-N shape
+   at K = 8, 10 and 16; K7 (both divides) and K5 against their twins at
+   K = 9, 10, 12 and 13, where the K-width of 12 begins and ends, with a
+   bitwise re-run of each; K1, K2, K4 and K8 against their
    twins on ragged B, odd W, K = 3..33, whole rows MISSING and a null
    group, with a bitwise re-run of each; K3 against `index_select` in
    turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
@@ -57,11 +61,12 @@ chooses.
 
     python3 chip_smoke.py --digest
 
-prints a digest of each kernel's outputs at K <= 64 on seeded inputs, the
-eager time of the K3 and K4 wrappers and the host cost of the calls they
-make for the device and the stream, through the wrappers only: a copy of
-this script run from another tree's root (an earlier commit unpacked
-with `git archive`) prints that tree's bits and host costs.
+prints a digest of each kernel's outputs on seeded inputs at K <= 64 and
+at K = 72 (the K-chunked bodies), the eager time of the K3 and K4
+wrappers and the host cost of the calls they make for the device and
+the stream, through the wrappers only: a copy of this script run from
+another tree's root (an earlier commit unpacked with `git archive`)
+prints that tree's bits and host costs.
 """
 
 from __future__ import annotations
@@ -277,6 +282,29 @@ def compare(name, got, want, tol, outlier_frac=0.0):
     return err
 
 
+def twice(label, fn):
+    """fn()'s outputs, after checking that a second call gives the same
+    bits."""
+    got = fn()
+    if not all(torch.equal(a, c) for a, c in zip(got, fn())):
+        raise AssertionError(f"{label}: a second run is not bitwise equal")
+    return got
+
+
+def hold(rec, name, label, got, want, tol, frac=0.0):
+    """compare, and keep the largest error in rec[name]["max_abs_err"]."""
+    err = compare(label, got, want, tol, frac)
+    rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+
+def twin_stats(rows, up, t1, t0, approx_div=False):
+    """The plain version of K5-K7's statistics, in their wrappers' form."""
+    g, l0, l1 = stats_packed.batch_stats_fused_twin(
+        rows, up, t1, t0, approx_div=approx_div)
+    u = stats_packed.planes_to_flat(up)
+    return u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1
+
+
 def _solve_inputs(b, w, k, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = torch.randint(0, 256, (b, w), generator=g, device=dev,
@@ -456,16 +484,6 @@ def phase_kernels_tiling(dev, rec):
     rows MISSING, a null group (K2), the exact and the fast divide. K1,
     K4 and K8 against their twins, K2 bitwise against K1 on the gathered
     rows, and every kernel bitwise against its own second run."""
-    def twice(label, fn):
-        got = fn()
-        if not all(torch.equal(a, c) for a, c in zip(got, fn())):
-            raise AssertionError(f"{label}: a second run is not bitwise equal")
-        return got
-
-    def hold(name, label, got, want, tol, frac=0.0):
-        err = compare(label, got, want, tol, frac)
-        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-
     plain = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
     for b, w, k in ((33, 235, 3), (1000, 626, 7), (33, 626, 10),
                     (1000, 235, 16), (72, 640, 33)):
@@ -479,19 +497,19 @@ def phase_kernels_tiling(dev, rec):
             got = twice(f"K4 {shape}",
                         lambda: stats_packed.lambda_stats_packed(
                             rows, up, t1, t0, approx_div=approx))
-            hold("lambda_stats_packed", f"K4 {shape} approx={approx}", got,
+            hold(rec, "lambda_stats_packed", f"K4 {shape} approx={approx}", got,
                  stats_packed.lambda_stats_packed_twin(
                      rows, up, t1, t0, approx_div=approx), tol)
             got = twice(f"K8 {shape}",
                         lambda: stats_packed.lambda_stats_acat(
                             a1, a0, up, t1, t0, approx_div=approx))
-            hold("lambda_stats_acat", f"K8 {shape} approx={approx}", got,
+            hold(rec, "lambda_stats_acat", f"K8 {shape} approx={approx}", got,
                  stats_packed.lambda_stats_acat_twin(
                      a1, a0, up, t1, t0, approx_div=approx), tol)
             kw = dict(plain, approx_div=approx)
             got = twice(f"K1 {shape}", lambda: fused_step.fused_local_solve(
                 rows, up, lamb, **kw))
-            hold("fused_local_solve", f"K1 {shape} approx={approx}", got,
+            hold(rec, "fused_local_solve", f"K1 {shape} approx={approx}", got,
                  fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
 
     # K2 where its gate admits the shape (W % 128 = 0, B % 8 = 0)
@@ -519,7 +537,7 @@ def phase_kernels_tiling(dev, rec):
             if not all(torch.equal(a, c) for a, c in zip(got, k1)):
                 raise AssertionError(f"K2 {shape}: differs from K1 on the "
                                      "gathered rows")
-            hold("fused_local_solve_dma", f"K2 {shape} approx={approx}", got,
+            hold(rec, "fused_local_solve_dma", f"K2 {shape} approx={approx}", got,
                  fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
     log("  tiling cases: every second run bitwise equal; K2 bitwise equal "
         "to K1 on the gathered rows")
@@ -606,12 +624,6 @@ def phase_kernels_bign(dev, rec):
         torch.cuda.empty_cache()          # the twin's ~10 GB of temporaries
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
-    def twin_stats(rows, up, t1, t0, approx_div=False):
-        g, l0, l1 = stats_packed.batch_stats_fused_twin(
-            rows, up, t1, t0, approx_div=approx_div)
-        u = stats_packed.planes_to_flat(up)
-        return u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1
-
     for tag, (b, w, k) in shapes:
         rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
         shape = f"B={b} W={w} K={k}"
@@ -651,6 +663,24 @@ def phase_kernels_bign(dev, rec):
                    pr * lambda_pass_flops(k), nbytes(rows, up, t1, t0, up))
         del rows, up, u, t1, t0
 
+    # K7 across K at the big-N shape: K = 8 and 16 beside the step's 10
+    # (what padding K to the instantiated width costs shows as K = 10 ~ 16)
+    r = rec["batch_stats_fused_v2_packed"]
+    r["k_sweep"] = []
+    for k in (8, 10, 16):
+        b, w, _ = BIGN
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+        e = dict(shape=f"B={b} W={w} K={k}", ms=time_ms(
+            lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1, t0),
+            5))
+        log(f"  K7 {e['shape']}: kernel {e['ms']:.4f} ms")
+        set_bound(e, present(rows) * (12 * k + 2),
+                  nbytes(rows, u, t1, t0, u, t1, t0))
+        r["k_sweep"].append(e)
+        del rows, up, u, t1, t0
+    phase_gamma_pass(dev, rec)
+    phase_kernels_km12(dev, rec)
+
     for tag, (b, w, k) in (("big-N", sub), shapes[1]):
         rows, up, _, t1, t0 = _stats_inputs(b, w, k, b + w, dev)
         a1, a0 = stats_packed.decode_count_planes(rows)
@@ -671,22 +701,60 @@ def phase_kernels_bign(dev, rec):
                    nbytes(a1, a0, up, t1, t0, t1, t0), reps=20)
 
 
+# B, W, K at which the paths run one gamma pass: K1's at the TGP shape,
+# K2's at config #3
+GAMMA_SHAPES = [(4096, 640, 8), (1024, 640, 8)]
+
+
+def phase_gamma_pass(dev, rec):
+    """The gamma pass alone, through K5's entry (the pass body K1 and K2
+    end with, plus its slice reduction), at the shapes the paths run it,
+    from a CUDA graph of 100 calls, beside its bound."""
+    r = rec["gamma_stats_packed"]
+    r["passes"] = []
+    for b, w, k in GAMMA_SHAPES:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        e = dict(shape=f"B={b} W={w} K={k}", ms=device_ms(
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0)))
+        log(f"  gamma pass {e['shape']}: {e['ms']:.4f} ms (device time, "
+            "launches replayed from a CUDA graph)")
+        set_bound(e, present(rows) * lambda_pass_flops(k),
+                  nbytes(rows, up, t1, t0, up))
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        r["passes"].append(e)
+
+
+def phase_kernels_km12(dev, rec):
+    """K7 (both divides) and K5 against their twins at the K where a
+    K-width of 12 begins and ends (9, 10, 12, 13), on a ragged B and an odd
+    W with whole rows MISSING, each bitwise against its second run."""
+    for k in (9, 10, 12, 13):
+        b, w = 300, 385
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, k + 12, dev)
+        rows[7] = 0xFF
+        rows[-1] = 0xFF
+        shape = f"B={b} W={w} K={k}"
+        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
+            hold(rec, "batch_stats_fused_v2_packed",
+                 f"K7 {shape} approx={approx}",
+                 twice(f"K7 {shape}",
+                       lambda: stats_packed.batch_stats_fused_v2_packed(
+                           rows, u, t1, t0, approx_div=approx)),
+                 twin_stats(rows, up, t1, t0, approx), tol)
+        hold(rec, "gamma_stats_packed", f"K5 {shape}",
+             twice(f"K5 {shape}", lambda: [stats_packed.gamma_stats_packed(
+                 rows, up, t1, t0)]),
+             [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0)], TOL)
+    log("  K = 9, 10, 12, 13: K7 and K5 within tolerance, re-runs bitwise")
+
+
 def phase_kernels_wide(dev, rec):
     """K > 64: the K-chunked bodies. K1, K2, K4 and K8 at K = 72 and 256
     (ragged B, odd W, rows MISSING, a null group for K2, both divides),
     K5, K6 and K7 at K = 72, 130 and 256, each against its twin and
     bitwise against its second run; one timed shape per family beside its
     bound."""
-    def twice(label, fn):
-        got = fn()
-        if not all(torch.equal(a, c) for a, c in zip(got, fn())):
-            raise AssertionError(f"{label}: a second run is not bitwise equal")
-        return got
-
-    def hold(name, label, got, want, tol):
-        err = compare(label, got, want, tol)
-        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-
     plain = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
     for k in (72, 256):
         rows, up, lamb = _solve_inputs(40, 235, k, k, dev)
@@ -697,17 +765,17 @@ def phase_kernels_wide(dev, rec):
         for approx, tol in ((False, TOL), (True, TOL_APPROX)):
             want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
                                                          approx_div=approx)
-            hold("lambda_stats_packed", f"K4 wide B=40 W=235 K={k} "
+            hold(rec, "lambda_stats_packed", f"K4 wide B=40 W=235 K={k} "
                  f"approx={approx}", twice("K4 wide", lambda: stats_packed.
                                            lambda_stats_packed(
                                                rows, up, t1, t0,
                                                approx_div=approx)), want, tol)
-            hold("lambda_stats_acat",
+            hold(rec, "lambda_stats_acat",
                  f"K8 wide B=40 W=235 K={k} approx={approx}",
                  twice("K8 wide", lambda: stats_packed.lambda_stats_acat(
                      a1, a0, up, t1, t0, approx_div=approx)), want, tol)
             kw = dict(plain, approx_div=approx)
-            hold("fused_local_solve",
+            hold(rec, "fused_local_solve",
                  f"K1 wide B=40 W=235 K={k} approx={approx}",
                  twice("K1 wide", lambda: fused_step.fused_local_solve(
                      rows, up, lamb, **kw)),
@@ -731,34 +799,28 @@ def phase_kernels_wide(dev, rec):
             if not all(torch.equal(a, c) for a, c in zip(got, k1)):
                 raise AssertionError("K2 wide: differs from K1 on the "
                                      "gathered rows")
-            hold("fused_local_solve_dma", f"K2 wide B=40 W=256 K={k} g=8 "
+            hold(rec, "fused_local_solve_dma", f"K2 wide B=40 W=256 K={k} g=8 "
                  f"approx={approx}", got,
                  fused_step.fused_local_solve_twin(rows2, up2, lamb2, **kw),
                  tol)
-
-    def twin_stats(rows, up, t1, t0, approx_div=False):
-        g_, l0, l1 = stats_packed.batch_stats_fused_twin(
-            rows, up, t1, t0, approx_div=approx_div)
-        u = stats_packed.planes_to_flat(up)
-        return u * stats_packed.planes_to_flat(g_), t1 * l0, t0 * l1
 
     for kk in (72, 130, 256):
         rows3, up3, u3, t13, t03 = _stats_inputs(40, 300, kk, kk, dev)
         rows3[3] = 0xFF
         shape = f"B=40 W=300 K={kk}"
-        hold("gamma_stats_packed", f"K5 wide {shape}",
+        hold(rec, "gamma_stats_packed", f"K5 wide {shape}",
              twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
                  rows3, up3, t13, t03)]),
              [stats_packed.gamma_stats_packed_twin(rows3, up3, t13, t03)],
              TOL)
         for approx, tol in ((False, TOL), (True, TOL_APPROX)):
-            hold("batch_stats_fused_v2_packed",
+            hold(rec, "batch_stats_fused_v2_packed",
                  f"K7 wide {shape} approx={approx}",
                  twice("K7 wide",
                        lambda: stats_packed.batch_stats_fused_v2_packed(
                            rows3, u3, t13, t03, approx_div=approx)),
                  twin_stats(rows3, up3, t13, t03, approx), tol)
-        hold("batch_stats_fused_packed", f"K6 wide {shape}",
+        hold(rec, "batch_stats_fused_packed", f"K6 wide {shape}",
              twice("K6 wide", lambda: stats_packed.batch_stats_fused_packed(
                  rows3, u3, t13, t03)),
              twin_stats(rows3, up3, t13, t03), TOL)
@@ -831,7 +893,7 @@ def phase_kernels_wide(dev, rec):
             ("batch_stats_fused_v2_packed",
              lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1,
                                                               t0),
-             -(-b // stats_packed.V2_TILE_ROWS)),
+             -(-b // stats_packed.V2_WIDE_TILE_ROWS)),
             ("batch_stats_fused_packed",
              lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
              -(-b // 32))):
@@ -1105,9 +1167,9 @@ def phase_config3(dev, rec, data, theta):
 
 
 def digests(dev):
-    """sha256 of each kernel's outputs at K <= 64 on seeded inputs, through
-    the wrappers only, so that another tree's package can run it: two
-    trees whose kernels give the same bits print the same digests."""
+    """sha256 of each kernel's outputs on seeded inputs, through the
+    wrappers only, so that another tree's package can run it: two trees
+    whose kernels give the same bits print the same digests."""
     import hashlib
 
     def h(*ts):
@@ -1151,6 +1213,29 @@ def digests(dev):
             out[f"K7 {shape} approx={approx}"] = h(
                 *stats_packed.batch_stats_fused_v2_packed(
                     rows, u, t1, t0, approx_div=approx))
+    # K > 64: every K-chunked body
+    b, w, k = 40, 256, 72
+    packed, up, lamb = _solve_inputs(1024, w, k, 72, dev)
+    idx0 = torch.arange(0, 1024, 8 * 5, dtype=torch.int32, device=dev)[:b // 8]
+    rows = packed[(idx0.long()[:, None]
+                   + torch.arange(8, device=dev)).reshape(b)]
+    lamb = lamb[:b].contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    shape = f"B={b} W={w} K={k}"
+    kw = dict(local_iters=7, local_tol=1e-4, beta_a=1.0, beta_b=1.0,
+              accel=True)
+    out[f"K1 {shape}"] = h(*fused_step.fused_local_solve(rows, up, lamb, **kw))
+    out[f"K2 {shape} g=8"] = h(*fused_step.fused_local_solve_dma(
+        idx0, packed, up, lamb, group=8, **kw))
+    out[f"K4 {shape}"] = h(*stats_packed.lambda_stats_packed(rows, up, t1, t0))
+    out[f"K8 {shape}"] = h(*stats_packed.lambda_stats_acat(a1, a0, up, t1, t0))
+    out[f"K5 {shape}"] = h(stats_packed.gamma_stats_packed(rows, up, t1, t0))
+    out[f"K6 {shape}"] = h(*stats_packed.batch_stats_fused_packed(
+        rows, u, t1, t0))
+    out[f"K7 {shape}"] = h(*stats_packed.batch_stats_fused_v2_packed(
+        rows, u, t1, t0))
     return out
 
 
@@ -1207,6 +1292,10 @@ def main(argv=()) -> int:
     _build.lib()
     log(f"  kernels built in {time.time() - t0:.1f} s "
         f"(nvcc {_build.build_seconds} s) -> {_build.library_path().name}")
+    by_source = getattr(_build, "source_seconds", {})  # older trees: none
+    if by_source:
+        log("  nvcc seconds by source: " + ", ".join(
+            f"{name} {t:.1f}" for name, t in by_source.items()))
     rec = {name: {} for name in KERNELS}
     if argv == ["--digest"]:
         print(json.dumps({"digests": digests(dev),

@@ -62,6 +62,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None       # wall time of the nvcc run, None if reused
+source_seconds = {}        # source -> seconds until its nvcc finished
 
 
 def _nvcc() -> str:
@@ -108,10 +109,24 @@ def build() -> Path:
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for p, o in zip(cu, objs)]
+    # drain each process in its own thread, so that each source's time is
+    # read when its nvcc ends (ptxas -v fills the pipes)
+    outs = [None] * len(procs)
+
+    def drain(i):
+        outs[i] = procs[i].communicate()
+        source_seconds[cu[i].name] = time.time() - t0
+
+    threads = [threading.Thread(target=drain, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     logs, failed = [], []
-    for p, proc in zip(cu, procs):
-        out, err = proc.communicate()
-        logs.append(f"== {p.name}\n{out}{err}")
+    for p, proc, (out, err) in zip(cu, procs, outs):
+        logs.append(f"== {p.name} ({source_seconds[p.name]:.1f} s)\n"
+                    f"{out}{err}")
         if proc.returncode:
             failed.append(f"{p.name} ({proc.returncode}):\n{err[-4000:]}")
     if not failed:

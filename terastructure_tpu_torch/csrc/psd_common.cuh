@@ -53,15 +53,21 @@
 //
 // `gamma_pass_kernel<KM, Rows>` is the planar gamma statistic
 // g[s*W+w, k] = sum_b r1[b,n] t1[b,k] + r0[b,n] t0[b,k] over a slice of
-// rows (K1's last pass and K5); `gamma_reduce_kernel` adds the slices in
-// order.
+// rows (K1's and K2's last pass, and K5); `gamma_reduce_kernel` adds the
+// slices in order. Its per-thread step, `gamma_rows`, is also K7's phase
+// 1 (stats_fused.cu). It applies the lambda pass's layout to the other
+// sum: the rows' packed bytes staged in shared memory with word-wide
+// loads, t read as float4 broadcasts, entries decoded without a branch,
+// two rows in flight, and KM = 12 for K = 9..12. Its grid
+// (`gamma_grid` in ops/stats_packed.py) keeps about four CTAs an SM.
 //
 // The divides (`ratio`, `Div`): an exact pass gives the bits of the IEEE
 // divide as count x IEEE reciprocal; the others use the hardware
 // reciprocal, bare (approx_div) or with one Newton step (the fused
 // solve's loop passes).
 //
-// These bodies are instantiated for K-widths KM = 4..64 (`pick_km`). K > 64
+// These bodies are instantiated for K-widths KM = 4..64 (`pick_km`; the
+// gamma pass also KM = 12). K > 64
 // goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
 // (`launch_lambda_pass`, `launch_gamma_stats`) pick by K.
 #pragma once
@@ -426,69 +432,145 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
     if (k < K) out[k] = make_float2(s1[k], s0[k]);
 }
 
-constexpr int kGThreads = 128;  // individuals per gamma CTA
-constexpr int kGRows = 64;      // rows of t staged in shared memory at once
+// The gamma side of the entry step, shared by the gamma pass (K1, K2, K5)
+// and K7's phase 1 (stats_fused.cu). A thread holds one individual's u
+// (KM floats, zero beyond K) and its K sums g in registers and walks `nr`
+// rows staged in shared memory:
+//   D1 = sum_k t1[b,k] u[k], D0 likewise (k ascending, one FMA chain each)
+//   r1 = a1 / (D1 + eps), r0 = a0 / (D0 + eps)          (`ratio<kDiv>`)
+//   g[k] += r1 t1[b,k], then g[k] += r0 t0[b,k]           (rows in order)
+// and, where kStoreR, writes r1, r0 to rs1[r * rstride], rs0 likewise.
+//   tr    the rows' t as KM/2 float4 a row, (t1[k], t0[k], t1[k+1],
+//         t0[k+1]): read as broadcasts into registers that serve D and g
+//   code  the thread's packed byte of row r at code[r * cstride]; its
+//         2-bit code at `shift`. MISSING counts 0 for both alleles, so its
+//         R is 0 x a finite reciprocal = 0 and it adds exactly 0: no branch
+// RB rows at a time, so their D chains and divides overlap; nr is a
+// multiple of RB (the callers stage MISSING rows with t = 0 up to it,
+// which add exactly 0). Zero columns of K (k >= K) add exactly 0 to D, so
+// a wider KM gives the same bits.
+template <int KM, int RB, int kDiv, bool kStoreR>
+__device__ __forceinline__ void gamma_rows(
+    const float (&uk)[KM], float (&g)[KM], const float4* __restrict__ tr,
+    const uint8_t* __restrict__ code, int cstride, int shift, int nr,
+    float* __restrict__ rs1, float* __restrict__ rs0, int rstride) {
+  static_assert(KM % 4 == 0, "t rows are read as float4");
+  for (int rb = 0; rb < nr; rb += RB) {
+    float a1[RB], a0[RB], d1[RB], d0[RB], t[RB][2 * KM];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const uint32_t c = (code[(rb + i) * cstride] >> shift) & 3u;
+      const bool missing = c == 3u;
+      a1[i] = missing ? 0.f : (float)c;
+      a0[i] = missing ? 0.f : 2.f - (float)c;
+      const float4* q = tr + (rb + i) * (KM / 2);
+#pragma unroll
+      for (int k2 = 0; k2 < KM / 2; ++k2) {
+        const float4 v = q[k2];
+        t[i][4 * k2] = v.x;
+        t[i][4 * k2 + 1] = v.y;
+        t[i][4 * k2 + 2] = v.z;
+        t[i][4 * k2 + 3] = v.w;
+      }
+      d1[i] = 0.f;
+      d0[i] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        d1[i] = fmaf(t[i][2 * k], uk[k], d1[i]);
+        d0[i] = fmaf(t[i][2 * k + 1], uk[k], d0[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const float x1 = ratio<kDiv>(a1[i], d1[i]);
+      const float x0 = ratio<kDiv>(a0[i], d0[i]);
+      if (kStoreR) {
+        rs1[(rb + i) * rstride] = x1;
+        rs0[(rb + i) * rstride] = x0;
+      }
+#pragma unroll
+      for (int k = 0; k < KM; ++k) {
+        g[k] = fmaf(x1, t[i][2 * k], g[k]);
+        g[k] = fmaf(x0, t[i][2 * k + 1], g[k]);
+      }
+    }
+  }
+}
+
+constexpr int kGThreads = 128;  // individuals of a gamma CTA ...
+constexpr int kGCols = 32;      // ... 32 byte columns x 4 planes
+constexpr int kGRows = 64;      // rows staged in shared memory at once
 
 // Partial planar gamma statistic over rows [y*bchunk, (y+1)*bchunk):
 // gpart[y, i, k] = sum_b r1[b,i] t1[b,k] + r0[b,i] t0[b,k] for the planar
 // individual i = s*W + w, t1[b*ts + k*tk] and t0 likewise (exact divide).
-// One thread per individual: u[i,:] and the K sums stay in registers,
-// rows of t and the rows' starts (located by `Rows`) are staged in shared
-// memory and read as broadcasts, and a warp's packed-byte reads are
-// coalesced.
+// grid (ceil(W/32), nsplit). A CTA takes byte columns [32x, 32x + 32), a
+// warp one plane s of them, a lane one column: u[i,:] and the K sums stay
+// in registers. Per block of 64 rows the CTA stages the rows' t and their
+// 32 packed bytes (word-wide loads; rows located by `Rows`, a null row
+// reads as MISSING) in shared memory, then each thread runs `gamma_rows`
+// over them. A slice's rows are added in order, so its bits do not
+// depend on the CTA's layout.
 template <int KM, class Rows>
 __global__ void __launch_bounds__(kGThreads)
 gamma_pass_kernel(Rows src, const float* __restrict__ up,
                   const float* __restrict__ t1g,
                   const float* __restrict__ t0g, int ts, int tk,
                   float* __restrict__ gpart, int B, int W, int K, int bchunk) {
-  __shared__ float tsm[kGRows * KM * 2];
-  __shared__ const uint8_t* rowp[kGRows];
-  const int i = blockIdx.x * kGThreads + threadIdx.x;
-  const bool ok = i < 4 * W;
-  const int s = ok ? i / W : 0;
-  const int w = ok ? i % W : 0;
+  constexpr int RB = KM <= 16 ? 2 : 1;
+  __shared__ float4 tsm[kGRows * KM / 2];
+  __shared__ uint32_t bsm[kGRows * kGCols / 4];
+  const int s = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * kGCols;
+  const int w = w0 + (threadIdx.x & 31);
+  const bool ok = w < W;
+  const long long i = (long long)s * W + w;
   float uk[KM], g[KM];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
-    uk[k] = ok && k < K ? up[(long long)i * K + k] : 0.f;
+    uk[k] = ok && k < K ? up[i * K + k] : 0.f;
     g[k] = 0.f;
   }
   const int bbeg = blockIdx.y * bchunk;
   const int bend = min(B, bbeg + bchunk);
+  float* tf = reinterpret_cast<float*>(tsm);
   for (int c0 = bbeg; c0 < bend; c0 += kGRows) {
     const int nr = min(kGRows, bend - c0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < nr * KM * 2; j += kGThreads) {
+    const int nrp = (nr + RB - 1) / RB * RB;
+    __syncthreads();  // the previous block is consumed
+    for (int j = threadIdx.x; j < nrp * KM * 2; j += kGThreads) {
       const int r = j / (KM * 2), rem = j % (KM * 2);
       const int k = rem / 2;
       const float* tg = rem % 2 ? t0g : t1g;
-      tsm[j] = k < K ? tg[(long long)(c0 + r) * ts + k * tk] : 0.f;
+      tf[j] = r < nr && k < K ? tg[(long long)(c0 + r) * ts + k * tk] : 0.f;
     }
-    for (int r = threadIdx.x; r < nr; r += kGThreads)
-      rowp[r] = src.row(c0 + r, W);
+    for (int j = threadIdx.x; j < nrp * (kGCols / 4); j += kGThreads) {
+      const int r = j / (kGCols / 4), c = 4 * (j % (kGCols / 4));
+      const uint8_t* p = r < nr ? src.row(c0 + r, W) : nullptr;
+      uint32_t v = 0xFFFFFFFFu;  // outside the matrix: MISSING
+      if (p != nullptr) {
+        const uint8_t* q = p + w0 + c;
+        if (w0 + c + 4 <= W && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+          v = __ldg(reinterpret_cast<const uint32_t*>(q));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (w0 + c + e < W) {
+              v &= ~(0xFFu << (8 * e));
+              v |= (uint32_t)__ldg(q + e) << (8 * e);
+            }
+          }
+        }
+      }
+      bsm[j] = v;
+    }
     __syncthreads();
-    for (int r = 0; r < nr; ++r) {
-      const uint8_t* p = rowp[r];
-      const uint32_t code = ok && p != nullptr ? (p[w] >> (2 * s)) & 3u : 3u;
-      if (code == 3u) continue;
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      const float* tr = tsm + r * KM * 2;
-      float d1 = 0.f, d0 = 0.f;
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        d1 = fmaf(tr[2 * k], uk[k], d1);
-        d0 = fmaf(tr[2 * k + 1], uk[k], d0);
-      }
-      const float r1 = ratio<kDivExact>(a1, d1);
-      const float r0 = ratio<kDivExact>(a0, d0);
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        g[k] = fmaf(r1, tr[2 * k], g[k]);
-        g[k] = fmaf(r0, tr[2 * k + 1], g[k]);
-      }
-    }
+    gamma_rows<KM, RB, kDivExact, false>(
+        uk, g, tsm, reinterpret_cast<const uint8_t*>(bsm) + (threadIdx.x & 31),
+        kGCols, 2 * s, nrp, nullptr, nullptr, 0);
   }
   if (!ok) return;
   float* out = gpart + ((long long)blockIdx.y * 4 * W + i) * K;
@@ -534,7 +616,7 @@ int gamma_stats(Rows src, const float* up, const float* t1g,
                 const float* t0g, int ts, int tk, float* gpart, float* g,
                 int B, int W, int K, int nsplit, cudaStream_t stream) {
   const int bchunk = (B + nsplit - 1) / nsplit;
-  const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit);
+  const dim3 grid((W + kGCols - 1) / kGCols, nsplit);
   gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
       src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
   TT_CHECK_LAUNCH();
@@ -552,11 +634,15 @@ inline int split_chunk(int W, int nsplit) {
 }
 
 // The K-width a pass runs at: the smallest instantiated KM holding K,
-// kWide for K > 64 (psd_wide.cuh), -1 for K < 1.
+// kWide for K > 64 (psd_wide.cuh), -1 for K < 1. The gamma pass and K7
+// also instantiate KM = 12 (`km12`), so that K = 9..12 (K = 10 in the
+// big-N configs) runs 12 wide instead of 16; the lambda pass keeps
+// {4, 8, 16, 32, 64}.
 constexpr int kWide = 0;
-inline int pick_km(int K) {
+inline int pick_km(int K, bool km12 = false) {
   static const int kms[] = {4, 8, 16, 32, 64};
   if (K < 1) return -1;
+  if (km12 && K > 8 && K <= 12) return 12;
   for (int km : kms)
     if (K <= km) return km;
   return kWide;
@@ -571,6 +657,18 @@ inline int pick_km(int K) {
   switch (km) {                      \
     case 4: F(4); break;             \
     case 8: F(8); break;             \
+    case 16: F(16); break;           \
+    case 32: F(32); break;           \
+    case 64: F(64); break;           \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+// The same with KM = 12 (the gamma pass and K7: pick_km(K, true)).
+#define TT_DISPATCH_KM12(km, F)      \
+  switch (km) {                      \
+    case 4: F(4); break;             \
+    case 8: F(8); break;             \
+    case 12: F(12); break;           \
     case 16: F(16); break;           \
     case 32: F(32); break;           \
     case 64: F(64); break;           \
@@ -621,7 +719,7 @@ int launch_gamma_stats(Rows src, const float* up, const float* t1g,
                        const float* t0g, int ts, int tk, float* gpart,
                        float* g, int B, int W, int K, int nsplit,
                        cudaStream_t stream) {
-  const int km = pick_km(K);
+  const int km = pick_km(K, true);
   if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0)
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
@@ -631,7 +729,7 @@ int launch_gamma_stats(Rows src, const float* up, const float* t1g,
 #define TT_LAUNCH(KM)                                                     \
   err = gamma_stats<KM>(src, up, t1g, t0g, ts, tk, gpart, g, B, W, K,     \
                         nsplit, stream)
-  TT_DISPATCH_KM(km, TT_LAUNCH)
+  TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
   return err;
 }

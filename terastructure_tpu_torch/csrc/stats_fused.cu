@@ -14,37 +14,67 @@
 // partials. Hopper has no sequential grid, so the two sums are made in a
 // fixed order without atomics (a seed reproduces gamma bitwise):
 //
-// Both kernels share the tile step: CTAs of 128 threads take a sub-tile
-// of 32 byte columns x 4 planes (128 individuals) against a chunk of 32
-// rows in two phases.
-//   phase 1, one thread per individual (u[n,:] in registers, t of the 32
-//     rows staged in shared memory and read as broadcasts): D1, D0, then
-//     R = A / (D + 1e-30) into shared memory, and g[n,:] += R^T T in
-//     registers;
-//   phase 2, one lane per row and one warp per plane (the R reads hit 32
-//     banks, u is a shared-memory broadcast): S[b,:] += R U over the
-//     warp's 32 individuals.
-// So the one D feeds both sums: gamma over rows in phase 1, lambda over
-// individuals in phase 2.
+// K7 (K <= 64), `stats_v2_kernel`: grid (W tiles of 256 byte columns, B
+// tiles of 128 rows), CTAs of 4 warps. Warp q owns rows [32q, 32q + 32)
+// of the tile for the whole W tile; the CTA walks it in sub-tiles of 8
+// byte columns x 4 planes (32 individuals):
+//   phase 1, lane = individual (u[n,:] in registers): `tt::gamma_rows`
+//     (psd_common.cuh, the gamma pass's own step) over the warp's 32 rows:
+//     D1, D0, R = A / (D + 1e-30) into the warp's slice of shared memory,
+//     g[n,:] += R^T T in registers;
+//   phase 2, lane = row: S[b,:] += R U over the 32 individuals, the sums
+//     in registers across the whole W tile;
+//   the four warps' g partials go through their R slices and are added in
+//     warp order into the B tile's gamma partial.
+// No warp reads another's R, so phase 2 follows phase 1 without a CTA
+// barrier; a sub-tile costs two (its staged bytes and u, double-buffered
+// and fetched into registers one sub-tile ahead; the g partials). The
+// lambda sums leave once, as the W tile's partial. t of the CTA's 128
+// rows is staged once, as (t1, t0) pairs read as float4 broadcasts; u
+// rows are padded to KM and read as float4 broadcasts; entries are
+// decoded without a branch (MISSING adds exactly 0); at KM <= 8 phase 1
+// takes two rows at a time so that their D chains and divides overlap (at
+// KM = 12 one: with two the body spilled at its 128 registers and took
+// 2.49 ms, with one 2.36). KM = 12 is
+// instantiated beside 4..64, so K = 9..12 runs 12 wide. Shared memory is
+// 50 KB at KM = 12 (55 KB at 16) and registers are capped at 128, so an
+// SM holds 4 CTAs, 16 warps. At B=4096, W=25,088, K=10: 98 x 32 CTAs,
+// gamma partials 128 MB, lambda partials 32 MB; two reduce kernels add
+// them in tile order.
 //
-//   K7: grid (W tiles of 256 columns, B tiles of 256 rows). A CTA loops
-//     its 8 sub-tiles, and for each its 8 row chunks; gamma of a sub-tile
-//     stays in registers across the chunks and goes out as the B tile's
-//     partial, lambda of the B tile's rows accumulates in shared memory
-//     (the warps add in warp order) and goes out as the W tile's partial.
-//     At B=4096, W=25,088, K=10: 16 x 98 CTAs, gamma partials 64 MB,
-//     lambda partials 32 MB; two reduce kernels add them in tile order.
-//   K6: grid (B / 32). A CTA owns 32 rows and walks every sub-tile of W in
-//     order with lambda in registers (the in-kernel lambda accumulation of
-//     v1; the warps add in warp order at the end, written straight to
-//     (l0, l1)); gamma goes out per sub-tile as the row tile's partial,
-//     (B/32, 4W, K): 514 MB at the big-N shape, reduced in order.
+// What the previous body lost (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// it took 5.49 ms at the big-N shape against a 0.561 ms bound. Its CTA
+// held a 32-row chunk against 128 individuals and a 256-row lambda block,
+// 65 KB at KM = 16, so 3 CTAs (12 warps) an SM; at K = 16 the block grew
+// to 32 KB, 2 CTAs fitted, and the same FMAs took 9.47 ms: occupancy, not
+// FMAs, set its time. Each row's byte came from global memory behind a
+// branch, t was read as scalars, and a chunk cost 7 barriers (4 for the
+// warps' ordered lambda add). The redesign takes 2.36 ms at K = 10 (1.92
+// at K = 8, 3.49 at K = 16), 2.3x faster. K = 16 runs the KM = 16 body
+// that K = 10 ran before; so KM = 12 saves about 1.1 ms of the 3.1 ms
+// gained (an estimate: K = 10 at KM = 16 was not run).
 //
-// Bound on the H100: issue. Per row and individual, 6K FMAs and two
+// K6 (`stats_v1_kernel`): CTAs of 128 threads take a sub-tile of 32 byte
+// columns x 4 planes (128 individuals) against a chunk of 32 rows in two
+// phases: phase 1, one thread per individual, D1, D0, R into shared
+// memory and g += R^T T in registers; phase 2, one lane per row and one
+// warp per plane, S += R U over the warp's 32 individuals. grid (B / 32):
+// a CTA owns 32 rows and walks every sub-tile of W in order with lambda in
+// registers (the in-kernel lambda accumulation of v1; the warps add in
+// warp order at the end, written straight to (l0, l1)); gamma goes out
+// per sub-tile as the row tile's partial, (B/32, 4W, K): 514 MB at the
+// big-N shape, reduced in order. It is the non-default option, kept as the
+// reference keeps v1, with its first body.
+//
+// Bound on the H100: FP32 issue. Per row and individual, 6K FMAs and two
 // divides (the pair, K4 + K5, does 8K and four); at the big-N shape that
-// is ~25 G FMA against 103 MB of packed rows. K6 has only B/32 = 128 CTAs
-// of 4 warps there, under one per SM, so it is latency-bound too; it is
-// the non-default option, kept as the reference keeps v1.
+// is ~25 G FMA against 103 MB of packed rows. K7 issues ~100 instructions
+// an entry at KM = 12 (72 FMAs, 9 float4 and 5 scalar shared-memory
+// accesses, the decode and two reciprocals): 25 SM cycles a warp's 32
+// entries at full issue, against 43 measured. A lane taking two
+// individuals (t read once for both: a third fewer broadcasts) was no
+// faster at KM = 8 and spilled above it (PERF.md), so the rest is
+// latency at 16 warps an SM, or issue.
 //
 // K > 64: `stats_v2_wide_kernel` and `stats_v1_wide_kernel`, the same tile
 // step with the K outputs cut into chunks of tt::kKC = 32 (blockIdx.z), as
@@ -55,10 +85,9 @@
 // into R1/R0, which hold D until phase 1 turns them into R. The chunk's own
 // piece comes last and serves its g (phase 1) and lambda (phase 2) sums.
 // Shared memory does not grow with K (58 KB, K7 + its 256-row lambda
-// block 64 KB), so both take any K, at K7's tile of 256 rows: the partial
-// buffers keep the K <= 64 path's counts. Each chunk writes its own k
-// columns of lpart and gpart; the reductions and their order are the
-// K <= 64 path's.
+// block 64 KB), so both take any K; K7's wide tile keeps its 256 rows
+// (ops/stats_packed.py `V2_WIDE_TILE_ROWS`). Each chunk writes its own k
+// columns of lpart and gpart; the reductions are the K <= 64 path's.
 
 #include "psd_common.cuh"
 
@@ -186,62 +215,193 @@ __device__ __forceinline__ void write_gamma(float* gtile, int W, int K,
     if (k < K) out[k] = g[k];
 }
 
-// K7. grid (ceil(W/tile_cols), ceil(B/tile_rows)); dynamic shared memory
-// tile_floats + tile_rows*K*2 floats. lpart (gridDim.x, B, K, 2), gpart
-// (gridDim.y, 4W, K).
-template <int KM>
-__global__ void __launch_bounds__(kFThreads)
-stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
-                const float* __restrict__ t1g, const float* __restrict__ t0g,
-                float* __restrict__ lpart, float* __restrict__ gpart, int B,
-                int W, int K, int tile_rows, int tile_cols, int approx) {
-  extern __shared__ float smem[];
-  const Tile sm = carve<KM>(smem);
-  float* lam = smem + tile_floats<KM>();     // (tile_rows, K, 2)
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wbeg = blockIdx.x * tile_cols;
-  const int wend = min(W, wbeg + tile_cols);
-  const int bbeg = blockIdx.y * tile_rows;
-  const int bend = min(B, bbeg + tile_rows);
-  for (int i = threadIdx.x; i < tile_rows * K * 2; i += kFThreads) lam[i] = 0.f;
-  float* gtile = gpart + (long long)blockIdx.y * 4 * W * K;
+// ---- K7, K <= 64 -----------------------------------------------------------
 
-  for (int wc = wbeg; wc < wend; wc += kFCols) {
-    float uk[KM], g[KM];
+constexpr int kV2Warps = 4;
+constexpr int kV2Threads = 32 * kV2Warps;
+constexpr int kV2Rows = kV2Threads;     // rows of a CTA: a warp owns 32
+constexpr int kV2Cols = 8;              // byte columns of a sub-tile ...
+constexpr int kV2Ind = 4 * kV2Cols;     // ... its 32 individuals
+constexpr int kV2RS = kV2Ind + 1;       // R's row stride, odd
+constexpr int kV2Slice = 2 * 32 * kV2RS;  // a warp's R1 and R0 (floats)
+
+// Dynamic shared memory of the K7 body: t of the CTA's rows, the warps' R
+// slices, and two buffers each of the sub-tile's u and packed bytes.
+template <int KM>
+__host__ __device__ constexpr int v2_smem_bytes() {
+  return (kV2Rows * 2 * KM + kV2Warps * kV2Slice + 2 * kV2Ind * KM) *
+             (int)sizeof(float) +
+         2 * kV2Rows * kV2Cols;
+}
+
+// The sub-tile at byte column wc, read into registers ahead of its use:
+// thread r's row b0 + r (8 bytes, word-wide where aligned; MISSING beyond
+// B and W) and KM/4 floats of the 32 individuals' u (zero beyond K and W).
+template <int KM>
+struct V2Fetch {
+  uint32_t lo, hi;
+  float u[KM / 4];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ rows,
+                                       const float* __restrict__ up, int B,
+                                       int W, int K, int b0, int wc) {
+    const int r = threadIdx.x;
+    lo = hi = 0xFFFFFFFFu;
+    if (b0 + r < B) {
+      const uint8_t* q = rows + (long long)(b0 + r) * W + wc;
+      if (wc + kV2Cols <= W && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
+        lo = v.x;
+        hi = v.y;
+      } else {
 #pragma unroll
-    for (int k = 0; k < KM; ++k) g[k] = 0.f;
-    __syncthreads();  // the last sub-tile's u is consumed
-    load_u<KM>(up, W, K, wc, uk, sm.us);
-    for (int rb = bbeg; rb < bend; rb += kFRows) {
-      __syncthreads();  // the last chunk's t and R are consumed
-      load_t<KM>(t1g, t0g, rb, B, K, sm.ts);
-      __syncthreads();
-      ratios_gamma<KM>(rows, B, W, rb, wc, uk, sm, g, approx);
-      __syncthreads();
-      float s1[KM], s0[KM];
-#pragma unroll
-      for (int k = 0; k < KM; ++k) s1[k] = s0[k] = 0.f;
-      lambda_accum<KM>(sm, s1, s0);
-      float* lr = lam + (rb - bbeg + lane) * K * 2;
-      for (int j = 0; j < 4; ++j) {  // warps add in warp order
-        __syncthreads();
-        if (warp == j && rb + lane < bend) {
-#pragma unroll
-          for (int k = 0; k < KM; ++k) {
-            if (k < K) {
-              lr[2 * k] += s1[k];
-              lr[2 * k + 1] += s0[k];
-            }
+        for (int c = 0; c < kV2Cols; ++c) {
+          if (wc + c < W) {
+            uint32_t& d = c < 4 ? lo : hi;
+            d &= ~(0xFFu << (8 * (c & 3)));
+            d |= (uint32_t)__ldg(q + c) << (8 * (c & 3));
           }
         }
       }
     }
-    write_gamma<KM>(gtile, W, K, wc, g);
+#pragma unroll
+    for (int m = 0; m < KM / 4; ++m) {
+      const int j = r + m * kV2Threads;     // over (individual, k)
+      const int n = j / KM, k = j % KM;
+      const int w = wc + (n & 7);
+      u[m] = w < W && k < K ? __ldg(up + ((long long)(n >> 3) * W + w) * K + k)
+                            : 0.f;
+    }
   }
-  __syncthreads();
-  float* out = lpart + ((long long)blockIdx.x * B + bbeg) * K * 2;
-  for (int i = threadIdx.x; i < (bend - bbeg) * K * 2; i += kFThreads)
-    out[i] = lam[i];
+
+  __device__ __forceinline__ void store(uint32_t* bytes, float* us) const {
+    reinterpret_cast<uint2*>(bytes)[threadIdx.x] = make_uint2(lo, hi);
+#pragma unroll
+    for (int m = 0; m < KM / 4; ++m) us[threadIdx.x + m * kV2Threads] = u[m];
+  }
+};
+
+// Phase 2 of K7: s += R U over the sub-tile's 32 individuals for the
+// lane's row (its R row r1, r0 of the warp's slice; u rows as float4
+// broadcasts), in individual order.
+template <int KM>
+__device__ __forceinline__ void lambda_row(const float* __restrict__ r1,
+                                           const float* __restrict__ r0,
+                                           const float* __restrict__ us,
+                                           float (&s1)[KM], float (&s0)[KM]) {
+#pragma unroll 4
+  for (int j = 0; j < kV2Ind; ++j) {
+    const float x1 = r1[j], x0 = r0[j];
+    const float4* q = reinterpret_cast<const float4*>(us + j * KM);
+#pragma unroll
+    for (int k4 = 0; k4 < KM / 4; ++k4) {
+      const float4 v = q[k4];
+      const float u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s1[4 * k4 + e] = fmaf(x1, u[e], s1[4 * k4 + e]);
+        s0[4 * k4 + e] = fmaf(x0, u[e], s0[4 * k4 + e]);
+      }
+    }
+  }
+}
+
+// K7, K <= 64. grid (ceil(W/tile_cols), ceil(B/kV2Rows)); dynamic shared
+// memory v2_smem_bytes<KM>(). lpart (gridDim.x, B, K, 2), gpart
+// (gridDim.y, 4W, K). Warp q owns rows b0 + [32q, 32q + 32) for the whole
+// W tile; per sub-tile of 8 byte columns:
+//   phase 1, lane = individual (plane lane / 8, column lane % 8):
+//     `gamma_rows` over the warp's 32 rows, R into the warp's own slice;
+//   phase 2, lane = row: s += R U over the 32 individuals (registers,
+//     across the whole W tile);
+//   the warps' g partials (in their R slices) are added in warp order
+//     into the row tile's gpart.
+// No warp reads another's R, so phases 1 and 2 need no barrier between
+// them; the sub-tile costs two (its staged data; the g partials).
+template <int KM, int kDiv>
+__global__ void __launch_bounds__(kV2Threads, KM <= 16 ? 4 : 1)
+stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
+                const float* __restrict__ t1g, const float* __restrict__ t0g,
+                float* __restrict__ lpart, float* __restrict__ gpart, int B,
+                int W, int K, int tile_cols) {
+  constexpr int RB = KM <= 8 ? 2 : 1;    // rows in flight in phase 1
+  extern __shared__ __align__(16) float v2_smem[];
+  float4* tsm = reinterpret_cast<float4*>(v2_smem);  // (kV2Rows, KM/2)
+  float* R = v2_smem + kV2Rows * 2 * KM;             // kV2Warps slices
+  float* usm = R + kV2Warps * kV2Slice;              // 2 x (32, KM)
+  uint32_t* bsm = reinterpret_cast<uint32_t*>(usm + 2 * kV2Ind * KM);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wbeg = blockIdx.x * tile_cols;
+  const int wend = min(W, wbeg + tile_cols);
+  const int b0 = blockIdx.y * kV2Rows;
+  float* r1w = R + warp * kV2Slice;
+  float* r0w = r1w + 32 * kV2RS;
+
+  float* tf = v2_smem;  // t of the CTA's rows, (t1, t0) interleaved, once
+  for (int j = threadIdx.x; j < kV2Rows * 2 * KM; j += kV2Threads) {
+    const int r = j / (2 * KM), rem = j % (2 * KM), k = rem >> 1;
+    const long long b = b0 + r;
+    tf[j] = b < B && k < K ? (rem & 1 ? t0g : t1g)[b * K + k] : 0.f;
+  }
+  V2Fetch<KM> next;
+  next.load(rows, up, B, W, K, b0, wbeg);
+  next.store(bsm, usm);
+
+  float s1[KM], s0[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) s1[k] = s0[k] = 0.f;
+  const int nsub = (wend - wbeg + kV2Cols - 1) / kV2Cols;
+  for (int i = 0; i < nsub; ++i) {
+    const int wc = wbeg + i * kV2Cols;
+    const float* us = usm + (i & 1) * kV2Ind * KM;
+    const uint8_t* by =
+        reinterpret_cast<const uint8_t*>(bsm + (i & 1) * 2 * kV2Rows);
+    __syncthreads();  // sub-tile i is staged; the last g partials are read
+    const bool more = i + 1 < nsub;
+    if (more) next.load(rows, up, B, W, K, b0, wc + kV2Cols);
+
+    float uk[KM], g[KM];
+    const float4* uq = reinterpret_cast<const float4*>(us + lane * KM);
+#pragma unroll
+    for (int k4 = 0; k4 < KM / 4; ++k4) {
+      const float4 v = uq[k4];
+      uk[4 * k4] = v.x;
+      uk[4 * k4 + 1] = v.y;
+      uk[4 * k4 + 2] = v.z;
+      uk[4 * k4 + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = 0; k < KM; ++k) g[k] = 0.f;
+    tt::gamma_rows<KM, RB, kDiv, true>(
+        uk, g, tsm + warp * 32 * (KM / 2), by + warp * 32 * kV2Cols + (lane & 7),
+        kV2Cols, 2 * (lane >> 3), 32, r1w + lane, r0w + lane, kV2RS);
+    __syncwarp();
+    lambda_row<KM>(r1w + lane * kV2RS, r0w + lane * kV2RS, us, s1, s0);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < KM; ++k) r1w[lane * (KM + 1) + k] = g[k];
+    if (more)
+      next.store(bsm + ((i + 1) & 1) * 2 * kV2Rows,
+                 usm + ((i + 1) & 1) * kV2Ind * KM);
+    __syncthreads();  // every warp's g partial is in its slice
+    for (int j = threadIdx.x; j < kV2Ind * K; j += kV2Threads) {
+      const int n = j / K, k = j % K;
+      const int w = wc + (n & 7);
+      if (w >= W) continue;
+      float v = R[n * (KM + 1) + k];
+#pragma unroll
+      for (int q = 1; q < kV2Warps; ++q) v += R[q * kV2Slice + n * (KM + 1) + k];
+      gpart[((long long)blockIdx.y * 4 * W + (long long)(n >> 3) * W + w) * K +
+            k] = v;
+    }
+  }
+  const int b = b0 + threadIdx.x;
+  if (b >= B) return;
+  float2* out = reinterpret_cast<float2*>(
+      lpart + ((long long)blockIdx.x * B + b) * K * 2);
+#pragma unroll
+  for (int k = 0; k < KM; ++k)
+    if (k < K) out[k] = make_float2(s1[k], s0[k]);
 }
 
 // K6. grid ceil(B/32); dynamic shared memory tile_floats floats.
@@ -589,9 +749,14 @@ extern "C" int tt_batch_stats_fused_v2(
     const uint8_t* rows, const float* up, const float* t1, const float* t0,
     float* l0, float* l1, float* g, float* lpart, float* gpart, int B, int W,
     int K, int tile_rows, int tile_cols, int approx, cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || km < 0 || tile_rows <= 0 || tile_cols <= 0 ||
-      tile_rows % kFRows || tile_cols % kFCols)
+  const int km = tt::pick_km(K, true);
+  // the K <= 64 body takes kV2Rows rows a CTA, the wide body multiples of 32
+  const bool tiles_ok =
+      km == tt::kWide
+          ? tile_rows > 0 && tile_rows % kFRows == 0 && tile_cols > 0 &&
+                tile_cols % kFCols == 0
+          : tile_rows == kV2Rows && tile_cols > 0 && tile_cols % kV2Cols == 0;
+  if (B <= 0 || W <= 0 || km < 0 || !tiles_ok)
     return (int)cudaErrorInvalidValue;
   const int nwt = (W + tile_cols - 1) / tile_cols;
   const int nbt = (B + tile_rows - 1) / tile_rows;
@@ -608,20 +773,25 @@ extern "C" int tt_batch_stats_fused_v2(
                                             W, K, tile_rows, tile_cols,
                                             approx);
   } else {
-#define TT_LAUNCH(KM)                                                        \
+#define TT_BODY(KM, DIV)                                                     \
   {                                                                          \
-    const int bytes =                                                        \
-        (tile_floats<KM>() + tile_rows * K * 2) * (int)sizeof(float);        \
+    constexpr int bytes = v2_smem_bytes<KM>();                               \
     const cudaError_t e = cudaFuncSetAttribute(                              \
-        stats_v2_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+        stats_v2_kernel<KM, DIV>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
         bytes);                                                              \
     if (e != cudaSuccess) return (int)e;                                     \
-    stats_v2_kernel<KM><<<grid, kFThreads, bytes, stream>>>(                 \
-        rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows, tile_cols,       \
-        approx);                                                             \
+    stats_v2_kernel<KM, DIV><<<grid, kV2Threads, bytes, stream>>>(           \
+        rows, up, t1, t0, lpart, gpart, B, W, K, tile_cols);                 \
   }
-  TT_DISPATCH_KM(km, TT_LAUNCH)
+#define TT_LAUNCH(KM)            \
+  if (approx) {                  \
+    TT_BODY(KM, tt::kDivFast)    \
+  } else {                       \
+    TT_BODY(KM, tt::kDivExact)   \
+  }
+  TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
+#undef TT_BODY
   }
   TT_CHECK_LAUNCH();
   const int bk = B * K;

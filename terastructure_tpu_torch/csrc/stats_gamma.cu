@@ -3,14 +3,16 @@
 // Replaces terastructure_tpu/ops/stats_pallas.py `gamma_stats_packed`
 // (`_gamma_kernel`, pallas_call at :204). The TPU kernel walks a
 // (W/TW, B/TB) grid and accumulates g (4, W, K) in its output block over
-// the batch axis, in order. Here it is K1's last pass,
-// `tt::gamma_pass_kernel` (psd_common.cuh): one thread per individual
-// holds u[n,:] and the K sums in registers and loops over a slice of the
-// rows, staging t in shared memory; `gamma_reduce_kernel` adds the row
-// slices in order (no atomics). With K4 it forms the `stats_kernel="pair"`
-// statistics pass of the big-N step.
+// the batch axis, in order. Here it is K1's and K2's last pass,
+// `tt::gamma_pass_kernel` (psd_common.cuh): a CTA takes 32 byte columns x
+// 4 planes and a slice of the rows (`gamma_grid` in ops/stats_packed.py),
+// stages the rows' packed bytes and t in shared memory 64 rows at a time,
+// and each thread runs `tt::gamma_rows` (the step K7's phase 1 runs too)
+// for its individual; `gamma_reduce_kernel` adds the row slices in order
+// (no atomics). With K4 it forms the `stats_kernel="pair"` statistics pass
+// of the big-N step.
 //
-// Bound on the H100: issue (4K FMAs and two divides per row and
+// Bound on the H100: FP32 issue (4K FMAs and two divides per row and
 // individual). At the big-N shape (B=4096, W=25,088, K=10) that is
 // ~16 G FMA and ~0.8 G divides against 103 MB of packed rows. K > 64
 // runs the K-chunked gamma body (psd_wide.cuh).

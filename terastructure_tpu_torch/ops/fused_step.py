@@ -27,7 +27,7 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_shapes, grid_split, lambda_grid, plane_counts, ratios_planar)
+    check_shapes, gamma_grid, lambda_grid, plane_counts, ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -164,7 +164,7 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     dev = u_planes.device
     k = u_planes.shape[2]
     nsplit_w, _ = lambda_grid(b, w)
-    nsplit_b = grid_split(-(-4 * w // 128), -(-b // 64))
+    nsplit_b = gamma_grid(b, w, k)
     nupd = -(-b * k // 256)
 
     def f32(*shape):

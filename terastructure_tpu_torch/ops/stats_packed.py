@@ -33,6 +33,7 @@ from terastructure_tpu_torch.models.psd import elog_beta
 from terastructure_tpu_torch.ops.stats_dense import solve_schedule
 
 _EPS = 1e-30
+SM_COUNT = 132          # H100 SXM
 
 
 def u_to_planes(u: torch.Tensor) -> torch.Tensor:
@@ -151,16 +152,24 @@ def _device_of(name, x):
     return x.device.type
 
 
-def grid_split(n_primary: int, max_split: int, target: int = 264) -> int:
-    """How many ways to split a kernel's reduction axis so that about
-    `target` CTAs (two per H100 SM) are in flight. A function of the
-    shape only, so the summation order, and the result, never depend
-    on anything else."""
-    return max(1, min(max_split, -(-target // max(n_primary, 1))))
+GAMMA_COLS = 32         # byte columns of a γ-pass CTA (4 warps, a plane each)
+
+
+def gamma_grid(b: int, w: int, k: int) -> int:
+    """The γ pass's row split at a batch of b rows of w bytes: CTA (i, j)
+    takes byte columns [32 i, 32 i + 32) and the j-th of `nsplit` slices
+    of rows, walked in order. At K <= 64 about four CTAs an SM where the
+    batch allows (slices of at least 32 rows); the K-chunked body (K > 64)
+    keeps its split of about two CTAs an SM (slices of at least 64 rows).
+    A function of the shape only, so the summation order, and the result,
+    never depend on anything else."""
+    ncol = -(-w // GAMMA_COLS)
+    if k > 64:
+        return max(1, min(-(-b // 64), -(-2 * SM_COUNT // ncol)))
+    return max(1, min(-(-b // 32), 4 * SM_COUNT // ncol))
 
 
 LAMBDA_ROWS = 64        # rows of a lambda-pass CTA: 2 warps, a row a lane
-SM_COUNT = 132          # H100 SXM
 
 
 def lambda_grid(b: int, w: int):
@@ -326,7 +335,7 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
         return gamma_stats_packed_twin(rows, u_planes, t1, t0)
     _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
-    nsplit = grid_split(-(-4 * w // 128), -(-b // 64))
+    nsplit = gamma_grid(b, w, k)
     dev = rows.device
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((nsplit, 4 * w, k), dtype=torch.float32, device=dev)
@@ -356,8 +365,14 @@ def batch_stats_packed(rows, u, t1, t0):
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
-V2_TILE_ROWS = 256   # K7's CTA tile: rows ...
-V2_TILE_COLS = 256   # ... x byte columns (4 x 256 individuals)
+V2_TILE_ROWS = 128        # K7's CTA tile at K <= 64: rows (a lane each) ...
+V2_WIDE_TILE_ROWS = 256   # ... and at K > 64 (the K-chunked body)
+V2_TILE_COLS = 256        # ... x byte columns (4 x 256 individuals)
+
+
+def v2_tile_rows(k: int) -> int:
+    """Rows of K7's CTA tile at K = k: the row tiles of its γ partials."""
+    return V2_TILE_ROWS if k <= 64 else V2_WIDE_TILE_ROWS
 
 
 def _stats_args(name, rows, u, t1, t0):
@@ -386,7 +401,8 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
-    nwt, nbt = -(-w // V2_TILE_COLS), -(-b // V2_TILE_ROWS)
+    tile_rows = v2_tile_rows(k)
+    nwt, nbt = -(-w // V2_TILE_COLS), -(-b // tile_rows)
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
@@ -395,7 +411,7 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     err = _build.lib().tt_batch_stats_fused_v2(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         l0.data_ptr(), l1.data_ptr(), g.data_ptr(), lpart.data_ptr(),
-        gpart.data_ptr(), b, w, k, V2_TILE_ROWS, V2_TILE_COLS,
+        gpart.data_ptr(), b, w, k, tile_rows, V2_TILE_COLS,
         int(approx_div), _build.stream_ptr(dev))
     _build.check(err, name)
     batch_stats_fused_v2_packed.launches += 1

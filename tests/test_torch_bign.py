@@ -72,21 +72,27 @@ def test_lambda_stats_acat_twin_matches_reference_kernel(approx_div):
     _close(got, want, TOL_APPROX if approx_div else TOL)
 
 
-def test_gamma_stats_twin_matches_reference_kernel():
-    rows, u, t1, t0 = _problem(seed=8)
+# K = 4 and the K-width of 12 that the gamma pass and K7 run at K = 9..12
+KS = [4, 9, 10, 12, 13]
+
+
+@pytest.mark.parametrize("k", KS)
+def test_gamma_stats_twin_matches_reference_kernel(k):
+    rows, u, t1, t0 = _problem(k=k, seed=8)
     up = np.array(ref_pk.u_to_planes(jnp.asarray(u)))
     got = pk.gamma_stats_packed(*_t(rows, up, t1, t0))
     want = ref_pk.gamma_stats_packed(rows, up, t1, t0, **_ref_kw(rows))
     _close([got], [want], TOL)
 
 
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("name", ["batch_stats_fused_v2_packed",
                                   "batch_stats_fused_packed",
                                   "batch_stats_packed"])
-def test_stats_pass_matches_reference_kernel(name):
+def test_stats_pass_matches_reference_kernel(name, k):
     """K7, K6 and the pair (K4 + K5) against the reference's kernels, and
     each against the reference's pair."""
-    rows, u, t1, t0 = _problem(seed=6)
+    rows, u, t1, t0 = _problem(k=k, seed=6)
     kw = _ref_kw(rows)
     got = getattr(pk, name)(*_t(rows, u, t1, t0))
     _close(got, getattr(ref_pk, name)(rows, u, t1, t0, **kw), TOL)

@@ -388,3 +388,62 @@ def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        **tol)
+
+
+# The K-width of 12 that the gamma pass and K7 instantiate (K = 9..12) and
+# its edges, beside the widths every body has.
+KM12_KS = [3, 8, 9, 10, 12, 13, 16, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KM12_KS)
+def test_gamma_pass_and_k7_across_k_widths(cuda_device, k):
+    """K5 and K7 (both divides) at B = 12, W = 385 with whole rows MISSING,
+    against their twins and bitwise against a second run."""
+    rows, up, lamb = _problem(cuda_device, 12, 4 * 385, k, seed=k + 1)
+    rows[4] = 0xFF
+    u = stats_packed.planes_to_flat(up).contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    got = stats_packed.gamma_stats_packed(rows, up, t1, t0)
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        stats_packed.gamma_stats_packed_twin(rows, up, t1, t0).cpu().numpy(),
+        **TOL)
+    assert torch.equal(got, stats_packed.gamma_stats_packed(rows, up, t1, t0))
+    for approx_div in (False, True):
+        fn = stats_packed.batch_stats_fused_v2_packed
+        got = fn(rows, u, t1, t0, approx_div=approx_div)
+        g, l0, l1 = stats_packed.batch_stats_fused_twin(
+            rows, up, t1, t0, approx_div=approx_div)
+        want = (u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1)
+        tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+        for a, b, c in zip(got, want, fn(rows, u, t1, t0,
+                                         approx_div=approx_div)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       **tol)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cold_accel", "approx_div"])
+def test_fused_solves_at_k10(cuda_device, case):
+    """K1 and K2 at K = 10, where their gamma pass runs 12 wide: against
+    the twin, K2 bitwise K1 on the gathered rows (a null group included)."""
+    b, w, k, g, l = 64, 384, 10, 8, 1024
+    packed, up, lamb = _problem(cuda_device, l, 4 * w, k, seed=10)
+    lamb = lamb[:b].contiguous()
+    idx0 = _groups(cuda_device, l, b, g, seed=10)
+    idx0[2] = l                                  # reads as all MISSING
+    rows = packed[(idx0.long().clamp(max=l - g)[:, None]
+                   + torch.arange(g, device=cuda_device)).reshape(-1)]
+    rows[2 * g:3 * g] = 0xFF
+    kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0)
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    tol = dict(rtol=5e-3, atol=5e-3) if kw.get("approx_div") else TOL
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **tol)
+    dma = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                           **kw)
+    for a, c in zip(got, dma):
+        assert torch.equal(a, c)

@@ -1,4 +1,4 @@
-"""The lambda pass's grid, the twins at K above the widest instantiated
+"""The lambda and gamma passes' grids, the twins at K above the widest instantiated
 K-width, and the float32-only lambda re-solve (CPU).
 
 K = 72 is above the widest instantiated K-width (64): on CPU tensors the
@@ -58,6 +58,25 @@ def test_lambda_grid_fills_the_card_at_config3():
     # and a bigger batch takes wider chunks, not more partial sums
     assert (stats_packed.lambda_grid(4096, 640)[1]
             > stats_packed.lambda_grid(1024, 640)[1])
+
+
+@pytest.mark.parametrize("b,w", PATH_SHAPES)
+def test_gamma_grid_keeps_four_ctas_an_sm_and_32_row_slices(b, w):
+    nsplit = stats_packed.gamma_grid(b, w, 8)
+    ncol = -(-w // stats_packed.GAMMA_COLS)
+    assert 1 <= nsplit <= -(-b // 32)        # no slice under 32 rows ...
+    assert nsplit == 1 or ncol * nsplit <= 4 * stats_packed.SM_COUNT
+    torch.manual_seed(w)                     # ... and no hidden state
+    assert stats_packed.gamma_grid(b, w, 8) == nsplit
+    # the K-chunked body (K > 64) keeps its own split, 64-row slices
+    assert stats_packed.gamma_grid(b, w, 72) <= -(-b // 64)
+
+
+def test_gamma_grid_fills_the_card_at_the_main_path_shapes():
+    # K1 at the TGP shape and K2 at config #3: 20 column tiles, 26 slices
+    for b in (4096, 1024):
+        nsplit = stats_packed.gamma_grid(b, 640, 8)
+        assert 20 * nsplit > 3 * stats_packed.SM_COUNT
 
 
 # --- K above the CUDA kernels' limit, on the CPU ---------------------------
