@@ -23,7 +23,14 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
    and G = 1; the K-chunked bodies of K > 64 (K1, K2, K4 and K8 at K = 72
    and 256, K5, K6 and K7 at K = 72, 130 and 256, against their twins and
-   their own second runs; one timed shape per family);
+   their own second runs; one timed shape per family); the bf16 bodies
+   (compute_dtype="bfloat16") of K1, K2, K4 and of the λ and γ passes
+   against their bf16 twins at the TGP shape, config #1's and config #3's
+   K2 step, ragged B, odd W, K = 3..33 and 72, rows MISSING, a null group,
+   both divides and the stored-λ warm start, each re-run bitwise and
+   pinned against the f32 body on the same inputs (the rounding happened,
+   and stayed within bf16's scale), K2[bf16] bitwise K1[bf16]; their times
+   in turns with the f32 bodies, beside the bf16 bounds;
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
    theta MAE < 0.05, heldout within 0.02 of the oracle; 2b. the same in
    the stored lambda mode (K1 warm-started, no K4); 2c. one chunk at
@@ -46,9 +53,14 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    in the stored mode from a fresh state, K2 warm-started, the lambda
    rows of the sampled groups off the prior and every other row bitwise
    at it; (c) one chunk re-run twice from a cloned state, bitwise equal,
-   in each mode.
+   in each mode;
+6. compute_dtype "bfloat16": config #1 to convergence in both lambda
+   modes (K1[bf16], K4[bf16]; phase 2's quality limits) and config #3 for
+   200 steps through K2[bf16] (and 100 in the stored mode), each beside
+   its f32 run; no f32 body of K1, K2 or K4 and no twin runs.
 
-Prints the kernels' JSON line, the card line, and last
+Prints the kernels' JSON line (the bf16 bodies as entries of their own,
+"fused_local_solve[bf16]" and so on), the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card.
 
@@ -82,6 +94,7 @@ from terastructure_tpu_torch import SVIConfig, _build
 from terastructure_tpu_torch.converge import card_line
 from terastructure_tpu_torch.data import (GenotypeData, simulate_packed_device,
                                           simulate_psd)
+from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
@@ -90,8 +103,27 @@ from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
 TOL = 2e-4          # f32 kernel vs twin (sum order differs), as the reference's
 TOL_APPROX = 5e-3   # approx_div: fast divide vs the twin's reciprocal
+# bf16 bodies vs their bf16 twins (rtol, atol): both round the same
+# operands and differ in the order of the f32 sums and in the rare R whose
+# rounding flips on an ulp of D. One pass (K4, the λ and γ passes) 1e-3;
+# a fused solve 2e-3 (λ after the accel tail with the f32 path's 1%
+# allowance); approx_div TOL_APPROX, as in f32.
+TOL_BF16_PASS = (1e-3, 1e-6)
+TOL_BF16_SOLVE = (2e-3, 1e-5)
+# lambda_B of a bf16 solve: at most this share of its entries beyond
+# TOL_BF16_SOLVE. The kernel and the twin sum D in other orders, so now
+# and then bf(t) of a row rounds the other way on an ulp of lambda; one
+# such flip moves bf(t[b,k]) by 2^-8 and, where k dominates D, the row's
+# next lambda by up to ~3e-3 (measured: 9 of 65,536 entries at the TGP
+# shape, 7 plain passes). g sums over rows and holds TOL_BF16_SOLVE.
+FLIP_FRAC = 1e-3
+# The divergence pin: a bf16 body's output differs from the f32 body's on
+# the same inputs by more than PIN_LO somewhere (the rounding happened)
+# and by less than PIN_HI everywhere, relative to the largest magnitude.
+PIN_LO, PIN_HI = 1e-4, 5e-2
 
 FP32_FLOPS = 67e12  # H100 SXM: FP32 outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM: dense bf16 on the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM: HBM3 bytes/s
 
 KERNELS = {
@@ -127,7 +159,21 @@ KERNELS = {
         fn=stats_packed.lambda_stats_acat,
         source="terastructure_tpu_torch/csrc/stats_acat.cu",
         replaces="terastructure_tpu/ops/stats_pallas.py:463"),
+    # the bf16 bodies (compute_dtype="bfloat16"), counted apart
+    "fused_local_solve[bf16]": dict(
+        fn=fused_step.fused_local_solve, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/fused_step_bf16.cu",
+        replaces="terastructure_tpu/ops/fused_step.py:423"),
+    "fused_local_solve_dma[bf16]": dict(
+        fn=fused_step.fused_local_solve_dma, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/fused_step_dma_bf16.cu",
+        replaces="terastructure_tpu/ops/fused_step.py:493"),
+    "lambda_stats_packed[bf16]": dict(
+        fn=stats_packed.lambda_stats_packed, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/stats_packed.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:152"),
 }
+BF16 = torch.bfloat16
 BIGN = (4096, 25_088, 10)   # B, W, K of the big-N step (100K individuals)
 TGP = (2504, 1_000_000, 8)  # N, L, K of the TGP shape (config #3)
 
@@ -138,7 +184,7 @@ def log(msg):
 
 def reset_counts():
     for spec in KERNELS.values():
-        spec["fn"].launches = 0
+        setattr(spec["fn"], spec.get("counter", "launches"), 0)
         spec["fn"].twin_calls = 0
 
 
@@ -146,7 +192,8 @@ def read_counts(rec, path, expect, absent=()):
     """Add the launches of a main-path run to rec; fail where a kernel of
     `expect` did not launch, one of `absent` did, or any twin ran.
     Returns the run's counts."""
-    counts = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    counts = {name: getattr(spec["fn"], spec.get("counter", "launches"))
+              for name, spec in KERNELS.items()}
     log(f"  {path} launches: {counts}")
     for name, spec in KERNELS.items():
         rec[name]["launches"] = rec[name].get("launches", 0) + counts[name]
@@ -221,6 +268,22 @@ def set_bound(r, flops, nbytes_):
         f"{flops / 1e9:.3f} G operations, {nbytes_ / 1e6:.3f} MB)")
 
 
+def set_bound_bf16(r, entries, k, nbytes_):
+    """r's bound_ms for a bf16 body doing `entries` (present entry, pass)
+    pairs of a λ or γ pass: the larger of its products at the bf16 tensor
+    core peak (D1, D0 and the two K-sums, 8K operations an entry, an FMA
+    two), its FP32 work outside them at the FP32 peak (two divides an
+    entry, one operation each) and its bytes at the memory rate."""
+    t_mma = entries * 8 * k / BF16_FLOPS * 1e3
+    t_fp32 = entries * 2 / FP32_FLOPS * 1e3
+    t_bytes = nbytes_ / HBM_BYTES * 1e3
+    r["bound_ms"] = max(t_mma, t_fp32, t_bytes)
+    r["bound_by"] = "operations" if max(t_mma, t_fp32) >= t_bytes else "bytes"
+    r.setdefault("library_ms", None)
+    log(f"  bound {r['bound_ms']:.5f} ms ({r['bound_by']}: products "
+        f"{t_mma:.5f} ms, FP32 {t_fp32:.5f} ms, bytes {t_bytes:.5f} ms)")
+
+
 def lambda_pass_flops(k):
     """Per present entry of a lambda pass: D1, D0 and the two K-sums (4K
     FMAs) and two divides. A gamma pass does the same count."""
@@ -228,7 +291,8 @@ def lambda_pass_flops(k):
 
 
 def solve_passes(rows, up, lamb, *, local_iters, local_tol, beta_a, beta_b,
-                 accel=False, warm_start=False, approx_div=False):
+                 accel=False, warm_start=False, approx_div=False,
+                 dtype=torch.float32):
     """Lambda passes the fused solve does work for on these inputs: loop
     passes until the batch-wide change is not above local_tol, the accel
     tail's two, and the exact final one (the twin's schedule replayed)."""
@@ -240,10 +304,12 @@ def solve_passes(rows, up, lamb, *, local_iters, local_tol, beta_a, beta_b,
         [torch.full_like(lamb[..., 0], beta_a),
          torch.full_like(lamb[..., 1], beta_b)], -1)
     ran = 0
+    uo = u if dtype == torch.float32 else u.to(dtype).float()
     for _ in range(local_iters - 2 if acc else local_iters):
         t1, t0 = fused_step.exp_elog_beta_kernel(lam)
-        r1, r0 = stats_packed.ratios_planar(a1, a0, u, t1, t0, approx_div)
-        new = torch.stack([beta_a + t1 * (r1 @ u), beta_b + t0 * (r0 @ u)],
+        r1, r0 = stats_packed.ratios_planar(a1, a0, u, t1, t0, approx_div,
+                                            dtype)
+        new = torch.stack([beta_a + t1 * (r1 @ uo), beta_b + t0 * (r0 @ uo)],
                           -1)
         ran += 1
         delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
@@ -256,26 +322,31 @@ def solve_passes(rows, up, lamb, *, local_iters, local_tol, beta_a, beta_b,
 def solve_bound(r, rows, up, lamb, kw, extra_bytes=0):
     """The fused solve's bound: its lambda passes and the gamma pass over
     the present entries; rows, u, lamb_init (when read) in, lambda_B and
-    g out."""
+    g out. At bf16 the products count at the bf16 rate (`set_bound_bf16`)."""
     k = up.shape[-1]
     passes = solve_passes(rows, up, lamb, **kw)
-    flops = present(rows) * lambda_pass_flops(k) * (passes + 1)
     moved = nbytes(rows, up, up) + lamb.numel() * 4 * (
         2 if kw.get("warm_start") else 1) + extra_bytes
     log(f"  {passes} lambda passes + 1 gamma pass")
-    set_bound(r, flops, moved)
+    if kw.get("dtype") == BF16:
+        set_bound_bf16(r, present(rows) * (passes + 1), k, moved)
+    else:
+        set_bound(r, present(rows) * lambda_pass_flops(k) * (passes + 1),
+                  moved)
 
 
 def compare(name, got, want, tol, outlier_frac=0.0):
-    """Max abs error; fails where |got - want| > tol + tol*|want| on more
-    than `outlier_frac` of the entries, or on any non-finite value."""
+    """Max abs error; fails where |got - want| > atol + rtol*|want| on more
+    than `outlier_frac` of the entries, or on any non-finite value. tol is
+    rtol = atol, or the pair (rtol, atol)."""
+    rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
     got = [g.float() for g in got]
     want = [w.float() for w in want]
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    out = max(float(((g - w).abs() > tol + tol * w.abs()).float().mean())
+    out = max(float(((g - w).abs() > atol + rtol * w.abs()).float().mean())
               for g, w in zip(got, want))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
-    log(f"  {name}: max_abs_err={err:.3e} tol={tol:g} "
+    log(f"  {name}: max_abs_err={err:.3e} tol={tol} "
         f"outside_tol={out:.2e} (allowed {outlier_frac:g}) finite={finite}")
     if out > outlier_frac or not finite:
         raise AssertionError(f"{name}: kernel disagrees with its twin")
@@ -429,6 +500,7 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_dma(dev, rec)
     phase_kernels_tiling(dev, rec)
     phase_kernels_wide(dev, rec)
+    phase_kernels_bf16(dev, rec)
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -908,6 +980,266 @@ def phase_kernels_wide(dev, rec):
     del rows, up, u, t1, t0
 
 
+def pin(label, got, f32, free=()):
+    """The divergence pin: each output of a bf16 body differs from the f32
+    body's on the same inputs by more than PIN_LO somewhere and by less
+    than PIN_HI everywhere, relative to its largest magnitude. Outputs
+    whose index is in `free` are printed but not pinned: lambda after the
+    accel tail, an extrapolation whose clamped Aitken step turns the
+    bodies' ~1e-3 gap in the iterates into up to 9|d1| a coordinate (on
+    random inputs far from the fixed point, 16% of lambda_B moves by more
+    than PIN_HI); the gamma statistic computed from it stays pinned."""
+    rel = [float(((a - b).abs() / b.abs().max()).max())
+           for a, b in zip(got, f32)]
+    log(f"  {label} bf16 vs f32: " + ", ".join(
+        f"{x:.2e}" + (" (accel lambda, not pinned)" if i in free else "")
+        for i, x in enumerate(rel))
+        + f" of the largest magnitude (pin {PIN_LO:g}..{PIN_HI:g})")
+    if not all(PIN_LO < x < PIN_HI
+               for i, x in enumerate(rel) if i not in free):
+        raise AssertionError(f"{label}: bf16 body outside the divergence pin")
+
+
+def hold_bf16(rec, name, label, kernel, twin, tol, frac=0.0, accel=False):
+    """A bf16 case: kernel(dtype) re-run bitwise, held against its bf16
+    twin at tol, and pinned against the f32 body on the same inputs. A
+    solve's outputs (lambda_B, g) are held apart: lambda_B with the share
+    frac of its entries allowed beyond tol, g everywhere; with accel,
+    lambda_B is not pinned (`pin`)."""
+    got = twice(label, lambda: kernel(BF16))
+    want = twin()
+    if len(got) == 2 and frac:
+        hold(rec, name, f"{label} g", got[1:], want[1:], tol)
+        hold(rec, name, f"{label} lambda", got[:1], want[:1], tol, frac)
+    else:
+        hold(rec, name, label, got, want, tol)
+    pin(label, got, kernel(torch.float32), (0,) if accel else ())
+    return got
+
+
+def in_turns(fa, fb, timer="events", reps=20):
+    """Times of fa and fb in turns (a, b, b, a), by `time_ms` or, with
+    timer "graph", `device_ms`: their means."""
+    timer = device_ms if timer == "graph" else time_ms
+    t = [timer(f, reps) for f in (fa, fb, fb, fa)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def phase_kernels_bf16(dev, rec):
+    """The bf16 bodies of K1, K2, K4 and of the λ and γ passes (the
+    reference's kernels at dtype=jnp.bfloat16), each against its bf16
+    twin (TOL_BF16_PASS, TOL_BF16_SOLVE; approx_div TOL_APPROX), re-run
+    bitwise, and pinned against the f32 body; K2 bitwise against K1 on the
+    gathered rows. Cases: the TGP shape, config #1's, config #3's K2 step,
+    ragged B, odd W, K = 3..33 and 72 (the K-chunked bodies), rows
+    MISSING, a null group, both divides, the stored-λ warm start. Times in
+    turns with the f32 bodies, beside the bf16 bounds."""
+    for name in ("fused_local_solve[bf16]", "fused_local_solve_dma[bf16]",
+                 "lambda_stats_packed[bf16]"):
+        rec[name]["max_abs_err"] = 0.0
+    plain = dict(local_iters=7, local_tol=-1.0, accel=False)
+    main = dict(local_iters=7, local_tol=1e-4, accel=True)
+    quick = dict(local_iters=4, local_tol=-1.0)
+
+    def k1_case(label, rows, up, lamb, extra, timed=False):
+        kw = dict(beta_a=1.0, beta_b=1.0, **extra)
+        tol = TOL_APPROX if kw.get("approx_div") else TOL_BF16_SOLVE
+        frac = 1e-2 if kw.get("accel") else FLIP_FRAC
+        hold_bf16(rec, "fused_local_solve[bf16]", f"K1[bf16] {label}",
+                  lambda dt: fused_step.fused_local_solve(rows, up, lamb,
+                                                          dtype=dt, **kw),
+                  lambda: fused_step.fused_local_solve_twin(
+                      rows, up, lamb, dtype=BF16, **kw), tol, frac,
+                  kw.get("accel", False))
+        if timed:
+            r = rec["fused_local_solve[bf16]"]
+            f32_ms, r["ms"] = in_turns(
+                lambda: fused_step.fused_local_solve(rows, up, lamb, **kw),
+                lambda: fused_step.fused_local_solve(rows, up, lamb,
+                                                     dtype=BF16, **kw))
+            r["plain_ms"] = time_ms(lambda: fused_step.fused_local_solve_twin(
+                rows, up, lamb, dtype=BF16, **kw))
+            r["f32_in_turns_ms"] = f32_ms
+            log(f"  K1[bf16] {label}: kernel {r['ms']:.4f} ms (f32 body in "
+                f"turns {f32_ms:.4f}), twin {r['plain_ms']:.4f} ms")
+            solve_bound(r, rows, up, lamb, dict(kw, dtype=BF16))
+
+    def k4_case(label, rows, up, t1, t0, approx, timed=False):
+        hold_bf16(rec, "lambda_stats_packed[bf16]", f"K4[bf16] {label} "
+                  f"approx={approx}",
+                  lambda dt: stats_packed.lambda_stats_packed(
+                      rows, up, t1, t0, approx_div=approx, dtype=dt),
+                  lambda: stats_packed.lambda_stats_packed_twin(
+                      rows, up, t1, t0, approx_div=approx, dtype=BF16),
+                  TOL_APPROX if approx else TOL_BF16_PASS)
+        if timed:
+            r = rec["lambda_stats_packed[bf16]"]
+            f32_ms, r["ms"] = in_turns(
+                lambda: stats_packed.lambda_stats_packed(rows, up, t1, t0),
+                lambda: stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                                         dtype=BF16))
+            r["plain_ms"] = time_ms(
+                lambda: stats_packed.lambda_stats_packed_twin(
+                    rows, up, t1, t0, dtype=BF16))
+            r["f32_in_turns_ms"] = f32_ms
+            log(f"  K4[bf16] {label}: kernel {r['ms']:.4f} ms eagerly (f32 "
+                f"in turns {f32_ms:.4f}), twin {r['plain_ms']:.4f} ms")
+            set_bound_bf16(r, present(rows), up.shape[-1],
+                           nbytes(rows, up, t1, t0, t1, t0))
+
+    # K1 at the TGP and config #1 step shapes
+    for (b, w, k), extra, timed in (
+            ((4096, 640, 8), plain, False), ((4096, 640, 8), main, True),
+            ((4096, 640, 8), dict(plain, warm_start=True), False),
+            ((4096, 640, 8), dict(plain, approx_div=True), False),
+            ((256, 256, 3), plain, False), ((256, 256, 3), main, False)):
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        tag = ",".join(f"{key}={v}" for key, v in extra.items())
+        k1_case(f"B={b} W={w} K={k} {tag}", rows, up, lamb, extra, timed)
+
+    # K4 at the eval/export block shape
+    rows, up, lamb = _solve_inputs(1024, 640, 8, 4, dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    for approx in (False, True):
+        k4_case("B=1024 W=640 K=8", rows, up, t1, t0, approx,
+                timed=not approx)
+
+    # ragged B, odd W, K across the instantiated widths, K = 72 (the
+    # K-chunked bodies), whole rows MISSING, both divides
+    for b, w, k in ((33, 235, 3), (1000, 626, 7), (33, 626, 10),
+                    (1000, 235, 16), (72, 640, 33), (40, 235, 72)):
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        rows[5] = 0xFF
+        rows[-1] = 0xFF
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        shape = f"B={b} W={w} K={k}"
+        for approx in (False, True):
+            k4_case(shape, rows, up, t1, t0, approx)
+            k1_case(f"{shape} approx={approx}", rows, up, lamb,
+                    dict(quick, approx_div=approx))
+        k1_case(f"{shape} warm_start", rows, up, lamb,
+                dict(quick, warm_start=True))
+
+    # K2: config #3's step (B=1024 g=8 out of 1M rows), then the tiling
+    # cases with a null group; bitwise K1 on the gathered rows
+    def k2_case(label, idx0, packed, up, lamb, rows, extra, timed=False):
+        kw = dict(beta_a=1.0, beta_b=1.0, group=8, **extra)
+        tol = TOL_APPROX if kw.get("approx_div") else TOL_BF16_SOLVE
+        kw1 = {key: v for key, v in kw.items() if key != "group"}
+        frac = 1e-2 if kw.get("accel") else FLIP_FRAC
+        got = hold_bf16(
+            rec, "fused_local_solve_dma[bf16]", f"K2[bf16] {label}",
+            lambda dt: fused_step.fused_local_solve_dma(
+                idx0, packed, up, lamb, dtype=dt, **kw),
+            lambda: fused_step.fused_local_solve_twin(
+                rows, up, lamb, dtype=BF16, **kw1), tol, frac,
+            kw.get("accel", False))
+        k1 = fused_step.fused_local_solve(rows, up, lamb, dtype=BF16, **kw1)
+        if not all(torch.equal(a, c) for a, c in zip(got, k1)):
+            raise AssertionError(f"K2[bf16] {label}: differs from K1[bf16] "
+                                 "on the gathered rows")
+        if timed:
+            r = rec["fused_local_solve_dma[bf16]"]
+            f32_ms, r["ms"] = in_turns(
+                lambda: fused_step.fused_local_solve_dma(idx0, packed, up,
+                                                         lamb, **kw),
+                lambda: fused_step.fused_local_solve_dma(
+                    idx0, packed, up, lamb, dtype=BF16, **kw))
+            r["plain_ms"] = time_ms(lambda: fused_step.fused_local_solve_twin(
+                rows, up, lamb, dtype=BF16, **kw1))
+            r["f32_in_turns_ms"] = f32_ms
+            log(f"  K2[bf16] {label}: kernel {r['ms']:.4f} ms (f32 body in "
+                f"turns {f32_ms:.4f}), twin {r['plain_ms']:.4f} ms")
+            solve_bound(r, rows, up, lamb, dict(kw1, dtype=BF16),
+                        extra_bytes=nbytes(idx0))
+
+    l, w, k, b, g = 1_000_000, 640, 8, 1024, 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    packed = torch.randint(0, 256, (l, w), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    gamma = 0.3 + 2.7 * torch.rand((4 * w, k), generator=gen, device=dev)
+    up = stats_packed.u_to_planes(exp_elog_theta(gamma))
+    idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                         dtype=torch.int32) * g
+    lamb = 0.5 + 2.5 * torch.rand((b, k, 2), generator=gen, device=dev)
+    rows = packed[(idx0.long()[:, None] + torch.arange(g, device=dev))
+                  .reshape(b)]
+    for extra, timed in ((plain, False), (main, True),
+                         (dict(plain, warm_start=True), False),
+                         (dict(plain, approx_div=True), False)):
+        tag = ",".join(f"{key}={v}" for key, v in extra.items())
+        k2_case(f"L=1M B={b} W={w} K={k} g=8 {tag}", idx0, packed, up, lamb,
+                rows, extra, timed)
+    del packed
+    l = 4096
+    for b, w, k in ((40, 256, 3), (72, 128, 10), (1000, 640, 8),
+                    (136, 384, 16), (1000, 640, 33), (40, 256, 72)):
+        packed, up, lamb = _solve_inputs(l, w, k, b + w + k, dev)
+        lamb = lamb[:b].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(b)
+        idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                             dtype=torch.int32) * g
+        packed[int(idx0[0]) + 3] = 0xFF     # a whole row MISSING
+        idx0[1] = l                         # a null group: reads as MISSING
+        rows = packed[(idx0.long().clamp(max=l - g)[:, None]
+                       + torch.arange(g, device=dev)).reshape(b)]
+        rows[g:2 * g] = 0xFF
+        for approx in (False, True):
+            k2_case(f"B={b} W={w} K={k} g=8 approx={approx}", idx0, packed,
+                    up, lamb, rows, dict(quick, approx_div=approx,
+                                         warm_start=True))
+    log("  bf16 bodies: every re-run bitwise equal, K2[bf16] bitwise "
+        "K1[bf16] on the gathered rows, every output inside the pin")
+    phase_passes_bf16(dev, rec)
+
+
+def phase_passes_bf16(dev, rec):
+    """The λ pass (K4's entry) and the γ pass (K5's entry) at bf16 alone,
+    from a CUDA graph of 100 calls, in turns with their f32 bodies, at the
+    shapes the paths run them, beside the bf16 bounds; the γ pass (K1's
+    and K2's last pass, kept under K1[bf16]) also against its bf16 twin
+    and pinned."""
+    r = rec["lambda_stats_packed[bf16]"]
+    r["passes"] = []
+    for b, w, k in PASS_SHAPES:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        e = dict(shape=f"B={b} W={w} K={k}")
+        for key, approx in (("ms", False), ("approx_ms", True)):
+            e[f"f32_{key}"], e[key] = in_turns(
+                lambda: stats_packed.lambda_stats_packed(
+                    rows, up, t1, t0, approx_div=approx),
+                lambda: stats_packed.lambda_stats_packed(
+                    rows, up, t1, t0, approx_div=approx, dtype=BF16),
+                "graph", 100)
+        log(f"  λ pass[bf16] {e['shape']}: {e['ms']:.5f} ms, fast divide "
+            f"{e['approx_ms']:.5f} ms; f32 in turns {e['f32_ms']:.5f} / "
+            f"{e['f32_approx_ms']:.5f} ms (CUDA graph)")
+        set_bound_bf16(e, present(rows), k, nbytes(rows, up, t1, t0, t1, t0))
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        r["passes"].append(e)
+    for b, w, k in GAMMA_SHAPES:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        label = f"γ pass[bf16] B={b} W={w} K={k}"
+        hold_bf16(rec, "fused_local_solve[bf16]", label,
+                  lambda dt: [stats_packed.gamma_stats_packed(
+                      rows, up, t1, t0, dtype=dt)],
+                  lambda: [stats_packed.gamma_stats_packed_twin(
+                      rows, up, t1, t0, BF16)], TOL_BF16_PASS)
+        e = dict(shape=f"B={b} W={w} K={k}")
+        e["f32_ms"], e["ms"] = in_turns(
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0),
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                    dtype=BF16),
+            "graph", 100)
+        log(f"  {label}: {e['ms']:.5f} ms; f32 in turns {e['f32_ms']:.5f} ms "
+            "(CUDA graph)")
+        set_bound_bf16(e, present(rows), k, nbytes(rows, up, t1, t0, up))
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        rec["fused_local_solve[bf16]"].setdefault("gamma_passes", []).append(e)
+
+
 def phase_wide_paths(dev, rec):
     """K = 72 through the steps a user's fit runs: one chunk of the fused
     branch (K1's wide bodies; the reference's gate pads K to 128 lanes,
@@ -967,34 +1299,45 @@ def phase_wide_bign(dev, rec, cfg, packed_d):
         "wide, re-run bitwise equal, gamma finite")
 
 
-def phase_canonical(dev, rec, lambda_mode="local"):
+def phase_canonical(dev, rec, lambda_mode="local", dtype="float32"):
     """Config #1 through fit, as the verify skill's canonical drive. The
     stored mode warm-starts K1 from the stored lambda and scores it
-    directly: no lambda re-solve (K4)."""
+    directly: no lambda re-solve (K4). dtype "bfloat16" runs the bf16
+    bodies (and never the f32 ones). Returns the fit's summary."""
     theta_true, beta_true, x = simulate_psd(1000, 10_000, 3, seed=11)
     data = GenotypeData.from_dense(x, validation_frac=0.005,
                                    heldout_frac=0.005, seed=11)
     cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=50,
-                    max_steps=3000, seed=11, lambda_mode=lambda_mode)
+                    max_steps=3000, seed=11, lambda_mode=lambda_mode,
+                    compute_dtype=dtype)
     reset_counts()
     res = fit(cfg, data, device=dev)
     stored = lambda_mode == "stored"
-    read_counts(rec, f"config #1 {lambda_mode}",
-                ("fused_local_solve",) + (() if stored
-                                          else ("lambda_stats_packed",)),
-                absent=("fused_local_solve_dma", "gather_row_blocks")
-                + (("lambda_stats_packed",) if stored else ()))
+    sfx, other = ("[bf16]", "") if dtype == "bfloat16" else ("", "[bf16]")
+    read_counts(rec, f"config #1 {lambda_mode} {dtype}",
+                (f"fused_local_solve{sfx}",)
+                + (() if stored else (f"lambda_stats_packed{sfx}",)),
+                absent=("fused_local_solve_dma", "gather_row_blocks",
+                        "fused_local_solve_dma[bf16]",
+                        f"fused_local_solve{other}",
+                        f"lambda_stats_packed{other}")
+                + ((f"lambda_stats_packed{sfx}",) if stored else ()))
     th = psd.theta_mean(res.state.gamma[: cfg.n]).cpu().numpy()
     err = mean_abs_theta_error(th, theta_true)
     h = data.heldout
     p = (theta_true[h.ind_idx] * beta_true[h.snp_idx]).sum(-1)
     oracle = float(psd.binomial2_loglik(
         torch.from_numpy(h.x), torch.from_numpy(p).float()).mean())
-    log(f"  config #1 {lambda_mode}: converged={res.converged} "
+    chunk_s, _, rate = fit_rates(res, cfg.batch_size)
+    log(f"  config #1 {lambda_mode} {dtype}: converged={res.converged} "
         f"steps={res.steps} wall_s={res.wall_s:.2f} theta_mae={err:.4f} "
-        f"heldout={res.heldout_ll:.5f} oracle={oracle:.5f}")
+        f"heldout={res.heldout_ll:.5f} oracle={oracle:.5f} "
+        f"snp_updates_per_s={rate:.1f}")
     if not (res.converged and err < 0.05 and res.heldout_ll > oracle - 0.02):
         raise AssertionError("canonical drive failed its quality checks")
+    return dict(steps=res.steps, converged=res.converged, theta_mae=err,
+                heldout=res.heldout_ll, oracle=oracle, wall_s=res.wall_s,
+                snp_updates_per_s=rate)
 
 
 def fit_rates(res, b):
@@ -1125,6 +1468,8 @@ def phase_config3(dev, rec, data, theta):
         f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
         raise AssertionError("config #3 local scores are not finite")
+    summary = dict(steps=res.steps, theta_mae=mean_abs_theta_error(th, theta),
+                   heldout=res.heldout_ll, snp_updates_per_s=rate)
 
     scfg = cfg.replace(lambda_mode="stored", max_steps=100, rfreq=50)
     reset_counts()
@@ -1164,6 +1509,73 @@ def phase_config3(dev, rec, data, theta):
                                  "chunk re-run is not bitwise equal")
         log(f"  config #3 {c.lambda_mode}: same-seed chunk re-run from a "
             "cloned state: gamma and lambda bitwise equal")
+    return summary
+
+
+def phase_bf16_drives(dev, rec, data, theta, f32):
+    """compute_dtype="bfloat16" through `fit`: config #1 to convergence in
+    both lambda modes (K1[bf16], K4[bf16] for the local mode's eval and
+    export), held to phase 2's quality limits, and config #3 for 200
+    steps (phase 5's data; K2[bf16] once a step, K4[bf16]) and 100 in the
+    stored mode (K2[bf16] warm-started); no f32 body of K1, K2 or K4 and
+    no twin runs. Each beside its f32 run (f32)."""
+    for mode in ("local", "stored"):
+        got = phase_canonical(dev, rec, lambda_mode=mode, dtype="bfloat16")
+        ref = f32[f"config #1 {mode}"]
+        log(f"  config #1 {mode}: bf16 / f32 steps {got['steps']} / "
+            f"{ref['steps']}, theta_mae {got['theta_mae']:.4f} / "
+            f"{ref['theta_mae']:.4f}, heldout {got['heldout']:.5f} / "
+            f"{ref['heldout']:.5f} (oracle {got['oracle']:.5f}), "
+            f"SNP-updates/s {got['snp_updates_per_s']:.1f} / "
+            f"{ref['snp_updates_per_s']:.1f}")
+    n, l, k = TGP
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=1024, rfreq=100,
+                    max_steps=200, seed=0, snp_group=8,
+                    compute_dtype="bfloat16")
+    reset_counts()
+    res = fit(cfg, data, device=dev)
+    counts = read_counts(
+        rec, "config #3 local bfloat16",
+        ("fused_local_solve_dma[bf16]", "lambda_stats_packed[bf16]"),
+        absent=("fused_local_solve", "fused_local_solve_dma",
+                "fused_local_solve[bf16]", "gather_row_blocks",
+                "lambda_stats_packed"))
+    if counts["fused_local_solve_dma[bf16]"] != res.steps:
+        raise AssertionError("config #3 bf16: K2[bf16] did not run once a "
+                             "step")
+    _, _, rate = fit_rates(res, cfg.batch_size)
+    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
+    mae = mean_abs_theta_error(th, theta)
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError("config #3 bf16 scores are not finite")
+    h = data.heldout
+    beta = simulated_beta(n, l, k, seed=0)
+    p = (theta[h.ind_idx] * beta[h.snp_idx]).sum(-1)
+    oracle = float(psd.binomial2_loglik(torch.from_numpy(h.x),
+                                        torch.from_numpy(p)).mean())
+    ref = f32["config #3 local"]
+    log(f"  config #3 local, 200 steps: bf16 / f32 theta_mae {mae:.4f} / "
+        f"{ref['theta_mae']:.4f}, heldout {res.heldout_ll:.5f} / "
+        f"{ref['heldout']:.5f} (oracle {oracle:.5f}), SNP-updates/s "
+        f"{rate:.1f} / {ref['snp_updates_per_s']:.1f}")
+
+    # the stored mode: K2[bf16] warm-started, no λ re-solve
+    scfg = cfg.replace(lambda_mode="stored", max_steps=100, rfreq=50)
+    reset_counts()
+    res = fit(scfg, data, device=dev)
+    counts = read_counts(
+        rec, "config #3 stored bfloat16", ("fused_local_solve_dma[bf16]",),
+        absent=("fused_local_solve", "fused_local_solve_dma",
+                "fused_local_solve[bf16]", "gather_row_blocks",
+                "lambda_stats_packed", "lambda_stats_packed[bf16]"))
+    if counts["fused_local_solve_dma[bf16]"] != res.steps:
+        raise AssertionError("config #3 stored bf16: K2[bf16] did not run "
+                             "once a step")
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError("config #3 stored bf16 scores are not finite")
+    log(f"  config #3 stored, 100 steps at bf16: K2[bf16] once a step, "
+        f"validation_ll={res.validation_ll:.5f} "
+        f"heldout={res.heldout_ll:.5f}")
 
 
 def digests(dev):
@@ -1236,6 +1648,24 @@ def digests(dev):
         rows, u, t1, t0))
     out[f"K7 {shape}"] = h(*stats_packed.batch_stats_fused_v2_packed(
         rows, u, t1, t0))
+    if hasattr(fused_step.fused_local_solve, "bf16_launches"):
+        # the bf16 bodies (trees that have them), K <= 64 and K = 72
+        for b, w, k in ((4096, 640, 8), (1000, 235, 7), (72, 640, 33),
+                        (40, 256, 72)):
+            rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+            t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+            shape = f"B={b} W={w} K={k}"
+            for approx in (False, True):
+                out[f"K1[bf16] {shape} accel approx={approx}"] = h(
+                    *fused_step.fused_local_solve(
+                        rows, up, lamb, local_iters=7, local_tol=1e-4,
+                        beta_a=1.0, beta_b=1.0, accel=True,
+                        approx_div=approx, dtype=BF16))
+                out[f"K4[bf16] {shape} approx={approx}"] = h(
+                    *stats_packed.lambda_stats_packed(
+                        rows, up, t1, t0, approx_div=approx, dtype=BF16))
+            out[f"K5[bf16] {shape}"] = h(stats_packed.gamma_stats_packed(
+                rows, up, t1, t0, dtype=BF16))
     return out
 
 
@@ -1311,10 +1741,11 @@ def main(argv=()) -> int:
                                       for name in KERNELS]}))
         print(card)
         return 0
+    f32 = {}
     log("phase 2: canonical drive, config #1")
-    phase_canonical(dev, rec)
+    f32["config #1 local"] = phase_canonical(dev, rec)
     log("phase 2b: config #1, stored lambda mode")
-    phase_canonical(dev, rec, lambda_mode="stored")
+    f32["config #1 stored"] = phase_canonical(dev, rec, lambda_mode="stored")
     log("phase 2c: K = 72 through the fused branch")
     phase_wide_paths(dev, rec)
     log("phase 3: TGP shape")
@@ -1322,7 +1753,10 @@ def main(argv=()) -> int:
     log("phase 4: big-N shape")
     phase_bign(dev, rec)
     log("phase 5: config #3, group-addressed solve (K2)")
-    phase_config3(dev, rec, *tgp)
+    f32["config #3 local"] = phase_config3(dev, rec, *tgp)
+    log("phase 6: compute_dtype bfloat16: config #1 (both lambda modes), "
+        "config #3")
+    phase_bf16_drives(dev, rec, *tgp, f32)
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

@@ -126,8 +126,9 @@ class SVIConfig:
     conv_tol: float = 1e-5      # relative validation-ll improvement floor
     conv_patience: int = 3      # consecutive non-improving checks to stop
 
-    # Numerics of the hot loop: "float32", or "bfloat16" (the bf16 kernel
-    # path, not ported yet).
+    # Numerics of the hot loop's products: "float32", or "bfloat16" (their
+    # operands rounded to bf16, sums in f32; the resident fit only, the
+    # big-N step raises at bf16).
     compute_dtype: str = "float32"
 
     # Hot-loop implementation: "fused" (the whole local solve in one

@@ -2,14 +2,15 @@
 the card and report its quality and rates.
 
     python -m terastructure_tpu_torch.converge --config 3
+    python -m terastructure_tpu_torch.converge --config 1 --compute-dtype bfloat16
     python -m terastructure_tpu_torch.converge --config 5 --scale 0.1
 
 The configurations are those of the reference's acceptance runner
 (benchmarks/baseline_configs.py): the published shapes (config 5 cut by
 --scale, as the runner's own option does), its batch sizes, rfreq 100,
 at most 20,000 steps, snp_group 8, seed 0, so configs 2 and 3 take the
-group-addressed fused solve (K2) and config 5 the big-N path. The
-genotypes are simulated on the card (`simulate_packed_device`, the
+group-addressed fused solve (K2), config 1 (L = 10,000) K1 and config 5
+the big-N path. The genotypes are simulated on the card (`simulate_packed_device`, the
 reference's structured theta) and carved as the runner carves them: 0.5%
 validation and heldout entries, at most 200,000 each, over a pool of
 2,048 SNPs at biobank N or L. Prints the
@@ -17,7 +18,10 @@ card (nvidia-smi name and power limit) and one JSON line: steps,
 converged, theta MAE against the truth, heldout and validation
 log-likelihood, the oracle's heldout log-likelihood (the true theta and
 beta), fit wall, the sums of chunk_s and eval_s, SNP-updates/s over the
-chunks, and the kernels' launch counts.
+chunks, and the kernels' launch counts (f32 and bf16 bodies apart).
+--compute-dtype is the reference CLI's flag: "bfloat16" runs the bf16
+bodies (configs 1-3; config 5 takes the big-N step, which raises at
+bf16).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from terastructure_tpu_torch.svi import fit
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
 CONFIGS = {        # benchmarks/baseline_configs.py:31-38
+    1: dict(n=1000, l=10_000, k=3, batch=256),           # the canonical sim
     2: dict(n=940, l=640_000, k=7, batch=1024),          # HGDP shape
     3: dict(n=2504, l=1_000_000, k=8, batch=1024),       # TGP shape
     5: dict(n=1_000_000, l=1_000_000, k=10, batch=4096),  # big-N regime
@@ -57,7 +62,7 @@ def card_line() -> str:
 
 
 def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
-        batch_size: int | None = None) -> dict:
+        batch_size: int | None = None, compute_dtype: str = "float32") -> dict:
     """Simulate, carve and fit `config`; return the record. scale shrinks
     N and L (keeping N % 4 == 0 and L % 8 == 0); batch_size overrides the
     config's (a small rehearsal)."""
@@ -74,11 +79,15 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
     sim_s = time.time() - t0
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(batch_size or spec["batch"],
                                                   l),
-                    rfreq=100, max_steps=max_steps, seed=0, snp_group=8)
+                    rfreq=100, max_steps=max_steps, seed=0, snp_group=8,
+                    compute_dtype=compute_dtype)
     for f in COUNTED:
         f.launches = f.twin_calls = 0
+        if hasattr(f, "bf16_launches"):
+            f.bf16_launches = 0
     res = fit(cfg, data, device=device)
-    counts = {f.__name__: (f.launches, f.twin_calls) for f in COUNTED}
+    counts = {f.__name__: (f.launches, f.twin_calls,
+                           getattr(f, "bf16_launches", 0)) for f in COUNTED}
 
     th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
     h = data.heldout
@@ -89,6 +98,7 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
     chunk_s = sum(r["chunk_s"] for r in res.trace)
     return dict(
         config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
+        compute_dtype=compute_dtype,
         device=str(torch.device(device)), steps=res.steps,
         converged=res.converged, theta_mae=mean_abs_theta_error(th, theta),
         heldout_ll=res.heldout_ll, oracle_ll=oracle,
@@ -97,6 +107,7 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
         checks=len(res.trace), sim_s=sim_s,
         snp_updates_per_s=res.steps * cfg.batch_size / chunk_s,
         launches={name: c[0] for name, c in counts.items()},
+        bf16_launches={name: c[2] for name, c in counts.items()},
         twin_calls={name: c[1] for name, c in counts.items()})
 
 
@@ -105,13 +116,16 @@ def main(argv=None) -> int:
     ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=3)
     ap.add_argument("--max-steps", type=int, default=20_000)
     ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("converge: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
     print(json.dumps(run(args.config, device="cuda", max_steps=args.max_steps,
-                         scale=args.scale)), flush=True)
+                         scale=args.scale, compute_dtype=args.compute_dtype)),
+          flush=True)
     return 0
 
 

@@ -42,8 +42,16 @@
 // (tt::kDivFast) and with one Newton step without it (tt::kDivNewton,
 // within 1 ulp); the final pass and the gamma pass always give the bits
 // of the IEEE divide (tt::kDivExact). The f32 path stays outside the
-// tensor cores; bf16 is its own slice. K > 64 runs the K-chunked λ and
-// γ bodies of psd_wide.cuh through the same launchers.
+// tensor cores (TF32 would change its numbers). K > 64 runs the K-chunked
+// λ and γ bodies of psd_wide.cuh through the same launchers.
+//
+// At compute dtype bf16 (kBf16, the reference's dtype=jnp.bfloat16) the
+// passes take their bf16 bodies: T, U and R enter the products rounded to
+// bf16 and the sums stay f32; the update beta + t * S, the tol test and
+// Aitken use the unrounded f32 t and lambda (the update kernels below are
+// the f32 path's). The bf16 sequences are instantiated in their own
+// sources (fused_step_bf16.cu, fused_step_dma_bf16.cu), so that nvcc
+// builds them beside the f32 ones in parallel.
 
 #pragma once
 
@@ -171,8 +179,8 @@ delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
 }
 
 // The launch sequence of K1 and K2: they differ only in where the passes
-// read the batch's rows (`Rows`, psd_common.cuh).
-template <class Rows>
+// read the batch's rows (`Rows`, psd_common.cuh). kBf16: the bf16 bodies.
+template <class Rows, bool kBf16>
 int fused_solve(Rows src, const float* up, const float* lamb_init,
                 float* lamb_out, float* g, float* lam, float* mid, float* t,
                 float* part, float* dpart, int* active, float* gpart, int B,
@@ -192,7 +200,7 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   const int loop_div = approx_div ? tt::kDivFast : tt::kDivNewton;
 
   auto pass = [&](int div, const int* gate) -> int {
-    return tt::launch_lambda_pass<tt::PackedLoader<Rows>, true>(
+    return tt::launch_lambda_pass<tt::PackedLoader<Rows>, true, kBf16>(
         loader, up, t, t + 1, 2 * K, 2, part, B, W, K, nsplit_w, div, gate,
         stream);
   };
@@ -223,8 +231,9 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   if ((err = pass(tt::kDivExact, nullptr))) return err;
   if ((err = update(kFinal))) return err;
 
-  return tt::launch_gamma_stats(src, up, t, t + 1, 2 * K, 2, gpart, g, B, W,
-                                K, nsplit_b, stream);
+  return tt::launch_gamma_stats<Rows, kBf16>(src, up, t, t + 1, 2 * K, 2,
+                                             gpart, g, B, W, K, nsplit_b,
+                                             stream);
 }
 
 }  // namespace

@@ -15,7 +15,8 @@
 // the same rows K2 is bitwise equal to K1 and a seed reproduces a fit.
 //
 // The launch sequence is fused_solve.cuh's, instantiated here for
-// `tt::GroupedRows` (its own source, so it builds beside K1 in parallel).
+// `tt::GroupedRows` (its own source, so it builds beside K1 in parallel);
+// its bf16 sequence is fused_step_dma_bf16.cu's.
 
 #include "fused_solve.cuh"
 
@@ -28,8 +29,9 @@ extern "C" int tt_fused_local_solve_dma(
     int local_iters, float local_tol, float beta_a, float beta_b,
     int warm_start, int approx_div, int accel, cudaStream_t stream) {
   if (group <= 0 || B % group || L < group) return (int)cudaErrorInvalidValue;
-  return fused_solve(tt::GroupedRows{packed, idx0, group, L}, up, lamb_init,
-                     lamb_out, g, lam, mid, t, part, dpart, active, gpart, B,
-                     W, K, nsplit_w, nsplit_b, local_iters, local_tol, beta_a,
-                     beta_b, warm_start, approx_div, accel, stream);
+  return fused_solve<tt::GroupedRows, false>(
+      tt::GroupedRows{packed, idx0, group, L}, up, lamb_init, lamb_out, g,
+      lam, mid, t, part, dpart, active, gpart, B, W, K, nsplit_w, nsplit_b,
+      local_iters, local_tol, beta_a, beta_b, warm_start, approx_div, accel,
+      stream);
 }

@@ -69,9 +69,13 @@
 // These bodies are instantiated for K-widths KM = 4..64 (`pick_km`; the
 // gamma pass also KM = 12). K > 64
 // goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
-// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K.
+// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K. At compute dtype
+// bf16 (kBf16: K1, K2, K4 and K5's bf16 entry) K <= 64 runs the
+// tensor-core bodies of psd_mma.cuh and K > 64 the K-chunked bodies with
+// their operands rounded (`operand`).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -143,6 +147,20 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
   return approx ? ratio<kDivFast>(a, d) : ratio<kDivExact>(a, d);
 }
 
+// x as an operand of a product: at compute dtype bf16 (kBf16) rounded to
+// bf16 to nearest even and held in f32, else x itself. The K-chunked bf16
+// bodies (psd_wide.cuh) round T and U where they stage them and R after
+// the f32 divide; the product of two bf16 values is exact in f32 and the
+// sums stay f32, so they compute the reference's bf16 kernels
+// (fused_step.py:270-302, stats_pallas.py:68-93) up to the order of the
+// sums. kBf16 = false leaves the f32 bodies' code as it was. (The K <= 64
+// bf16 bodies run on the tensor cores, psd_mma.cuh.)
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
 // Batch row b of a gathered (B, W) matrix starts at rows + b*W.
 struct ContiguousRows {
   const uint8_t* rows;
@@ -200,12 +218,12 @@ struct PackedLoader {
     if (r < kRowsPerCta) rowp[r] = b0 + r < B ? src.row(b0 + r, W) : nullptr;
   }
 
-  template <int TC>
+  template <int TC, int kT = kThreads>
   __device__ void stage(uint32_t* tile, const uint8_t* const* rowp, int b0,
                         int B, int W, int w0, int nb) const {
     constexpr int kStride = TC / 4 + 1;                  // words, odd
     const int nw = (nb + 3) >> 2;
-    for (int i = threadIdx.x; i < kRowsPerCta * nw; i += kThreads) {
+    for (int i = threadIdx.x; i < kRowsPerCta * nw; i += kT) {
       const int r = i / nw, wd = i - r * nw;
       const uint8_t* p = rowp[r];
       uint32_t v = 0xFFFFFFFFu;  // outside the matrix: MISSING
@@ -328,7 +346,8 @@ struct AcatLoader {
 // One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit), block kThreads.
 // t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0] = S1 (the
 // lambda0 statistic), [...,1] = S0. `active` (may be null): skip the pass
-// when *active == 0. kDiv: how `ratio` divides.
+// when *active == 0. kDiv: how `ratio` divides. (At bf16 the pass for
+// K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh.)
 template <int KM, class Loader, int kDiv>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_kernel(Loader ld, const float* __restrict__ up,
@@ -513,7 +532,8 @@ constexpr int kGRows = 64;      // rows staged in shared memory at once
 // 32 packed bytes (word-wide loads; rows located by `Rows`, a null row
 // reads as MISSING) in shared memory, then each thread runs `gamma_rows`
 // over them. A slice's rows are added in order, so its bits do not
-// depend on the CTA's layout.
+// depend on the CTA's layout. (At bf16 the pass for K <= 64 is
+// gamma_pass_mma_kernel, psd_mma.cuh.)
 template <int KM, class Rows>
 __global__ void __launch_bounds__(kGThreads)
 gamma_pass_kernel(Rows src, const float* __restrict__ up,
@@ -579,6 +599,12 @@ gamma_pass_kernel(Rows src, const float* __restrict__ up,
     if (k < K) out[k] = g[k];
 }
 
+}  // namespace tt
+
+#include "psd_mma.cuh"
+
+namespace tt {
+
 namespace {  // one copy per translation unit (no template to share)
 
 // g[j] = sum_y gpart[y, j], y in order.
@@ -610,15 +636,20 @@ __global__ void split_reduce_kernel(const float* __restrict__ part,
 }  // namespace
 
 // Launch the gamma pass over `nsplit` row slices and their reduction.
-// gpart (nsplit, 4W, K) scratch, g (4, W, K).
-template <int KM, class Rows>
+// gpart (nsplit, 4W, K) scratch, g (4, W, K). kBf16: the tensor-core body
+// (psd_mma.cuh) with ceil(KM / 8) n8 tiles of K, on the same grid.
+template <int KM, class Rows, bool kBf16>
 int gamma_stats(Rows src, const float* up, const float* t1g,
                 const float* t0g, int ts, int tk, float* gpart, float* g,
                 int B, int W, int K, int nsplit, cudaStream_t stream) {
   const int bchunk = (B + nsplit - 1) / nsplit;
   const dim3 grid((W + kGCols - 1) / kGCols, nsplit);
-  gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
-      src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+  if constexpr (kBf16)
+    gamma_pass_mma_kernel<(KM + 7) / 8, Rows><<<grid, kMmaThreads, 0, stream>>>(
+        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+  else
+    gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
+        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
@@ -680,8 +711,9 @@ namespace tt {
 // Launch one lambda pass over `nsplit` column splits; part (nsplit, B, K,
 // 2) takes the partial sums. `div` is a `Div` (kDivNewton only where
 // kNewton is set: only the fused solve builds it); `active` as in
-// `lambda_pass_kernel`.
-template <class Loader, bool kNewton = false>
+// `lambda_pass_kernel`; kBf16 picks the bf16 bodies (instantiated only
+// for the packed rows of K1, K2 and K4).
+template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,
                        int W, int K, int nsplit, int div, const int* active,
@@ -691,13 +723,18 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
       (div == kDivNewton && !kNewton))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
-    return launch_lambda_pass_wide<Loader, kNewton>(
+    return launch_lambda_pass_wide<Loader, kNewton, kBf16>(
         ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
   const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
   const int wchunk = split_chunk(W, nsplit);
 #define TT_PASS(KM, DIV)                                                  \
-  lambda_pass_kernel<KM, Loader, DIV><<<grid, kThreads, 0, stream>>>(     \
-      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
+  if constexpr (kBf16) /* the tensor-core body: ceil(KM / 8) n8 tiles */  \
+    lambda_pass_mma_kernel<(KM + 7) / 8, Loader, DIV>                     \
+        <<<grid, kMmaThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part,  \
+                                           B, W, K, wchunk, active);      \
+  else                                                                    \
+    lambda_pass_kernel<KM, Loader, DIV><<<grid, kThreads, 0, stream>>>(   \
+        ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
 #define TT_LAUNCH(KM)                                 \
   if (div == kDivFast) {                              \
     TT_PASS(KM, kDivFast);                            \
@@ -713,8 +750,9 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
   return 0;
 }
 
-// Launch the gamma pass (gamma_stats, or gamma_stats_wide for K > 64).
-template <class Rows>
+// Launch the gamma pass (gamma_stats, or gamma_stats_wide for K > 64);
+// kBf16 picks the bf16 bodies.
+template <class Rows, bool kBf16 = false>
 int launch_gamma_stats(Rows src, const float* up, const float* t1g,
                        const float* t0g, int ts, int tk, float* gpart,
                        float* g, int B, int W, int K, int nsplit,
@@ -723,12 +761,12 @@ int launch_gamma_stats(Rows src, const float* up, const float* t1g,
   if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0)
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
-    return gamma_stats_wide(src, up, t1g, t0g, ts, tk, gpart, g, B, W, K,
-                            nsplit, stream);
+    return gamma_stats_wide<Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g,
+                                         B, W, K, nsplit, stream);
   int err = 0;
 #define TT_LAUNCH(KM)                                                     \
-  err = gamma_stats<KM>(src, up, t1g, t0g, ts, tk, gpart, g, B, W, K,     \
-                        nsplit, stream)
+  err = gamma_stats<KM, Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g, \
+                                     B, W, K, nsplit, stream)
   TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
   return err;

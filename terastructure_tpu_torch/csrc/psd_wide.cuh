@@ -70,8 +70,9 @@ __device__ __forceinline__ int piece_width(int K, int p) {
 
 // The wide lambda pass. grid (ceil(B/kRowsPerCta), nsplit, wide_chunks(K)),
 // block kThreads. Arguments as lambda_pass_kernel's; CTA z writes
-// part[..., k, :] for k in [32 z, 32 z + 32).
-template <class Loader, int kDiv>
+// part[..., k, :] for k in [32 z, 32 z + 32). kBf16: the bf16 body (t, u
+// and R rounded as products' operands, `operand`).
+template <class Loader, int kDiv, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
                         const float* __restrict__ t1g,
@@ -116,8 +117,10 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
         const int k = i / kRowsPerCta, rr = i % kRowsPerCta;
         const long long o =
             (long long)(b0 + rr) * ts + (long long)(k0 + k) * tk;
-        tsm[i] = b0 + rr < B && k0 + k < K ? make_float2(t1g[o], t0g[o])
-                                           : make_float2(0.f, 0.f);
+        tsm[i] = b0 + rr < B && k0 + k < K
+                     ? make_float2(operand<kBf16>(t1g[o]),
+                                   operand<kBf16>(t0g[o]))
+                     : make_float2(0.f, 0.f);
       }
       // u rows of the tile's columns, zero beyond K and beyond nb (a packed
       // word reaches up to 3 columns past nb; they read as MISSING)
@@ -127,7 +130,8 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
         for (int i = threadIdx.x; i < nc * kw; i += kThreads) {
           const int c = i / kw, k = i % kw;
           us[(s * TC + c) * kKC + k] =
-              c < nb && k0 + k < K ? __ldg(ug + c * K + k) : 0.f;
+              c < nb && k0 + k < K ? operand<kBf16>(__ldg(ug + c * K + k))
+                                   : 0.f;
         }
       }
       __syncthreads();
@@ -176,8 +180,8 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
           float a1, a0;
           Loader::template entry<TC>(w, unit, e0 + i, urow, a1, a0);
           const float2 d = dsm[urow * kRowsPerCta + r];
-          const float r1 = ratio<kDiv>(a1, d.x);
-          const float r0 = ratio<kDiv>(a0, d.y);
+          const float r1 = operand<kBf16>(ratio<kDiv>(a1, d.x));
+          const float r0 = operand<kBf16>(ratio<kDiv>(a0, d.y));
           const float4* q = reinterpret_cast<const float4*>(us + urow * kKC);
 #pragma unroll
           for (int j = 0; j < kKC / 4; ++j) {
@@ -208,8 +212,8 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
 
 // The wide gamma pass. grid (ceil(4W/kGThreads), nsplit, wide_chunks(K)),
 // block kGThreads. Arguments as gamma_pass_kernel's; CTA z writes
-// gpart[..., k] for k in [32 z, 32 z + 32).
-template <class Rows>
+// gpart[..., k] for k in [32 z, 32 z + 32). kBf16: the bf16 body.
+template <class Rows, bool kBf16 = false>
 __global__ void __launch_bounds__(kGThreads)
 gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
                        const float* __restrict__ t1g,
@@ -244,16 +248,19 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
       __syncthreads();                     // the last piece or block is read
       for (int j = threadIdx.x; j < kGThreads * kw; j += kGThreads) {
         const int n = j / kw, k = j % kw;
-        usm[k * kUStride + n] = i0 + n < 4 * W && k0 + k < K
-                                    ? up[(long long)(i0 + n) * K + k0 + k]
-                                    : 0.f;
+        usm[k * kUStride + n] =
+            i0 + n < 4 * W && k0 + k < K
+                ? operand<kBf16>(up[(long long)(i0 + n) * K + k0 + k])
+                : 0.f;
       }
       for (int j = threadIdx.x; j < R * kw; j += kGThreads) {
         const int r = j / kw, k = j % kw;
         const long long o =
             (long long)(c0 + r) * ts + (long long)(k0 + k) * tk;
-        tsm[r * kKC + k] = r < nr && k0 + k < K ? make_float2(t1g[o], t0g[o])
-                                                : make_float2(0.f, 0.f);
+        tsm[r * kKC + k] = r < nr && k0 + k < K
+                               ? make_float2(operand<kBf16>(t1g[o]),
+                                             operand<kBf16>(t0g[o]))
+                               : make_float2(0.f, 0.f);
       }
       if (q == 1)
         for (int r = threadIdx.x; r < nr; r += kGThreads)
@@ -286,8 +293,8 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
         if (code != 3u) {
           const float a1 = (float)code;
           const float a0 = 2.f - a1;
-          const float r1 = ratio<kDivExact>(a1, d1[i]);
-          const float r0 = ratio<kDivExact>(a0, d0[i]);
+          const float r1 = operand<kBf16>(ratio<kDivExact>(a1, d1[i]));
+          const float r0 = operand<kBf16>(ratio<kDivExact>(a0, d0[i]));
           const float2* tr = tsm + r * kKC;
 #pragma unroll
           for (int j = 0; j < kKC; ++j) {
@@ -315,14 +322,14 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
 
 // Launch the wide gamma pass over `nsplit` row slices and their reduction
 // (as gamma_stats).
-template <class Rows>
+template <class Rows, bool kBf16 = false>
 int gamma_stats_wide(Rows src, const float* up, const float* t1g,
                      const float* t0g, int ts, int tk, float* gpart, float* g,
                      int B, int W, int K, int nsplit, cudaStream_t stream) {
   const int bchunk = (B + nsplit - 1) / nsplit;
   const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit,
                   wide_chunks(K));
-  gamma_pass_wide_kernel<Rows><<<grid, kGThreads, 0, stream>>>(
+  gamma_pass_wide_kernel<Rows, kBf16><<<grid, kGThreads, 0, stream>>>(
       src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
@@ -333,7 +340,7 @@ int gamma_stats_wide(Rows src, const float* up, const float* t1g,
 }
 
 // Launch one wide lambda pass (as launch_lambda_pass).
-template <class Loader, bool kNewton>
+template <class Loader, bool kNewton, bool kBf16>
 int launch_lambda_pass_wide(Loader ld, const float* up, const float* t1,
                             const float* t0, int ts, int tk, float* part,
                             int B, int W, int K, int nsplit, int div,
@@ -342,7 +349,7 @@ int launch_lambda_pass_wide(Loader ld, const float* up, const float* t1,
                   wide_chunks(K));
   const int wchunk = split_chunk(W, nsplit);
 #define TT_WIDE(DIV)                                                       \
-  lambda_pass_wide_kernel<Loader, DIV><<<grid, kThreads, 0, stream>>>(     \
+  lambda_pass_wide_kernel<Loader, DIV, kBf16><<<grid, kThreads, 0, stream>>>( \
       ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
   if (div == kDivFast) {
     TT_WIDE(kDivFast);

@@ -16,6 +16,11 @@
 // individual). At the big-N shape (B=4096, W=25,088, K=10) that is
 // ~16 G FMA and ~0.8 G divides against 103 MB of packed rows. K > 64
 // runs the K-chunked gamma body (psd_wide.cuh).
+//
+// tt_gamma_stats_packed_bf16 is the same pass at compute dtype bf16 (u, t
+// and R rounded to bf16 as the products' operands, sums in f32): the γ
+// pass K1 and K2 end with at bf16, through an entry of its own (the
+// reference's gamma_stats_packed(dtype=jnp.bfloat16)).
 
 #include "psd_common.cuh"
 
@@ -25,4 +30,14 @@ extern "C" int tt_gamma_stats_packed(const uint8_t* rows, const float* up,
                                      int K, int nsplit, cudaStream_t stream) {
   return tt::launch_gamma_stats(tt::ContiguousRows{rows}, up, t1, t0, K, 1,
                                 gpart, g, B, W, K, nsplit, stream);
+}
+
+extern "C" int tt_gamma_stats_packed_bf16(const uint8_t* rows,
+                                          const float* up, const float* t1,
+                                          const float* t0, float* g,
+                                          float* gpart, int B, int W, int K,
+                                          int nsplit, cudaStream_t stream) {
+  return tt::launch_gamma_stats<tt::ContiguousRows, true>(
+      tt::ContiguousRows{rows}, up, t1, t0, K, 1, gpart, g, B, W, K, nsplit,
+      stream);
 }

@@ -18,6 +18,12 @@ t = exp(psi(lam) - psi(lam0 + lam1)), D = [T1; T0] U^T,
 R = A / (D + 1e-30), lam <- prior + t * (R U); with accel the loop stops
 at local_iters - 2 passes and two tail passes plus one clamped Aitken
 step follow; then one exact pass emits lambda and g = R^T T.
+
+dtype=torch.bfloat16 (compute_dtype "bfloat16") runs the bf16 sequences
+(csrc/fused_step_bf16.cu, csrc/fused_step_dma_bf16.cu): T, U and R enter
+the three products rounded to bf16 and the sums stay f32, as in the
+reference's bf16 kernel; everything outside the products (the update
+with the unrounded t, the tol test, Aitken) is the f32 path's.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from terastructure_tpu_torch import _build
-from terastructure_tpu_torch.ops.stats_dense import solve_schedule
+from terastructure_tpu_torch.ops.stats_dense import as_operand, solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_shapes, gamma_grid, lambda_grid, plane_counts, ratios_planar)
+    check_dtype, check_shapes, count_launch, gamma_grid, lambda_grid,
+    plane_counts, ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -104,9 +111,12 @@ def supports(b: int, w: int, k: int = 8, dtype=torch.float32,
 
 # --- the plain twin --------------------------------------------------------
 def fused_local_solve_twin(rows, u_planes, lamb_init, *, local_iters,
-                           local_tol, beta_a, beta_b, warm_start=False,
-                           approx_div=False, accel=False):
-    """Plain PyTorch version of K1, same signature and layouts."""
+                           local_tol, beta_a, beta_b, dtype=torch.float32,
+                           warm_start=False, approx_div=False, accel=False):
+    """Plain PyTorch version of K1, same signature and layouts. At bf16
+    the products take T, U and R rounded to bf16 and sum in f32; the
+    update beta + t * S uses the unrounded t (the reference's
+    fused_step.py:270-277, :335-336)."""
     b = rows.shape[0]
     k = u_planes.shape[-1]
     u_cat = u_planes.reshape(-1, k)                          # (4W, K)
@@ -118,19 +128,21 @@ def fused_local_solve_twin(rows, u_planes, lamb_init, *, local_iters,
             [torch.full((b, k), beta_a, device=rows.device),
              torch.full((b, k), beta_b, device=rows.device)], -1)
 
+    u_op = as_operand(u_cat, dtype)
+
     def one_pass(lam, approx):
         t1, t0 = exp_elog_beta_kernel(lam)
-        r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx)
-        new = torch.stack([beta_a + t1 * (r1 @ u_cat),
-                           beta_b + t0 * (r0 @ u_cat)], -1)
+        r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx, dtype)
+        new = torch.stack([beta_a + t1 * (r1 @ u_op),
+                           beta_b + t0 * (r0 @ u_op)], -1)
         return new, t1, t0, r1, r0
 
     lam = solve_schedule(lambda x: one_pass(x, approx_div)[0], lam,
                          local_iters=local_iters, local_tol=local_tol,
                          accel=accel)
     new, t1, t0, r1, r0 = one_pass(lam, False)
-    g = r1.T @ t1 + r0.T @ t0                                # (4W, K)
-    return new, g.reshape(u_planes.shape)
+    g = r1.T @ as_operand(t1, dtype) + r0.T @ as_operand(t0, dtype)
+    return new, g.reshape(u_planes.shape)                    # g (4W, K)
 
 
 def fused_local_solve_dma_twin(idx0, packed, u_planes, lamb_init, *, group,
@@ -145,22 +157,21 @@ def fused_local_solve_dma_twin(idx0, packed, u_planes, lamb_init, *, group,
 # --- the wrappers ------------------------------------------------------------
 def _check_solve_args(name, rows, u_planes, lamb_init, b, dtype):
     """Validate a fused solve's rows ((B, W), or K2's packed (L, W)),
-    u_planes and lamb_init for a batch of b rows."""
+    u_planes, lamb_init for a batch of b rows, and its compute dtype."""
     check_shapes(name, rows, u_planes)
+    check_dtype(name, dtype)
     k = u_planes.shape[2]
     if lamb_init.shape != (b, k, 2):
         raise ValueError(f"{name}: lamb_init must be (B, K, 2)")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name} computes in float32; the bf16 kernel path is a later "
-            "slice")
 
 
 def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
-                  local_tol, beta_a, beta_b, warm_start, approx_div, accel):
+                  local_tol, beta_a, beta_b, dtype, warm_start, approx_div,
+                  accel):
     """Allocate the solve's outputs and scratch and call the C entry
-    `entry` (tt_fused_local_solve or tt_fused_local_solve_dma) with
-    `lead_args` (its row arguments) first. Returns (lamb_out, g)."""
+    `entry` (tt_fused_local_solve or tt_fused_local_solve_dma; with the
+    suffix _bf16 where dtype is bf16, the same arguments) with `lead_args`
+    (its row arguments) first. Returns (lamb_out, g)."""
     dev = u_planes.device
     k = u_planes.shape[2]
     nsplit_w, _ = lambda_grid(b, w)
@@ -175,6 +186,8 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     part, dpart = f32(nsplit_w, b, k, 2), f32(nupd, 2)
     gpart = f32(nsplit_b, 4 * w, k)
     active = torch.empty(1, dtype=torch.int32, device=dev)
+    if dtype == torch.bfloat16:
+        entry += "_bf16"
     err = getattr(_build.lib(), entry)(
         *lead_args, u_planes.data_ptr(), lamb_init.data_ptr(),
         lamb_out.data_ptr(), g.data_ptr(), lam.data_ptr(), mid.data_ptr(),
@@ -196,14 +209,17 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
     rows: (B, W) uint8 gathered minibatch rows (any W; bytes 0xFF decode as
     MISSING). u_planes: (4, W, K) f32. lamb_init: (B, K, 2) f32, read iff
     warm_start. approx_div speeds up the divides of the loop and tail
-    passes; the final pass always divides exactly. Returns
-    (new_lamb_b (B, K, 2) f32, g_planes (4, W, K) f32).
+    passes; the final pass always divides exactly. dtype: the products'
+    operand type, float32 or bfloat16 (T, U and R rounded to bf16, sums
+    and everything outside the products in f32; counted in
+    `bf16_launches`). Returns (new_lamb_b (B, K, 2) f32, g_planes
+    (4, W, K) f32).
     """
     _check_solve_args("fused_local_solve", rows, u_planes, lamb_init,
                       rows.shape[0], dtype)
     kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
-              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
-              accel=accel)
+              beta_b=beta_b, dtype=dtype, warm_start=warm_start,
+              approx_div=approx_div, accel=accel)
     if rows.device.type == "cpu":
         fused_local_solve.twin_calls += 1
         return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
@@ -213,11 +229,12 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
     out = _launch_solve("tt_fused_local_solve", (rows.data_ptr(),), u_planes,
                         lamb_init, *rows.shape, **kw)
-    fused_local_solve.launches += 1
+    count_launch(fused_local_solve, dtype)
     return out
 
 
 fused_local_solve.launches = 0
+fused_local_solve.bf16_launches = 0
 fused_local_solve.twin_calls = 0
 
 
@@ -256,8 +273,8 @@ def fused_local_solve_dma(idx0: torch.Tensor, packed: torch.Tensor,
                          f"{packed.device}")
     _check_solve_args(name, packed, u_planes, lamb_init, b, dtype)
     kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
-              beta_b=beta_b, warm_start=warm_start, approx_div=approx_div,
-              accel=accel)
+              beta_b=beta_b, dtype=dtype, warm_start=warm_start,
+              approx_div=approx_div, accel=accel)
     if packed.device.type == "cpu":
         if b and (idx0.min() < 0 or idx0.max() > l - group
                   or bool((idx0 % group).any())):
@@ -273,9 +290,10 @@ def fused_local_solve_dma(idx0: torch.Tensor, packed: torch.Tensor,
     out = _launch_solve("tt_fused_local_solve_dma",
                         (idx0.data_ptr(), packed.data_ptr(), l, group),
                         u_planes, lamb_init, b, w, **kw)
-    fused_local_solve_dma.launches += 1
+    count_launch(fused_local_solve_dma, dtype)
     return out
 
 
 fused_local_solve_dma.launches = 0
+fused_local_solve_dma.bf16_launches = 0
 fused_local_solve_dma.twin_calls = 0

@@ -50,30 +50,40 @@ def allele_counts(xb, dtype=torch.float32):
     return torch.where(mask, xf, zero), torch.where(mask, 2.0 - xf, zero)
 
 
+def as_operand(x, dtype):
+    """x as a product operand of the compute dtype, held in f32: rounded
+    to bf16 (to nearest even) and back where dtype is bf16, x itself at
+    float32. The product of two bf16 values is exact in f32, so an f32
+    product of such operands is the reference's bf16 x bf16 product with
+    f32 sums (preferred_element_type=float32), up to the sums' order."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _ratios(a1, a0, u, t1, t0, dtype):
-    """R1, R0 (B, N): allele counts over mixture denominators."""
-    ud = u.to(dtype)
-    d1 = (t1.to(dtype) @ ud.T).float()
-    d0 = (t0.to(dtype) @ ud.T).float()
-    r1 = (a1.float() / (d1 + _EPS)).to(dtype)
-    r0 = (a0.float() / (d0 + _EPS)).to(dtype)
+    """R1, R0 (B, N): allele counts over mixture denominators, rounded to
+    the compute dtype (held in f32); the divide is f32."""
+    ud = as_operand(u, dtype)
+    d1 = as_operand(t1, dtype) @ ud.T
+    d0 = as_operand(t0, dtype) @ ud.T
+    r1 = as_operand(a1.float() / (d1 + _EPS), dtype)
+    r0 = as_operand(a0.float() / (d0 + _EPS), dtype)
     return r1, r0
 
 
 def lambda_stats(a1, a0, u, t1, t0, dtype=torch.float32):
     """One coordinate-ascent lambda statistic: (L0, L1), each (B, K)."""
     r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
-    ud = u.to(dtype)
-    return t1 * (r1 @ ud).float(), t0 * (r0 @ ud).float()
+    ud = as_operand(u, dtype)
+    return t1 * (r1 @ ud), t0 * (r0 @ ud)
 
 
 def batch_stats(a1, a0, u, t1, t0, dtype=torch.float32) -> BatchStats:
     """All sufficient statistics for a converged local solution."""
     r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
-    ud = u.to(dtype)
-    l0 = t1 * (r1 @ ud).float()
-    l1 = t0 * (r0 @ ud).float()
-    s = u * ((r1.T @ t1.to(dtype)).float() + (r0.T @ t0.to(dtype)).float())
+    ud = as_operand(u, dtype)
+    l0 = t1 * (r1 @ ud)
+    l1 = t0 * (r0 @ ud)
+    s = u * (r1.T @ as_operand(t1, dtype) + r0.T @ as_operand(t0, dtype))
     return BatchStats(gamma_stat=s, lam0_stat=l0, lam1_stat=l1)
 
 

@@ -22,6 +22,11 @@ The last four carry the big-N step (svi/engine.step_core_packed). Every
 kernel takes any K the twins take: K <= 64 runs the bodies instantiated
 at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
 (csrc/psd_wide.cuh, csrc/stats_fused.cu).
+
+K4 and K5 also take dtype=torch.bfloat16 (compute_dtype "bfloat16"): T,
+U and R enter the products rounded to bf16, the sums stay f32; at
+K <= 64 the pass runs on the tensor cores (csrc/psd_mma.cuh). K5's bf16
+entry is the γ pass K1 and K2 end with at bf16; K6-K8 are f32 only.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.models.psd import elog_beta
-from terastructure_tpu_torch.ops.stats_dense import solve_schedule
+from terastructure_tpu_torch.ops.stats_dense import as_operand, solve_schedule
 
 _EPS = 1e-30
 SM_COUNT = 132          # H100 SXM
@@ -60,22 +65,31 @@ def plane_counts(rows: torch.Tensor):
     return torch.where(miss, zero, xf), torch.where(miss, zero, 2.0 - xf)
 
 
-def ratios_planar(a1, a0, u_cat, t1, t0, approx_div=False):
+def ratios_planar(a1, a0, u_cat, t1, t0, approx_div=False,
+                  dtype=torch.float32):
     """R = A / (T U^T + eps) for both alleles, (B, 4W) each. approx_div
     multiplies by the reciprocal instead of dividing (the kernel's fast
-    path differs from both by a few ulp)."""
-    d1 = t1 @ u_cat.T + _EPS
-    d0 = t0 @ u_cat.T + _EPS
+    path differs from both by a few ulp). dtype bf16: T and U enter the
+    product rounded to bf16 and R is rounded after the f32 divide (held
+    in f32, `as_operand`), as the reference's bf16 kernel bodies do."""
+    u_cat = as_operand(u_cat, dtype)
+    d1 = as_operand(t1, dtype) @ u_cat.T + _EPS
+    d0 = as_operand(t0, dtype) @ u_cat.T + _EPS
     if approx_div:
-        return a1 * torch.reciprocal(d1), a0 * torch.reciprocal(d0)
-    return a1 / d1, a0 / d0
+        r1, r0 = a1 * torch.reciprocal(d1), a0 * torch.reciprocal(d0)
+    else:
+        r1, r0 = a1 / d1, a0 / d0
+    return as_operand(r1, dtype), as_operand(r0, dtype)
 
 
-def lambda_stats_packed_twin(rows, u_planes, t1, t0, *, approx_div=False):
-    """Plain PyTorch version of K4: raw (l0, l1) = (R1 U, R0 U)."""
+def lambda_stats_packed_twin(rows, u_planes, t1, t0, *, approx_div=False,
+                             dtype=torch.float32):
+    """Plain PyTorch version of K4: raw (l0, l1) = (R1 U, R0 U); at bf16
+    R and U enter the products rounded, the sums stay f32."""
     u_cat = u_planes.reshape(-1, u_planes.shape[-1])
     a1, a0 = plane_counts(rows)
-    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx_div)
+    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx_div, dtype)
+    u_cat = as_operand(u_cat, dtype)
     return r1 @ u_cat, r0 @ u_cat
 
 
@@ -102,12 +116,14 @@ def lambda_stats_acat_twin(a1, a0, u_planes, t1, t0, *, approx_div=False):
     return r1 @ u_cat, r0 @ u_cat
 
 
-def gamma_stats_packed_twin(rows, u_planes, t1, t0):
-    """Plain PyTorch version of K5: g (4, W, K) = R1^T T1 + R0^T T0."""
+def gamma_stats_packed_twin(rows, u_planes, t1, t0, dtype=torch.float32):
+    """Plain PyTorch version of K5: g (4, W, K) = R1^T T1 + R0^T T0; at
+    bf16 R and T enter the products rounded (the γ pass of K1 and K2)."""
     u_cat = u_planes.reshape(-1, u_planes.shape[-1])
     a1, a0 = plane_counts(rows)
-    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0)
-    return (r1.T @ t1 + r0.T @ t0).reshape(u_planes.shape)
+    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, dtype=dtype)
+    return (r1.T @ as_operand(t1, dtype)
+            + r0.T @ as_operand(t0, dtype)).reshape(u_planes.shape)
 
 
 def batch_stats_fused_twin(rows, u_planes, t1, t0, *, approx_div=False):
@@ -143,6 +159,24 @@ def check_t(name, b, k, t1, t0):
     """Validate the (B, K) t1, t0 of a kernel call."""
     if t1.shape != (b, k) or t0.shape != (b, k):
         raise ValueError(f"{name}: t1, t0 must be (B, K) = ({b}, {k})")
+
+
+def check_dtype(name, dtype):
+    """Validate a kernel call's compute dtype, the type its products take
+    their operands in (the sums stay f32): float32 or bfloat16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{name}: compute dtype {dtype} is not ported (float32, "
+            "bfloat16)")
+
+
+def count_launch(fn, dtype):
+    """One launch of fn's kernel: counted in fn.bf16_launches for its bf16
+    body, in fn.launches otherwise."""
+    if dtype == torch.bfloat16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _device_of(name, x):
@@ -191,40 +225,48 @@ def lambda_grid(b: int, w: int):
 
 def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
                         t1: torch.Tensor, t0: torch.Tensor, *,
-                        approx_div: bool = False):
+                        approx_div: bool = False, dtype=torch.float32):
     """Raw λ statistics from packed rows.
 
     rows (B, W) uint8; u_planes (4, W, K) f32; t1, t0 (B, K) f32.
     Returns (l0_raw, l1_raw), each (B, K) f32; the caller multiplies by
-    t1 / t0.
+    t1 / t0. dtype: the products' operand type, float32 or bfloat16 (T,
+    U and R rounded to bf16, sums in f32: the bf16 body, counted in
+    `bf16_launches`).
     """
     check_shapes("lambda_stats_packed", rows, u_planes)
+    check_dtype("lambda_stats_packed", dtype)
     b, w = rows.shape
     k = u_planes.shape[2]
     check_t("lambda_stats_packed", b, k, t1, t0)
     if _device_of("lambda_stats_packed", rows) == "cpu":
         lambda_stats_packed.twin_calls += 1
         return lambda_stats_packed_twin(rows, u_planes, t1, t0,
-                                        approx_div=approx_div)
+                                        approx_div=approx_div, dtype=dtype)
     _build.require_cuda("lambda_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
-                                     lambda_grid(b, w)[0], approx_div)
-    lambda_stats_packed.launches += 1
+                                     lambda_grid(b, w)[0], approx_div,
+                                     dtype == torch.bfloat16)
+    count_launch(lambda_stats_packed, dtype)
     return out
 
 
-def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div):
+def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div,
+                               bf16=False):
     """K4's launch at a given column split (validated CUDA tensors).
     `lambda_stats_packed` passes `lambda_grid`'s; chip_smoke.py's sweep
-    passes others to show where the chosen split stands."""
+    passes others to show where the chosen split stands. bf16: the bf16
+    body's entry."""
     b, w = rows.shape
     k = u_planes.shape[2]
     dev = rows.device
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
     part = torch.empty((nsplit, b, k, 2), dtype=torch.float32, device=dev)
-    err = _build.lib().tt_lambda_stats_packed(
+    entry = ("tt_lambda_stats_packed_bf16" if bf16
+             else "tt_lambda_stats_packed")
+    err = getattr(_build.lib(), entry)(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k, nsplit,
         int(approx_div), _build.stream_ptr(dev))
@@ -233,18 +275,20 @@ def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div):
 
 
 lambda_stats_packed.launches = 0
+lambda_stats_packed.bf16_launches = 0
 lambda_stats_packed.twin_calls = 0
 
 
 def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                        local_tol, stat_scale=1.0, approx_div=False,
-                       accel=False, pad_rows=0):
+                       accel=False, pad_rows=0, dtype=torch.float32):
     """Local coordinate ascent from packed rows on the shared schedule.
 
     u: (N, K) with N = 4 * W (caller pads); returns lamb_b (B, K, 2).
     stat_scale rescales the individual-summed statistics (N/Ns for a
     column subsample). pad_rows: the reference's all-MISSING batch rows
-    that the tol test counts (`solve_schedule`).
+    that the tol test counts (`solve_schedule`). dtype: K4's compute
+    dtype.
     """
     u_planes = u_to_planes(u)
 
@@ -252,7 +296,7 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
         e1, e0 = elog_beta(lam)
         t1, t0 = torch.exp(e1), torch.exp(e0)
         l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0,
-                                     approx_div=approx_div)
+                                     approx_div=approx_div, dtype=dtype)
         return torch.stack([beta_a + stat_scale * t1 * l0,
                             beta_b + stat_scale * t0 * l1], -1)
 
@@ -322,33 +366,38 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
 
 def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
-                       t1: torch.Tensor, t0: torch.Tensor) -> torch.Tensor:
+                       t1: torch.Tensor, t0: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
     """Raw planar γ statistic (4, W, K) f32 = Σ_b Rᵀ [T1; T0] (exact
     divide); the caller re-interleaves with planes_to_flat and multiplies
-    by u."""
+    by u. dtype bf16: the γ pass K1 and K2 run at bf16 (U, T and R
+    rounded to bf16, sums in f32), counted in `bf16_launches`."""
     check_shapes("gamma_stats_packed", rows, u_planes)
+    check_dtype("gamma_stats_packed", dtype)
     b, w = rows.shape
     k = u_planes.shape[2]
     check_t("gamma_stats_packed", b, k, t1, t0)
     if _device_of("gamma_stats_packed", rows) == "cpu":
         gamma_stats_packed.twin_calls += 1
-        return gamma_stats_packed_twin(rows, u_planes, t1, t0)
+        return gamma_stats_packed_twin(rows, u_planes, t1, t0, dtype)
     _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     nsplit = gamma_grid(b, w, k)
     dev = rows.device
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((nsplit, 4 * w, k), dtype=torch.float32, device=dev)
-    err = _build.lib().tt_gamma_stats_packed(
+    err = getattr(_build.lib(), "tt_gamma_stats_packed_bf16"
+                  if dtype == torch.bfloat16 else "tt_gamma_stats_packed")(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
         _build.stream_ptr(dev))
     _build.check(err, "gamma_stats_packed")
-    gamma_stats_packed.launches += 1
+    count_launch(gamma_stats_packed, dtype)
     return g
 
 
 gamma_stats_packed.launches = 0
+gamma_stats_packed.bf16_launches = 0
 gamma_stats_packed.twin_calls = 0
 
 

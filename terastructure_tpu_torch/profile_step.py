@@ -8,6 +8,7 @@ The configuration is one of converge.CONFIGS at its published shape
 (cut by --scale; its batch size, snp_group 8, seed 0), simulated on the
 card. `--batch-size 4096 --snp-group 1` with config 3 is the TGP shape as
 the throughput runs set it (the block gather K3 and K1 instead of K2).
+`--compute-dtype bfloat16` runs the bf16 bodies (the reference CLI's flag).
 One chunk of `--steps` steps warms up, then the same number is timed
 unprofiled (host clock around the chunk and a synchronize) and once under
 the profiler. Prints the card line and one JSON line: ms a step
@@ -41,7 +42,8 @@ def device_ms(evt) -> float:
 
 
 def run(config: int, *, steps: int, lambda_mode: str = "local",
-        scale: float = 1.0, batch_size: int = 0, snp_group: int = 8) -> dict:
+        scale: float = 1.0, batch_size: int = 0, snp_group: int = 8,
+        compute_dtype: str = "float32") -> dict:
     spec = CONFIGS[config]
     n = int(spec["n"] * scale) // 4 * 4
     l = int(spec["l"] * scale) // 8 * 8
@@ -50,7 +52,8 @@ def run(config: int, *, steps: int, lambda_mode: str = "local",
     packed, _ = simulate_packed_device(n, l, k, seed=0, device=dev)
     packed = torch.from_numpy(engine.pad_width(packed)).to(dev)
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=0,
-                    snp_group=snp_group, lambda_mode=lambda_mode)
+                    snp_group=snp_group, lambda_mode=lambda_mode,
+                    compute_dtype=compute_dtype)
     chunk = engine.make_run_chunk(cfg, steps, l)
     state = chunk(engine.init_state(cfg, l_padded=l, device=dev), packed)
     torch.cuda.synchronize()
@@ -73,7 +76,7 @@ def run(config: int, *, steps: int, lambda_mode: str = "local",
                   reverse=True)
     return dict(
         config=config, n=n, l=l, k=k, batch_size=b, snp_group=snp_group,
-        lambda_mode=lambda_mode,
+        lambda_mode=lambda_mode, compute_dtype=compute_dtype,
         steps=steps, step_ms_unprofiled=step_ms,
         snp_updates_per_s=b / step_ms * 1e3,
         profiled_wall_ms=wall_ms, kernel_ms=total,
@@ -93,6 +96,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=0,
                     help="0: the configuration's own")
     ap.add_argument("--snp-group", type=int, default=8)
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -101,7 +106,8 @@ def main(argv=None) -> int:
     print(json.dumps(run(args.config, steps=args.steps,
                          lambda_mode=args.lambda_mode, scale=args.scale,
                          batch_size=args.batch_size,
-                         snp_group=args.snp_group)),
+                         snp_group=args.snp_group,
+                         compute_dtype=args.compute_dtype)),
           flush=True)
     return 0
 

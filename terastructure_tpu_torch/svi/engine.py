@@ -18,10 +18,12 @@ generator seeded from (seed, t), so a run is reproducible and resumable
 and the chunk itself never reads the device.
 
 Ported: the resident, single-process path with kernel "auto"/"fused"
-(K1, K3 at biobank L, K2 with snp_group >= 8), "pallas" (the big-N
-per-iteration path: K8, K4, and K7, K5 or K6 for the statistics) or
-"dense", in both lambda modes. Not yet ported, and raising
-NotImplementedError: the bf16 kernel path.
+(K1, K3 at biobank L, K2 with snp_group >= 8) or "dense" at
+compute_dtype "float32" and "bfloat16", and "pallas" (the big-N
+per-iteration path: K8, K4, and K7, K5 or K6 for the statistics) at
+"float32", in both lambda modes. Not yet ported, and raising
+NotImplementedError: the big-N step at "bfloat16" (its K5-K8 bf16
+bodies are the next slice).
 """
 
 from __future__ import annotations
@@ -299,8 +301,9 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     """
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            "compute_dtype='bfloat16' (the bf16 kernel path) is a later "
-            "slice; the big-N path computes in float32")
+            "compute_dtype='bfloat16' on the big-N step is not ported yet: "
+            "its K5-K8 bf16 bodies are the next slice (the big-N step in "
+            "bf16); the big-N path computes in float32")
     b, w = rows.shape
     n = gamma.shape[0]
     if w % 128:        # the reference's padded width: same subsample range

@@ -4,7 +4,8 @@ terastructure_tpu/svi/postprocess.py).
 `solve_lambda_blocks` is the shared core of the 'local' lambda mode's eval
 scorer and of the final lambda export. Each fixed-size block of packed
 rows runs `local_solve_packed` (kernel K4 per pass on CUDA, its twin on
-the CPU) and one exact K4 pass for the final statistic.
+the CPU) and one exact K4 pass for the final statistic, at the config's
+compute dtype (K4's bf16 body at "bfloat16").
 """
 
 from __future__ import annotations
@@ -35,10 +36,7 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
     one exact full-N pass. Pass a fixed seed so eval scores stay
     deterministic across checks.
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' (the bf16 kernel path) is a later "
-            "slice; the lambda re-solve computes in float32")
+    dtype = getattr(torch, cfg.compute_dtype)
     dev = u.device
     s, w = packed_rows.shape
     wp = u.shape[0] // 4
@@ -56,7 +54,7 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
 
     kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b,
               local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-              accel=cfg.local_accel)
+              accel=cfg.local_accel, dtype=dtype)
     outs = []
     for lo in range(0, s, block):
         hi = min(lo + block, s)
@@ -70,7 +68,7 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
         else:
             lam = local_solve_packed(rows, u, lamb0, **kw)
         e1, e0 = ops.exp_elog_beta(lam)
-        l0, l1 = lambda_stats_packed(rows, u_planes, e1, e0)
+        l0, l1 = lambda_stats_packed(rows, u_planes, e1, e0, dtype=dtype)
         outs.append(torch.stack([cfg.beta_a + e1 * l0,
                                  cfg.beta_b + e0 * l1], -1))
     return torch.cat(outs)[:s]

@@ -447,3 +447,89 @@ def test_fused_solves_at_k10(cuda_device, case):
                                            **kw)
     for a, c in zip(got, dma):
         assert torch.equal(a, c)
+
+
+# --- compute dtype bf16: K1, K2, K4 and the γ pass --------------------------
+# Tolerances against the bf16 twins: one pass rtol 1e-3 (atol 1e-6), a
+# solve 2e-3 (atol 1e-5), with at most 0.1% of lambda's entries beyond it
+# (a bf(t) that rounds the other way on an ulp of lambda moves its row by
+# up to 2^-8), approx_div 5e-3 as in f32. The divergence pin: bf16 differs
+# from the f32 body by more than 1e-4 and less than 5e-2 of the largest
+# magnitude.
+BF16 = torch.bfloat16
+BF16_PASS = dict(rtol=1e-3, atol=1e-6)
+BF16_SOLVE = dict(rtol=2e-3, atol=1e-5)
+BF16_KS = [3, 7, 8, 10, 16, 24, 33, 72]
+
+
+def _pinned(got, f32):
+    for a, b in zip(got, f32):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert 1e-4 < rel < 5e-2, rel
+
+
+def _flips(got, want, tol, frac):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    bad = np.abs(got - want) > tol["atol"] + tol["rtol"] * np.abs(want)
+    assert bad.mean() <= frac, bad.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("k", BF16_KS)
+def test_bf16_lambda_and_gamma_pass_match_twins(cuda_device, k, approx_div):
+    """K4 at bf16 (the tensor-core λ pass at K <= 64, the K-chunked body
+    above) and the γ pass at bf16, on a ragged B and an odd W with rows
+    MISSING: against their bf16 twins, bitwise on a re-run, pinned."""
+    rows, up, lamb = _problem(cuda_device, 75, 940, k, seed=k)
+    rows[3] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    before = stats_packed.lambda_stats_packed.bf16_launches
+    got = stats_packed.lambda_stats_packed(rows, up, t1, t0, dtype=BF16,
+                                           approx_div=approx_div)
+    assert stats_packed.lambda_stats_packed.bf16_launches == before + 1
+    again = stats_packed.lambda_stats_packed(rows, up, t1, t0, dtype=BF16,
+                                             approx_div=approx_div)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = stats_packed.lambda_stats_packed_twin(
+        rows, up, t1, t0, approx_div=approx_div, dtype=BF16)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else BF16_PASS
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **tol)
+    _pinned(got, stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                                  approx_div=approx_div))
+    g = stats_packed.gamma_stats_packed(rows, up, t1, t0, dtype=BF16)
+    np.testing.assert_allclose(
+        g.cpu().numpy(), stats_packed.gamma_stats_packed_twin(
+            rows, up, t1, t0, BF16).cpu().numpy(), **BF16_PASS)
+    _pinned([g], [stats_packed.gamma_stats_packed(rows, up, t1, t0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cold_plain", "warm_plain", "approx_div"])
+@pytest.mark.parametrize("k", BF16_KS)
+def test_bf16_fused_solves_match_twin(cuda_device, case, k):
+    """K1 at bf16 against its twin and pinned against f32; K2 at bf16
+    bitwise K1 at bf16 on the gathered rows."""
+    rows, up, lamb = _problem(cuda_device, 64, 512, k, seed=k + len(case))
+    kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0)
+    before = fused_step.fused_local_solve.bf16_launches
+    got = fused_step.fused_local_solve(rows, up, lamb, dtype=BF16, **kw)
+    assert fused_step.fused_local_solve.bf16_launches == before + 1
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, dtype=BF16,
+                                             **kw)
+    tol = dict(rtol=5e-3, atol=5e-3) if kw.get("approx_div") else BF16_SOLVE
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **tol)
+    _flips(got[0], want[0], tol, 1e-3)
+    _pinned(got, fused_step.fused_local_solve(rows, up, lamb, **kw))
+    g = 8
+    packed = rows[:64].contiguous()
+    idx0 = torch.arange(0, 64, g, dtype=torch.int32,
+                        device=cuda_device).flip(0).contiguous()
+    gathered = packed.view(-1, g * packed.shape[1])[idx0.long() // g]
+    k2 = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                          dtype=BF16, **kw)
+    k1 = fused_step.fused_local_solve(gathered.view(64, -1), up, lamb,
+                                      dtype=BF16, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(k2, k1))

@@ -80,7 +80,12 @@ BRANCHES = {
     "pallas_grouped": (dict(kernel="pallas", snp_group=8), L_BIG, 512),
     "dense": (dict(kernel="dense"), 300, 64),
     "dense_grouped": (dict(kernel="dense", snp_group=8), L_BIG, 64),
+    # compute_dtype bf16: K2's, K1's and the dense bf16 bodies
+    "k2_bf16": (dict(snp_group=8, compute_dtype="bfloat16"), L_BIG, 512),
+    "fused_k1_bf16": (dict(compute_dtype="bfloat16"), 300, 512),
+    "dense_bf16": (dict(kernel="dense", compute_dtype="bfloat16"), 300, 64),
 }
+BF16_TOL = dict(rtol=2e-3, atol=1e-5)    # tests/test_torch_bf16.py
 
 
 def _reference_step(cfg, branch, gamma, lamb, packed, idx, idx0, t):
@@ -91,8 +96,8 @@ def _reference_step(cfg, branch, gamma, lamb, packed, idx, idx0, t):
     g_ = jnp.asarray(gamma)
     lamb_b = jnp.asarray(lamb[idx])
     kw = dict(local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-              beta_a=1.0, beta_b=1.0, dtype=jnp.float32, warm_start=True,
-              interpret=True, accel=cfg.local_accel)
+              beta_a=1.0, beta_b=1.0, dtype=jnp.dtype(cfg.compute_dtype),
+              warm_start=True, interpret=True, accel=cfg.local_accel)
     if branch.startswith(("k2", "fused")):
         u = ref_ops.exp_elog_theta(g_)
         u = jnp.pad(u, ((0, 4 * w - u.shape[0]), (0, 0)), constant_values=1.0)
@@ -149,17 +154,18 @@ def test_stored_step_matches_reference(branch):
     assert len(np.unique(idx)) == b
     want_gamma, want_lamb = _reference_step(cfg, branch, gamma, lamb, packed,
                                             idx, idx0, t)
-    np.testing.assert_allclose(new.gamma.numpy(), want_gamma, **TOL)
+    tol = BF16_TOL if cfg.compute_dtype == "bfloat16" else TOL
+    np.testing.assert_allclose(new.gamma.numpy(), want_gamma, **tol)
     got_lamb = new.lamb.numpy()
     mask = np.ones(l, bool)
     mask[idx] = False
     np.testing.assert_array_equal(got_lamb[mask], lamb[mask])
     if cfg.local_accel:      # the clamped Aitken tail: 1% of lambda_B
         bad = (np.abs(got_lamb[idx] - want_lamb[idx])
-               > TOL["atol"] + TOL["rtol"] * np.abs(want_lamb[idx]))
+               > tol["atol"] + tol["rtol"] * np.abs(want_lamb[idx]))
         assert bad.mean() <= 1e-2, bad.mean()
     else:
-        np.testing.assert_allclose(got_lamb[idx], want_lamb[idx], **TOL)
+        np.testing.assert_allclose(got_lamb[idx], want_lamb[idx], **tol)
     assert np.abs(got_lamb[idx] - lamb[idx]).max() > 1e-2
 
 
