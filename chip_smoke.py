@@ -30,7 +30,10 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    both divides and the stored-λ warm start, each re-run bitwise and
    pinned against the f32 body on the same inputs (the rounding happened,
    and stayed within bf16's scale), K2[bf16] bitwise K1[bf16]; their times
-   in turns with the f32 bodies, beside the bf16 bounds;
+   in turns with the f32 bodies, beside the bf16 bounds; the bf16 bodies of
+   the big-N step, K7 (both divides), K6, K5 and K8 (both divides), the
+   same way at the big-N shape, a ragged B (4,092), K = 3, 8, 16 and 72,
+   rows MISSING;
 2. the canonical config #1 fit (1000 x 10K, K=3) through `fit`: converged,
    theta MAE < 0.05, heldout within 0.02 of the oracle; 2b. the same in
    the stored lambda mode (K1 warm-started, no K4); 2c. one chunk at
@@ -57,7 +60,14 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
 6. compute_dtype "bfloat16": config #1 to convergence in both lambda
    modes (K1[bf16], K4[bf16]; phase 2's quality limits) and config #3 for
    200 steps through K2[bf16] (and 100 in the stored mode), each beside
-   its f32 run; no f32 body of K1, K2 or K4 and no twin runs.
+   its f32 run; no f32 body of K1, K2 or K4 and no twin runs;
+7. compute_dtype "bfloat16" on phase 4's data: the big-N fit for 300
+   steps in the local mode (K3, K8[bf16] and K7[bf16]; K4[bf16] for the
+   eval and export), its heldout within BIGN_BF16_HELDOUT_GAP of phase
+   4's, and for 100 in the stored mode, no f32 body of K4-K8 and no twin;
+   one step each with stats_kernel "pair" (K4[bf16] + K5[bf16]), "fused"
+   (K6[bf16]) and "fused_v2" (K7[bf16]) from one state, their gammas
+   within the bf16 pass tolerance; one chunk re-run twice bitwise equal.
 
 Prints the kernels' JSON line (the bf16 bodies as entries of their own,
 "fused_local_solve[bf16]" and so on), the card line, and last
@@ -121,6 +131,13 @@ FLIP_FRAC = 1e-3
 # the same inputs by more than PIN_LO somewhere (the rounding happened)
 # and by less than PIN_HI everywhere, relative to the largest magnitude.
 PIN_LO, PIN_HI = 1e-4, 5e-2
+# Phase 7: the big-N fit at bf16 against phase 4's f32 fit on the same
+# data, seed and minibatches (300 steps, far from converged): |heldout
+# gap| in nats, at least 3x the gap measured on the card. bf16 trails f32
+# early (0.0625 nats and theta MAE 0.123 against 0.090 at step 300,
+# NVIDIA H100 80GB HBM3, 700 W; both converge to the oracle's heldout
+# within 0.0005 nats, 6,400 steps against 5,300: PERF.md §6).
+BIGN_BF16_HELDOUT_GAP = 0.2
 
 FP32_FLOPS = 67e12  # H100 SXM: FP32 outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12  # H100 SXM: dense bf16 on the tensor cores (data sheet)
@@ -149,11 +166,11 @@ KERNELS = {
         replaces="terastructure_tpu/ops/stats_pallas.py:194"),
     "batch_stats_fused_packed": dict(
         fn=stats_packed.batch_stats_fused_packed,
-        source="terastructure_tpu_torch/csrc/stats_fused.cu",
+        source="terastructure_tpu_torch/csrc/stats_fused.cuh",
         replaces="terastructure_tpu/ops/stats_pallas.py:263"),
     "batch_stats_fused_v2_packed": dict(
         fn=stats_packed.batch_stats_fused_v2_packed,
-        source="terastructure_tpu_torch/csrc/stats_fused.cu",
+        source="terastructure_tpu_torch/csrc/stats_fused.cuh",
         replaces="terastructure_tpu/ops/stats_pallas.py:355"),
     "lambda_stats_acat": dict(
         fn=stats_packed.lambda_stats_acat,
@@ -172,9 +189,30 @@ KERNELS = {
         fn=stats_packed.lambda_stats_packed, counter="bf16_launches",
         source="terastructure_tpu_torch/csrc/stats_packed.cu",
         replaces="terastructure_tpu/ops/stats_pallas.py:152"),
+    "gamma_stats_packed[bf16]": dict(
+        fn=stats_packed.gamma_stats_packed, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/stats_gamma.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:194"),
+    "batch_stats_fused_packed[bf16]": dict(
+        fn=stats_packed.batch_stats_fused_packed, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/stats_fused_bf16.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:263"),
+    "batch_stats_fused_v2_packed[bf16]": dict(
+        fn=stats_packed.batch_stats_fused_v2_packed, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/stats_fused_bf16.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:355"),
+    "lambda_stats_acat[bf16]": dict(
+        fn=stats_packed.lambda_stats_acat, counter="bf16_launches",
+        source="terastructure_tpu_torch/csrc/stats_acat.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:463"),
 }
+# the f32 bodies of the big-N step's kernels: none may launch at bf16
+BIGN_F32 = ("lambda_stats_packed", "gamma_stats_packed",
+            "batch_stats_fused_packed", "batch_stats_fused_v2_packed",
+            "lambda_stats_acat")
 BF16 = torch.bfloat16
 BIGN = (4096, 25_088, 10)   # B, W, K of the big-N step (100K individuals)
+BIGN_SUB_W = 2048           # byte columns of its subsample (local_sub_n 8192)
 TGP = (2504, 1_000_000, 8)  # N, L, K of the TGP shape (config #3)
 
 
@@ -268,13 +306,14 @@ def set_bound(r, flops, nbytes_):
         f"{flops / 1e9:.3f} G operations, {nbytes_ / 1e6:.3f} MB)")
 
 
-def set_bound_bf16(r, entries, k, nbytes_):
+def set_bound_bf16(r, entries, k, nbytes_, sums=1):
     """r's bound_ms for a bf16 body doing `entries` (present entry, pass)
-    pairs of a λ or γ pass: the larger of its products at the bf16 tensor
-    core peak (D1, D0 and the two K-sums, 8K operations an entry, an FMA
-    two), its FP32 work outside them at the FP32 peak (two divides an
-    entry, one operation each) and its bytes at the memory rate."""
-    t_mma = entries * 8 * k / BF16_FLOPS * 1e3
+    pairs: the larger of its products at the bf16 tensor core peak (D1,
+    D0 and `sums` pairs of K-sums: one for a λ or γ pass, 8K operations
+    an entry; two for K6/K7's λ and γ sums, 12K; an FMA two), its FP32
+    work outside them at the FP32 peak (two divides an entry, one
+    operation each) and its bytes at the memory rate."""
+    t_mma = entries * (2 + 2 * sums) * 2 * k / BF16_FLOPS * 1e3
     t_fp32 = entries * 2 / FP32_FLOPS * 1e3
     t_bytes = nbytes_ / HBM_BYTES * 1e3
     r["bound_ms"] = max(t_mma, t_fp32, t_bytes)
@@ -368,10 +407,10 @@ def hold(rec, name, label, got, want, tol, frac=0.0):
     rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
 
-def twin_stats(rows, up, t1, t0, approx_div=False):
+def twin_stats(rows, up, t1, t0, approx_div=False, dtype=torch.float32):
     """The plain version of K5-K7's statistics, in their wrappers' form."""
     g, l0, l1 = stats_packed.batch_stats_fused_twin(
-        rows, up, t1, t0, approx_div=approx_div)
+        rows, up, t1, t0, approx_div=approx_div, dtype=dtype)
     u = stats_packed.planes_to_flat(up)
     return u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1
 
@@ -686,7 +725,7 @@ def phase_kernels_bign(dev, rec):
     """K5-K8 against their twins at the big-N step's shapes and at a
     ragged small shape (B=12, W=384, K=3)."""
     shapes = [("big-N", BIGN), ("ragged", (12, 384, 3))]
-    sub = (BIGN[0], 2048, BIGN[2])          # K8: the 8192-column subsample
+    sub = (BIGN[0], BIGN_SUB_W, BIGN[2])    # K8: the step's subsample
     for name in ("gamma_stats_packed", "batch_stats_fused_packed",
                  "batch_stats_fused_v2_packed", "lambda_stats_acat"):
         rec[name]["max_abs_err"] = 0.0
@@ -1191,6 +1230,109 @@ def phase_kernels_bf16(dev, rec):
     log("  bf16 bodies: every re-run bitwise equal, K2[bf16] bitwise "
         "K1[bf16] on the gathered rows, every output inside the pin")
     phase_passes_bf16(dev, rec)
+    phase_kernels_bign_bf16(dev, rec)
+
+
+# B, W, K of the big-N bf16 cases: the step's shape, a ragged B (the pad
+# path), K = 8 and 16 (the K-widths around K7's 12), K = 3, and K = 72
+# (the K-chunked bodies); K8 runs on the first 2,048 columns (the step's
+# subsample width) or all of a narrower W
+BIGN_BF16_SHAPES = [BIGN, (4092, 25_088, 10), (300, 385, 8), (300, 385, 16),
+                    (33, 235, 3), (40, 256, 72)]
+
+
+def phase_kernels_bign_bf16(dev, rec):
+    """The bf16 bodies of the big-N step: K7 (both divides), K6, K5 and K8
+    (both divides) against their bf16 twins (TOL_BF16_PASS; the fast
+    divide TOL_APPROX), each re-run bitwise and pinned against its f32
+    body on the same inputs, at BIGN_BF16_SHAPES with two rows MISSING;
+    at the big-N shape timed in turns with the f32 bodies, beside the
+    bf16 bounds."""
+    names = {"K7": "batch_stats_fused_v2_packed[bf16]",
+             "K6": "batch_stats_fused_packed[bf16]",
+             "K5": "gamma_stats_packed[bf16]",
+             "K8": "lambda_stats_acat[bf16]"}
+    for name in names.values():
+        rec[name]["max_abs_err"] = 0.0
+    for b, w, k in BIGN_BF16_SHAPES:
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+        rows[5] = 0xFF
+        rows[-1] = 0xFF
+        shape = f"B={b} W={w} K={k}"
+        for approx in (False, True):
+            hold_bf16(rec, names["K7"], f"K7[bf16] {shape} approx={approx}",
+                      lambda dt: stats_packed.batch_stats_fused_v2_packed(
+                          rows, u, t1, t0, approx_div=approx, dtype=dt),
+                      lambda: twin_stats(rows, up, t1, t0, approx, BF16),
+                      TOL_APPROX if approx else TOL_BF16_PASS)
+            torch.cuda.empty_cache()      # the twin's ~10 GB of temporaries
+        hold_bf16(rec, names["K6"], f"K6[bf16] {shape}",
+                  lambda dt: stats_packed.batch_stats_fused_packed(
+                      rows, u, t1, t0, dtype=dt),
+                  lambda: twin_stats(rows, up, t1, t0, dtype=BF16),
+                  TOL_BF16_PASS)
+        hold_bf16(rec, names["K5"], f"K5[bf16] {shape}",
+                  lambda dt: [stats_packed.gamma_stats_packed(
+                      rows, up, t1, t0, dt)],
+                  lambda: [stats_packed.gamma_stats_packed_twin(
+                      rows, up, t1, t0, BF16)], TOL_BF16_PASS)
+        torch.cuda.empty_cache()
+        ws = min(w, BIGN_SUB_W)
+        rs, ups = rows[:, :ws].contiguous(), up[:, :ws].contiguous()
+        a1, a0 = stats_packed.decode_count_planes(rs)
+        for approx in (False, True):
+            hold_bf16(rec, names["K8"],
+                      f"K8[bf16] B={b} (4, {ws}) K={k} approx={approx}",
+                      lambda dt: stats_packed.lambda_stats_acat(
+                          a1, a0, ups, t1, t0, approx_div=approx, dtype=dt),
+                      lambda: stats_packed.lambda_stats_acat_twin(
+                          a1, a0, ups, t1, t0, approx_div=approx,
+                          dtype=BF16),
+                      TOL_APPROX if approx else TOL_BF16_PASS)
+        if (b, w, k) == BIGN:
+            pr = present(rows)
+            fused_bytes = nbytes(rows, u, t1, t0, u, t1, t0)
+            _timed_bf16(rec[names["K7"]], f"K7[bf16] {shape}",
+                        lambda dt: stats_packed.batch_stats_fused_v2_packed(
+                            rows, u, t1, t0, dtype=dt),
+                        lambda: twin_stats(rows, up, t1, t0, dtype=BF16),
+                        pr, k, fused_bytes, sums=2)
+            _timed_bf16(rec[names["K6"]], f"K6[bf16] {shape}",
+                        lambda dt: stats_packed.batch_stats_fused_packed(
+                            rows, u, t1, t0, dtype=dt),
+                        lambda: twin_stats(rows, up, t1, t0, dtype=BF16),
+                        pr, k, fused_bytes, sums=2, reps=2)
+            _timed_bf16(rec[names["K5"]], f"K5[bf16] {shape}",
+                        lambda dt: stats_packed.gamma_stats_packed(
+                            rows, up, t1, t0, dt),
+                        lambda: stats_packed.gamma_stats_packed_twin(
+                            rows, up, t1, t0, BF16),
+                        pr, k, nbytes(rows, up, t1, t0, up))
+            # the step's K8: the subsampled solve's fast divide
+            _timed_bf16(rec[names["K8"]], f"K8[bf16] B={b} (4, {ws}) K={k}",
+                        lambda dt: stats_packed.lambda_stats_acat(
+                            a1, a0, ups, t1, t0, approx_div=True, dtype=dt),
+                        lambda: stats_packed.lambda_stats_acat_twin(
+                            a1, a0, ups, t1, t0, approx_div=True,
+                            dtype=BF16),
+                        int(((a1 + a0) > 0).sum()), k,
+                        nbytes(a1, a0, ups, t1, t0, t1, t0), reps=20)
+        del rows, up, u, t1, t0, rs, ups, a1, a0
+        torch.cuda.empty_cache()
+    log("  big-N bf16 bodies (K5-K8): every re-run bitwise equal, every "
+        "output inside the pin")
+
+
+def _timed_bf16(r, label, kernel, twin, entries, k, moved, sums=1, reps=5):
+    """A bf16 body's time in turns with its f32 body (kernel(dtype)), its
+    twin's time, and the bf16 bound (`set_bound_bf16`)."""
+    r["f32_in_turns_ms"], r["ms"] = in_turns(
+        lambda: kernel(torch.float32), lambda: kernel(BF16), reps=reps)
+    r["plain_ms"] = time_ms(twin, reps)
+    torch.cuda.empty_cache()
+    log(f"  {label}: kernel {r['ms']:.4f} ms (f32 body in turns "
+        f"{r['f32_in_turns_ms']:.4f}), twin {r['plain_ms']:.4f} ms")
+    set_bound_bf16(r, entries, k, moved, sums)
 
 
 def phase_passes_bf16(dev, rec):
@@ -1385,8 +1527,33 @@ def phase_tgp(dev, rec):
     return data, theta
 
 
+def bign_fit(dev, rec, cfg, data, theta, expect, absent):
+    """fit(cfg, data) on the big-N data with its launch counts (`expect`
+    launched, `absent` not, no twin) and finite scores; returns the fit
+    and its summary."""
+    reset_counts()
+    res = fit(cfg, data, device=dev)
+    tag = f"big-N fit {cfg.lambda_mode} {cfg.compute_dtype}"
+    read_counts(rec, tag, expect, absent)
+    chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
+    th = psd.theta_mean(res.state.gamma[: cfg.n]).cpu().numpy()
+    summary = dict(steps=res.steps, theta_mae=mean_abs_theta_error(th, theta),
+                   validation=res.validation_ll, heldout=res.heldout_ll,
+                   snp_updates_per_s=rate)
+    log(f"  {tag}: steps={res.steps} chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
+        f"snp_updates_per_s={rate:.1f} "
+        f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
+        f"theta_mae={summary['theta_mae']:.4f}")
+    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
+        raise AssertionError(f"{tag}: scores are not finite")
+    return res, summary
+
+
 def phase_bign(dev, rec):
-    """The big-N per-iteration path through fit, at full width."""
+    """The big-N per-iteration path through fit, at full width. Returns
+    the data, the true theta, the config and the fit's summary for
+    phase 7."""
     n = l = 100_000
     k = 10
     t0 = time.time()
@@ -1398,24 +1565,13 @@ def phase_bign(dev, rec):
     log(f"  big-N data: simulate + carve {time.time() - t0:.1f} s")
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=100,
                     max_steps=300, seed=0, snp_group=8)
-    reset_counts()
-    res = fit(cfg, data, device=dev)
-    read_counts(rec, "big-N fit",
-                ("gather_row_blocks", "lambda_stats_packed",
-                 "batch_stats_fused_v2_packed", "lambda_stats_acat"),
-                absent=("fused_local_solve", "fused_local_solve_dma"))
-    chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
-    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
-    log(f"  big-N fit: steps={res.steps} chunk_s={chunk_s:.3f} "
-        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
-        f"snp_updates_per_s={rate:.1f} "
-        f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
-        f"theta_mae={mean_abs_theta_error(th, theta):.4f}")
-    if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
-        raise AssertionError("big-N fit scores are not finite")
+    res, summary = bign_fit(
+        dev, rec, cfg, data, theta,
+        ("gather_row_blocks", "lambda_stats_packed",
+         "batch_stats_fused_v2_packed", "lambda_stats_acat"),
+        ("fused_local_solve", "fused_local_solve_dma"))
 
     packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
-    del data
     state = res.state
     gammas = {}
     for sk in ("pair", "fused", "fused_v2"):
@@ -1440,6 +1596,7 @@ def phase_bign(dev, rec):
     log("  big-N same-seed chunk re-run: gamma bitwise equal")
     log("phase 4b: big-N step at K = 72, B = 4,092 (the pad path)")
     phase_wide_bign(dev, rec, cfg, packed_d)
+    return dict(data=data, theta=theta, cfg=cfg, f32=summary)
 
 
 def clone(state):
@@ -1578,6 +1735,68 @@ def phase_bf16_drives(dev, rec, data, theta, f32):
         f"heldout={res.heldout_ll:.5f}")
 
 
+def phase_bign_bf16(dev, rec, bign):
+    """compute_dtype="bfloat16" on the big-N path, on phase 4's data: a
+    300-step fit in the local mode (K3, K8[bf16] and K7[bf16] in the
+    steps, K4[bf16] in the eval and the export) and 100 steps in the
+    stored mode, with no f32 body of K4-K8 and no twin; the local fit's
+    heldout within BIGN_BF16_HELDOUT_GAP of phase 4's f32 fit. Then one
+    step each with stats_kernel "pair" (K4[bf16] + K5[bf16]), "fused"
+    (K6[bf16]) and "fused_v2" (K7[bf16]) from one state, their gammas
+    within TOL_BF16_PASS, and one chunk re-run twice bitwise equal."""
+    data, theta, ref = bign["data"], bign["theta"], bign["f32"]
+    cfg = bign["cfg"].replace(compute_dtype="bfloat16")
+    absent = BIGN_F32 + ("fused_local_solve", "fused_local_solve_dma",
+                         "fused_local_solve[bf16]",
+                         "fused_local_solve_dma[bf16]",
+                         "gamma_stats_packed[bf16]",
+                         "batch_stats_fused_packed[bf16]")
+    res, got = bign_fit(dev, rec, cfg, data, theta,
+                        ("gather_row_blocks", "lambda_stats_packed[bf16]",
+                         "batch_stats_fused_v2_packed[bf16]",
+                         "lambda_stats_acat[bf16]"), absent)
+    gap = abs(got["heldout"] - ref["heldout"])
+    log(f"  big-N local, {got['steps']} steps: bf16 / f32 theta_mae "
+        f"{got['theta_mae']:.4f} / {ref['theta_mae']:.4f}, validation "
+        f"{got['validation']:.5f} / {ref['validation']:.5f}, heldout "
+        f"{got['heldout']:.5f} / {ref['heldout']:.5f} (gap {gap:.2e}, limit "
+        f"{BIGN_BF16_HELDOUT_GAP:g}), SNP-updates/s "
+        f"{got['snp_updates_per_s']:.1f} / {ref['snp_updates_per_s']:.1f}")
+    if not gap < BIGN_BF16_HELDOUT_GAP:
+        raise AssertionError("big-N bf16 fit: heldout too far from the f32 "
+                             "fit's")
+    bign_fit(dev, rec, cfg.replace(lambda_mode="stored", max_steps=100,
+                                   rfreq=50), data, theta,
+             ("batch_stats_fused_v2_packed[bf16]", "lambda_stats_acat[bf16]"),
+             absent + ("lambda_stats_packed[bf16]",))
+
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    state = res.state
+    gammas = {}
+    for sk in ("pair", "fused", "fused_v2"):
+        reset_counts()
+        gammas[sk] = engine.make_step(cfg.replace(stats_kernel=sk))(
+            state, packed_d).gamma
+        want = {"pair": ("gamma_stats_packed[bf16]",
+                         "lambda_stats_packed[bf16]"),
+                "fused": ("batch_stats_fused_packed[bf16]",),
+                "fused_v2": ("batch_stats_fused_v2_packed[bf16]",)}[sk]
+        read_counts(rec, f"big-N step bfloat16 stats_kernel={sk}",
+                    want + ("lambda_stats_acat[bf16]",),
+                    absent=BIGN_F32 + ("fused_local_solve",
+                                       "fused_local_solve_dma"))
+    for sk in ("pair", "fused"):
+        compare(f"big-N step bf16 gamma {sk} vs fused_v2", [gammas[sk]],
+                [gammas["fused_v2"]], TOL_BF16_PASS)
+    chunk = engine.make_run_chunk(cfg, cfg.rfreq, int(packed_d.shape[0]))
+    a = chunk(state, packed_d).gamma.cpu()
+    b = chunk(state, packed_d).gamma.cpu()
+    if not torch.equal(a, b):
+        raise AssertionError("big-N bf16 same-seed chunk re-run is not "
+                             "bitwise equal")
+    log("  big-N bf16 same-seed chunk re-run: gamma bitwise equal")
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -1666,6 +1885,26 @@ def digests(dev):
                         rows, up, t1, t0, approx_div=approx, dtype=BF16))
             out[f"K5[bf16] {shape}"] = h(stats_packed.gamma_stats_packed(
                 rows, up, t1, t0, dtype=BF16))
+    if hasattr(stats_packed.lambda_stats_acat, "bf16_launches"):
+        # the big-N step's bf16 bodies (trees that have them), K <= 64 and
+        # K = 72 (K5[bf16] at K = 72 is the block above's)
+        for b, w, k in ((1024, 2048, 10), (40, 300, 33), (40, 256, 72)):
+            rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w, dev)
+            a1, a0 = stats_packed.decode_count_planes(rows)
+            shape = f"B={b} W={w} K={k}"
+            if k <= 64:
+                out[f"K5[bf16] {shape}"] = h(stats_packed.gamma_stats_packed(
+                    rows, up, t1, t0, dtype=BF16))
+            out[f"K6[bf16] {shape}"] = h(
+                *stats_packed.batch_stats_fused_packed(rows, u, t1, t0,
+                                                       dtype=BF16))
+            for approx in (False, True):
+                out[f"K7[bf16] {shape} approx={approx}"] = h(
+                    *stats_packed.batch_stats_fused_v2_packed(
+                        rows, u, t1, t0, approx_div=approx, dtype=BF16))
+                out[f"K8[bf16] {shape} approx={approx}"] = h(
+                    *stats_packed.lambda_stats_acat(
+                        a1, a0, up, t1, t0, approx_div=approx, dtype=BF16))
     return out
 
 
@@ -1751,12 +1990,14 @@ def main(argv=()) -> int:
     log("phase 3: TGP shape")
     tgp = phase_tgp(dev, rec)
     log("phase 4: big-N shape")
-    phase_bign(dev, rec)
+    bign = phase_bign(dev, rec)
     log("phase 5: config #3, group-addressed solve (K2)")
     f32["config #3 local"] = phase_config3(dev, rec, *tgp)
     log("phase 6: compute_dtype bfloat16: config #1 (both lambda modes), "
         "config #3")
     phase_bf16_drives(dev, rec, *tgp, f32)
+    log("phase 7: compute_dtype bfloat16 on the big-N shape")
+    phase_bign_bf16(dev, rec, bign)
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

@@ -127,8 +127,7 @@ class SVIConfig:
     conv_patience: int = 3      # consecutive non-improving checks to stop
 
     # Numerics of the hot loop's products: "float32", or "bfloat16" (their
-    # operands rounded to bf16, sums in f32; the resident fit only, the
-    # big-N step raises at bf16).
+    # operands rounded to bf16, sums in f32; every kernel of every path).
     compute_dtype: str = "float32"
 
     # Hot-loop implementation: "fused" (the whole local solve in one

@@ -20,8 +20,8 @@ log-likelihood, the oracle's heldout log-likelihood (the true theta and
 beta), fit wall, the sums of chunk_s and eval_s, SNP-updates/s over the
 chunks, and the kernels' launch counts (f32 and bf16 bodies apart).
 --compute-dtype is the reference CLI's flag: "bfloat16" runs the bf16
-bodies (configs 1-3; config 5 takes the big-N step, which raises at
-bf16).
+bodies (configs 1-3: K1 or K2, and K4; config 5, the big-N step: K8, K7,
+K3 and K4).
 """
 
 from __future__ import annotations
@@ -50,7 +50,11 @@ CONFIGS = {        # benchmarks/baseline_configs.py:31-38
     5: dict(n=1_000_000, l=1_000_000, k=10, batch=4096),  # big-N regime
 }
 COUNTED = (fused_step.fused_local_solve_dma, fused_step.fused_local_solve,
-           gather.gather_row_blocks, stats_packed.lambda_stats_packed)
+           gather.gather_row_blocks, stats_packed.lambda_stats_packed,
+           stats_packed.lambda_stats_acat,
+           stats_packed.batch_stats_fused_v2_packed,
+           stats_packed.gamma_stats_packed,
+           stats_packed.batch_stats_fused_packed)
 
 
 def card_line() -> str:

@@ -1,5 +1,5 @@
 // Device code shared by the port's kernels: K1 and K2 (fused_solve.cuh), K4
-// (stats_packed.cu), K5 (stats_gamma.cu), K7/K6 (stats_fused.cu) and K8
+// (stats_packed.cu), K5 (stats_gamma.cu), K7/K6 (stats_fused.cuh) and K8
 // (stats_acat.cu).
 //
 // `lambda_pass_kernel<KM, Loader, kDiv>` is one raw lambda-statistic pass:
@@ -55,7 +55,7 @@
 // g[s*W+w, k] = sum_b r1[b,n] t1[b,k] + r0[b,n] t0[b,k] over a slice of
 // rows (K1's and K2's last pass, and K5); `gamma_reduce_kernel` adds the
 // slices in order. Its per-thread step, `gamma_rows`, is also K7's phase
-// 1 (stats_fused.cu). It applies the lambda pass's layout to the other
+// 1 (stats_fused.cuh). It applies the lambda pass's layout to the other
 // sum: the rows' packed bytes staged in shared memory with word-wide
 // loads, t read as float4 broadcasts, entries decoded without a branch,
 // two rows in flight, and KM = 12 for K = 9..12. Its grid
@@ -70,9 +70,11 @@
 // gamma pass also KM = 12). K > 64
 // goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
 // (`launch_lambda_pass`, `launch_gamma_stats`) pick by K. At compute dtype
-// bf16 (kBf16: K1, K2, K4 and K5's bf16 entry) K <= 64 runs the
-// tensor-core bodies of psd_mma.cuh and K > 64 the K-chunked bodies with
-// their operands rounded (`operand`).
+// bf16 (kBf16) the packed-row passes at K <= 64 (K1, K2, K4, K5) run the
+// tensor-core bodies of psd_mma.cuh; K8's count-plane pass at K <= 64
+// runs `lambda_pass_kernel` and K7's and K6's statistics their SIMT
+// bodies (stats_fused.cuh), each with its operands rounded (`operand`);
+// K > 64 runs the K-chunked bodies with their operands rounded.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -154,7 +156,7 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
 // sums stay f32, so they compute the reference's bf16 kernels
 // (fused_step.py:270-302, stats_pallas.py:68-93) up to the order of the
 // sums. kBf16 = false leaves the f32 bodies' code as it was. (The K <= 64
-// bf16 bodies run on the tensor cores, psd_mma.cuh.)
+// bf16 passes over packed rows run on the tensor cores, psd_mma.cuh.)
 template <bool kBf16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
@@ -346,9 +348,11 @@ struct AcatLoader {
 // One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit), block kThreads.
 // t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0] = S1 (the
 // lambda0 statistic), [...,1] = S0. `active` (may be null): skip the pass
-// when *active == 0. kDiv: how `ratio` divides. (At bf16 the pass for
-// K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh.)
-template <int KM, class Loader, int kDiv>
+// when *active == 0. kDiv: how `ratio` divides. kBf16: the bf16 body of
+// the count-plane loader (K8 at bf16): t and u rounded where they are
+// loaded and staged, R after the divide, the sums f32. (At bf16 the pass
+// over packed rows for K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh.)
+template <int KM, class Loader, int kDiv, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_kernel(Loader ld, const float* __restrict__ up,
                    const float* __restrict__ t1g,
@@ -375,8 +379,8 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const bool ok = row_ok && k < K;
-    t1[k] = ok ? t1g[(long long)b * ts + k * tk] : 0.f;
-    t0[k] = ok ? t0g[(long long)b * ts + k * tk] : 0.f;
+    t1[k] = ok ? operand<kBf16>(t1g[(long long)b * ts + k * tk]) : 0.f;
+    t0[k] = ok ? operand<kBf16>(t0g[(long long)b * ts + k * tk]) : 0.f;
     s1[k] = 0.f;
     s0[k] = 0.f;
   }
@@ -394,7 +398,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
       for (int i = threadIdx.x; i < nc * KM; i += kThreads) {
         const int c = i / KM, k = i % KM;
         us[(s * TC + c) * KM + k] =
-            c < nb && k < K ? __ldg(ug + c * K + k) : 0.f;
+            c < nb && k < K ? operand<kBf16>(__ldg(ug + c * K + k)) : 0.f;
       }
     }
     __syncthreads();
@@ -431,8 +435,8 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
         }
 #pragma unroll
         for (int i = 0; i < G; ++i) {
-          const float r1 = ratio<kDiv>(a1[i], d1[i]);
-          const float r0 = ratio<kDiv>(a0[i], d0[i]);
+          const float r1 = operand<kBf16>(ratio<kDiv>(a1[i], d1[i]));
+          const float r0 = operand<kBf16>(ratio<kDiv>(a0[i], d0[i]));
 #pragma unroll
           for (int k = 0; k < KM; ++k) {
             s1[k] = fmaf(r1, uk[i][k], s1[k]);
@@ -452,7 +456,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
 }
 
 // The gamma side of the entry step, shared by the gamma pass (K1, K2, K5)
-// and K7's phase 1 (stats_fused.cu). A thread holds one individual's u
+// and K7's phase 1 (stats_fused.cuh). A thread holds one individual's u
 // (KM floats, zero beyond K) and its K sums g in registers and walks `nr`
 // rows staged in shared memory:
 //   D1 = sum_k t1[b,k] u[k], D0 likewise (k ascending, one FMA chain each)
@@ -467,8 +471,11 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
 // RB rows at a time, so their D chains and divides overlap; nr is a
 // multiple of RB (the callers stage MISSING rows with t = 0 up to it,
 // which add exactly 0). Zero columns of K (k >= K) add exactly 0 to D, so
-// a wider KM gives the same bits.
-template <int KM, int RB, int kDiv, bool kStoreR>
+// a wider KM gives the same bits. kBf16 (K7 at bf16): R is rounded to
+// bf16 after the divide, before it is stored and summed; the callers
+// stage t and u already rounded, so the registers that serve D and g hold
+// one rounding of each (`operand`).
+template <int KM, int RB, int kDiv, bool kStoreR, bool kBf16 = false>
 __device__ __forceinline__ void gamma_rows(
     const float (&uk)[KM], float (&g)[KM], const float4* __restrict__ tr,
     const uint8_t* __restrict__ code, int cstride, int shift, int nr,
@@ -504,8 +511,8 @@ __device__ __forceinline__ void gamma_rows(
     }
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
-      const float x1 = ratio<kDiv>(a1[i], d1[i]);
-      const float x0 = ratio<kDiv>(a0[i], d0[i]);
+      const float x1 = operand<kBf16>(ratio<kDiv>(a1[i], d1[i]));
+      const float x0 = operand<kBf16>(ratio<kDiv>(a0[i], d0[i]));
       if (kStoreR) {
         rs1[(rb + i) * rstride] = x1;
         rs0[(rb + i) * rstride] = x0;
@@ -711,8 +718,9 @@ namespace tt {
 // Launch one lambda pass over `nsplit` column splits; part (nsplit, B, K,
 // 2) takes the partial sums. `div` is a `Div` (kDivNewton only where
 // kNewton is set: only the fused solve builds it); `active` as in
-// `lambda_pass_kernel`; kBf16 picks the bf16 bodies (instantiated only
-// for the packed rows of K1, K2 and K4).
+// `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
+// tensor-core body for packed rows (K1, K2, K4; its loader has 16 entries
+// a word) and `lambda_pass_kernel`'s bf16 body for the count planes (K8).
 template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,
@@ -727,14 +735,16 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
         ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
   const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
   const int wchunk = split_chunk(W, nsplit);
+  constexpr bool kMma = kBf16 && Loader::kEntries == 16;
 #define TT_PASS(KM, DIV)                                                  \
-  if constexpr (kBf16) /* the tensor-core body: ceil(KM / 8) n8 tiles */  \
+  if constexpr (kMma) /* the tensor-core body: ceil(KM / 8) n8 tiles */   \
     lambda_pass_mma_kernel<(KM + 7) / 8, Loader, DIV>                     \
         <<<grid, kMmaThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part,  \
                                            B, W, K, wchunk, active);      \
   else                                                                    \
-    lambda_pass_kernel<KM, Loader, DIV><<<grid, kThreads, 0, stream>>>(   \
-        ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
+    lambda_pass_kernel<KM, Loader, DIV, kBf16>                            \
+        <<<grid, kThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part, B,  \
+                                        W, K, wchunk, active)
 #define TT_LAUNCH(KM)                                 \
   if (div == kDivFast) {                              \
     TT_PASS(KM, kDivFast);                            \

@@ -1,7 +1,7 @@
 // The K-chunked ("wide") bodies of the lambda pass and the gamma pass, for
 // K > 64. Included by psd_common.cuh after the K <= 64 bodies, whose
 // loaders, row sources and divides they reuse; K6/K7's wide body is in
-// stats_fused.cu.
+// stats_fused.cuh.
 //
 // They stand for the same TPU kernels as the K <= 64 bodies: the lambda
 // pass for terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass`

@@ -17,16 +17,27 @@
 // 134 MB of count planes, ~10 FMA a byte: issue-bound like K4, with the
 // planes read once per pass (they do not fit the 50 MB L2).
 // approx: fast divide (__fdividef), the reference's local_sub_approx_div.
+//
+// tt_lambda_stats_acat_bf16 is the same pass at compute dtype bf16 (the
+// reference's lambda_stats_acat(dtype=jnp.bfloat16), :429-458: T and U
+// rounded to bf16 as the products' operands, R rounded after the f32
+// divide, sums in f32; the count planes are bf16 at both dtypes and exact).
+// At K <= 64 it is `tt::lambda_pass_kernel`'s bf16 body, the f32 body with
+// t and u rounded where a lane loads and a CTA stages them and R where it
+// is divided (the tensor-core pass takes packed words only); K > 64 the
+// K-chunked body's. A SIMT body with rounded operands: it does the f32
+// body's work and a conversion more a staged value and an R.
 
 #include "psd_common.cuh"
 
-extern "C" int tt_lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
-                                    const float* up, const float* t1,
-                                    const float* t0, float* l0, float* l1,
-                                    float* part, int B, int W, int K,
-                                    int nsplit, int approx,
-                                    cudaStream_t stream) {
-  if (const int err = tt::launch_lambda_pass(
+namespace {
+
+template <bool kBf16>
+int lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
+                      const float* up, const float* t1, const float* t0,
+                      float* l0, float* l1, float* part, int B, int W, int K,
+                      int nsplit, int approx, cudaStream_t stream) {
+  if (const int err = tt::launch_lambda_pass<tt::AcatLoader, false, kBf16>(
           tt::AcatLoader{a1, a0}, up, t1, t0, K, 1, part, B, W, K, nsplit,
           approx ? tt::kDivFast : tt::kDivExact, nullptr, stream))
     return err;
@@ -35,4 +46,26 @@ extern "C" int tt_lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
                                                                 bk, l0, l1);
   TT_CHECK_LAUNCH();
   return 0;
+}
+
+}  // namespace
+
+extern "C" int tt_lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
+                                    const float* up, const float* t1,
+                                    const float* t0, float* l0, float* l1,
+                                    float* part, int B, int W, int K,
+                                    int nsplit, int approx,
+                                    cudaStream_t stream) {
+  return lambda_stats_acat<false>(a1, a0, up, t1, t0, l0, l1, part, B, W, K,
+                                  nsplit, approx, stream);
+}
+
+extern "C" int tt_lambda_stats_acat_bf16(const uint16_t* a1,
+                                         const uint16_t* a0, const float* up,
+                                         const float* t1, const float* t0,
+                                         float* l0, float* l1, float* part,
+                                         int B, int W, int K, int nsplit,
+                                         int approx, cudaStream_t stream) {
+  return lambda_stats_acat<true>(a1, a0, up, t1, t0, l0, l1, part, B, W, K,
+                                 nsplit, approx, stream);
 }

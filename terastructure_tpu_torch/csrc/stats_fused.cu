@@ -1,808 +1,17 @@
-// K7: batch_stats_fused_v2_packed and K6: batch_stats_fused_packed — the
-// exact full-N statistics pass of the big-N step: the lambda statistics
-// (l0, l1) (B, K) and the planar gamma statistic g (4, W, K) from one
-// D = T U^T per (row, individual).
-//
-// Replaces terastructure_tpu/ops/stats_pallas.py
-//   K7 `batch_stats_fused_v2_packed` (`_batch_stats_v2_kernel`, pallas_call
-//      at :373): the default pass (stats_kernel="fused_v2");
-//   K6 `batch_stats_fused_packed` (`_batch_stats_kernel`, pallas_call at
-//      :285): stats_kernel="fused".
-// On the TPU both walk a sequential (W tiles, B tiles) grid and sum g by
-// revisiting its output block over the batch axis; v1 also sums lambda by
-// a read-modify-write of a (B, K) block, v2 writes per-W-tile lambda
-// partials. Hopper has no sequential grid, so the two sums are made in a
-// fixed order without atomics (a seed reproduces gamma bitwise):
-//
-// K7 (K <= 64), `stats_v2_kernel`: grid (W tiles of 256 byte columns, B
-// tiles of 128 rows), CTAs of 4 warps. Warp q owns rows [32q, 32q + 32)
-// of the tile for the whole W tile; the CTA walks it in sub-tiles of 8
-// byte columns x 4 planes (32 individuals):
-//   phase 1, lane = individual (u[n,:] in registers): `tt::gamma_rows`
-//     (psd_common.cuh, the gamma pass's own step) over the warp's 32 rows:
-//     D1, D0, R = A / (D + 1e-30) into the warp's slice of shared memory,
-//     g[n,:] += R^T T in registers;
-//   phase 2, lane = row: S[b,:] += R U over the 32 individuals, the sums
-//     in registers across the whole W tile;
-//   the four warps' g partials go through their R slices and are added in
-//     warp order into the B tile's gamma partial.
-// No warp reads another's R, so phase 2 follows phase 1 without a CTA
-// barrier; a sub-tile costs two (its staged bytes and u, double-buffered
-// and fetched into registers one sub-tile ahead; the g partials). The
-// lambda sums leave once, as the W tile's partial. t of the CTA's 128
-// rows is staged once, as (t1, t0) pairs read as float4 broadcasts; u
-// rows are padded to KM and read as float4 broadcasts; entries are
-// decoded without a branch (MISSING adds exactly 0); at KM <= 8 phase 1
-// takes two rows at a time so that their D chains and divides overlap (at
-// KM = 12 one: with two the body spilled at its 128 registers and took
-// 2.49 ms, with one 2.36). KM = 12 is
-// instantiated beside 4..64, so K = 9..12 runs 12 wide. Shared memory is
-// 50 KB at KM = 12 (55 KB at 16) and registers are capped at 128, so an
-// SM holds 4 CTAs, 16 warps. At B=4096, W=25,088, K=10: 98 x 32 CTAs,
-// gamma partials 128 MB, lambda partials 32 MB; two reduce kernels add
-// them in tile order.
-//
-// What the previous body lost (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
-// it took 5.49 ms at the big-N shape against a 0.561 ms bound. Its CTA
-// held a 32-row chunk against 128 individuals and a 256-row lambda block,
-// 65 KB at KM = 16, so 3 CTAs (12 warps) an SM; at K = 16 the block grew
-// to 32 KB, 2 CTAs fitted, and the same FMAs took 9.47 ms: occupancy, not
-// FMAs, set its time. Each row's byte came from global memory behind a
-// branch, t was read as scalars, and a chunk cost 7 barriers (4 for the
-// warps' ordered lambda add). The redesign takes 2.36 ms at K = 10 (1.92
-// at K = 8, 3.49 at K = 16), 2.3x faster. K = 16 runs the KM = 16 body
-// that K = 10 ran before; so KM = 12 saves about 1.1 ms of the 3.1 ms
-// gained (an estimate: K = 10 at KM = 16 was not run).
-//
-// K6 (`stats_v1_kernel`): CTAs of 128 threads take a sub-tile of 32 byte
-// columns x 4 planes (128 individuals) against a chunk of 32 rows in two
-// phases: phase 1, one thread per individual, D1, D0, R into shared
-// memory and g += R^T T in registers; phase 2, one lane per row and one
-// warp per plane, S += R U over the warp's 32 individuals. grid (B / 32):
-// a CTA owns 32 rows and walks every sub-tile of W in order with lambda in
-// registers (the in-kernel lambda accumulation of v1; the warps add in
-// warp order at the end, written straight to (l0, l1)); gamma goes out
-// per sub-tile as the row tile's partial, (B/32, 4W, K): 514 MB at the
-// big-N shape, reduced in order. It is the non-default option, kept as the
-// reference keeps v1, with its first body.
-//
-// Bound on the H100: FP32 issue. Per row and individual, 6K FMAs and two
-// divides (the pair, K4 + K5, does 8K and four); at the big-N shape that
-// is ~25 G FMA against 103 MB of packed rows. K7 issues ~100 instructions
-// an entry at KM = 12 (72 FMAs, 9 float4 and 5 scalar shared-memory
-// accesses, the decode and two reciprocals): 25 SM cycles a warp's 32
-// entries at full issue, against 43 measured. A lane taking two
-// individuals (t read once for both: a third fewer broadcasts) was no
-// faster at KM = 8 and spilled above it (PERF.md), so the rest is
-// latency at 16 warps an SM, or issue.
-//
-// K > 64: `stats_v2_wide_kernel` and `stats_v1_wide_kernel`, the same tile
-// step with the K outputs cut into chunks of tt::kKC = 32 (blockIdx.z), as
-// the wide bodies of psd_wide.cuh (whose note says why). Each CTA computes
-// D over all K a piece of 32 columns of K at a time (u of the 128
-// individuals k-major, stride 129, each thread reading its own column; t
-// of the 32 rows as float2 rows, read as broadcasts), adding each piece
-// into R1/R0, which hold D until phase 1 turns them into R. The chunk's own
-// piece comes last and serves its g (phase 1) and lambda (phase 2) sums.
-// Shared memory does not grow with K (58 KB, K7 + its 256-row lambda
-// block 64 KB), so both take any K; K7's wide tile keeps its 256 rows
-// (ops/stats_packed.py `V2_WIDE_TILE_ROWS`). Each chunk writes its own k
-// columns of lpart and gpart; the reductions are the K <= 64 path's.
+// K7: batch_stats_fused_v2_packed and K6: batch_stats_fused_packed at
+// compute dtype f32. The bodies, their design note and their launchers
+// are in stats_fused.cuh; stats_fused_bf16.cu holds the bf16 entries
+// (same arguments).
 
-#include "psd_common.cuh"
-
-namespace {
-
-constexpr int kFThreads = 128;          // 4 warps
-constexpr int kFRows = 32;              // rows per chunk, one per lane
-constexpr int kFCols = 32;              // byte columns per sub-tile
-constexpr int kFInd = 4 * kFCols;       // individuals per sub-tile: 1/thread
-constexpr int kRStride = kFInd + 1;     // odd: conflict-free lane reads
-
-// Shared floats of the tile step: R1, R0, t of the chunk, u of the sub-tile.
-template <int KM>
-__host__ __device__ constexpr int tile_floats() {
-  return 2 * kFRows * kRStride + kFRows * KM * 2 + kFInd * KM;
-}
-
-struct Tile {
-  float* r1;   // (32 rows, kRStride)
-  float* r0;
-  float* ts;   // (32 rows, KM, 2): t1, t0 interleaved
-  float* us;   // (128 individuals, KM)
-};
-
-template <int KM>
-__device__ __forceinline__ Tile carve(float* smem) {
-  Tile t;
-  t.r1 = smem;
-  t.r0 = t.r1 + kFRows * kRStride;
-  t.ts = t.r0 + kFRows * kRStride;
-  t.us = t.ts + kFRows * KM * 2;
-  return t;
-}
-
-// Thread -> individual of the sub-tile at byte column wc: plane
-// s = warp, column wc + lane (a warp's byte reads are one 32-byte run).
-template <int KM>
-__device__ __forceinline__ void load_u(const float* __restrict__ up, int W,
-                                       int K, int wc, float* uk, float* us) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-#pragma unroll
-  for (int k = 0; k < KM; ++k) {
-    uk[k] = ok && k < K ? up[((long long)s * W + w) * K + k] : 0.f;
-    us[threadIdx.x * KM + k] = uk[k];
-  }
-}
-
-template <int KM>
-__device__ __forceinline__ void load_t(const float* __restrict__ t1g,
-                                       const float* __restrict__ t0g, int rb,
-                                       int B, int K, float* ts) {
-  for (int j = threadIdx.x; j < kFRows * KM * 2; j += kFThreads) {
-    const int r = j / (KM * 2), rem = j % (KM * 2), k = rem / 2;
-    const int b = rb + r;
-    const float* tg = rem % 2 ? t0g : t1g;
-    ts[j] = (k < K && b < B) ? tg[(long long)b * K + k] : 0.f;
-  }
-}
-
-// Phase 1: R of rows [rb, rb+32) x the thread's individual into shared
-// memory, and g += r1 t1 + r0 t0.
-template <int KM>
-__device__ __forceinline__ void ratios_gamma(const uint8_t* __restrict__ rows,
-                                             int B, int W, int rb, int wc,
-                                             const float* uk, const Tile& sm,
-                                             float* g, int approx) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-  for (int r = 0; r < kFRows; ++r) {
-    const int b = rb + r;
-    const uint32_t code =
-        ok && b < B ? (rows[(long long)b * W + w] >> (2 * s)) & 3u : 3u;
-    float x1 = 0.f, x0 = 0.f;
-    if (code != 3u) {
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      const float* tr = sm.ts + r * KM * 2;
-      float d1 = 0.f, d0 = 0.f;
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        d1 = fmaf(tr[2 * k], uk[k], d1);
-        d0 = fmaf(tr[2 * k + 1], uk[k], d0);
-      }
-      x1 = tt::ratio(a1, d1, approx);
-      x0 = tt::ratio(a0, d0, approx);
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        g[k] = fmaf(x1, tr[2 * k], g[k]);
-        g[k] = fmaf(x0, tr[2 * k + 1], g[k]);
-      }
-    }
-    sm.r1[r * kRStride + threadIdx.x] = x1;
-    sm.r0[r * kRStride + threadIdx.x] = x0;
-  }
-}
-
-// Phase 2: lane = row of the chunk, warp = plane; s += R U over the warp's
-// 32 individuals, in column order.
-template <int KM>
-__device__ __forceinline__ void lambda_accum(const Tile& sm, float* s1,
-                                             float* s0) {
-  const int lane = threadIdx.x & 31, j0 = (threadIdx.x >> 5) * 32;
-  for (int jj = 0; jj < 32; ++jj) {
-    const int j = j0 + jj;
-    const float x1 = sm.r1[lane * kRStride + j];
-    const float x0 = sm.r0[lane * kRStride + j];
-    const float* u = sm.us + j * KM;
-#pragma unroll
-    for (int k = 0; k < KM; ++k) {
-      s1[k] = fmaf(x1, u[k], s1[k]);
-      s0[k] = fmaf(x0, u[k], s0[k]);
-    }
-  }
-}
-
-template <int KM>
-__device__ __forceinline__ void write_gamma(float* gtile, int W, int K,
-                                            int wc, const float* g) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  if (w >= W) return;
-  float* out = gtile + ((long long)s * W + w) * K;
-#pragma unroll
-  for (int k = 0; k < KM; ++k)
-    if (k < K) out[k] = g[k];
-}
-
-// ---- K7, K <= 64 -----------------------------------------------------------
-
-constexpr int kV2Warps = 4;
-constexpr int kV2Threads = 32 * kV2Warps;
-constexpr int kV2Rows = kV2Threads;     // rows of a CTA: a warp owns 32
-constexpr int kV2Cols = 8;              // byte columns of a sub-tile ...
-constexpr int kV2Ind = 4 * kV2Cols;     // ... its 32 individuals
-constexpr int kV2RS = kV2Ind + 1;       // R's row stride, odd
-constexpr int kV2Slice = 2 * 32 * kV2RS;  // a warp's R1 and R0 (floats)
-
-// Dynamic shared memory of the K7 body: t of the CTA's rows, the warps' R
-// slices, and two buffers each of the sub-tile's u and packed bytes.
-template <int KM>
-__host__ __device__ constexpr int v2_smem_bytes() {
-  return (kV2Rows * 2 * KM + kV2Warps * kV2Slice + 2 * kV2Ind * KM) *
-             (int)sizeof(float) +
-         2 * kV2Rows * kV2Cols;
-}
-
-// The sub-tile at byte column wc, read into registers ahead of its use:
-// thread r's row b0 + r (8 bytes, word-wide where aligned; MISSING beyond
-// B and W) and KM/4 floats of the 32 individuals' u (zero beyond K and W).
-template <int KM>
-struct V2Fetch {
-  uint32_t lo, hi;
-  float u[KM / 4];
-
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ rows,
-                                       const float* __restrict__ up, int B,
-                                       int W, int K, int b0, int wc) {
-    const int r = threadIdx.x;
-    lo = hi = 0xFFFFFFFFu;
-    if (b0 + r < B) {
-      const uint8_t* q = rows + (long long)(b0 + r) * W + wc;
-      if (wc + kV2Cols <= W && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
-        lo = v.x;
-        hi = v.y;
-      } else {
-#pragma unroll
-        for (int c = 0; c < kV2Cols; ++c) {
-          if (wc + c < W) {
-            uint32_t& d = c < 4 ? lo : hi;
-            d &= ~(0xFFu << (8 * (c & 3)));
-            d |= (uint32_t)__ldg(q + c) << (8 * (c & 3));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < KM / 4; ++m) {
-      const int j = r + m * kV2Threads;     // over (individual, k)
-      const int n = j / KM, k = j % KM;
-      const int w = wc + (n & 7);
-      u[m] = w < W && k < K ? __ldg(up + ((long long)(n >> 3) * W + w) * K + k)
-                            : 0.f;
-    }
-  }
-
-  __device__ __forceinline__ void store(uint32_t* bytes, float* us) const {
-    reinterpret_cast<uint2*>(bytes)[threadIdx.x] = make_uint2(lo, hi);
-#pragma unroll
-    for (int m = 0; m < KM / 4; ++m) us[threadIdx.x + m * kV2Threads] = u[m];
-  }
-};
-
-// Phase 2 of K7: s += R U over the sub-tile's 32 individuals for the
-// lane's row (its R row r1, r0 of the warp's slice; u rows as float4
-// broadcasts), in individual order.
-template <int KM>
-__device__ __forceinline__ void lambda_row(const float* __restrict__ r1,
-                                           const float* __restrict__ r0,
-                                           const float* __restrict__ us,
-                                           float (&s1)[KM], float (&s0)[KM]) {
-#pragma unroll 4
-  for (int j = 0; j < kV2Ind; ++j) {
-    const float x1 = r1[j], x0 = r0[j];
-    const float4* q = reinterpret_cast<const float4*>(us + j * KM);
-#pragma unroll
-    for (int k4 = 0; k4 < KM / 4; ++k4) {
-      const float4 v = q[k4];
-      const float u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s1[4 * k4 + e] = fmaf(x1, u[e], s1[4 * k4 + e]);
-        s0[4 * k4 + e] = fmaf(x0, u[e], s0[4 * k4 + e]);
-      }
-    }
-  }
-}
-
-// K7, K <= 64. grid (ceil(W/tile_cols), ceil(B/kV2Rows)); dynamic shared
-// memory v2_smem_bytes<KM>(). lpart (gridDim.x, B, K, 2), gpart
-// (gridDim.y, 4W, K). Warp q owns rows b0 + [32q, 32q + 32) for the whole
-// W tile; per sub-tile of 8 byte columns:
-//   phase 1, lane = individual (plane lane / 8, column lane % 8):
-//     `gamma_rows` over the warp's 32 rows, R into the warp's own slice;
-//   phase 2, lane = row: s += R U over the 32 individuals (registers,
-//     across the whole W tile);
-//   the warps' g partials (in their R slices) are added in warp order
-//     into the row tile's gpart.
-// No warp reads another's R, so phases 1 and 2 need no barrier between
-// them; the sub-tile costs two (its staged data; the g partials).
-template <int KM, int kDiv>
-__global__ void __launch_bounds__(kV2Threads, KM <= 16 ? 4 : 1)
-stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
-                const float* __restrict__ t1g, const float* __restrict__ t0g,
-                float* __restrict__ lpart, float* __restrict__ gpart, int B,
-                int W, int K, int tile_cols) {
-  constexpr int RB = KM <= 8 ? 2 : 1;    // rows in flight in phase 1
-  extern __shared__ __align__(16) float v2_smem[];
-  float4* tsm = reinterpret_cast<float4*>(v2_smem);  // (kV2Rows, KM/2)
-  float* R = v2_smem + kV2Rows * 2 * KM;             // kV2Warps slices
-  float* usm = R + kV2Warps * kV2Slice;              // 2 x (32, KM)
-  uint32_t* bsm = reinterpret_cast<uint32_t*>(usm + 2 * kV2Ind * KM);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wbeg = blockIdx.x * tile_cols;
-  const int wend = min(W, wbeg + tile_cols);
-  const int b0 = blockIdx.y * kV2Rows;
-  float* r1w = R + warp * kV2Slice;
-  float* r0w = r1w + 32 * kV2RS;
-
-  float* tf = v2_smem;  // t of the CTA's rows, (t1, t0) interleaved, once
-  for (int j = threadIdx.x; j < kV2Rows * 2 * KM; j += kV2Threads) {
-    const int r = j / (2 * KM), rem = j % (2 * KM), k = rem >> 1;
-    const long long b = b0 + r;
-    tf[j] = b < B && k < K ? (rem & 1 ? t0g : t1g)[b * K + k] : 0.f;
-  }
-  V2Fetch<KM> next;
-  next.load(rows, up, B, W, K, b0, wbeg);
-  next.store(bsm, usm);
-
-  float s1[KM], s0[KM];
-#pragma unroll
-  for (int k = 0; k < KM; ++k) s1[k] = s0[k] = 0.f;
-  const int nsub = (wend - wbeg + kV2Cols - 1) / kV2Cols;
-  for (int i = 0; i < nsub; ++i) {
-    const int wc = wbeg + i * kV2Cols;
-    const float* us = usm + (i & 1) * kV2Ind * KM;
-    const uint8_t* by =
-        reinterpret_cast<const uint8_t*>(bsm + (i & 1) * 2 * kV2Rows);
-    __syncthreads();  // sub-tile i is staged; the last g partials are read
-    const bool more = i + 1 < nsub;
-    if (more) next.load(rows, up, B, W, K, b0, wc + kV2Cols);
-
-    float uk[KM], g[KM];
-    const float4* uq = reinterpret_cast<const float4*>(us + lane * KM);
-#pragma unroll
-    for (int k4 = 0; k4 < KM / 4; ++k4) {
-      const float4 v = uq[k4];
-      uk[4 * k4] = v.x;
-      uk[4 * k4 + 1] = v.y;
-      uk[4 * k4 + 2] = v.z;
-      uk[4 * k4 + 3] = v.w;
-    }
-#pragma unroll
-    for (int k = 0; k < KM; ++k) g[k] = 0.f;
-    tt::gamma_rows<KM, RB, kDiv, true>(
-        uk, g, tsm + warp * 32 * (KM / 2), by + warp * 32 * kV2Cols + (lane & 7),
-        kV2Cols, 2 * (lane >> 3), 32, r1w + lane, r0w + lane, kV2RS);
-    __syncwarp();
-    lambda_row<KM>(r1w + lane * kV2RS, r0w + lane * kV2RS, us, s1, s0);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < KM; ++k) r1w[lane * (KM + 1) + k] = g[k];
-    if (more)
-      next.store(bsm + ((i + 1) & 1) * 2 * kV2Rows,
-                 usm + ((i + 1) & 1) * kV2Ind * KM);
-    __syncthreads();  // every warp's g partial is in its slice
-    for (int j = threadIdx.x; j < kV2Ind * K; j += kV2Threads) {
-      const int n = j / K, k = j % K;
-      const int w = wc + (n & 7);
-      if (w >= W) continue;
-      float v = R[n * (KM + 1) + k];
-#pragma unroll
-      for (int q = 1; q < kV2Warps; ++q) v += R[q * kV2Slice + n * (KM + 1) + k];
-      gpart[((long long)blockIdx.y * 4 * W + (long long)(n >> 3) * W + w) * K +
-            k] = v;
-    }
-  }
-  const int b = b0 + threadIdx.x;
-  if (b >= B) return;
-  float2* out = reinterpret_cast<float2*>(
-      lpart + ((long long)blockIdx.x * B + b) * K * 2);
-#pragma unroll
-  for (int k = 0; k < KM; ++k)
-    if (k < K) out[k] = make_float2(s1[k], s0[k]);
-}
-
-// K6. grid ceil(B/32); dynamic shared memory tile_floats floats.
-// l0, l1 (B, K) final raw sums; gpart (gridDim.x, 4W, K).
-template <int KM>
-__global__ void __launch_bounds__(kFThreads)
-stats_v1_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
-                const float* __restrict__ t1g, const float* __restrict__ t0g,
-                float* __restrict__ l0, float* __restrict__ l1,
-                float* __restrict__ gpart, int B, int W, int K) {
-  extern __shared__ float smem[];
-  const Tile sm = carve<KM>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rb = blockIdx.x * kFRows;
-  load_t<KM>(t1g, t0g, rb, B, K, sm.ts);  // the CTA's rows, kept throughout
-  float* gtile = gpart + (long long)blockIdx.x * 4 * W * K;
-  float s1[KM], s0[KM];
-#pragma unroll
-  for (int k = 0; k < KM; ++k) s1[k] = s0[k] = 0.f;
-
-  for (int wc = 0; wc < W; wc += kFCols) {
-    float uk[KM], g[KM];
-#pragma unroll
-    for (int k = 0; k < KM; ++k) g[k] = 0.f;
-    __syncthreads();  // t is staged; the last sub-tile's R and u are consumed
-    load_u<KM>(up, W, K, wc, uk, sm.us);
-    ratios_gamma<KM>(rows, B, W, rb, wc, uk, sm, g, 0);
-    write_gamma<KM>(gtile, W, K, wc, g);
-    __syncthreads();
-    lambda_accum<KM>(sm, s1, s0);
-  }
-
-  float* red = sm.r1;  // (32 rows, KM, 2) fits in R1's 32 x 129 floats
-  for (int j = 0; j < 4; ++j) {  // warps add in warp order
-    __syncthreads();
-    if (warp == j) {
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        float* r = red + (lane * KM + k) * 2;
-        r[0] = j ? r[0] + s1[k] : s1[k];
-        r[1] = j ? r[1] + s0[k] : s0[k];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kFRows * K; i += kFThreads) {
-    const int r = i / K, k = i % K;
-    if (rb + r < B) {
-      l0[(long long)(rb + r) * K + k] = red[(r * KM + k) * 2];
-      l1[(long long)(rb + r) * K + k] = red[(r * KM + k) * 2 + 1];
-    }
-  }
-}
-
-// ---- the K-chunked bodies (K > 64) ----------------------------------------
-
-constexpr int kUS = kFInd + 1;   // u's k stride (individuals + 1)
-
-// Shared floats of the wide tile step: R1, R0 (D, then R), t of the chunk's
-// 32 rows for one piece (float2 rows of 32), u of the sub-tile for one
-// piece (32 x kUS).
-constexpr int kWideTileFloats =
-    2 * kFRows * kRStride + kFRows * tt::kKC * 2 + tt::kKC * kUS;
-
-struct WideTile {
-  float* r1;   // (32 rows, kRStride)
-  float* r0;
-  float2* ts;  // (32 rows, 32): t1, t0
-  float* us;   // (32, kUS): u, k-major
-};
-
-__device__ __forceinline__ WideTile carve_wide(float* smem) {
-  WideTile t;
-  t.r1 = smem;
-  t.r0 = t.r1 + kFRows * kRStride;
-  t.ts = reinterpret_cast<float2*>(t.r0 + kFRows * kRStride);
-  t.us = reinterpret_cast<float*>(t.ts + kFRows * tt::kKC);
-  return t;
-}
-
-// Stage piece [k0, k0 + kw) of u of the sub-tile at byte column wc
-// (individual n = plane n / 32, column wc + n % 32; coalesced reads along
-// K, conflict-free k-major writes) and of t of rows [rb, rb + 32).
-__device__ __forceinline__ void stage_piece_wide(
-    const float* __restrict__ up, const float* __restrict__ t1g,
-    const float* __restrict__ t0g, int B, int W, int K, int rb, int wc,
-    int k0, int kw, const WideTile& sm) {
-  for (int j = threadIdx.x; j < kFInd * kw; j += kFThreads) {
-    const int n = j / kw, k = j % kw;
-    const int w = wc + (n & 31);
-    sm.us[k * kUS + n] =
-        w < W && k0 + k < K ? up[((long long)(n >> 5) * W + w) * K + k0 + k]
-                            : 0.f;
-  }
-  for (int j = threadIdx.x; j < kFRows * kw; j += kFThreads) {
-    const int r = j / kw, k = j % kw;
-    const long long o = (long long)(rb + r) * K + k0 + k;
-    sm.ts[r * tt::kKC + k] = k0 + k < K && rb + r < B
-                                 ? make_float2(t1g[o], t0g[o])
-                                 : make_float2(0.f, 0.f);
-  }
-}
-
-// D of rows [rb, rb+32) x the thread's individual over the staged piece,
-// added into its own column of R1/R0 (first piece: stored).
-__device__ __forceinline__ void d_piece_wide(const WideTile& sm, int kw,
-                                             bool first) {
-  constexpr int RB = 8;  // rows at once
-  const int n = threadIdx.x;
-  for (int r0 = 0; r0 < kFRows; r0 += RB) {
-    float d1[RB], d0[RB];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      d1[i] = first ? 0.f : sm.r1[(r0 + i) * kRStride + n];
-      d0[i] = first ? 0.f : sm.r0[(r0 + i) * kRStride + n];
-    }
-    for (int k = 0; k < kw; k += 4) {
-      const float u0 = sm.us[k * kUS + n], u1 = sm.us[(k + 1) * kUS + n],
-                  u2 = sm.us[(k + 2) * kUS + n], u3 = sm.us[(k + 3) * kUS + n];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        // (t1, t0) of columns k .. k + 3
-        const float4* tr =
-            reinterpret_cast<const float4*>(sm.ts + (r0 + i) * tt::kKC + k);
-        const float4 a = tr[0], c = tr[1];
-        d1[i] = fmaf(a.x, u0, d1[i]);
-        d0[i] = fmaf(a.y, u0, d0[i]);
-        d1[i] = fmaf(a.z, u1, d1[i]);
-        d0[i] = fmaf(a.w, u1, d0[i]);
-        d1[i] = fmaf(c.x, u2, d1[i]);
-        d0[i] = fmaf(c.y, u2, d0[i]);
-        d1[i] = fmaf(c.z, u3, d1[i]);
-        d0[i] = fmaf(c.w, u3, d0[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      sm.r1[(r0 + i) * kRStride + n] = d1[i];
-      sm.r0[(r0 + i) * kRStride + n] = d0[i];
-    }
-  }
-}
-
-// D over all K of rows [rb, rb+32) x the sub-tile at wc into R1/R0, a
-// piece at a time, the chunk's own piece (kc0 / 32 of np) last.
-__device__ __forceinline__ void d_all_wide(
-    const float* __restrict__ up, const float* __restrict__ t1g,
-    const float* __restrict__ t0g, int B, int W, int K, int rb, int wc,
-    int np, const WideTile& sm) {
-  for (int q = 1; q <= np; ++q) {
-    const int p = (blockIdx.z + q) % np;
-    const int kw = min(tt::kKC, tt::round4(K) - p * tt::kKC);
-    __syncthreads();  // the last piece, R and lambda block are read
-    stage_piece_wide(up, t1g, t0g, B, W, K, rb, wc, p * tt::kKC, kw, sm);
-    __syncthreads();
-    d_piece_wide(sm, kw, q == 1);
-  }
-}
-
-// Phase 1, wide: R = A / (D + eps) of rows [rb, rb+32) x the thread's
-// individual in place of D, and g += r1 t1 + r0 t0 over the chunk's kwc
-// columns (the staged piece).
-__device__ __forceinline__ void ratios_gamma_wide(
-    const uint8_t* __restrict__ rows, int B, int W, int rb, int wc, int kwc,
-    const WideTile& sm, float* g, int approx) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-  for (int r = 0; r < kFRows; ++r) {
-    const int b = rb + r;
-    const uint32_t code =
-        ok && b < B ? (rows[(long long)b * W + w] >> (2 * s)) & 3u : 3u;
-    float x1 = 0.f, x0 = 0.f;
-    if (code != 3u) {
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      x1 = tt::ratio(a1, sm.r1[r * kRStride + threadIdx.x], approx);
-      x0 = tt::ratio(a0, sm.r0[r * kRStride + threadIdx.x], approx);
-      const float2* tr = sm.ts + r * tt::kKC;
-#pragma unroll
-      for (int j = 0; j < tt::kKC; ++j) {
-        if (j < kwc) {
-          const float2 t = tr[j];
-          g[j] = fmaf(x1, t.x, g[j]);
-          g[j] = fmaf(x0, t.y, g[j]);
-        }
-      }
-    }
-    sm.r1[r * kRStride + threadIdx.x] = x1;
-    sm.r0[r * kRStride + threadIdx.x] = x0;
-  }
-}
-
-// Phase 2, wide: lane = row, warp = plane; s += R U over the warp's 32
-// individuals for the chunk's kwc columns (the staged piece), in column
-// order.
-__device__ __forceinline__ void lambda_accum_wide(const WideTile& sm,
-                                                  int kwc, float* s1,
-                                                  float* s0) {
-  const int lane = threadIdx.x & 31, j0 = (threadIdx.x >> 5) * 32;
-  for (int jj = 0; jj < 32; ++jj) {
-    const int j = j0 + jj;
-    const float x1 = sm.r1[lane * kRStride + j];
-    const float x0 = sm.r0[lane * kRStride + j];
-#pragma unroll
-    for (int kk = 0; kk < tt::kKC; ++kk) {
-      if (kk < kwc) {
-        const float u = sm.us[kk * kUS + j];
-        s1[kk] = fmaf(x1, u, s1[kk]);
-        s0[kk] = fmaf(x0, u, s0[kk]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void write_gamma_wide(float* gtile, int W, int K,
-                                                 int wc, int kc0,
-                                                 const float* g) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  if (w >= W) return;
-  float* out = gtile + ((long long)s * W + w) * K;
-#pragma unroll
-  for (int j = 0; j < tt::kKC; ++j)
-    if (kc0 + j < K) out[kc0 + j] = g[j];
-}
-
-// K7, wide. grid (ceil(W/tile_cols), ceil(B/tile_rows), ceil(K/32));
-// dynamic shared memory kWideTileFloats + tile_rows*32*2 floats.
-// lpart (gridDim.x, B, K, 2), gpart (gridDim.y, 4W, K): CTA z writes
-// k in [32 z, 32 z + 32).
-__global__ void __launch_bounds__(kFThreads)
-stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
-                     const float* __restrict__ up,
-                     const float* __restrict__ t1g,
-                     const float* __restrict__ t0g, float* __restrict__ lpart,
-                     float* __restrict__ gpart, int B, int W, int K,
-                     int tile_rows, int tile_cols, int approx) {
-  extern __shared__ __align__(16) float wide_smem[];
-  const WideTile sm = carve_wide(wide_smem);
-  float* lam = wide_smem + kWideTileFloats;    // (tile_rows, kKC, 2)
-  constexpr int kLam = tt::kKC * 2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wbeg = blockIdx.x * tile_cols;
-  const int wend = min(W, wbeg + tile_cols);
-  const int bbeg = blockIdx.y * tile_rows;
-  const int bend = min(B, bbeg + tile_rows);
-  const int np = gridDim.z;                    // pieces = chunks
-  const int kc0 = blockIdx.z * tt::kKC;
-  const int kwc = min(tt::kKC, tt::round4(K) - kc0);
-  for (int i = threadIdx.x; i < tile_rows * kLam; i += kFThreads) lam[i] = 0.f;
-  float* gtile = gpart + (long long)blockIdx.y * 4 * W * K;
-
-  for (int wc = wbeg; wc < wend; wc += kFCols) {
-    float g[tt::kKC];
-#pragma unroll
-    for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
-    for (int rb = bbeg; rb < bend; rb += kFRows) {
-      d_all_wide(up, t1g, t0g, B, W, K, rb, wc, np, sm);
-      ratios_gamma_wide(rows, B, W, rb, wc, kwc, sm, g, approx);
-      __syncthreads();
-      float s1[tt::kKC], s0[tt::kKC];
-#pragma unroll
-      for (int j = 0; j < tt::kKC; ++j) s1[j] = s0[j] = 0.f;
-      lambda_accum_wide(sm, kwc, s1, s0);
-      float* lr = lam + (rb - bbeg + lane) * kLam;
-      for (int j = 0; j < 4; ++j) {  // warps add in warp order
-        __syncthreads();
-        if (warp == j && rb + lane < bend) {
-#pragma unroll
-          for (int kk = 0; kk < tt::kKC; ++kk) {
-            lr[2 * kk] += s1[kk];
-            lr[2 * kk + 1] += s0[kk];
-          }
-        }
-      }
-    }
-    write_gamma_wide(gtile, W, K, wc, kc0, g);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < (bend - bbeg) * kLam; i += kFThreads) {
-    const int r = i / kLam, kk = (i % kLam) / 2;
-    if (kc0 + kk < K)
-      lpart[(((long long)blockIdx.x * B + bbeg + r) * K + kc0 + kk) * 2 +
-            i % 2] = lam[i];
-  }
-}
-
-// K6, wide. grid (ceil(B/32), 1, ceil(K/32)); dynamic shared memory
-// kWideTileFloats floats. l0, l1 (B, K); gpart (gridDim.x, 4W, K): CTA z
-// writes k in [32 z, 32 z + 32).
-__global__ void __launch_bounds__(kFThreads)
-stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
-                     const float* __restrict__ up,
-                     const float* __restrict__ t1g,
-                     const float* __restrict__ t0g, float* __restrict__ l0,
-                     float* __restrict__ l1, float* __restrict__ gpart, int B,
-                     int W, int K) {
-  extern __shared__ __align__(16) float wide_smem[];
-  const WideTile sm = carve_wide(wide_smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rb = blockIdx.x * kFRows;
-  const int np = gridDim.z;                    // pieces = chunks
-  const int kc0 = blockIdx.z * tt::kKC;
-  const int kwc = min(tt::kKC, tt::round4(K) - kc0);
-  float* gtile = gpart + (long long)blockIdx.x * 4 * W * K;
-  float s1[tt::kKC], s0[tt::kKC];
-#pragma unroll
-  for (int j = 0; j < tt::kKC; ++j) s1[j] = s0[j] = 0.f;
-
-  for (int wc = 0; wc < W; wc += kFCols) {
-    float g[tt::kKC];
-#pragma unroll
-    for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
-    d_all_wide(up, t1g, t0g, B, W, K, rb, wc, np, sm);
-    ratios_gamma_wide(rows, B, W, rb, wc, kwc, sm, g, 0);
-    write_gamma_wide(gtile, W, K, wc, kc0, g);
-    __syncthreads();
-    lambda_accum_wide(sm, kwc, s1, s0);
-  }
-
-  float* red = sm.r1;  // (32 rows, kKC, 2) fits in R1's 32 x 129 floats
-  for (int j = 0; j < 4; ++j) {  // warps add in warp order
-    __syncthreads();
-    if (warp == j) {
-#pragma unroll
-      for (int kk = 0; kk < tt::kKC; ++kk) {
-        float* r = red + (lane * tt::kKC + kk) * 2;
-        r[0] = j ? r[0] + s1[kk] : s1[kk];
-        r[1] = j ? r[1] + s0[kk] : s0[kk];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kFRows * tt::kKC; i += kFThreads) {
-    const int r = i / tt::kKC, kk = i % tt::kKC;
-    if (rb + r < B && kc0 + kk < K) {
-      l0[(long long)(rb + r) * K + kc0 + kk] = red[i * 2];
-      l1[(long long)(rb + r) * K + kc0 + kk] = red[i * 2 + 1];
-    }
-  }
-}
-
-}  // namespace
+#include "stats_fused.cuh"
 
 extern "C" int tt_batch_stats_fused_v2(
     const uint8_t* rows, const float* up, const float* t1, const float* t0,
     float* l0, float* l1, float* g, float* lpart, float* gpart, int B, int W,
     int K, int tile_rows, int tile_cols, int approx, cudaStream_t stream) {
-  const int km = tt::pick_km(K, true);
-  // the K <= 64 body takes kV2Rows rows a CTA, the wide body multiples of 32
-  const bool tiles_ok =
-      km == tt::kWide
-          ? tile_rows > 0 && tile_rows % kFRows == 0 && tile_cols > 0 &&
-                tile_cols % kFCols == 0
-          : tile_rows == kV2Rows && tile_cols > 0 && tile_cols % kV2Cols == 0;
-  if (B <= 0 || W <= 0 || km < 0 || !tiles_ok)
-    return (int)cudaErrorInvalidValue;
-  const int nwt = (W + tile_cols - 1) / tile_cols;
-  const int nbt = (B + tile_rows - 1) / tile_rows;
-  const dim3 grid(nwt, nbt);
-  if (km == tt::kWide) {
-    const int bytes =
-        (kWideTileFloats + tile_rows * tt::kKC * 2) * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_v2_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    stats_v2_wide_kernel<<<dim3(nwt, nbt, tt::wide_chunks(K)), kFThreads,
-                           bytes, stream>>>(rows, up, t1, t0, lpart, gpart, B,
-                                            W, K, tile_rows, tile_cols,
-                                            approx);
-  } else {
-#define TT_BODY(KM, DIV)                                                     \
-  {                                                                          \
-    constexpr int bytes = v2_smem_bytes<KM>();                               \
-    const cudaError_t e = cudaFuncSetAttribute(                              \
-        stats_v2_kernel<KM, DIV>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-        bytes);                                                              \
-    if (e != cudaSuccess) return (int)e;                                     \
-    stats_v2_kernel<KM, DIV><<<grid, kV2Threads, bytes, stream>>>(           \
-        rows, up, t1, t0, lpart, gpart, B, W, K, tile_cols);                 \
-  }
-#define TT_LAUNCH(KM)            \
-  if (approx) {                  \
-    TT_BODY(KM, tt::kDivFast)    \
-  } else {                       \
-    TT_BODY(KM, tt::kDivExact)   \
-  }
-  TT_DISPATCH_KM12(km, TT_LAUNCH)
-#undef TT_LAUNCH
-#undef TT_BODY
-  }
-  TT_CHECK_LAUNCH();
-  const int bk = B * K;
-  tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(lpart, nwt,
-                                                                bk, l0, l1);
-  TT_CHECK_LAUNCH();
-  const long long ng = 4LL * W * K;
-  tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g);
-  TT_CHECK_LAUNCH();
-  return 0;
+  return batch_stats_fused_v2<false>(rows, up, t1, t0, l0, l1, g, lpart,
+                                     gpart, B, W, K, tile_rows, tile_cols,
+                                     approx, stream);
 }
 
 extern "C" int tt_batch_stats_fused(const uint8_t* rows, const float* up,
@@ -810,36 +19,6 @@ extern "C" int tt_batch_stats_fused(const uint8_t* rows, const float* up,
                                     float* l0, float* l1, float* g,
                                     float* gpart, int B, int W, int K,
                                     cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || km < 0) return (int)cudaErrorInvalidValue;
-  const int nbt = (B + kFRows - 1) / kFRows;
-  if (km == tt::kWide) {
-    const int bytes = kWideTileFloats * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_v1_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    stats_v1_wide_kernel<<<dim3(nbt, 1, tt::wide_chunks(K)), kFThreads,
-                           bytes, stream>>>(rows, up, t1, t0, l0, l1, gpart,
-                                            B, W, K);
-  } else {
-#define TT_LAUNCH(KM)                                                        \
-  {                                                                          \
-    const int bytes = tile_floats<KM>() * (int)sizeof(float);                \
-    const cudaError_t e = cudaFuncSetAttribute(                              \
-        stats_v1_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-        bytes);                                                              \
-    if (e != cudaSuccess) return (int)e;                                     \
-    stats_v1_kernel<KM><<<nbt, kFThreads, bytes, stream>>>(                  \
-        rows, up, t1, t0, l0, l1, gpart, B, W, K);                           \
-  }
-  TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-  }
-  TT_CHECK_LAUNCH();
-  const long long ng = 4LL * W * K;
-  tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g);
-  TT_CHECK_LAUNCH();
-  return 0;
+  return batch_stats_fused<false>(rows, up, t1, t0, l0, l1, g, gpart, B, W,
+                                  K, stream);
 }

@@ -16,17 +16,20 @@ CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
 - K5 `gamma_stats_packed` (csrc/stats_gamma.cu): the planar γ statistic;
   with K4 it is the pair, `batch_stats_packed`.
 - K7 `batch_stats_fused_v2_packed` and K6 `batch_stats_fused_packed`
-  (csrc/stats_fused.cu): λ and γ statistics from one D per entry.
+  (csrc/stats_fused.cuh): λ and γ statistics from one D per entry.
 
 The last four carry the big-N step (svi/engine.step_core_packed). Every
 kernel takes any K the twins take: K <= 64 runs the bodies instantiated
 at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
-(csrc/psd_wide.cuh, csrc/stats_fused.cu).
+(csrc/psd_wide.cuh, csrc/stats_fused.cuh).
 
-K4 and K5 also take dtype=torch.bfloat16 (compute_dtype "bfloat16"): T,
-U and R enter the products rounded to bf16, the sums stay f32; at
-K <= 64 the pass runs on the tensor cores (csrc/psd_mma.cuh). K5's bf16
-entry is the γ pass K1 and K2 end with at bf16; K6-K8 are f32 only.
+Every kernel also takes dtype=torch.bfloat16 (compute_dtype
+"bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
+f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
+passes over packed rows (K4, K5) run on the tensor cores
+(csrc/psd_mma.cuh); K8's pass over count planes and K6/K7 run their SIMT
+bodies with the operands rounded where they are staged. Each wrapper
+counts its bf16 launches in `bf16_launches` (`count_launch`).
 """
 
 from __future__ import annotations
@@ -106,13 +109,16 @@ def decode_count_planes(rows: torch.Tensor):
     return torch.where(miss, zero, xf), torch.where(miss, zero, 2.0 - xf)
 
 
-def lambda_stats_acat_twin(a1, a0, u_planes, t1, t0, *, approx_div=False):
-    """Plain PyTorch version of K8: K4's (l0, l1) over count planes."""
+def lambda_stats_acat_twin(a1, a0, u_planes, t1, t0, *, approx_div=False,
+                           dtype=torch.float32):
+    """Plain PyTorch version of K8: K4's (l0, l1) over count planes; at
+    bf16 R and U enter the products rounded, the sums stay f32."""
     u_cat = u_planes.reshape(-1, u_planes.shape[-1])
     b = a1.shape[0]
     r1, r0 = ratios_planar(a1.reshape(b, -1).float(),
                            a0.reshape(b, -1).float(), u_cat, t1, t0,
-                           approx_div)
+                           approx_div, dtype)
+    u_cat = as_operand(u_cat, dtype)
     return r1 @ u_cat, r0 @ u_cat
 
 
@@ -126,13 +132,17 @@ def gamma_stats_packed_twin(rows, u_planes, t1, t0, dtype=torch.float32):
             + r0.T @ as_operand(t0, dtype)).reshape(u_planes.shape)
 
 
-def batch_stats_fused_twin(rows, u_planes, t1, t0, *, approx_div=False):
-    """Plain PyTorch version of K7 and K6: one R feeds both statistics.
+def batch_stats_fused_twin(rows, u_planes, t1, t0, *, approx_div=False,
+                           dtype=torch.float32):
+    """Plain PyTorch version of K7 and K6: one R feeds both statistics;
+    at bf16 R, T and U enter the products rounded, the sums stay f32.
     Returns (g (4, W, K), l0_raw (B, K), l1_raw (B, K))."""
     u_cat = u_planes.reshape(-1, u_planes.shape[-1])
     a1, a0 = plane_counts(rows)
-    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx_div)
-    g = (r1.T @ t1 + r0.T @ t0).reshape(u_planes.shape)
+    r1, r0 = ratios_planar(a1, a0, u_cat, t1, t0, approx_div, dtype)
+    u_cat = as_operand(u_cat, dtype)
+    g = (r1.T @ as_operand(t1, dtype)
+         + r0.T @ as_operand(t0, dtype)).reshape(u_planes.shape)
     return g, r1 @ u_cat, r0 @ u_cat
 
 
@@ -177,6 +187,13 @@ def count_launch(fn, dtype):
         fn.bf16_launches += 1
     else:
         fn.launches += 1
+
+
+def _entry(name, dtype):
+    """The C entry point of a kernel's body at compute dtype `dtype`:
+    `name`, or its bf16 body `name`_bf16 (the same arguments)."""
+    return getattr(_build.lib(),
+                   name + "_bf16" if dtype == torch.bfloat16 else name)
 
 
 def _device_of(name, x):
@@ -307,22 +324,26 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
 def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
                       u_planes: torch.Tensor, t1: torch.Tensor,
-                      t0: torch.Tensor, *, approx_div: bool = False):
+                      t0: torch.Tensor, *, approx_div: bool = False,
+                      dtype=torch.float32):
     """Raw λ statistics from pre-decoded count planes.
 
-    a1, a0 (B, 4, W) bf16 (`decode_count_planes`); u_planes (4, W, K) f32;
-    t1, t0 (B, K) f32. Returns (l0_raw, l1_raw), each (B, K) f32.
+    a1, a0 (B, 4, W) bf16 (`decode_count_planes`, at both dtypes);
+    u_planes (4, W, K) f32; t1, t0 (B, K) f32. Returns (l0_raw, l1_raw),
+    each (B, K) f32. dtype: the products' operand type, as
+    `lambda_stats_packed`'s (the bf16 body counts in `bf16_launches`).
     """
     if a1.dim() != 3 or a1.shape[1] != 4 or a0.shape != a1.shape:
         raise ValueError("lambda_stats_acat: a1, a0 must be (B, 4, W)")
     check_shapes("lambda_stats_acat", a1[:, 0], u_planes)
+    check_dtype("lambda_stats_acat", dtype)
     b, _, w = a1.shape
     k = u_planes.shape[2]
     check_t("lambda_stats_acat", b, k, t1, t0)
     if _device_of("lambda_stats_acat", a1) == "cpu":
         lambda_stats_acat.twin_calls += 1
         return lambda_stats_acat_twin(a1, a0, u_planes, t1, t0,
-                                      approx_div=approx_div)
+                                      approx_div=approx_div, dtype=dtype)
     _build.require_cuda("lambda_stats_acat", a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
     nsplit, _ = lambda_grid(b, w)
@@ -330,25 +351,27 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
     part = torch.empty((nsplit, b, k, 2), dtype=torch.float32, device=dev)
-    err = _build.lib().tt_lambda_stats_acat(
+    err = _entry("tt_lambda_stats_acat", dtype)(
         a1.data_ptr(), a0.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
         t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k,
         nsplit, int(approx_div), _build.stream_ptr(dev))
     _build.check(err, "lambda_stats_acat")
-    lambda_stats_acat.launches += 1
+    count_launch(lambda_stats_acat, dtype)
     return l0, l1
 
 
 lambda_stats_acat.launches = 0
+lambda_stats_acat.bf16_launches = 0
 lambda_stats_acat.twin_calls = 0
 
 
 def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                      local_tol, stat_scale=1.0, approx_div=False,
-                     accel=False, pad_rows=0):
+                     accel=False, pad_rows=0, dtype=torch.float32):
     """`local_solve_packed` with the counts decoded once up front: the
     schedule iterates K8 over the planes instead of unpacking the rows
-    every pass. Same arguments and result."""
+    every pass. Same arguments and result (dtype: K8's compute dtype;
+    the planes are bf16 at both)."""
     u_planes = u_to_planes(u)
     a1, a0 = decode_count_planes(rows)
 
@@ -356,7 +379,7 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
         e1, e0 = elog_beta(lam)
         t1, t0 = torch.exp(e1), torch.exp(e0)
         l0, l1 = lambda_stats_acat(a1, a0, u_planes, t1, t0,
-                                   approx_div=approx_div)
+                                   approx_div=approx_div, dtype=dtype)
         return torch.stack([beta_a + stat_scale * t1 * l0,
                             beta_b + stat_scale * t0 * l1], -1)
 
@@ -386,8 +409,7 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     dev = rows.device
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((nsplit, 4 * w, k), dtype=torch.float32, device=dev)
-    err = getattr(_build.lib(), "tt_gamma_stats_packed_bf16"
-                  if dtype == torch.bfloat16 else "tt_gamma_stats_packed")(
+    err = _entry("tt_gamma_stats_packed", dtype)(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
         _build.stream_ptr(dev))
@@ -401,16 +423,17 @@ gamma_stats_packed.bf16_launches = 0
 gamma_stats_packed.twin_calls = 0
 
 
-def batch_stats_packed(rows, u, t1, t0):
+def batch_stats_packed(rows, u, t1, t0, *, dtype=torch.float32):
     """All sufficient statistics from packed rows with the pair K4 + K5.
 
     u (4W, K) (caller pads); t1, t0 (B, K) from the converged λ. Returns
     (gamma_stat (4W, K), l0 (B, K), l1 (B, K)), the λ statistics already
-    scaled by t, as stats_dense.batch_stats.
+    scaled by t, as stats_dense.batch_stats. dtype: both kernels' compute
+    dtype.
     """
     u_planes = u_to_planes(u)
-    l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0)
-    g = gamma_stats_packed(rows, u_planes, t1, t0)
+    l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0, dtype=dtype)
+    g = gamma_stats_packed(rows, u_planes, t1, t0, dtype)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
@@ -435,17 +458,22 @@ def _stats_args(name, rows, u, t1, t0):
 
 def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
                                 t1: torch.Tensor, t0: torch.Tensor, *,
-                                approx_div: bool = False):
+                                approx_div: bool = False,
+                                dtype=torch.float32):
     """The exact full-N statistics pass in one kernel (K7): each D feeds
     the λ sums (per-W-tile partials) and the γ sums (per-B-tile
     partials), both added in tile order. Same returns as
-    `batch_stats_packed`. approx_div: fast divide (stats_approx_div)."""
+    `batch_stats_packed`. approx_div: fast divide (stats_approx_div).
+    dtype: the products' operand type (the bf16 body counts in
+    `bf16_launches`)."""
     name = "batch_stats_fused_v2_packed"
     u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    check_dtype(name, dtype)
     if _device_of(name, rows) == "cpu":
         batch_stats_fused_v2_packed.twin_calls += 1
         g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
-                                           approx_div=approx_div)
+                                           approx_div=approx_div,
+                                           dtype=dtype)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
@@ -457,30 +485,35 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
     lpart = torch.empty((nwt, b, k, 2), dtype=torch.float32, device=dev)
     gpart = torch.empty((nbt, 4 * w, k), dtype=torch.float32, device=dev)
-    err = _build.lib().tt_batch_stats_fused_v2(
+    err = _entry("tt_batch_stats_fused_v2", dtype)(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         l0.data_ptr(), l1.data_ptr(), g.data_ptr(), lpart.data_ptr(),
         gpart.data_ptr(), b, w, k, tile_rows, V2_TILE_COLS,
         int(approx_div), _build.stream_ptr(dev))
     _build.check(err, name)
-    batch_stats_fused_v2_packed.launches += 1
+    count_launch(batch_stats_fused_v2_packed, dtype)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
 batch_stats_fused_v2_packed.launches = 0
+batch_stats_fused_v2_packed.bf16_launches = 0
 batch_stats_fused_v2_packed.twin_calls = 0
 
 
 def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
-                             t1: torch.Tensor, t0: torch.Tensor):
+                             t1: torch.Tensor, t0: torch.Tensor, *,
+                             dtype=torch.float32):
     """The exact full-N statistics pass, v1 (K6): a CTA owns 32 rows and
     walks all of W in order with λ in registers; γ goes out as per-row-
-    tile partials added in order. Same returns as `batch_stats_packed`."""
+    tile partials added in order. Same returns as `batch_stats_packed`.
+    dtype: as `batch_stats_fused_v2_packed`'s."""
     name = "batch_stats_fused_packed"
     u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    check_dtype(name, dtype)
     if _device_of(name, rows) == "cpu":
         batch_stats_fused_packed.twin_calls += 1
-        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0)
+        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
+                                           dtype=dtype)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
@@ -490,14 +523,15 @@ def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
     g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((-(-b // 32), 4 * w, k), dtype=torch.float32,
                         device=dev)
-    err = _build.lib().tt_batch_stats_fused(
+    err = _entry("tt_batch_stats_fused", dtype)(
         rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
         l0.data_ptr(), l1.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w, k,
         _build.stream_ptr(dev))
     _build.check(err, name)
-    batch_stats_fused_packed.launches += 1
+    count_launch(batch_stats_fused_packed, dtype)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
 batch_stats_fused_packed.launches = 0
+batch_stats_fused_packed.bf16_launches = 0
 batch_stats_fused_packed.twin_calls = 0

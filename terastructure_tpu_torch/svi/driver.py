@@ -15,12 +15,10 @@ stored lambda (engine.entry_loglik), which is the result.
 `fit` runs on the first CUDA card unless the caller names a device;
 device="cpu" runs the kernels' plain twins.
 
-compute_dtype "bfloat16" runs the resident fit (K1, K2 at snp_group 8,
-eval and export through K4) on the kernels' bf16 bodies: T, U and R
-enter the products rounded to bf16, the sums and everything outside the
-products stay f32. A shape that takes the big-N step raises
-NotImplementedError at its first step (that step's bf16 bodies are the
-next slice).
+compute_dtype "bfloat16" runs every kernel on its bf16 body (the
+resident fit's K1, K2 at snp_group 8; the big-N step's K8, K7, or K4 +
+K5 or K6; eval and export through K4): T, U and R enter the products
+rounded to bf16, the sums and everything outside the products stay f32.
 
 Not yet ported (NotImplementedError): stream=True (slice S5),
 step_fn_factory (multi-GPU, S8), checkpoint_dir (S9), init="spectral"

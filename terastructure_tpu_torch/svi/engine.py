@@ -18,12 +18,10 @@ generator seeded from (seed, t), so a run is reproducible and resumable
 and the chunk itself never reads the device.
 
 Ported: the resident, single-process path with kernel "auto"/"fused"
-(K1, K3 at biobank L, K2 with snp_group >= 8) or "dense" at
-compute_dtype "float32" and "bfloat16", and "pallas" (the big-N
-per-iteration path: K8, K4, and K7, K5 or K6 for the statistics) at
-"float32", in both lambda modes. Not yet ported, and raising
-NotImplementedError: the big-N step at "bfloat16" (its K5-K8 bf16
-bodies are the next slice).
+(K1, K3 at biobank L, K2 with snp_group >= 8), "dense", and "pallas"
+(the big-N per-iteration path: K8, K4, and K7, K5 or K6 for the
+statistics), at compute_dtype "float32" and "bfloat16", in both lambda
+modes.
 """
 
 from __future__ import annotations
@@ -289,7 +287,10 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     sweep (local_refine_full), then one exact full-N statistics pass
     chosen by stats_kernel: "fused_v2" (K7), "pair" (K4 + K5) or "fused"
     (K6). Without a subsample (gen and idx_w both None, or N too small)
-    the whole solve runs K4 at full N.
+    the whole solve runs K4 at full N. Every kernel call runs at
+    cfg.compute_dtype (at "bfloat16" the kernels' bf16 bodies: T, U and R
+    rounded as the products' operands; the schedule, the tol test and
+    the update stay f32).
 
     gen draws the subsample; idx_w (sub_w,) injects it instead (tests).
     lamb_b (B, K, 2) warm-starts the solve (the stored lambda mode); None
@@ -299,11 +300,7 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     share, so the loop exits at the reference's pass.
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' on the big-N step is not ported yet: "
-            "its K5-K8 bf16 bodies are the next slice (the big-N step in "
-            "bf16); the big-N path computes in float32")
+    dtype = getattr(torch, cfg.compute_dtype)
     b, w = rows.shape
     n = gamma.shape[0]
     if w % 128:        # the reference's padded width: same subsample range
@@ -313,7 +310,7 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     if lamb_b is None:
         lamb_b = _prior_lamb(cfg, b, rows.device)
     kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-              pad_rows=batch_pad_rows(b))
+              pad_rows=batch_pad_rows(b), dtype=dtype)
     if idx_w is None and gen is not None:
         idx_w = subsample_columns(cfg, wp, gen)
     if idx_w is not None:
@@ -338,11 +335,11 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     t1, t0 = ops.exp_elog_beta(lamb_b)
     if cfg.stats_kernel == "fused_v2":
         gamma_stat, l0, l1 = pk.batch_stats_fused_v2_packed(
-            rows, u, t1, t0, approx_div=cfg.stats_approx_div)
+            rows, u, t1, t0, approx_div=cfg.stats_approx_div, dtype=dtype)
     elif cfg.stats_kernel in ("pair", "fused"):
         stats_fn = {"pair": pk.batch_stats_packed,
                     "fused": pk.batch_stats_fused_packed}[cfg.stats_kernel]
-        gamma_stat, l0, l1 = stats_fn(rows, u, t1, t0)
+        gamma_stat, l0, l1 = stats_fn(rows, u, t1, t0, dtype=dtype)
     else:
         raise ValueError(f"unknown stats_kernel {cfg.stats_kernel!r}")
     new_lamb_b = torch.stack([cfg.beta_a + l0, cfg.beta_b + l1], -1)

@@ -141,6 +141,22 @@ def test_wrappers_refuse_other_compute_dtypes():
         fused_step.fused_local_solve(*_t(rows, up, lamb), local_iters=3,
                                      local_tol=-1.0, beta_a=1.0, beta_b=1.0,
                                      dtype=torch.float16)
+    # the big-N step's kernels: K5, K6, K7, K8
+    rows_t, up_t, t1_t, t0_t = _t(rows, up, t1, t0)
+    u_t = stats_packed.planes_to_flat(up_t).contiguous()
+    a1, a0 = stats_packed.decode_count_planes(rows_t)
+    for call in (
+            lambda dt: stats_packed.gamma_stats_packed(rows_t, up_t, t1_t,
+                                                       t0_t, dt),
+            lambda dt: stats_packed.batch_stats_fused_packed(
+                rows_t, u_t, t1_t, t0_t, dtype=dt),
+            lambda dt: stats_packed.batch_stats_fused_v2_packed(
+                rows_t, u_t, t1_t, t0_t, dtype=dt),
+            lambda dt: stats_packed.lambda_stats_acat(a1, a0, up_t, t1_t,
+                                                      t0_t, dtype=dt)):
+        with pytest.raises(NotImplementedError):
+            call(torch.float16)
+        assert call(BF16)[0].dtype == torch.float32
 
 
 # --- K1 and K2 ------------------------------------------------------------

@@ -533,3 +533,106 @@ def test_bf16_fused_solves_match_twin(cuda_device, case, k):
     k1 = fused_step.fused_local_solve(gathered.view(64, -1), up, lamb,
                                       dtype=BF16, **kw)
     assert all(torch.equal(a, c) for a, c in zip(k2, k1))
+
+
+# --- compute dtype bf16 on the big-N step: K5, K6, K7, K8 -----------------
+def _bign_bf16_case(fn, kernel, twin, tol, f32):
+    """A bf16 body (kernel(), a call of fn's bf16 body): one bf16 launch,
+    bitwise on a re-run, within tol of its bf16 twin, pinned against its
+    f32 body (f32())."""
+    before = fn.bf16_launches
+    got = kernel()
+    assert fn.bf16_launches == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(got, kernel()))
+    for a, c in zip(got, twin()):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **tol)
+    _pinned(got, f32())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("k", BF16_KS)
+def test_bf16_bign_bodies_match_twins(cuda_device, k, approx_div):
+    """K7 (both divides), K6, K5 and K8 (both divides) at bf16 on a ragged
+    B and an odd W with rows MISSING: against their bf16 twins, bitwise on
+    a re-run, pinned against their f32 bodies."""
+    rows, up, lamb = _problem(cuda_device, 75, 940, k, seed=k + 1)
+    rows[3] = 0xFF
+    u = stats_packed.planes_to_flat(up).contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else BF16_PASS
+
+    def twin_stats(approx):
+        g, l0, l1 = stats_packed.batch_stats_fused_twin(
+            rows, up, t1, t0, approx_div=approx, dtype=BF16)
+        return u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1
+
+    v2 = stats_packed.batch_stats_fused_v2_packed
+    _bign_bf16_case(
+        v2, lambda: v2(rows, u, t1, t0, approx_div=approx_div, dtype=BF16),
+        lambda: twin_stats(approx_div), tol,
+        lambda: v2(rows, u, t1, t0, approx_div=approx_div))
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    k8 = stats_packed.lambda_stats_acat
+    _bign_bf16_case(
+        k8, lambda: k8(a1, a0, up, t1, t0, approx_div=approx_div, dtype=BF16),
+        lambda: stats_packed.lambda_stats_acat_twin(
+            a1, a0, up, t1, t0, approx_div=approx_div, dtype=BF16),
+        tol, lambda: k8(a1, a0, up, t1, t0, approx_div=approx_div))
+    if approx_div:
+        return
+    v1 = stats_packed.batch_stats_fused_packed
+    _bign_bf16_case(v1, lambda: v1(rows, u, t1, t0, dtype=BF16),
+                    lambda: twin_stats(False), BF16_PASS,
+                    lambda: v1(rows, u, t1, t0))
+    k5 = stats_packed.gamma_stats_packed
+    _bign_bf16_case(
+        k5, lambda: [k5(rows, up, t1, t0, BF16)],
+        lambda: [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0,
+                                                      BF16)],
+        BF16_PASS, lambda: [k5(rows, up, t1, t0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats_kernel", ["fused_v2", "pair", "fused"])
+def test_bf16_bign_step_runs_the_bf16_bodies(cuda_device, stats_kernel):
+    """make_step at bf16 on a big-N shape (the subsample engages; K = 10):
+    the bf16 bodies launch and no f32 body of K4-K8 does; the step's core
+    on an injected column subsample matches its twins on the CPU (at most
+    0.1% of the entries beyond the step tolerance: a bf(t) that rounds the
+    other way on an ulp of lambda moves its row by up to 2^-8)."""
+    from terastructure_tpu_torch.config import SVIConfig
+    from terastructure_tpu_torch.svi import engine
+
+    n, l, k, b = 8192, 4096, 10, 256
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, kernel="pallas",
+                    local_sub_n=2048, local_accel=False,
+                    stats_kernel=stats_kernel, compute_dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    packed = torch.from_numpy(pack2bit(rng.integers(0, 4, (l, n)).astype(
+        np.int8))).to(cuda_device)
+    fns = (stats_packed.lambda_stats_packed, stats_packed.gamma_stats_packed,
+           stats_packed.batch_stats_fused_packed,
+           stats_packed.batch_stats_fused_v2_packed,
+           stats_packed.lambda_stats_acat)
+    f32 = [f.launches for f in fns]
+    bf16 = [f.bf16_launches for f in fns]
+    state = engine.make_step(cfg)(engine.init_state(cfg, device=cuda_device),
+                                  packed)
+    assert [f.launches for f in fns] == f32
+    ran = {f.__name__: f.bf16_launches - c for f, c in zip(fns, bf16)}
+    assert ran["lambda_stats_acat"] >= cfg.local_iters
+    want = {"fused_v2": "batch_stats_fused_v2_packed",
+            "pair": "gamma_stats_packed",
+            "fused": "batch_stats_fused_packed"}[stats_kernel]
+    assert ran[want] == 1
+    assert bool(torch.isfinite(state.gamma).all())
+
+    gamma = state.gamma
+    rows = packed[:b]
+    idx_w = torch.from_numpy(rng.permutation(n // 4)[:512].copy())
+    got = engine.step_core_packed(cfg, gamma, rows, idx_w=idx_w)
+    want = engine.step_core_packed(cfg, gamma.cpu(), rows.cpu(),
+                                   idx_w=idx_w)
+    for a, c in zip(got, want):
+        _flips(a, c, BF16_SOLVE, 1e-3)

@@ -222,17 +222,6 @@ def test_block_sampling_engages_at_biobank_l(l, blocks):
 
 
 @pytest.mark.parametrize("change", [
-    # the big-N step at bf16: its K5-K8 bf16 bodies are the next slice
-    dict(compute_dtype="bfloat16", kernel="pallas"),
-])
-def test_unported_options_raise(change):
-    cfg = SVIConfig(n=64, l=256, k=2, batch_size=16).replace(**change)
-    packed = torch.full((cfg.l, 128), 0xFF, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="big-N step in bf16"):
-        engine.make_step(cfg)(engine.init_state(cfg), packed)
-
-
-@pytest.mark.parametrize("change", [
     dict(kernel="pallas"),
     dict(batch_size=12),                    # outside the fused gate
 ])
