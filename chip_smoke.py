@@ -86,9 +86,10 @@ chooses.
 prints a digest of each kernel's outputs on seeded inputs at K <= 64 and
 at K = 72 (the K-chunked bodies), the eager time of the K3 and K4
 wrappers and the host cost of the calls they make for the device and
-the stream, through the wrappers only: a copy of this script run from
+the stream, and the device time of K7 and K8 at bf16 at the big-N
+shapes, through the wrappers only: a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
-prints that tree's bits and host costs.
+prints that tree's bits and times.
 """
 
 from __future__ import annotations
@@ -136,7 +137,11 @@ PIN_LO, PIN_HI = 1e-4, 5e-2
 # gap| in nats, at least 3x the gap measured on the card. bf16 trails f32
 # early (0.0625 nats and theta MAE 0.123 against 0.090 at step 300,
 # NVIDIA H100 80GB HBM3, 700 W; both converge to the oracle's heldout
-# within 0.0005 nats, 6,400 steps against 5,300: PERF.md §6).
+# within 0.0006 nats: PERF.md §6). Where both packages can run 300 steps
+# at both dtypes (dense, on the CPU) the port's gap is the reference's
+# within Monte-Carlo error (tests/test_torch_lambda_pass.py
+# `test_bf16_heldout_gap_is_the_references`); no reference figure exists
+# at the big-N shape.
 BIGN_BF16_HELDOUT_GAP = 0.2
 
 FP32_FLOPS = 67e12  # H100 SXM: FP32 outside the tensor cores (data sheet)
@@ -1237,8 +1242,9 @@ def phase_kernels_bf16(dev, rec):
 # path), K = 8 and 16 (the K-widths around K7's 12), K = 3, and K = 72
 # (the K-chunked bodies); K8 runs on the first 2,048 columns (the step's
 # subsample width) or all of a narrower W
-BIGN_BF16_SHAPES = [BIGN, (4092, 25_088, 10), (300, 385, 8), (300, 385, 16),
-                    (33, 235, 3), (40, 256, 72)]
+BIGN_BF16_SHAPES = [BIGN, (4092, 25_088, 10), (300, 385, 8), (300, 385, 12),
+                    (300, 385, 16), (33, 235, 3), (75, 235, 33),
+                    (75, 235, 64), (40, 256, 72)]
 
 
 def phase_kernels_bign_bf16(dev, rec):
@@ -1530,21 +1536,39 @@ def phase_tgp(dev, rec):
 def bign_fit(dev, rec, cfg, data, theta, expect, absent):
     """fit(cfg, data) on the big-N data with its launch counts (`expect`
     launched, `absent` not, no twin) and finite scores; returns the fit
-    and its summary."""
+    and its summary, with the histogram of how many loop passes the
+    reference's tol test lets run in each of its subsampled solves (K8's,
+    `local_solve_acat.loop_passes`; at most local_iters - 2 with accel)
+    and its step time (chunk seconds over steps)."""
     reset_counts()
-    res = fit(cfg, data, device=dev)
+    stats_packed.local_solve_acat.loop_passes = []
+    try:
+        res = fit(cfg, data, device=dev)
+        passes = [int(n) for n in stats_packed.local_solve_acat.loop_passes]
+    finally:
+        stats_packed.local_solve_acat.loop_passes = None
     tag = f"big-N fit {cfg.lambda_mode} {cfg.compute_dtype}"
-    read_counts(rec, tag, expect, absent)
+    counts = read_counts(rec, tag, expect, absent)
     chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
     th = psd.theta_mean(res.state.gamma[: cfg.n]).cpu().numpy()
+    hist = {n: passes.count(n) for n in sorted(set(passes))}
     summary = dict(steps=res.steps, theta_mae=mean_abs_theta_error(th, theta),
                    validation=res.validation_ll, heldout=res.heldout_ll,
-                   snp_updates_per_s=rate)
+                   snp_updates_per_s=rate, loop_passes=hist,
+                   step_ms=chunk_s / res.steps * 1e3)
     log(f"  {tag}: steps={res.steps} chunk_s={chunk_s:.3f} "
         f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
         f"snp_updates_per_s={rate:.1f} "
         f"validation_ll={res.validation_ll:.5f} heldout={res.heldout_ll:.5f} "
         f"theta_mae={summary['theta_mae']:.4f}")
+    k7, k8 = (("batch_stats_fused_v2_packed[bf16]", "lambda_stats_acat[bf16]")
+              if cfg.compute_dtype == "bfloat16" else
+              ("batch_stats_fused_v2_packed", "lambda_stats_acat"))
+    loop = cfg.local_iters - 2 if cfg.local_accel else cfg.local_iters
+    log(f"  {tag}: step {summary['step_ms']:.3f} ms (chunk seconds over "
+        f"steps); K7 launches {counts[k7]}, K8 launches {counts[k8]}; loop "
+        f"passes the tol test lets run (of {loop}), by count of solves: "
+        f"{hist} over {len(passes)} solves")
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
         raise AssertionError(f"{tag}: scores are not finite")
     return res, summary
@@ -1761,7 +1785,9 @@ def phase_bign_bf16(dev, rec, bign):
         f"{got['validation']:.5f} / {ref['validation']:.5f}, heldout "
         f"{got['heldout']:.5f} / {ref['heldout']:.5f} (gap {gap:.2e}, limit "
         f"{BIGN_BF16_HELDOUT_GAP:g}), SNP-updates/s "
-        f"{got['snp_updates_per_s']:.1f} / {ref['snp_updates_per_s']:.1f}")
+        f"{got['snp_updates_per_s']:.1f} / {ref['snp_updates_per_s']:.1f}, "
+        f"step {got['step_ms']:.3f} / {ref['step_ms']:.3f} ms, loop passes "
+        f"{got['loop_passes']} / {ref['loop_passes']}")
     if not gap < BIGN_BF16_HELDOUT_GAP:
         raise AssertionError("big-N bf16 fit: heldout too far from the f32 "
                              "fit's")
@@ -1941,6 +1967,29 @@ def wrapper_eager_ms(dev):
             "stream_ptr_us": host_us(lambda: _build.stream_ptr(dev))}
 
 
+def bign_bf16_ms(dev):
+    """Device ms a call of K7 at bf16 (K = 8, 10, 16) and of K8 at bf16
+    (the subsampled solve's fast divide) at the big-N shapes, CUDA events
+    over 10 and 50 calls after a warm-up, through the wrappers only:
+    --digest prints them in whichever tree's package is imported, so that
+    two trees' bodies are timed in turns by one script."""
+    b, w, _ = BIGN
+    out = {}
+    for k in (8, 10, 16):
+        rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+        out[f"K7[bf16] B={b} W={w} K={k}"] = time_ms(
+            lambda: stats_packed.batch_stats_fused_v2_packed(
+                rows, u, t1, t0, dtype=BF16), 10)
+        del rows, up, u, t1, t0
+    rows, up, _, t1, t0 = _stats_inputs(b, BIGN_SUB_W, BIGN[2], 7, dev)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    out[f"K8[bf16] B={b} (4, {BIGN_SUB_W}) K={BIGN[2]} approx"] = time_ms(
+        lambda: stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                               approx_div=True, dtype=BF16),
+        50)
+    return out
+
+
 def main(argv=()) -> int:
     if list(argv) not in ([], ["--kernels"], ["--digest"]):
         print("usage: chip_smoke.py [--kernels | --digest]", file=sys.stderr)
@@ -1968,7 +2017,8 @@ def main(argv=()) -> int:
     rec = {name: {} for name in KERNELS}
     if argv == ["--digest"]:
         print(json.dumps({"digests": digests(dev),
-                          "wrapper_eager_ms": wrapper_eager_ms(dev)}))
+                          "wrapper_eager_ms": wrapper_eager_ms(dev),
+                          "bign_bf16_ms": bign_bf16_ms(dev)}))
         print(card)
         return 0
 

@@ -70,11 +70,11 @@
 // gamma pass also KM = 12). K > 64
 // goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
 // (`launch_lambda_pass`, `launch_gamma_stats`) pick by K. At compute dtype
-// bf16 (kBf16) the packed-row passes at K <= 64 (K1, K2, K4, K5) run the
-// tensor-core bodies of psd_mma.cuh; K8's count-plane pass at K <= 64
-// runs `lambda_pass_kernel` and K7's and K6's statistics their SIMT
-// bodies (stats_fused.cuh), each with its operands rounded (`operand`);
-// K > 64 runs the K-chunked bodies with their operands rounded.
+// bf16 (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
+// planes) and K7's statistics run tensor-core bodies (psd_mma.cuh,
+// stats_fused.cuh); K6's statistics run its SIMT body with the operands
+// rounded (`operand`); K > 64 runs the K-chunked bodies with their
+// operands rounded.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -155,8 +155,9 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
 // the f32 divide; the product of two bf16 values is exact in f32 and the
 // sums stay f32, so they compute the reference's bf16 kernels
 // (fused_step.py:270-302, stats_pallas.py:68-93) up to the order of the
-// sums. kBf16 = false leaves the f32 bodies' code as it was. (The K <= 64
-// bf16 passes over packed rows run on the tensor cores, psd_mma.cuh.)
+// sums. kBf16 = false leaves the f32 bodies' code as it was. (At K <= 64
+// the bf16 passes and K7 run on the tensor cores, psd_mma.cuh and
+// stats_fused.cuh; K6 is the one K <= 64 body that rounds with this.)
 template <bool kBf16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
@@ -269,12 +270,43 @@ struct PackedLoader {
     a1 = missing ? 0.f : x;
     a0 = missing ? 0.f : 2.f - x;
   }
+
+  // The tensor-core pass (psd_mma.cuh): tiles of 64 byte columns, staged
+  // as above; lane (g, t) of a 16-individual step (a word) takes its row's
+  // word, and from it the counts of individuals 8j + 2t + e.
+  __host__ __device__ static constexpr int mma_cols(int) { return 64; }
+  __host__ __device__ static constexpr int mma_words(int tc) {
+    return words(tc);
+  }
+  static constexpr int kMmaWords = 1;
+  template <int TC, int kT>
+  __device__ void stage_mma(uint32_t* tile, const uint8_t* const* rowp,
+                            int b0, int B, int W, int w0, int nb) const {
+    stage<TC, kT>(tile, rowp, b0, B, W, w0, nb);
+  }
+  template <int TC>
+  __device__ __forceinline__ static bool mma_load(const uint32_t* tile, int r,
+                                                  int unit, int,
+                                                  uint32_t (&w)[kMmaWords]) {
+    w[0] = tile[r * (TC / 4 + 1) + unit];
+    return w[0] != 0xFFFFFFFFu;
+  }
+  __device__ __forceinline__ static void mma_counts(
+      const uint32_t (&w)[kMmaWords], int t, int j, int e, float& a1,
+      float& a0) {
+    const uint32_t code = (w[0] >> (16 * j + 4 * t + 2 * e)) & 3u;
+    const bool missing = code == 3u;
+    const float x = (float)code;
+    a1 = missing ? 0.f : x;
+    a0 = missing ? 0.f : 2.f - x;
+  }
 };
 
 // Pre-decoded count planes a1, a0 (B, 4, W) bf16 (raw bits as uint16).
 // Each staged word holds the pair (a1 bits, a0 bits), 0 where both counts
 // are 0 (nothing to add). A unit is one column (4 planes). `stage` reads
 // 8 columns of a plane at a time where the planes are 16-byte aligned.
+// The counts are taken as they are (any bf16 value), never re-coded.
 struct AcatLoader {
   static constexpr int kEntries = 4;
   static constexpr int kWords = 4;
@@ -287,15 +319,16 @@ struct AcatLoader {
 
   __device__ void prepare(const uint8_t**, int, int, int) const {}
 
-  template <int TC>
-  __device__ void stage(uint32_t* tile, const uint8_t* const*, int b0, int B,
-                        int W, int w0, int nb) const {
-    constexpr int kStride = 4 * TC + 1;                  // words, odd
+  // The pairs of rows [b0, b0 + 64) x 4 planes x nb columns from w0 into
+  // tile[r * kRow + s * kPlane + c] (zero past B and past nb), kT threads.
+  template <int TC, int kT, int kRow, int kPlane>
+  __device__ void stage_pairs(uint32_t* tile, int b0, int B, int W, int w0,
+                              int nb) const {
     constexpr int kOct = TC / 8;
-    for (int i = threadIdx.x; i < kRowsPerCta * 4 * kOct; i += kThreads) {
+    for (int i = threadIdx.x; i < kRowsPerCta * 4 * kOct; i += kT) {
       const int r = i / (4 * kOct), s = (i / kOct) % 4, c = (i % kOct) * 8;
       if (c >= nb) continue;                             // never visited
-      uint32_t* dst = tile + r * kStride + s * TC + c;
+      uint32_t* dst = tile + r * kRow + s * kPlane + c;
       const long long off = ((long long)(b0 + r) * 4 + s) * W + w0 + c;
       uint32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       if (b0 + r < B) {
@@ -324,6 +357,13 @@ struct AcatLoader {
     }
   }
 
+  // A lane per row: row stride 4 TC + 1 (odd), planes TC apart.
+  template <int TC>
+  __device__ void stage(uint32_t* tile, const uint8_t* const*, int b0, int B,
+                        int W, int w0, int nb) const {
+    stage_pairs<TC, kThreads, 4 * TC + 1, TC>(tile, b0, B, W, w0, nb);
+  }
+
   __device__ static int units(int nb) { return nb; }
 
   template <int TC>
@@ -343,16 +383,54 @@ struct AcatLoader {
     a1 = __uint_as_float(w[e] << 16);
     a0 = __uint_as_float(w[e] & 0xFFFF0000u);
   }
+
+  // The tensor-core pass (psd_mma.cuh, K8 at bf16): a step is 4 columns x
+  // 4 planes (16 individuals in natural order, 4c + s), and lane (g, t)
+  // needs the pairs of its row for individuals 8j + 2t + e: column 2j +
+  // t / 2, plane 2 (t % 2) + e. Planes TC + 1 words apart and rows 4 (TC +
+  // 1), so that a warp's 32 reads of one (j, e) hit 32 banks. Tiles of 32
+  // columns where D and S are one or two k-tiles (K <= 16), else 16, so
+  // that the tile and the staged u fit the 48 KB of static shared memory
+  // (NVIDIA H100 80GB HBM3, 700 W, B = 4096, 4 x 2,048 individuals, K =
+  // 10: 0.140 ms with 32 columns, 0.172 with 16; the f32 body 0.265).
+  __host__ __device__ static constexpr int mma_cols(int kn) {
+    return kn <= 2 ? 32 : 16;
+  }
+  __host__ __device__ static constexpr int mma_words(int tc) {
+    return kRowsPerCta * 4 * (tc + 1);
+  }
+  static constexpr int kMmaWords = 4;
+  template <int TC, int kT>
+  __device__ void stage_mma(uint32_t* tile, const uint8_t* const*, int b0,
+                            int B, int W, int w0, int nb) const {
+    stage_pairs<TC, kT, 4 * (TC + 1), TC + 1>(tile, b0, B, W, w0, nb);
+  }
+  template <int TC>
+  __device__ __forceinline__ static bool mma_load(const uint32_t* tile, int r,
+                                                  int unit, int t,
+                                                  uint32_t (&w)[kMmaWords]) {
+    const uint32_t* p = tile + r * 4 * (TC + 1) + 2 * (t & 1) * (TC + 1) +
+                        4 * unit + (t >> 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) w[2 * j + e] = p[e * (TC + 1) + 2 * j];
+    return (w[0] | w[1] | w[2] | w[3]) != 0u;
+  }
+  __device__ __forceinline__ static void mma_counts(
+      const uint32_t (&w)[kMmaWords], int, int j, int e, float& a1,
+      float& a0) {
+    a1 = __uint_as_float(w[2 * j + e] << 16);
+    a0 = __uint_as_float(w[2 * j + e] & 0xFFFF0000u);
+  }
 };
 
 // One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit), block kThreads.
 // t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0] = S1 (the
 // lambda0 statistic), [...,1] = S0. `active` (may be null): skip the pass
-// when *active == 0. kDiv: how `ratio` divides. kBf16: the bf16 body of
-// the count-plane loader (K8 at bf16): t and u rounded where they are
-// loaded and staged, R after the divide, the sums f32. (At bf16 the pass
-// over packed rows for K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh.)
-template <int KM, class Loader, int kDiv, bool kBf16 = false>
+// when *active == 0. kDiv: how `ratio` divides. (At bf16 the pass for
+// K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh, for both loaders.)
+template <int KM, class Loader, int kDiv>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_kernel(Loader ld, const float* __restrict__ up,
                    const float* __restrict__ t1g,
@@ -379,8 +457,8 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const bool ok = row_ok && k < K;
-    t1[k] = ok ? operand<kBf16>(t1g[(long long)b * ts + k * tk]) : 0.f;
-    t0[k] = ok ? operand<kBf16>(t0g[(long long)b * ts + k * tk]) : 0.f;
+    t1[k] = ok ? t1g[(long long)b * ts + k * tk] : 0.f;
+    t0[k] = ok ? t0g[(long long)b * ts + k * tk] : 0.f;
     s1[k] = 0.f;
     s0[k] = 0.f;
   }
@@ -398,7 +476,7 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
       for (int i = threadIdx.x; i < nc * KM; i += kThreads) {
         const int c = i / KM, k = i % KM;
         us[(s * TC + c) * KM + k] =
-            c < nb && k < K ? operand<kBf16>(__ldg(ug + c * K + k)) : 0.f;
+            c < nb && k < K ? __ldg(ug + c * K + k) : 0.f;
       }
     }
     __syncthreads();
@@ -435,8 +513,8 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
         }
 #pragma unroll
         for (int i = 0; i < G; ++i) {
-          const float r1 = operand<kBf16>(ratio<kDiv>(a1[i], d1[i]));
-          const float r0 = operand<kBf16>(ratio<kDiv>(a0[i], d0[i]));
+          const float r1 = ratio<kDiv>(a1[i], d1[i]);
+          const float r0 = ratio<kDiv>(a0[i], d0[i]);
 #pragma unroll
           for (int k = 0; k < KM; ++k) {
             s1[k] = fmaf(r1, uk[i][k], s1[k]);
@@ -471,11 +549,8 @@ lambda_pass_kernel(Loader ld, const float* __restrict__ up,
 // RB rows at a time, so their D chains and divides overlap; nr is a
 // multiple of RB (the callers stage MISSING rows with t = 0 up to it,
 // which add exactly 0). Zero columns of K (k >= K) add exactly 0 to D, so
-// a wider KM gives the same bits. kBf16 (K7 at bf16): R is rounded to
-// bf16 after the divide, before it is stored and summed; the callers
-// stage t and u already rounded, so the registers that serve D and g hold
-// one rounding of each (`operand`).
-template <int KM, int RB, int kDiv, bool kStoreR, bool kBf16 = false>
+// a wider KM gives the same bits.
+template <int KM, int RB, int kDiv, bool kStoreR>
 __device__ __forceinline__ void gamma_rows(
     const float (&uk)[KM], float (&g)[KM], const float4* __restrict__ tr,
     const uint8_t* __restrict__ code, int cstride, int shift, int nr,
@@ -511,8 +586,8 @@ __device__ __forceinline__ void gamma_rows(
     }
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
-      const float x1 = operand<kBf16>(ratio<kDiv>(a1[i], d1[i]));
-      const float x0 = operand<kBf16>(ratio<kDiv>(a0[i], d0[i]));
+      const float x1 = ratio<kDiv>(a1[i], d1[i]);
+      const float x0 = ratio<kDiv>(a0[i], d0[i]);
       if (kStoreR) {
         rs1[(rb + i) * rstride] = x1;
         rs0[(rb + i) * rstride] = x0;
@@ -719,8 +794,8 @@ namespace tt {
 // 2) takes the partial sums. `div` is a `Div` (kDivNewton only where
 // kNewton is set: only the fused solve builds it); `active` as in
 // `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
-// tensor-core body for packed rows (K1, K2, K4; its loader has 16 entries
-// a word) and `lambda_pass_kernel`'s bf16 body for the count planes (K8).
+// tensor-core body (psd_mma.cuh) for either loader, packed rows (K1, K2,
+// K4) or count planes (K8), above it the K-chunked body.
 template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,
@@ -735,14 +810,13 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
         ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
   const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
   const int wchunk = split_chunk(W, nsplit);
-  constexpr bool kMma = kBf16 && Loader::kEntries == 16;
 #define TT_PASS(KM, DIV)                                                  \
-  if constexpr (kMma) /* the tensor-core body: ceil(KM / 8) n8 tiles */   \
+  if constexpr (kBf16) /* the tensor-core body: ceil(KM / 8) n8 tiles */  \
     lambda_pass_mma_kernel<(KM + 7) / 8, Loader, DIV>                     \
         <<<grid, kMmaThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part,  \
                                            B, W, K, wchunk, active);      \
   else                                                                    \
-    lambda_pass_kernel<KM, Loader, DIV, kBf16>                            \
+    lambda_pass_kernel<KM, Loader, DIV>                                   \
         <<<grid, kThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part, B,  \
                                         W, K, wchunk, active)
 #define TT_LAUNCH(KM)                                 \

@@ -22,11 +22,15 @@
 // reference's lambda_stats_acat(dtype=jnp.bfloat16), :429-458: T and U
 // rounded to bf16 as the products' operands, R rounded after the f32
 // divide, sums in f32; the count planes are bf16 at both dtypes and exact).
-// At K <= 64 it is `tt::lambda_pass_kernel`'s bf16 body, the f32 body with
-// t and u rounded where a lane loads and a CTA stages them and R where it
-// is divided (the tensor-core pass takes packed words only); K > 64 the
-// K-chunked body's. A SIMT body with rounded operands: it does the f32
-// body's work and a conversion more a staged value and an R.
+// At K <= 64 it is the tensor-core pass `tt::lambda_pass_mma_kernel`
+// (psd_mma.cuh) with `tt::AcatLoader`'s count-plane staging: a lane reads
+// the (a1, a0) pairs of its row for the four individuals its D
+// accumulators hold, as they are (any bf16 count, never re-coded). K > 64
+// runs the K-chunked body's bf16 form.
+//
+// Every pass runs (`active` is null): at the big-N shape the reference's
+// tol test lets all of the solve's loop passes run (PERF.md §6),
+// so a device-side gate, as K1 has, would skip nothing.
 
 #include "psd_common.cuh"
 

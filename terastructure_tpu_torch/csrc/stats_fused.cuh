@@ -94,15 +94,14 @@
 //
 // At compute dtype bf16 (kBf16, the reference's dtype=jnp.bfloat16:
 // `_ratios_tile` and the dots of `_batch_stats_v2_kernel` and
-// `_batch_stats_kernel`, stats_pallas.py:68-93, :225-259, :317-350) every
-// body is the f32 body with its operands rounded to bf16 (`tt::operand`)
-// where it stages them: t where the CTA stages its rows' t, u where it
-// stages (or fetches) the sub-tile's u, R once after the divide, before it
-// is stored for phase 2 and summed into g. So D = bf(t) bf(u), the gamma
-// sums bf(R) bf(t) and the lambda sums bf(R) bf(u), each product exact in
-// f32 and the sums f32, in the f32 body's order. kBf16 = false is the f32
-// code as it was. These are SIMT bodies: a later redesign may move the
-// products onto the tensor cores, as psd_mma.cuh does for the passes.
+// `_batch_stats_kernel`, stats_pallas.py:68-93, :225-259, :317-350) D =
+// bf(t) bf(u), the gamma sums bf(R) bf(t) and the lambda sums bf(R) bf(u),
+// each product exact in f32 and the sums f32. K7 at K <= 64 runs its
+// tensor-core body, `stats_v2_mma_kernel` (below, with its note); K6 and
+// every K > 64 body are the f32 bodies with their operands rounded to
+// bf16 (`tt::operand`) where they stage them: t where the CTA stages its
+// rows' t, u where it stages the sub-tile's u, R once after the divide.
+// kBf16 = false is the f32 code as it was.
 #pragma once
 
 #include "psd_common.cuh"
@@ -255,9 +254,8 @@ __host__ __device__ constexpr int v2_smem_bytes() {
 
 // The sub-tile at byte column wc, read into registers ahead of its use:
 // thread r's row b0 + r (8 bytes, word-wide where aligned; MISSING beyond
-// B and W) and KM/4 floats of the 32 individuals' u (zero beyond K and W;
-// rounded at bf16).
-template <int KM, bool kBf16>
+// B and W) and KM/4 floats of the 32 individuals' u (zero beyond K and W).
+template <int KM>
 struct V2Fetch {
   uint32_t lo, hi;
   float u[KM / 4];
@@ -289,9 +287,9 @@ struct V2Fetch {
       const int j = r + m * kV2Threads;     // over (individual, k)
       const int n = j / KM, k = j % KM;
       const int w = wc + (n & 7);
-      u[m] = w < W && k < K ? tt::operand<kBf16>(__ldg(
-                                  up + ((long long)(n >> 3) * W + w) * K + k))
-                            : 0.f;
+      u[m] = w < W && k < K
+                 ? __ldg(up + ((long long)(n >> 3) * W + w) * K + k)
+                 : 0.f;
     }
   }
 
@@ -339,7 +337,7 @@ __device__ __forceinline__ void lambda_row(const float* __restrict__ r1,
 //     into the row tile's gpart.
 // No warp reads another's R, so phases 1 and 2 need no barrier between
 // them; the sub-tile costs two (its staged data; the g partials).
-template <int KM, int kDiv, bool kBf16>
+template <int KM, int kDiv>
 __global__ void __launch_bounds__(kV2Threads, KM <= 16 ? 4 : 1)
 stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
                 const float* __restrict__ t1g, const float* __restrict__ t0g,
@@ -362,11 +360,9 @@ stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
   for (int j = threadIdx.x; j < kV2Rows * 2 * KM; j += kV2Threads) {
     const int r = j / (2 * KM), rem = j % (2 * KM), k = rem >> 1;
     const long long b = b0 + r;
-    tf[j] = b < B && k < K
-                ? tt::operand<kBf16>((rem & 1 ? t0g : t1g)[b * K + k])
-                : 0.f;
+    tf[j] = b < B && k < K ? (rem & 1 ? t0g : t1g)[b * K + k] : 0.f;
   }
-  V2Fetch<KM, kBf16> next;
+  V2Fetch<KM> next;
   next.load(rows, up, B, W, K, b0, wbeg);
   next.store(bsm, usm);
 
@@ -395,7 +391,7 @@ stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
     }
 #pragma unroll
     for (int k = 0; k < KM; ++k) g[k] = 0.f;
-    tt::gamma_rows<KM, RB, kDiv, true, kBf16>(
+    tt::gamma_rows<KM, RB, kDiv, true>(
         uk, g, tsm + warp * 32 * (KM / 2), by + warp * 32 * kV2Cols + (lane & 7),
         kV2Cols, 2 * (lane >> 3), 32, r1w + lane, r0w + lane, kV2RS);
     __syncwarp();
@@ -425,6 +421,334 @@ stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
 #pragma unroll
   for (int k = 0; k < KM; ++k)
     if (k < K) out[k] = make_float2(s1[k], s0[k]);
+}
+
+// ---- K7 at compute dtype bf16, K <= 64: on the tensor cores ---------------
+//
+// The chain of `tt::lambda_pass_mma_kernel` (psd_mma.cuh) with a third
+// product, on `mma.sync.aligned.m16n8k16` (bf16 operands, f32 sums):
+//   D = [bf(t1); bf(t0)] bf(U)^T   (m16: 8 rows x 2 alleles, n8: individuals)
+//   R = bf(A / (D + 1e-30))        on the accumulators (`ratio<kDiv>`)
+//   S += R bf(U)                   the accumulators, register for register,
+//                                  are the A fragment (the λ pass's step)
+//   g^T += [bf(t1)^T bf(t0)^T] R   (m16: 16 columns of K, k16: the 8 rows x
+//                                  2 alleles, n8: individuals)
+// The third product needs R as a B fragment: k = allele-rows 2t, 2t + 1,
+// n = individual g, the transpose of the accumulator's (row g,
+// individuals 2t, 2t + 1). `movmatrix.m8n8.trans` turns each 8 x 8 block
+// of bf16 R in registers, four a step, with no trip through shared
+// memory. Its A operand, bf(t)^T of the warp's rows, is constant for the
+// CTA's life and sits in registers beside D's A operand.
+//
+// Layout, kept from the f32 body: a CTA is 4 warps and V2Mma<KN>::kRows
+// rows, a warp owns MT m-tiles of 8 rows for the whole W tile, so S stays
+// in registers and leaves once as the W tile's λ partial. A sub-tile is
+// NSTEP steps of 16 individuals (4 byte columns x 4 planes, natural
+// order 4c + s); a step's g partial (16 individuals x KP) goes into the
+// warp's own slice of shared memory, and once per sub-tile the four
+// warps' slices are added in warp order into the B tile's γ partial. The
+// rows' packed words and bf(U) of the next sub-tile are fetched into
+// registers while the current one runs, into double buffers: two
+// barriers a sub-tile. MT is 4 / KD (KD = k16 steps of D), so that t's
+// two A operands and S take the same 64 registers at every K: 128 rows a
+// CTA at K <= 16, 64 at K <= 32, 32 at K <= 64 (ops/stats_packed.py
+// `v2_tile_rows`). No atomics, and an MMA's sum order is fixed: a re-run
+// is bitwise equal.
+//
+// Edges: rows past B have t = 0 and MISSING words, individuals past the W
+// tile u = 0 and MISSING words; their R is 0 x a finite reciprocal = 0 and
+// adds exactly 0 to S and g. K pads to 16 in D and g and to 8 in S.
+//
+// What bounds it: not the products (12K an entry at 989 TFLOP/s) but,
+// as in the passes, the per-entry work the tensor cores leave to the
+// FP32 and integer pipes: the decode, two divides and the conversions,
+// and the latency between them. Measured (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md): 1.37-1.40 ms at B = 4096, W = 25,088, K = 10, against 2.47
+// for the SIMT body with rounded operands that it replaced and 2.34 for
+// the f32 body. At K <= 16 it takes 128 registers and spills 144-160 B;
+// three CTAs an SM at 168 registers without spills took 1.52 ms, and
+// bf(t)^T made from D's A operand by `movmatrix` at each step (16
+// registers fewer) took the same time, so four CTAs of 4 warps stay.
+template <int KN>
+struct V2Mma {
+  static constexpr int KD = (KN + 1) / 2;       // k16 steps of D, m16 of g
+  static constexpr int KP = 16 * KD;            // K padded for D and g
+  static constexpr int MT = 4 / KD;             // m-tiles of 8 rows a warp
+  static constexpr int kRows = 4 * 8 * MT;      // rows of a CTA
+  static constexpr int NSTEP = KP == 64 ? 2 : 4;  // steps of a sub-tile
+  static constexpr int SC = 4 * NSTEP;          // its byte columns
+  static constexpr int NI = 4 * SC;             // its individuals
+  static constexpr int US = KP + 8;             // bf16 a staged u row
+  static constexpr int WS = NSTEP + 1;          // words a staged row (odd)
+  static constexpr int GS = KP + 4;             // floats a slice row
+  static constexpr int UW = NI * KP / 2 / kV2Threads;  // u words a thread
+  static constexpr int BW = (kRows * NSTEP + kV2Threads - 1) / kV2Threads;
+  static constexpr int kSmemBytes =
+      2 * NI * US * 2 + 2 * kRows * WS * 4 + kV2Warps * NI * GS * 4;
+};
+
+// bf16 8 x 8 block transposed in registers: lane l gives (row l / 4,
+// columns 2 (l % 4), + 1) and gets the same of the transpose.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// The sub-tile at byte column wc, into registers ahead of its use: BW of
+// its kRows x NSTEP packed words (MISSING past B and past wend) and UW
+// words of bf(U) pairs of its NI individuals (zero past K and wend).
+template <class C>
+struct V2MmaFetch {
+  uint32_t w[C::BW];
+  uint32_t u[C::UW];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ rows,
+                                       const float* __restrict__ up, int B,
+                                       int W, int K, int b0, int wc,
+                                       int wend) {
+#pragma unroll
+    for (int j = 0; j < C::BW; ++j) {
+      const int f = threadIdx.x * C::BW + j;
+      const int r = f / C::NSTEP, c = wc + 4 * (f % C::NSTEP);
+      uint32_t v = 0xFFFFFFFFu;
+      if (f < C::kRows * C::NSTEP && b0 + r < B) {
+        const uint8_t* q = rows + (long long)(b0 + r) * W + c;
+        if (c + 4 <= wend && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+          v = __ldg(reinterpret_cast<const uint32_t*>(q));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c + e < wend) {
+              v &= ~(0xFFu << (8 * e));
+              v |= (uint32_t)__ldg(q + e) << (8 * e);
+            }
+          }
+        }
+      }
+      w[j] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < C::UW; ++j) {
+      const int f = threadIdx.x * C::UW + j;
+      const int n = f / (C::KP / 2), k = 2 * (f % (C::KP / 2));
+      const int c = wc + (n >> 2);
+      const float* ug = up + ((long long)(n & 3) * W + c) * K;
+      const bool ok = c < wend;
+      const float x0 = ok && k < K ? __ldg(ug + k) : 0.f;
+      const float x1 = ok && k + 1 < K ? __ldg(ug + k + 1) : 0.f;
+      u[j] = tt::pack_bf16(x0, x1);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint32_t* bw, uint32_t* uw) const {
+#pragma unroll
+    for (int j = 0; j < C::BW; ++j) {
+      const int f = threadIdx.x * C::BW + j;
+      if (f < C::kRows * C::NSTEP)
+        bw[(f / C::NSTEP) * C::WS + f % C::NSTEP] = w[j];
+    }
+#pragma unroll
+    for (int j = 0; j < C::UW; ++j) {
+      const int f = threadIdx.x * C::UW + j;
+      uw[(f / (C::KP / 2)) * (C::US / 2) + f % (C::KP / 2)] = u[j];
+    }
+  }
+};
+
+// K7 at bf16, K <= 8 KN. grid (ceil(W/tile_cols), ceil(B/kRows)); dynamic
+// shared memory V2Mma<KN>::kSmemBytes. lpart (gridDim.x, B, K, 2), gpart
+// (gridDim.y, 4W, K), as stats_v2_kernel's.
+template <int KN, int kDiv>
+__global__ void __launch_bounds__(kV2Threads, KN <= 2 ? 4 : 2)
+stats_v2_mma_kernel(const uint8_t* __restrict__ rows,
+                    const float* __restrict__ up,
+                    const float* __restrict__ t1g,
+                    const float* __restrict__ t0g, float* __restrict__ lpart,
+                    float* __restrict__ gpart, int B, int W, int K,
+                    int tile_cols) {
+  using C = V2Mma<KN>;
+  constexpr int KD = C::KD, MT = C::MT, KP = C::KP, US = C::US;
+  extern __shared__ __align__(16) unsigned char v2m_smem[];
+  __nv_bfloat16* usm = reinterpret_cast<__nv_bfloat16*>(v2m_smem);
+  uint32_t* bsm = reinterpret_cast<uint32_t*>(usm + 2 * C::NI * US);
+  float* gsm = reinterpret_cast<float*>(bsm + 2 * C::kRows * C::WS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wbeg = blockIdx.x * tile_cols;
+  const int wend = min(W, wbeg + tile_cols);
+  const int b0 = blockIdx.y * C::kRows;
+  const int rw = warp * 8 * MT;              // the warp's first row
+  float* gw = gsm + warp * C::NI * C::GS;    // the warp's γ slice
+
+  // A of D for m-tile m (rows 0-7 bf(t1), 8-15 bf(t0) of its 8 rows: row
+  // g, k 2t, 2t+1 (+ 8)) and A of g^T (k g (+ 8), rows 2t, 2t+1 of t1,
+  // then of t0), zero past B and past K
+  uint32_t at[MT][KD][4], ag[MT][KD][4];
+  auto tval = [&](const float* tg, int b, int k) {
+    return b < B && k < K ? tg[(long long)b * K + k] : 0.f;
+  };
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int bd = b0 + rw + 8 * m + g, bg = b0 + rw + 8 * m + 2 * t;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int k = 16 * kd + 2 * t, kg = 16 * kd + g;
+      at[m][kd][0] = tt::pack_bf16(tval(t1g, bd, k), tval(t1g, bd, k + 1));
+      at[m][kd][1] = tt::pack_bf16(tval(t0g, bd, k), tval(t0g, bd, k + 1));
+      at[m][kd][2] =
+          tt::pack_bf16(tval(t1g, bd, k + 8), tval(t1g, bd, k + 9));
+      at[m][kd][3] =
+          tt::pack_bf16(tval(t0g, bd, k + 8), tval(t0g, bd, k + 9));
+      ag[m][kd][0] = tt::pack_bf16(tval(t1g, bg, kg), tval(t1g, bg + 1, kg));
+      ag[m][kd][1] =
+          tt::pack_bf16(tval(t1g, bg, kg + 8), tval(t1g, bg + 1, kg + 8));
+      ag[m][kd][2] = tt::pack_bf16(tval(t0g, bg, kg), tval(t0g, bg + 1, kg));
+      ag[m][kd][3] =
+          tt::pack_bf16(tval(t0g, bg, kg + 8), tval(t0g, bg + 1, kg + 8));
+    }
+  }
+  float acc[MT][KN][4];                      // S: rows g (S1), g + 8 (S0)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  V2MmaFetch<C> next;
+  next.load(rows, up, B, W, K, b0, wbeg, wend);
+  next.store(bsm, reinterpret_cast<uint32_t*>(usm));
+  const int nsub = (wend - wbeg + C::SC - 1) / C::SC;
+  for (int i = 0; i < nsub; ++i) {
+    const int wc = wbeg + i * C::SC;
+    const int nb = min(C::SC, wend - wc);
+    const __nv_bfloat16* us = usm + (i & 1) * C::NI * US;
+    const uint32_t* bw = bsm + (i & 1) * C::kRows * C::WS;
+    __syncthreads();  // sub-tile i is staged; the last γ partials are read
+    const bool more = i + 1 < nsub;
+    if (more) next.load(rows, up, B, W, K, b0, wc + C::SC, wend);
+
+    const int nsteps = (nb + 3) >> 2;
+    for (int st = 0; st < nsteps; ++st) {
+      const __nv_bfloat16* ub = us + 16 * st * US;
+      uint32_t bd[KD][4];   // B of D: (ind 0-7, k lo), (0-7, hi), (8-15, ..)
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        tt::ldsm_x4(bd[kd], ub + ((lane & 7) + 8 * (lane >> 4)) * US +
+                                16 * kd + 8 * ((lane >> 3) & 1));
+      uint32_t bs[KN][2];   // B of S, n8 tile j of K: individuals 0-15
+#pragma unroll
+      for (int jp = 0; jp < KN / 2; ++jp) {
+        uint32_t r[4];
+        tt::ldsm_x4_trans(r, ub + ((lane & 7) + 8 * ((lane >> 3) & 1)) * US +
+                                 16 * jp + 8 * (lane >> 4));
+        bs[2 * jp][0] = r[0];
+        bs[2 * jp][1] = r[1];
+        bs[2 * jp + 1][0] = r[2];
+        bs[2 * jp + 1][1] = r[3];
+      }
+      if constexpr (KN % 2) {
+        uint32_t r[2];
+        tt::ldsm_x2_trans(r, ub + ((lane & 7) + 8 * ((lane >> 3) & 1)) * US +
+                                 8 * (KN - 1));
+        bs[KN - 1][0] = r[0];
+        bs[KN - 1][1] = r[1];
+      }
+      float gacc[KD][2][4];  // g^T: k g (0, 1), g + 8 (2, 3); ind 2t, 2t+1
+#pragma unroll
+      for (int mk = 0; mk < KD; ++mk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gacc[mk][j][e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const uint32_t wd = bw[(rw + 8 * m + g) * C::WS + st];
+        if (__all_sync(0xffffffffu, wd == 0xFFFFFFFFu))
+          continue;                          // the m-tile's entries all MISSING
+        float d[2][4];                       // n8 tiles: individuals 0-7, 8-15
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          tt::mma_bf16(d[0], at[m][kd], bd[kd][0], bd[kd][1]);
+          tt::mma_bf16(d[1], at[m][kd], bd[kd][2], bd[kd][3]);
+        }
+        // R on the accumulators, rounded: ar = (R1 0-7, R0 0-7, R1 8-15,
+        // R0 8-15), the A fragment of S's MMA
+        uint32_t ar[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float r[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t code = (wd >> (16 * j + 4 * t + 2 * e)) & 3u;
+            const bool missing = code == 3u;
+            const float x = (float)code;
+            r[e] = tt::ratio<kDiv>(missing ? 0.f : x, d[j][e]);
+            r[2 + e] = tt::ratio<kDiv>(missing ? 0.f : 2.f - x, d[j][2 + e]);
+          }
+          ar[2 * j] = tt::pack_bf16(r[0], r[1]);
+          ar[2 * j + 1] = tt::pack_bf16(r[2], r[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < KN; ++j)
+          tt::mma_bf16(acc[m][j], ar, bs[j][0], bs[j][1]);
+        // g^T += bf(t)^T R: B of n8 tile j is (R1, R0) of its individuals,
+        // transposed
+        uint32_t rt[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) rt[q] = movmatrix_trans(ar[q]);
+#pragma unroll
+        for (int mk = 0; mk < KD; ++mk) {
+          tt::mma_bf16(gacc[mk][0], ag[m][mk], rt[0], rt[1]);
+          tt::mma_bf16(gacc[mk][1], ag[m][mk], rt[2], rt[3]);
+        }
+      }
+      // the step's g partial into the warp's slice, (individual, k)
+#pragma unroll
+      for (int mk = 0; mk < KD; ++mk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            gw[(16 * st + 8 * j + 2 * t + (e & 1)) * C::GS + 16 * mk + g +
+               8 * (e >> 1)] = gacc[mk][j][e];
+    }
+    if (more)
+      next.store(bsm + ((i + 1) & 1) * C::kRows * C::WS,
+                 reinterpret_cast<uint32_t*>(usm + ((i + 1) & 1) * C::NI * US));
+    __syncthreads();  // every warp's g partials are in its slice
+    // the four slices added in warp order: plane-major, then column, then
+    // k, so that a plane's columns are one run of gpart
+    for (int j = threadIdx.x; j < 4 * nb * K; j += kV2Threads) {
+      const int s = j / (nb * K), rem = j % (nb * K);
+      const int c = rem / K, k = rem % K;
+      const float* q = gsm + (4 * c + s) * C::GS + k;
+      float v = q[0];
+#pragma unroll
+      for (int w = 1; w < kV2Warps; ++w) v += q[w * C::NI * C::GS];
+      gpart[((long long)blockIdx.y * 4 * W + (long long)s * W + wc + c) * K +
+            k] = v;
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int b = b0 + rw + 8 * m + g;
+    if (b >= B) continue;
+    float2* out = reinterpret_cast<float2*>(
+        lpart + ((long long)blockIdx.x * B + b) * K * 2);
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      const int k = 8 * j + 2 * t;
+      if (k < K) out[k] = make_float2(acc[m][j][0], acc[m][j][2]);
+      if (k + 1 < K) out[k + 1] = make_float2(acc[m][j][1], acc[m][j][3]);
+    }
+  }
 }
 
 // K6. grid ceil(B/32); dynamic shared memory tile_floats floats.
@@ -776,8 +1100,10 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// K7's launch: the body K picks, then the lambda partials' and the gamma
-// partials' reductions in tile order. Arguments as tt_batch_stats_fused_v2.
+// K7's launch: the body K picks (at bf16 and K <= 64 the tensor-core
+// body), then the lambda partials' and the gamma partials' reductions in
+// tile order. Arguments as tt_batch_stats_fused_v2; tile_rows must be the
+// body's (ops/stats_packed.py `v2_tile_rows`).
 template <bool kBf16>
 int batch_stats_fused_v2(const uint8_t* rows, const float* up,
                          const float* t1, const float* t0, float* l0,
@@ -785,13 +1111,17 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
                          int B, int W, int K, int tile_rows, int tile_cols,
                          int approx, cudaStream_t stream) {
   const int km = tt::pick_km(K, true);
-  // the K <= 64 body takes kV2Rows rows a CTA, the wide body multiples of 32
-  const bool tiles_ok =
-      km == tt::kWide
-          ? tile_rows > 0 && tile_rows % kFRows == 0 && tile_cols > 0 &&
-                tile_cols % kFCols == 0
-          : tile_rows == kV2Rows && tile_cols > 0 && tile_cols % kV2Cols == 0;
-  if (B <= 0 || W <= 0 || km < 0 || !tiles_ok)
+  int body_rows = kV2Rows, body_cols = kV2Cols;
+  if (km == tt::kWide) {
+    body_rows = tile_rows > 0 && tile_rows % kFRows == 0 ? tile_rows : -1;
+    body_cols = kFCols;
+  } else if (kBf16) {
+    const int kd = (km + 15) / 16;  // V2Mma<KN>: 4 / KD m-tiles a warp
+    body_rows = 32 * (4 / kd);
+    body_cols = kd == 4 ? 8 : 16;
+  }
+  if (B <= 0 || W <= 0 || km < 0 || tile_rows != body_rows ||
+      tile_cols <= 0 || tile_cols % body_cols)
     return (int)cudaErrorInvalidValue;
   const int nwt = (W + tile_cols - 1) / tile_cols;
   const int nbt = (B + tile_rows - 1) / tile_rows;
@@ -807,15 +1137,36 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
         <<<dim3(nwt, nbt, tt::wide_chunks(K)), kFThreads, bytes, stream>>>(
             rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows, tile_cols,
             approx);
+  } else if constexpr (kBf16) {
+#define TT_BODY(KN, DIV)                                                     \
+  {                                                                          \
+    static_assert(V2Mma<KN>::kRows == 32 * (4 / ((KN + 1) / 2)));            \
+    constexpr int bytes = V2Mma<KN>::kSmemBytes;                             \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        stats_v2_mma_kernel<KN, DIV>,                                        \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                 \
+    if (e != cudaSuccess) return (int)e;                                     \
+    stats_v2_mma_kernel<KN, DIV><<<grid, kV2Threads, bytes, stream>>>(       \
+        rows, up, t1, t0, lpart, gpart, B, W, K, tile_cols);                 \
+  }
+#define TT_LAUNCH(KM)                      \
+  if (approx) {                            \
+    TT_BODY((KM + 7) / 8, tt::kDivFast)    \
+  } else {                                 \
+    TT_BODY((KM + 7) / 8, tt::kDivExact)   \
+  }
+    TT_DISPATCH_KM12(km, TT_LAUNCH)
+#undef TT_LAUNCH
+#undef TT_BODY
   } else {
 #define TT_BODY(KM, DIV)                                                     \
   {                                                                          \
     constexpr int bytes = v2_smem_bytes<KM>();                               \
     const cudaError_t e = cudaFuncSetAttribute(                              \
-        stats_v2_kernel<KM, DIV, kBf16>,                                     \
+        stats_v2_kernel<KM, DIV>,                                            \
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                 \
     if (e != cudaSuccess) return (int)e;                                     \
-    stats_v2_kernel<KM, DIV, kBf16><<<grid, kV2Threads, bytes, stream>>>(    \
+    stats_v2_kernel<KM, DIV><<<grid, kV2Threads, bytes, stream>>>(           \
         rows, up, t1, t0, lpart, gpart, B, W, K, tile_cols);                 \
   }
 #define TT_LAUNCH(KM)            \
@@ -824,7 +1175,7 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
   } else {                       \
     TT_BODY(KM, tt::kDivExact)   \
   }
-  TT_DISPATCH_KM12(km, TT_LAUNCH)
+    TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
 #undef TT_BODY
   }

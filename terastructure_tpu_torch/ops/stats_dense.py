@@ -115,7 +115,7 @@ def pad_share(pad_rows, k, prior, first):
 
 
 def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
-                   pad_rows=0, prior=(1.0, 1.0)):
+                   pad_rows=0, prior=(1.0, 1.0), passes=None):
     """The local-solve schedule shared by every coordinate-ascent path.
 
     plain: up to `local_iters` passes, stopping after the first pass whose
@@ -134,13 +134,21 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
     share (`pad_share`, with prior = (beta_a, beta_b)) enters both means
     of the tol test, which then run over B + pad_rows rows as the
     reference's do.
+
+    passes: None, or a list to which the solve appends the number of
+    loop passes the reference's while_loop would run: 1 + the passes
+    after the first that `active` lets through, a scalar on the solve's
+    device (the host reads no device value here).
     """
     accel = accel and local_iters >= 3
     loop_iters = local_iters - 2 if accel else local_iters
     lam = lamb0
     active = torch.ones((), dtype=torch.bool, device=lamb0.device)
     n = lam.numel() + pad_rows * lam.shape[1] * 2
+    ran = []
     for i in range(loop_iters):
+        if i and passes is not None:
+            ran.append(active)
         new = iterate(lam)
         if pad_rows:
             pd, pm = pad_share(pad_rows, lam.shape[1], prior, first=i == 0)
@@ -150,6 +158,8 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
             delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
         lam = torch.where(active, new, lam)
         active = active & (delta > local_tol)
+    if passes is not None:
+        passes.append(1 + sum(ran))
     if accel:
         mid = iterate(lam)
         new = iterate(mid)

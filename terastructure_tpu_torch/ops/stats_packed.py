@@ -26,10 +26,10 @@ at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
 Every kernel also takes dtype=torch.bfloat16 (compute_dtype
 "bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
 f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
-passes over packed rows (K4, K5) run on the tensor cores
-(csrc/psd_mma.cuh); K8's pass over count planes and K6/K7 run their SIMT
-bodies with the operands rounded where they are staged. Each wrapper
-counts its bf16 launches in `bf16_launches` (`count_launch`).
+passes (K4, K5, K8) and K7 run on the tensor cores (csrc/psd_mma.cuh,
+csrc/stats_fused.cuh); K6 runs its SIMT body with the operands rounded
+where they are staged. Each wrapper counts its bf16 launches in
+`bf16_launches` (`count_launch`).
 """
 
 from __future__ import annotations
@@ -371,7 +371,11 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
     """`local_solve_packed` with the counts decoded once up front: the
     schedule iterates K8 over the planes instead of unpacking the rows
     every pass. Same arguments and result (dtype: K8's compute dtype;
-    the planes are bf16 at both)."""
+    the planes are bf16 at both).
+
+    Where `local_solve_acat.loop_passes` is a list, each solve appends to
+    it how many of its loop passes the reference's while_loop would run
+    (`solve_schedule(passes=)`: a device scalar; the host reads none)."""
     u_planes = u_to_planes(u)
     a1, a0 = decode_count_planes(rows)
 
@@ -385,7 +389,11 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
     return solve_schedule(iterate, lamb_b, local_iters=local_iters,
                           local_tol=local_tol, accel=accel,
-                          pad_rows=pad_rows, prior=(beta_a, beta_b))
+                          pad_rows=pad_rows, prior=(beta_a, beta_b),
+                          passes=local_solve_acat.loop_passes)
+
+
+local_solve_acat.loop_passes = None
 
 
 def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
@@ -442,9 +450,17 @@ V2_WIDE_TILE_ROWS = 256   # ... and at K > 64 (the K-chunked body)
 V2_TILE_COLS = 256        # ... x byte columns (4 x 256 individuals)
 
 
-def v2_tile_rows(k: int) -> int:
-    """Rows of K7's CTA tile at K = k: the row tiles of its γ partials."""
-    return V2_TILE_ROWS if k <= 64 else V2_WIDE_TILE_ROWS
+def v2_tile_rows(k: int, dtype=torch.float32) -> int:
+    """Rows of K7's CTA tile at K = k: the row tiles of its γ partials.
+    The bf16 tensor-core body at K <= 64 gives a warp 4 / KD m-tiles of 8
+    rows (KD = ceil(K' / 16), K' the K-width `pick_km` instantiates), so
+    that its registers do not grow with K: 128 rows at K <= 16, 64 at
+    K <= 32, 32 at K <= 64 (csrc/stats_fused.cuh `V2Mma`)."""
+    if k > 64:
+        return V2_WIDE_TILE_ROWS
+    if dtype == torch.bfloat16:
+        return 32 * (4 // (1 if k <= 16 else 2 if k <= 32 else 4))
+    return V2_TILE_ROWS
 
 
 def _stats_args(name, rows, u, t1, t0):
@@ -478,7 +494,7 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
-    tile_rows = v2_tile_rows(k)
+    tile_rows = v2_tile_rows(k, dtype)
     nwt, nbt = -(-w // V2_TILE_COLS), -(-b // tile_rows)
     l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)

@@ -200,6 +200,28 @@ def test_step_core_packed_tol_exit_at_b12_matches_reference(monkeypatch):
         np.testing.assert_allclose(g, w, rtol=3e-5, atol=3e-5)
 
 
+def test_loop_pass_count_is_the_reference_exit_pass_at_b12(monkeypatch):
+    """The count of loop passes that `local_solve_acat` records (the
+    histogram chip_smoke.py prints for the big-N fits) on the B = 12 case
+    above is the pass at which the reference's while_loop exits, below
+    local_iters; without the pad rows' share it would be another."""
+    b, seed, m = 12, 12, 3
+    cfg = SVIConfig(n=N, l=100, k=K, batch_size=b, local_sub_n=512,
+                    local_accel=False, local_sub_approx_div=False,
+                    beta_a=2.0, beta_b=0.5, local_tol=400.0, local_iters=m)
+    rows, gamma = _inputs(b, seed=seed)
+    ref_pass, _ = _exit_pass(
+        lambda i: _both(cfg.replace(local_iters=i), rows, gamma, seed,
+                        which="ref")[1], m)
+    counts = []
+    monkeypatch.setattr(pk.local_solve_acat, "loop_passes", counts)
+    _both(cfg, rows, gamma, seed, which="port")
+    monkeypatch.setattr(engine, "batch_pad_rows", lambda b: 0)
+    _both(cfg, rows, gamma, seed, which="port")
+    assert [int(c) for c in counts][0] == ref_pass < m
+    assert int(counts[1]) != ref_pass
+
+
 @pytest.mark.parametrize("prior", [(1.0, 1.0), (2.0, 0.5)])
 def test_pad_share_equals_a_solve_over_padded_rows(prior):
     """The closed-form share of the pad rows (stats_dense.pad_share)

@@ -636,3 +636,90 @@ def test_bf16_bign_step_runs_the_bf16_bodies(cuda_device, stats_kernel):
                                    idx_w=idx_w)
     for a, c in zip(got, want):
         _flips(a, c, BF16_SOLVE, 1e-3)
+
+
+# --- the tensor-core bodies of K7 and K8 at bf16 (K <= 64) -----------------
+MMA_KS = [3, 8, 10, 12, 16, 33, 64]
+
+
+def _mma_problem(dev, b, k):
+    """B rows of an odd W (two of K7's W tiles, the second ragged) with
+    three rows MISSING, among them the last."""
+    rows, up, lamb = _problem(dev, b, 4 * 301, k, seed=b + k)
+    rows[[0, 77, b - 1]] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    return rows, up, t1, t0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("b", [4096, 4092])
+@pytest.mark.parametrize("k", MMA_KS)
+def test_bf16_k7_tensor_core_body_matches_twin(cuda_device, k, b,
+                                               approx_div):
+    """K7 at bf16 and K <= 64 (the tensor-core body) against its bf16
+    twin at B = 4096 and 4,092, odd W, rows MISSING, both divides;
+    bitwise on a re-run, pinned against its f32 body."""
+    rows, up, t1, t0 = _mma_problem(cuda_device, b, k)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    v2 = stats_packed.batch_stats_fused_v2_packed
+    g, l0, l1 = stats_packed.batch_stats_fused_twin(
+        rows, up, t1, t0, approx_div=approx_div, dtype=BF16)
+    want = (u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1)
+    _bign_bf16_case(
+        v2, lambda: v2(rows, u, t1, t0, approx_div=approx_div, dtype=BF16),
+        lambda: want,
+        dict(rtol=5e-3, atol=5e-3) if approx_div else BF16_PASS,
+        lambda: v2(rows, u, t1, t0, approx_div=approx_div))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("b", [4096, 4092])
+@pytest.mark.parametrize("k", MMA_KS)
+def test_bf16_k8_tensor_core_body_matches_twin(cuda_device, k, b,
+                                               approx_div):
+    """K8 at bf16 and K <= 64 (the tensor-core λ pass over count planes)
+    against its bf16 twin at B = 4096 and 4,092, odd W, rows MISSING,
+    both divides; bitwise on a re-run, pinned against its f32 body. The
+    planes hold counts other than 0, 1, 2 in one row: the body reads any
+    bf16 count, as the twin and the reference do."""
+    rows, up, t1, t0 = _mma_problem(cuda_device, b, k)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    a1[5], a0[9] = 0.375, 3.0
+    k8 = stats_packed.lambda_stats_acat
+    _bign_bf16_case(
+        k8, lambda: k8(a1, a0, up, t1, t0, approx_div=approx_div, dtype=BF16),
+        lambda: stats_packed.lambda_stats_acat_twin(
+            a1, a0, up, t1, t0, approx_div=approx_div, dtype=BF16),
+        dict(rtol=5e-3, atol=5e-3) if approx_div else BF16_PASS,
+        lambda: k8(a1, a0, up, t1, t0, approx_div=approx_div))
+
+
+@pytest.mark.cuda
+def test_bf16_k7_and_k8_reach_the_tensor_core_kernels(cuda_device):
+    """At bf16 and K <= 64, K7 and K8 launch the tensor-core kernels
+    (stats_v2_mma_kernel, lambda_pass_mma_kernel) and no SIMT body; at
+    f32 they launch the SIMT ones (kernel names from torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, up, t1, t0 = _mma_problem(cuda_device, 256, 10)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    a1, a0 = stats_packed.decode_count_planes(rows)
+
+    def kernels(dtype):
+        stats_packed.batch_stats_fused_v2_packed(rows, u, t1, t0, dtype=dtype)
+        stats_packed.lambda_stats_acat(a1, a0, up, t1, t0, dtype=dtype)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stats_packed.batch_stats_fused_v2_packed(rows, u, t1, t0,
+                                                     dtype=dtype)
+            stats_packed.lambda_stats_acat(a1, a0, up, t1, t0, dtype=dtype)
+            torch.cuda.synchronize()
+        return " ".join(e.key for e in prof.key_averages())
+
+    bf16, f32 = kernels(BF16), kernels(torch.float32)
+    assert "stats_v2_mma_kernel" in bf16 and "lambda_pass_mma_kernel" in bf16
+    assert "stats_v2_kernel" not in bf16 and "lambda_pass_kernel" not in bf16
+    assert "stats_v2_kernel" in f32 and "lambda_pass_kernel" in f32
+    assert "_mma_kernel" not in f32
