@@ -67,7 +67,25 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    4's, and for 100 in the stored mode, no f32 body of K4-K8 and no twin;
    one step each with stats_kernel "pair" (K4[bf16] + K5[bf16]), "fused"
    (K6[bf16]) and "fused_v2" (K7[bf16]) from one state, their gammas
-   within the bf16 pass tolerance; one chunk re-run twice bitwise equal.
+   within the bf16 pass tolerance; one chunk re-run twice bitwise equal;
+8. out-of-core streaming (svi/stream.py) from a PLINK .bed through an
+   on-disk cache, in a temporary directory removed at the end: (a) phase
+   4's matrix, re-simulated from seed 0, written with `write_bed`,
+   ingested with `bed_to_packed_cache` into an np.memmap and carved there
+   (its eval sets and carved bytes equal phase 4's), then
+   fit(stream=True) for 300 steps: K7 and K8 every step, K4 in the eval
+   and export, K1, K2 and K3 never, no twin; the heldout within
+   STREAM_HELDOUT_GAP of phase 4's resident fit; the device batches of
+   steps 0-2 bitwise the rows of SeedSequence((0, t))'s draw; one
+   streamed step bitwise step_core_packed + _global_update on its rows;
+   one chunk re-run bitwise; the streamed step's, the gather's and the
+   copy's ms beside phase 4's step; (b) the same data at bf16 for 100
+   steps, no f32 body of K4-K8; (c) config #5's width of N (1M
+   individuals, W = 250,000 bytes) with L cut to 16,384 so that the .bed
+   is 4.1 GB, not 250 GB: 20 streamed steps at rfreq 10, the launches
+   of (a), the step, gather and copy ms and the export's seconds, and K7
+   at the step's shape and K4 at the export's block against their twins
+   (summed over 256-row slices) with their times and bounds.
 
 Prints the kernels' JSON line (the bf16 bodies as entries of their own,
 "fused_local_solve[bf16]" and so on), the card line, and last
@@ -95,21 +113,25 @@ prints that tree's bits and times.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from terastructure_tpu_torch import SVIConfig, _build
 from terastructure_tpu_torch.converge import card_line
-from terastructure_tpu_torch.data import (GenotypeData, simulate_packed_device,
-                                          simulate_psd)
+from terastructure_tpu_torch.data import (GenotypeData, bed,
+                                          simulate_packed_device, simulate_psd)
 from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
-from terastructure_tpu_torch.svi import engine, fit
+from terastructure_tpu_torch.svi import engine, fit, stream
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
 TOL = 2e-4          # f32 kernel vs twin (sum order differs), as the reference's
@@ -1533,21 +1555,23 @@ def phase_tgp(dev, rec):
     return data, theta
 
 
-def bign_fit(dev, rec, cfg, data, theta, expect, absent):
+def bign_fit(dev, rec, cfg, data, theta, expect, absent, stream=False):
     """fit(cfg, data) on the big-N data with its launch counts (`expect`
     launched, `absent` not, no twin) and finite scores; returns the fit
     and its summary, with the histogram of how many loop passes the
     reference's tol test lets run in each of its subsampled solves (K8's,
     `local_solve_acat.loop_passes`; at most local_iters - 2 with accel)
-    and its step time (chunk seconds over steps)."""
+    and its step time (chunk seconds over steps). stream: fit out of
+    core, fit(stream=True)."""
     reset_counts()
     stats_packed.local_solve_acat.loop_passes = []
     try:
-        res = fit(cfg, data, device=dev)
+        res = fit(cfg, data, device=dev, stream=stream)
         passes = [int(n) for n in stats_packed.local_solve_acat.loop_passes]
     finally:
         stats_packed.local_solve_acat.loop_passes = None
-    tag = f"big-N fit {cfg.lambda_mode} {cfg.compute_dtype}"
+    tag = (f"big-N fit {cfg.lambda_mode} {cfg.compute_dtype}"
+           + (" streamed" if stream else ""))
     counts = read_counts(rec, tag, expect, absent)
     chunk_s, eval_s, rate = fit_rates(res, cfg.batch_size)
     th = psd.theta_mean(res.state.gamma[: cfg.n]).cpu().numpy()
@@ -1555,7 +1579,7 @@ def bign_fit(dev, rec, cfg, data, theta, expect, absent):
     summary = dict(steps=res.steps, theta_mae=mean_abs_theta_error(th, theta),
                    validation=res.validation_ll, heldout=res.heldout_ll,
                    snp_updates_per_s=rate, loop_passes=hist,
-                   step_ms=chunk_s / res.steps * 1e3)
+                   step_ms=chunk_s / res.steps * 1e3, counts=counts)
     log(f"  {tag}: steps={res.steps} chunk_s={chunk_s:.3f} "
         f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f} "
         f"snp_updates_per_s={rate:.1f} "
@@ -1823,6 +1847,284 @@ def phase_bign_bf16(dev, rec, bign):
     log("  big-N bf16 same-seed chunk re-run: gamma bitwise equal")
 
 
+# Phase 8: the streamed big-N fit against phase 4's resident fit on the
+# same data, seed and initial gamma, 300 steps each. Their minibatch draws
+# differ (the stream draws the reference's SeedSequence((seed, t)) groups,
+# the resident step its torch generator's K3 blocks), so the heldouts
+# differ by the draws' Monte-Carlo error: |gap| in nats, at least 3x the
+# gap measured on the card (both fits are deterministic, so every run
+# measures the same gap): 8.66e-4 nats (heldout -0.96272 streamed against
+# -0.96359 resident, theta MAE 0.0897 / 0.0903, NVIDIA H100 80GB HBM3,
+# 700 W).
+STREAM_HELDOUT_GAP = 0.005
+# Phase 8c: config #5's width of N with L cut from 1M to 16,384 SNPs, so
+# that the .bed is 4.1 GB instead of 250 GB (the full 1M x 1M file does
+# not fit this run's disk and time).
+CONFIG5_WIDTH = (1_000_000, 16_384, 10)    # N, L, K
+# the kernels the streamed big-N step never launches: no resident matrix
+# (K2), no gather on the card (K3), no fused branch (K1)
+STREAM_ABSENT = ("fused_local_solve", "fused_local_solve_dma",
+                 "gather_row_blocks", "fused_local_solve[bf16]",
+                 "fused_local_solve_dma[bf16]")
+
+
+def write_plink(tmp, stem, packed, n):
+    """packed (L, W) as tmp/stem.bed with its .fam and .bim; the path."""
+    path = f"{tmp}/{stem}.bed"
+    bed.write_bed(path, packed, n)
+    bed.write_fam(f"{tmp}/{stem}.fam", range(n))
+    bed.write_bim(f"{tmp}/{stem}.bim", range(packed.shape[0]))
+    return path
+
+
+def stream_data(dev, tmp, stem, n, l, k):
+    """simulate_packed_device(n, l, k, seed=0) written as a .bed, ingested
+    into an on-disk cache and carved there as phases 3 and 4 carve.
+    Returns (data with the cache memmap as its matrix, theta)."""
+    t0 = time.time()
+    packed, theta = simulate_packed_device(n, l, k, seed=0, device=dev)
+    t1 = time.time()
+    path = write_plink(tmp, stem, packed, n)
+    del packed
+    t2 = time.time()
+    cache, ind_ids, snp_ids = bed.bed_to_packed_cache(
+        path, f"{tmp}/{stem}.cache.npy")
+    t3 = time.time()
+    data = GenotypeData.from_packed(
+        cache, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
+        max_eval_entries=200_000, eval_snp_pool=2048, ind_ids=ind_ids,
+        snp_ids=snp_ids)
+    if not isinstance(data.packed, np.memmap) or len(data.ind_ids) != n:
+        raise AssertionError(f"{stem}: the carve left the cache")
+    log(f"  {stem}: simulate {t1 - t0:.1f} s, .bed write "
+        f"{t2 - t1:.1f} s ({os.path.getsize(path) / 1e9:.2f} GB), ingest "
+        f"{t3 - t2:.1f} s, carve {time.time() - t3:.1f} s")
+    return data, theta
+
+
+def stream_io_ms(dev, cfg, packed, reps=10):
+    """(gather ms, copy ms, batch bytes) of one streamed batch: the native
+    gather of step t's groups into a pinned buffer (host clock, over reps
+    steps' draws), and its copy to the card (CUDA events)."""
+    bs = stream.BatchStream(cfg, packed)          # its gather only
+    buf = torch.full((bs.b, bs.wp), 0xFF, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty((bs.b, bs.wp), dtype=torch.uint8, device=dev)
+    bs.gather(0, buf.numpy())
+    t = time.perf_counter()
+    for i in range(reps):
+        bs.gather(1 + i, buf.numpy())
+    gather_ms = (time.perf_counter() - t) / reps * 1e3
+    copy_ms = time_ms(lambda: dst.copy_(buf, non_blocking=True), reps)
+    return gather_ms, copy_ms, bs.b * bs.wp
+
+
+def steady_step_ms(chunk, state, packed, nsteps):
+    """ms a step of chunk(state, packed) (nsteps steps) after a first run
+    that builds what the runner keeps (the stream's pinned buffers): host
+    clock to a device value read back, the chunk's first batch, which
+    nothing overlaps, included."""
+    float(chunk(state, packed).gamma[0, 0])
+    t = time.perf_counter()
+    float(chunk(state, packed).gamma[0, 0])
+    return (time.perf_counter() - t) / nsteps * 1e3
+
+
+def stream_expect(dtype):
+    """(launched, absent) kernels of a streamed big-N fit at dtype: K8
+    and K7 in the steps, K4 in the eval and the export, no other body."""
+    if dtype == "bfloat16":
+        return (("lambda_stats_packed[bf16]", "batch_stats_fused_v2_packed"
+                 "[bf16]", "lambda_stats_acat[bf16]"),
+                STREAM_ABSENT + BIGN_F32 + ("gamma_stats_packed[bf16]",
+                                            "batch_stats_fused_packed[bf16]"))
+    return (("lambda_stats_packed", "batch_stats_fused_v2_packed",
+             "lambda_stats_acat"),
+            STREAM_ABSENT + ("gamma_stats_packed", "batch_stats_fused_packed")
+            + tuple(n for n in KERNELS if n.endswith("[bf16]")))
+
+
+def stream_fit(dev, rec, cfg, data, theta):
+    """A streamed big-N fit (bign_fit with stream=True) with K7 launched
+    once a step and K8 at least once a step."""
+    expect, absent = stream_expect(cfg.compute_dtype)
+    res, got = bign_fit(dev, rec, cfg, data, theta, expect, absent,
+                        stream=True)
+    k7, k8 = expect[1], expect[2]
+    if got["counts"][k7] != res.steps or got["counts"][k8] < res.steps:
+        raise AssertionError(f"streamed fit: {k7} or {k8} missed a step")
+    return res, got
+
+
+def phase_stream(dev, rec, bign):
+    """Out-of-core streaming: (a) phase 4's matrix through a .bed and an
+    on-disk cache, fit(stream=True) for 300 steps against phase 4's fit;
+    (b) the same at bf16 for 100 steps; (c) config #5's width of N."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        phase_stream_bign(dev, rec, bign, tmp)
+        for p in Path(tmp).iterdir():
+            p.unlink()
+        log("phase 8c: streamed fit at config #5's width of N")
+        phase_stream_config5(dev, rec, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_stream_bign(dev, rec, bign, tmp):
+    cfg = bign["cfg"]
+    n, l = cfg.n, cfg.l
+    data, theta = stream_data(dev, tmp, "bign", n, l, cfg.k)
+    ref = bign["data"]
+    for a, b in ((data.validation, ref.validation),
+                 (data.heldout, ref.heldout)):
+        if not all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in ("ind_idx", "snp_idx", "x")):
+            raise AssertionError("streamed data: eval sets differ from "
+                                 "phase 4's")
+    if not np.array_equal(data.packed, ref.packed):
+        raise AssertionError("streamed data: carved cache differs from "
+                             "phase 4's matrix")
+    log("  cache carve: eval sets and carved matrix equal phase 4's")
+    res, got = stream_fit(dev, rec, cfg, data, theta)
+    f32 = bign["f32"]
+    gap = abs(got["heldout"] - f32["heldout"])
+    log(f"  streamed / resident, {got['steps']} steps: theta_mae "
+        f"{got['theta_mae']:.4f} / {f32['theta_mae']:.4f}, validation "
+        f"{got['validation']:.5f} / {f32['validation']:.5f}, heldout "
+        f"{got['heldout']:.5f} / {f32['heldout']:.5f} (gap {gap:.2e}, "
+        f"limit {STREAM_HELDOUT_GAP:g}), step {got['step_ms']:.3f} / "
+        f"{f32['step_ms']:.3f} ms")
+    if not gap < STREAM_HELDOUT_GAP:
+        raise AssertionError("streamed fit: heldout too far from phase 4's")
+
+    # batches of steps 0-2: the reference's draw, gathered on the host
+    b, g = cfg.batch_size, cfg.snp_group
+    w = data.packed.shape[1]
+    bs = stream.BatchStream(cfg, data.packed, dev)
+    batches = []
+    for t in range(3):
+        rows = bs.ready(bs.batch(t))
+        starts = np.random.default_rng(np.random.SeedSequence(
+            (cfg.seed, t))).integers(0, l, size=b // g)
+        want = np.full((b, bs.wp), 0xFF, dtype=np.uint8)
+        want[:, :w] = data.packed[((starts[:, None] + np.arange(g)) % l
+                                   ).ravel()]
+        if not torch.equal(rows.cpu(), torch.from_numpy(want)):
+            raise AssertionError(f"streamed batch {t} is not the draw")
+        batches.append(rows)
+    log("  device batches of steps 0-2: bitwise packed[starts] of "
+        "SeedSequence((0, t))")
+    st = clone(res.state)
+    got_step = stream.make_stream_step(cfg, l)(st, batches[0]).gamma
+    gen = engine.step_generator(cfg.seed, st.t, dev, engine.SUB_TAG)
+    _, stat = engine.step_core_packed(cfg, st.gamma, batches[0], gen=gen)
+    if not torch.equal(got_step, engine._global_update(cfg, st.gamma, stat,
+                                                       st.t, l)):
+        raise AssertionError("streamed step differs from step_core_packed "
+                             "+ _global_update on its rows")
+    log("  streamed step: bitwise step_core_packed + _global_update")
+    chunk = stream.make_stream_chunk(cfg, cfg.rfreq, l)
+    a = chunk(clone(res.state), data.packed).gamma.cpu()
+    if not torch.equal(a, chunk(clone(res.state), data.packed).gamma.cpu()):
+        raise AssertionError("streamed chunk re-run is not bitwise equal")
+    log("  streamed same-seed chunk re-run: gamma bitwise equal")
+    gather_ms, copy_ms, nb = stream_io_ms(dev, cfg, data.packed)
+    # steady steps, 20-step chunks from the fit's state in turns resident,
+    # streamed, streamed, resident (the resident matrix from the carved
+    # cache, which equals phase 4's)
+    del batches, bs
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    resident = engine.make_run_chunk(cfg, 20, l)
+    streamed = stream.make_stream_chunk(cfg, 20, l)
+    turns = [steady_step_ms(fn, res.state, p, 20) for fn, p in (
+        (resident, packed_d), (streamed, data.packed),
+        (streamed, data.packed), (resident, packed_d))]
+    del packed_d
+    log(f"  host stream B={b} W={w}: batch {nb / 1e6:.1f} MB, gather "
+        f"{gather_ms:.3f} ms, copy {copy_ms:.3f} ms "
+        f"({nb / copy_ms / 1e6:.2f} GB/s); step in the {got['steps']}-step "
+        f"fits streamed {got['step_ms']:.3f} ms, resident {f32['step_ms']:.3f} "
+        f"ms; steady step in turns resident, streamed, streamed, resident "
+        f"{' / '.join(f'{x:.3f}' for x in turns)} ms")
+
+    log("phase 8b: the streamed fit at bfloat16")
+    _, got16 = stream_fit(dev, rec, cfg.replace(compute_dtype="bfloat16",
+                                                max_steps=100), data, theta)
+    log(f"  streamed bf16, {got16['steps']} steps: step "
+        f"{got16['step_ms']:.3f} ms, heldout {got16['heldout']:.5f}")
+
+
+def phase_stream_config5(dev, rec, tmp):
+    n, l, k = CONFIG5_WIDTH
+    data, theta = stream_data(dev, tmp, "config5", n, l, k)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=10, max_steps=20,
+                    seed=0, snp_group=8)
+    res, got = stream_fit(dev, rec, cfg, data, theta)
+    t = time.time()
+    lamb = stream.compute_lambda_stream(cfg, res.state.gamma, data.packed)
+    export_s = time.time() - t
+    if lamb.shape != (l, k, 2) or not np.isfinite(lamb).all():
+        raise AssertionError("config #5 width: export is not finite")
+    gather_ms, copy_ms, nb = stream_io_ms(dev, cfg, data.packed, reps=5)
+    steady = steady_step_ms(stream.make_stream_chunk(cfg, 10, l), res.state,
+                            data.packed, 10)
+    log(f"  host stream B={cfg.batch_size} W={data.packed.shape[1]}: batch "
+        f"{nb / 1e6:.1f} MB, gather {gather_ms:.3f} ms, copy "
+        f"{copy_ms:.3f} ms ({nb / copy_ms / 1e6:.2f} GB/s), step in the "
+        f"20-step fit {got['step_ms']:.3f} ms, steady step {steady:.3f} ms "
+        f"(10-step chunks), export {export_s:.2f} s")
+
+    # K7 at the step's shape and K4 at the export's block against their
+    # twins, the twins summed over 256-row slices (whole, each would hold
+    # ~60 GB of (B, 4W) temporaries)
+    bs = stream.BatchStream(cfg, data.packed, dev)
+    rows = bs.ready(bs.batch(0))
+    wp = rows.shape[1]
+    u = stats_packed.pad_individuals(exp_elog_theta(res.state.gamma), wp)
+    up = stats_packed.u_to_planes(u)
+    g = torch.Generator(device=dev).manual_seed(5)
+    lamb_b = 0.5 + 2.5 * torch.rand((rows.shape[0], k, 2), generator=g,
+                                    device=dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb_b)
+
+    def sliced(fn, b):
+        return [fn(slice(i, min(i + 256, b))) for i in range(0, b, 256)]
+
+    def k7_twin():
+        parts = sliced(lambda s: twin_stats(rows[s], up, t1[s], t0[s]),
+                       rows.shape[0])
+        return (sum(p[0] for p in parts), torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts]))
+
+    shape = f"B={rows.shape[0]} W={wp} K={k}"
+    hold(rec, "batch_stats_fused_v2_packed", f"K7 {shape}",
+         twice(f"K7 {shape}", lambda: stats_packed.batch_stats_fused_v2_packed(
+             rows, u, t1, t0)), k7_twin(), TOL)
+    torch.cuda.empty_cache()
+    e = dict(shape=shape, ms=time_ms(
+        lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1, t0), 5))
+    log(f"  K7 {shape}: kernel {e['ms']:.4f} ms")
+    set_bound(e, present(rows) * (12 * k + 2),
+              nbytes(rows, u, t1, t0, u, t1, t0))
+    rec["batch_stats_fused_v2_packed"]["config5_width"] = e
+    eb = min(1024, rows.shape[0])         # the export's block of rows
+    blk, bt1, bt0 = rows[:eb].contiguous(), t1[:eb], t0[:eb]
+    shape = f"B={eb} W={wp} K={k}"
+    hold(rec, "lambda_stats_packed", f"K4 {shape}",
+         twice(f"K4 {shape}", lambda: stats_packed.lambda_stats_packed(
+             blk, up, bt1, bt0)),
+         [torch.cat(p) for p in zip(*sliced(
+             lambda s: stats_packed.lambda_stats_packed_twin(
+                 blk[s], up, bt1[s], bt0[s]), eb))], TOL)
+    torch.cuda.empty_cache()
+    e = dict(shape=shape, ms=time_ms(
+        lambda: stats_packed.lambda_stats_packed(blk, up, bt1, bt0), 10))
+    log(f"  K4 {shape}: kernel {e['ms']:.4f} ms")
+    set_bound(e, present(blk) * lambda_pass_flops(k),
+              nbytes(blk, up, bt1, bt0, bt1, bt0))
+    rec["lambda_stats_packed"]["config5_width"] = e
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -2048,6 +2350,9 @@ def main(argv=()) -> int:
     phase_bf16_drives(dev, rec, *tgp, f32)
     log("phase 7: compute_dtype bfloat16 on the big-N shape")
     phase_bign_bf16(dev, rec, bign)
+    log("phase 8: out-of-core streaming from a .bed through an on-disk "
+        "cache")
+    phase_stream(dev, rec, bign)
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

@@ -12,10 +12,13 @@ counterpart is easy to find:
     terastructure_tpu.ops.stats_pallas  -> terastructure_tpu_torch.ops.stats_packed
     terastructure_tpu.ops.fused_step    -> terastructure_tpu_torch.ops.fused_step
     terastructure_tpu.svi.*             -> terastructure_tpu_torch.svi.*
+    terastructure_tpu.native            -> terastructure_tpu_torch.native
 
 The Pallas kernels on the main path are hand-written CUDA C++ under
 `csrc/`, built with nvcc for sm_90a at first use (`_build.py`). Every
-kernel wrapper runs a plain PyTorch twin when given CPU tensors.
+kernel wrapper runs a plain PyTorch twin when given CPU tensors. The
+host ingest core (`native/bedops.cpp`: the .bed translation and the
+streaming sampler's row gather) is built with g++ at first use.
 
 This package imports torch and never jax.
 """

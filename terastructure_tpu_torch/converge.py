@@ -22,21 +22,35 @@ chunks, and the kernels' launch counts (f32 and bf16 bodies apart).
 --compute-dtype is the reference CLI's flag: "bfloat16" runs the bf16
 bodies (configs 1-3: K1 or K2, and K4; config 5, the big-N step: K8, K7,
 K3 and K4).
+
+    python -m terastructure_tpu_torch.converge --config 5 --scale 0.1 --stream
+
+--stream fits out of core, as a matrix larger than the card is fitted:
+the simulated matrix is written as a PLINK .bed/.fam/.bim in a temporary
+directory, ingested into an on-disk cache (data/bed.bed_to_packed_cache),
+carved there, and fitted with fit(stream=True), which keeps the matrix
+on the host and streams each minibatch to the card (svi/stream.py; the
+big-N step's K8 and K7, K4 for the eval and the export). The record adds
+the seconds of the .bed write and of the ingest; the directory is
+removed at the end.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from terastructure_tpu_torch import SVIConfig
-from terastructure_tpu_torch.data import GenotypeData, simulate_packed_device
+from terastructure_tpu_torch.data import (GenotypeData, bed,
+                                          simulate_packed_device)
 from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
@@ -65,17 +79,44 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def to_cache(packed, n, tmp):
+    """Write packed (L, W) as tmp/sim.bed (+ .fam/.bim) and ingest it into
+    the on-disk cache tmp/sim.cache.npy. Returns (the cache memmap, the
+    write's seconds, the ingest's seconds)."""
+    t0 = time.time()
+    path = f"{tmp}/sim.bed"
+    bed.write_bed(path, packed, n)
+    bed.write_fam(f"{tmp}/sim.fam", range(n))
+    bed.write_bim(f"{tmp}/sim.bim", range(packed.shape[0]))
+    t1 = time.time()
+    cache, _, _ = bed.bed_to_packed_cache(path, f"{tmp}/sim.cache.npy")
+    return cache, t1 - t0, time.time() - t1
+
+
 def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
-        batch_size: int | None = None, compute_dtype: str = "float32") -> dict:
+        batch_size: int | None = None, compute_dtype: str = "float32",
+        stream: bool = False) -> dict:
     """Simulate, carve and fit `config`; return the record. scale shrinks
     N and L (keeping N % 4 == 0 and L % 8 == 0); batch_size overrides the
-    config's (a small rehearsal)."""
+    config's (a small rehearsal); stream fits out of core from a .bed."""
+    with (tempfile.TemporaryDirectory(prefix="converge_stream_") if stream
+          else contextlib.nullcontext()) as tmp:
+        return _fit(config, device, max_steps, scale, batch_size,
+                    compute_dtype, tmp)
+
+
+def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
+    """run()'s body; tmp is the directory of the .bed and its cache, or
+    None for a resident fit."""
     spec = CONFIGS[config]
     n = max(4, int(spec["n"] * scale) // 4 * 4)
     l = max(8, int(spec["l"] * scale) // 8 * 8)
     k = spec["k"]
     t0 = time.time()
     packed, theta = simulate_packed_device(n, l, k, seed=0, device=device)
+    io = {}
+    if tmp is not None:
+        packed, io["bed_write_s"], io["ingest_s"] = to_cache(packed, n, tmp)
     data = GenotypeData.from_packed(
         packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
         max_eval_entries=min(max(int(0.005 * n * l), 100), 200_000),
@@ -89,7 +130,7 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
         f.launches = f.twin_calls = 0
         if hasattr(f, "bf16_launches"):
             f.bf16_launches = 0
-    res = fit(cfg, data, device=device)
+    res = fit(cfg, data, device=device, stream=tmp is not None)
     counts = {f.__name__: (f.launches, f.twin_calls,
                            getattr(f, "bf16_launches", 0)) for f in COUNTED}
 
@@ -102,7 +143,7 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
     chunk_s = sum(r["chunk_s"] for r in res.trace)
     return dict(
         config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, stream=tmp is not None, **io,
         device=str(torch.device(device)), steps=res.steps,
         converged=res.converged, theta_mae=mean_abs_theta_error(th, theta),
         heldout_ll=res.heldout_ll, oracle_ll=oracle,
@@ -122,13 +163,17 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
                     default="float32")
+    ap.add_argument("--stream", action="store_true",
+                    help="fit out of core from a .bed through an on-disk "
+                         "cache (fit(stream=True))")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("converge: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
     print(json.dumps(run(args.config, device="cuda", max_steps=args.max_steps,
-                         scale=args.scale, compute_dtype=args.compute_dtype)),
+                         scale=args.scale, compute_dtype=args.compute_dtype,
+                         stream=args.stream)),
           flush=True)
     return 0
 

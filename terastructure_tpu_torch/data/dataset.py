@@ -5,9 +5,12 @@ Training genotypes live 2-bit packed, SNP-major: uint8 (L, ceil(N/4)).
 Validation and heldout entries are re-coded MISSING in the training
 matrix and kept as COO (ind_idx, snp_idx, x) arrays for scoring. All of
 this is host numpy and draws the same split as the reference for the
-same seed, so both packages fit and score the same data.
+same seed, so both packages fit and score the same data. The carve works
+on an np.memmap as on an array (`from_bed`, or `from_packed` on the cache
+of data/bed.bed_to_packed_cache): its lookups read the touched bytes and
+its recode writes them back to the mapped file.
 
-`from_bed` and the device-resident carve wait for the I/O slice.
+The device-resident carve waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -133,6 +136,8 @@ class GenotypeData:
     packed: np.ndarray                    # uint8 (l, W) train codes
     validation: Optional[EntrySet] = None
     heldout: Optional[EntrySet] = None
+    ind_ids: Optional[list] = None        # individual labels (.fam)
+    snp_ids: Optional[list] = None        # SNP labels (.bim)
 
     # Per-set eval cap: ~500K entries already give MC error ~1e-3 nats.
     MAX_EVAL_ENTRIES = 500_000
@@ -146,12 +151,15 @@ class GenotypeData:
         validation_frac: float = 0.005,
         heldout_frac: float = 0.005,
         seed: int = 0,
+        ind_ids=None,
+        snp_ids=None,
         max_eval_entries: Optional[int] = None,
         eval_snp_pool: int = 0,
         copy: bool = False,
     ) -> "GenotypeData":
         """Carve eval sets directly on a packed matrix (mutated in place
-        unless copy=True)."""
+        unless copy=True; an np.memmap stays one, so a fit can stream
+        it)."""
         l = packed.shape[0]
         if packed.shape[1] != packed_width(n):
             raise ValueError(f"packed width {packed.shape[1]} != ceil({n}/4)")
@@ -167,7 +175,32 @@ class GenotypeData:
         validation, heldout = _carve_entries(
             packed, n, l, n_val, n_held, rng, snp_pool=eval_snp_pool)
         return cls(n=n, l=l, packed=packed, validation=validation,
-                   heldout=heldout)
+                   heldout=heldout, ind_ids=ind_ids, snp_ids=snp_ids)
+
+    @classmethod
+    def from_bed(
+        cls,
+        path: str,
+        *,
+        validation_frac: float = 0.005,
+        heldout_frac: float = 0.005,
+        seed: int = 0,
+        max_eval_entries: Optional[int] = None,
+        eval_snp_pool: int = 0,
+    ) -> "GenotypeData":
+        """PLINK .bed (+ sibling .fam/.bim) -> packed dataset: one pass
+        into the packed layout (peak host memory n*l/4 bytes, never the
+        dense n*l), then the carve. For a matrix larger than host memory,
+        ingest with data/bed.bed_to_packed_cache and carve the memmap with
+        `from_packed`."""
+        from terastructure_tpu_torch.data.bed import read_bed
+
+        packed, ind_ids, snp_ids = read_bed(path)
+        return cls.from_packed(
+            packed, len(ind_ids),
+            validation_frac=validation_frac, heldout_frac=heldout_frac,
+            seed=seed, ind_ids=ind_ids, snp_ids=snp_ids,
+            max_eval_entries=max_eval_entries, eval_snp_pool=eval_snp_pool)
 
     @classmethod
     def from_dense(
@@ -177,6 +210,8 @@ class GenotypeData:
         validation_frac: float = 0.005,
         heldout_frac: float = 0.005,
         seed: int = 0,
+        ind_ids=None,
+        snp_ids=None,
         max_eval_entries: Optional[int] = None,
         eval_snp_pool: int = 0,
     ) -> "GenotypeData":
@@ -185,5 +220,5 @@ class GenotypeData:
         return cls.from_packed(
             pack2bit(xt), n,
             validation_frac=validation_frac, heldout_frac=heldout_frac,
-            seed=seed, max_eval_entries=max_eval_entries,
-            eval_snp_pool=eval_snp_pool)
+            seed=seed, ind_ids=ind_ids, snp_ids=snp_ids,
+            max_eval_entries=max_eval_entries, eval_snp_pool=eval_snp_pool)

@@ -20,9 +20,13 @@ resident fit's K1, K2 at snp_group 8; the big-N step's K8, K7, or K4 +
 K5 or K6; eval and export through K4): T, U and R enter the products
 rounded to bf16, the sums and everything outside the products stay f32.
 
-Not yet ported (NotImplementedError): stream=True (slice S5),
-step_fn_factory (multi-GPU, S8), checkpoint_dir (S9), init="spectral"
-(S7).
+stream=True keeps the packed matrix on the host (an array or the
+np.memmap of data/bed.bed_to_packed_cache) and streams each minibatch to
+the device (svi/stream.py): the out-of-core path for a matrix larger
+than the card's memory. It requires lambda_mode="local".
+
+Not yet ported (NotImplementedError): step_fn_factory (multi-GPU, S8),
+checkpoint_dir (S9), init="spectral" (S7).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 from terastructure_tpu_torch.config import SVIConfig
 from terastructure_tpu_torch.data.dataset import GenotypeData
-from terastructure_tpu_torch.svi import engine
+from terastructure_tpu_torch.svi import engine, stream as stream_mod
 from terastructure_tpu_torch.svi.postprocess import compute_lambda
 
 log = logging.getLogger("terastructure_tpu_torch")
@@ -71,12 +75,12 @@ def fit(
 
     device: where the fit runs. None means the first CUDA card, and
     raises RuntimeError where there is none; pass device="cpu" to run on
-    the CPU. The width-padded packed matrix moves there once.
+    the CPU. The width-padded packed matrix moves there once, unless
+    stream=True: then it stays on the host, and only minibatches, the
+    eval SNPs' rows and the export's row chunks move.
     """
     if cfg.n != data.n or cfg.l != data.l:
         raise ValueError("config/data shape mismatch")
-    if stream:
-        _not_ported("stream=True", "slice S5, streaming")
     if step_fn_factory is not None:
         _not_ported("step_fn_factory", "slice S8, multi-GPU")
     if checkpoint_dir is not None:
@@ -91,10 +95,16 @@ def fit(
     device = torch.device(device)
     local_mode = cfg.lambda_mode == "local"
 
-    packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
-    packed = packed.to(device)
+    if stream:
+        packed = data.packed                     # stays on the host
+        run_chunk = stream_mod.make_stream_chunk(cfg, cfg.rfreq,
+                                                 int(packed.shape[0]))
+    else:
+        packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
+        packed = packed.to(device)
+        run_chunk = engine.make_run_chunk(cfg, cfg.rfreq,
+                                          int(packed.shape[0]))
     state = engine.init_state(cfg, l_padded=packed.shape[0], device=device)
-    run_chunk = engine.make_run_chunk(cfg, cfg.rfreq, int(packed.shape[0]))
 
     def make_scorer(es):
         """(state -> mean ll) for an entry set. Local mode: the lambdas of
@@ -158,7 +168,12 @@ def fit(
     if local_mode:
         # lambda is derived state in the local mode: materialize it for
         # export (the stored mode's lambda is the result)
-        state = state._replace(lamb=compute_lambda(cfg, state.gamma, packed))
+        if stream:
+            lamb = torch.from_numpy(stream_mod.compute_lambda_stream(
+                cfg, state.gamma, packed)).to(device)
+        else:
+            lamb = compute_lambda(cfg, state.gamma, packed)
+        state = state._replace(lamb=lamb)
 
     held_scorer = make_scorer(data.heldout)
     held_ll = held_scorer(state) if held_scorer is not None else None

@@ -40,3 +40,23 @@ def test_converge_record_at_a_tiny_size():
     assert rec["oracle_ll"] < 0 and rec["launches"] == {
         name: 0 for name in rec["launches"]}
     assert rec["twin_calls"]["fused_local_solve"] == 200
+
+
+def test_converge_stream_record_at_a_tiny_size():
+    """--stream: the matrix goes through a .bed and the on-disk cache and
+    is fitted out of core (the big-N step's twins here, K1's never), and
+    the temporary directory is removed."""
+    import tempfile
+    from pathlib import Path
+
+    before = set(Path(tempfile.gettempdir()).glob("converge_stream_*"))
+    rec = converge.run(5, device="cpu", max_steps=100, scale=0.0004,
+                       batch_size=64, stream=True)
+    assert (rec["n"], rec["l"], rec["k"]) == (400, 400, 10)
+    assert rec["stream"] and rec["steps"] == 100
+    assert rec["bed_write_s"] >= 0 and rec["ingest_s"] >= 0
+    for key in ("theta_mae", "heldout_ll", "validation_ll"):
+        assert np.isfinite(rec[key]), key
+    assert rec["twin_calls"]["batch_stats_fused_v2_packed"] == 100
+    assert rec["twin_calls"]["fused_local_solve"] == 0
+    assert set(Path(tempfile.gettempdir()).glob("converge_stream_*")) == before

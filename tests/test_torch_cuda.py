@@ -723,3 +723,84 @@ def test_bf16_k7_and_k8_reach_the_tensor_core_kernels(cuda_device):
     assert "stats_v2_kernel" not in bf16 and "lambda_pass_kernel" not in bf16
     assert "stats_v2_kernel" in f32 and "lambda_pass_kernel" in f32
     assert "_mma_kernel" not in f32
+
+
+def _stream_setup(dev, n=4096, l=512, g=8, seed=3):
+    """A host matrix and a config for the card's streamed step."""
+    from terastructure_tpu_torch import SVIConfig
+
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, size=(l, n // 4 - 3), dtype=np.uint8)
+    cfg = SVIConfig(n=4 * packed.shape[1], l=l, k=5, batch_size=256,
+                    seed=seed, snp_group=g, local_sub_n=512)
+    return packed, cfg
+
+
+@pytest.mark.cuda
+def test_stream_batches_equal_host_gather_with_prefetch_in_flight(
+        cuda_device):
+    """Eight batches through the chunk's own pattern (batch t + 1 is
+    gathered and copied while batch t is read), so both pinned buffers
+    are refilled three times: each device batch equals the numpy gather of
+    the reference's draw, read after work on the compute stream that
+    follows it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from terastructure_tpu_torch.svi.stream import BatchStream
+
+    packed, cfg = _stream_setup(cuda_device)
+    bs = BatchStream(cfg, packed, cuda_device)
+    l, w, g = packed.shape[0], packed.shape[1], bs.g
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(bs.batch, 0)
+        for t in range(8):
+            rows = bs.ready(fut.result())
+            fut = ex.submit(bs.batch, t + 1)
+            # work on the compute stream that reads the batch first
+            busy = rows.float().sum() + (rows.float() @ rows.float().T).sum()
+            got = rows.cpu().numpy()
+            starts = np.random.default_rng(
+                np.random.SeedSequence((cfg.seed, t))).integers(0, l, 256 // g)
+            idx = ((starts[:, None] + np.arange(g)) % l).ravel()
+            assert got.shape == (256, bs.wp) and bool(torch.isfinite(busy))
+            np.testing.assert_array_equal(got[:, :w], packed[idx])
+            assert (got[:, w:] == 0xFF).all()
+        fut.result()
+
+
+@pytest.mark.cuda
+def test_stream_chunk_reruns_bitwise_and_runs_the_kernels(cuda_device):
+    from terastructure_tpu_torch.ops import stats_packed as pk
+    from terastructure_tpu_torch.svi import engine, stream
+
+    packed, cfg = _stream_setup(cuda_device)
+    st = engine.init_state(cfg, device=cuda_device)
+    chunk = stream.make_stream_chunk(cfg, 6, cfg.l)
+    before = (pk.batch_stats_fused_v2_packed.launches,
+              pk.lambda_stats_acat.launches,
+              pk.batch_stats_fused_v2_packed.twin_calls)
+    a = chunk(st, packed)
+    b = chunk(st, packed)
+    assert a.t == 6 and torch.equal(a.gamma, b.gamma)
+    assert bool(torch.isfinite(a.gamma).all())
+    assert pk.batch_stats_fused_v2_packed.launches == before[0] + 12
+    assert pk.lambda_stats_acat.launches > before[1]
+    assert pk.batch_stats_fused_v2_packed.twin_calls == before[2]
+
+
+@pytest.mark.cuda
+def test_stream_worker_exception_propagates(cuda_device, monkeypatch):
+    from terastructure_tpu_torch.svi import engine, stream
+
+    packed, cfg = _stream_setup(cuda_device)
+    gather = stream.BatchStream.gather
+
+    def failing(self, t, out):
+        if t == 4:
+            raise OSError("read failed at step 4")
+        gather(self, t, out)
+
+    monkeypatch.setattr(stream.BatchStream, "gather", failing)
+    st = engine.init_state(cfg, device=cuda_device)
+    with pytest.raises(OSError, match="step 4"):
+        stream.make_stream_chunk(cfg, 6, cfg.l)(st, packed)

@@ -1,6 +1,8 @@
 """The port and chip_smoke.py import and run with jax and the JAX package
 blocked: the machine with the card has no JAX, and the port keeps its own
-copies of what it needs (config, label alignment). `fit` without a device
+copies of what it needs (config, label alignment, the .bed ingest and its
+native core, whose library is the port's own, never the reference's
+_bedops.so). `fit` without a device
 runs on the card, and raises where there is none."""
 
 import ast
@@ -25,6 +27,24 @@ data = GenotypeData.from_dense(x, validation_frac=0.02, heldout_frac=0.02,
 res = fit(SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20, max_steps=40,
                     seed=1), data, device="cpu")
 assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+# the streamed fit, its .bed ingest and the native core it builds
+import tempfile
+from terastructure_tpu_torch import native
+from terastructure_tpu_torch.data import bed
+from terastructure_tpu_torch.svi import stream
+with tempfile.TemporaryDirectory() as tmp:
+    bed.write_bed(tmp + "/d.bed", data.packed, 32)
+    bed.write_fam(tmp + "/d.fam", range(32))
+    bed.write_bim(tmp + "/d.bim", range(128))
+    cache, _, _ = bed.bed_to_packed_cache(tmp + "/d.bed", tmp + "/c.npy")
+    res = fit(SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20,
+                        max_steps=40, seed=1),
+              GenotypeData.from_packed(cache, 32, validation_frac=0.02,
+                                       heldout_frac=0.02, seed=1),
+              device="cpu", stream=True)
+    assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+maps = open("/proc/self/maps").read()
+assert "libbedops_" in maps and "_bedops.so" not in maps
 assert not {"jax", "terastructure_tpu"} & {
     m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 sys.exit(chip_smoke.main())        # no CUDA card here: must refuse
