@@ -85,10 +85,28 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    is 4.1 GB, not 250 GB: 20 streamed steps at rfreq 10, the launches
    of (a), the step, gather and copy ms and the export's seconds, and K7
    at the step's shape and K4 at the export's block against their twins
-   (summed over 256-row slices) with their times and bounds.
+   (summed over 256-row slices) with their times and bounds;
+9. batched replicates (`fit_replicates_batched`, R_REP = 4 seeds in
+   lockstep; `phase_replicates`): (a) config #1 to convergence in the
+   local mode against a single fit per seed (stop step, gamma at the
+   stop bitwise, validation ll within 1e-6, the same best), each within
+   phase 2's limits, K1 and K4 launched only with the replicate axis, no
+   twin, no K2 or K3, and the batched step's ms against R single steps
+   in turns; (b) the stored mode, R = 3, 100 steps, gamma and lambda
+   bitwise; (c) bf16, 100 steps, bitwise, no f32 body; (d) config #2's
+   width (940 x 640,000, K = 7, B = 1,024) to convergence, each
+   replicate's stop, scores and theta MAE, the best within theta MAE
+   0.02 and 0.02 nats of the oracle and bitwise its single fit.
+Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
+shapes phase 9 runs them at (config #1's and config #2's step and eval
+block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
+bitwise the single call on its inputs, a replicate that exits its tol
+loop alone, times in turns with R single calls beside R x the single
+bound (`phase_kernels_rep`).
 
 Prints the kernels' JSON line (the bf16 bodies as entries of their own,
-"fused_local_solve[bf16]" and so on), the card line, and last
+"fused_local_solve[bf16]" and so on, the replicate axis as
+"fused_local_solve[rep]" and "lambda_stats_packed[rep]"), the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card.
 
@@ -232,6 +250,17 @@ KERNELS = {
         fn=stats_packed.lambda_stats_acat, counter="bf16_launches",
         source="terastructure_tpu_torch/csrc/stats_acat.cu",
         replaces="terastructure_tpu/ops/stats_pallas.py:463"),
+    # the replicate axis (batched replicates): R solves or passes in one
+    # launch, both dtypes counted in rep_launches (and in launches or
+    # bf16_launches as well); times at R = 4, f32 (bf16 as bf16_ms)
+    "fused_local_solve[rep]": dict(
+        fn=fused_step.fused_local_solve, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/fused_step.cu",
+        replaces="terastructure_tpu/ops/fused_step.py:423"),
+    "lambda_stats_packed[rep]": dict(
+        fn=stats_packed.lambda_stats_packed, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/stats_packed.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:152"),
 }
 # the f32 bodies of the big-N step's kernels: none may launch at bf16
 BIGN_F32 = ("lambda_stats_packed", "gamma_stats_packed",
@@ -401,10 +430,11 @@ def solve_bound(r, rows, up, lamb, kw, extra_bytes=0):
                   moved)
 
 
-def compare(name, got, want, tol, outlier_frac=0.0):
+def compare(name, got, want, tol, outlier_frac=0.0, cap=None):
     """Max abs error; fails where |got - want| > atol + rtol*|want| on more
     than `outlier_frac` of the entries, or on any non-finite value. tol is
-    rtol = atol, or the pair (rtol, atol)."""
+    rtol = atol, or the pair (rtol, atol). cap: also fails where any entry
+    is beyond atol + cap*|want| (the outliers' size)."""
     rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
     got = [g.float() for g in got]
     want = [w.float() for w in want]
@@ -414,6 +444,13 @@ def compare(name, got, want, tol, outlier_frac=0.0):
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     log(f"  {name}: max_abs_err={err:.3e} tol={tol} "
         f"outside_tol={out:.2e} (allowed {outlier_frac:g}) finite={finite}")
+    if cap is not None:
+        rel = max(float(((g - w).abs() / w.abs().clamp_min(atol)).max())
+                  for g, w in zip(got, want))
+        log(f"  {name}: largest deviation {rel:.3e} of |twin| (cap {cap:g})")
+        if not all(bool(((g - w).abs() <= atol + cap * w.abs()).all())
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: an entry beyond the cap")
     if out > outlier_frac or not finite:
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     return err
@@ -428,9 +465,9 @@ def twice(label, fn):
     return got
 
 
-def hold(rec, name, label, got, want, tol, frac=0.0):
+def hold(rec, name, label, got, want, tol, frac=0.0, cap=None):
     """compare, and keep the largest error in rec[name]["max_abs_err"]."""
-    err = compare(label, got, want, tol, frac)
+    err = compare(label, got, want, tol, frac, cap)
     rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
 
@@ -567,6 +604,7 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_tiling(dev, rec)
     phase_kernels_wide(dev, rec)
     phase_kernels_bf16(dev, rec)
+    phase_kernels_rep(dev, rec)
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -1091,6 +1129,224 @@ def in_turns(fa, fb, timer="events", reps=20):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
+R_REP = 4    # replicates of the replicate-axis checks and of phase 9
+# B, W, K of the replicate-axis cases and the kernels each runs there:
+# first the shapes phase 9 runs (pad_width makes config #1's 1,000 and
+# config #2's 940 individuals 256 bytes; the eval re-solves blocks of
+# 1,024 rows), then the TGP step and a ragged B. The kernels' line takes
+# each kernel's times and bound from its first shape.
+REP_G_CAP = 1e-2    # every entry of K1[rep]'s g at the warm accel start
+REP_SHAPES = [
+    (256, 256, 3, ("K1",)),           # config #1's step (phase 9a-c)
+    (1024, 256, 3, ("K4",)),          # config #1's eval block
+    (1024, 256, 7, ("K1", "K4")),     # config #2's step and eval block (9d)
+    (4096, 640, 8, ("K1", "K4")),     # the TGP step
+    (1000, 256, 3, ("K1", "K4")),     # ragged B
+]
+
+
+def _rep_inputs(b, w, k, seed, dev, r=R_REP):
+    """r replicates' solve inputs, each `_solve_inputs` of its own seed:
+    rows (r, B, W), u planes (r, 4, W, K), lambda (r, B, K, 2)."""
+    ins = [_solve_inputs(b, w, k, seed + i, dev) for i in range(r)]
+    return tuple(torch.stack(x) for x in zip(*ins))
+
+
+def _bitwise_per_replicate(label, got, singles):
+    """Each replicate's outputs of a batched call are bitwise the single
+    call's on its inputs."""
+    for i, one in enumerate(singles):
+        if not all(torch.equal(g[i], o) for g, o in zip(got, one)):
+            raise AssertionError(f"{label}: replicate {i} differs from the "
+                                 "single call")
+
+
+def phase_kernels_rep(dev, rec):
+    """K1 and K4 with the replicate axis (R = 4) at the shapes phase 9
+    runs them at (config #1's step and eval block, config #2's step and
+    eval block), the TGP step and a ragged B, f32 and bf16: each
+    replicate's outputs bitwise the single kernel's on its inputs, a
+    second run bitwise, and held against the twins (the single calls'
+    tolerances). K1 cold (the local mode) and warm (the stored mode),
+    with replicate 0 warm-started at its fixed point, so that its tol
+    loop exits after the first pass while the others run on (its single
+    solve with the loop forced on differs: the exit was its own). K4 over
+    rows every replicate shares and over rows of their own. Times in turns
+    with the R single calls, beside R x the single bound (the passes each
+    replicate's data needs).
+    """
+    main = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+                beta_b=1.0)
+    r1, r4 = rec["fused_local_solve[rep]"], rec["lambda_stats_packed[rep]"]
+    r1["max_abs_err"] = r4["max_abs_err"] = 0.0
+    r1["shapes"], r4["shapes"] = [], []
+    for b, w, k, kernels in REP_SHAPES:
+        shape = f"R={R_REP} B={b} W={w} K={k}"
+        rows, up, lamb = _rep_inputs(b, w, k, b + w + k, dev)
+        if "K1" in kernels:
+            _hold_k1_rep(rec, shape, rows, up, lamb, main)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        if "K4" in kernels:
+            _hold_k4_rep(rec, shape, rows, up, t1, t0)
+        _time_rep(rec, shape, kernels, rows, up, lamb, t1, t0, main)
+
+
+def _hold_k1_rep(rec, shape, rows, up, lamb, main):
+    """K1[rep] cold, warm and cold with replicate 0 all MISSING, f32 and
+    bf16 (`phase_kernels_rep`)."""
+    rows_m = rows.clone()
+    rows_m[0] = 0xFF              # replicate 0 all MISSING
+    for dtype in (torch.float32, BF16):
+        dname = "bf16" if dtype == BF16 else "f32"
+        lam0 = lamb.clone()
+        # replicate 0 at its fixed point: 200 plain passes at this dtype
+        lam0[0] = fused_step.fused_local_solve(
+            rows[0], up[0], lamb[0], local_iters=200, local_tol=-1.0,
+            beta_a=1.0, beta_b=1.0, warm_start=True, dtype=dtype)[0]
+        for case, warm, rr in (("cold", False, rows), ("warm", True, rows),
+                               ("cold, replicate 0 MISSING", False,
+                                rows_m)):
+            kw = dict(main, dtype=dtype, warm_start=warm)
+            label = f"K1[rep] {shape} {dname} {case}"
+            got = twice(label, lambda: fused_step.fused_local_solve(
+                rr, up, lam0, **kw))
+            singles = [fused_step.fused_local_solve(
+                rr[i], up[i], lam0[i], **kw) for i in range(R_REP)]
+            _bitwise_per_replicate(label, got, singles)
+            twins = [fused_step.fused_local_solve_twin(
+                rr[i], up[i], lam0[i], **kw) for i in range(R_REP)]
+            tol = TOL if dtype == torch.float32 else TOL_BF16_SOLVE
+            want = [torch.stack(x) for x in zip(*twins)]
+            # a warm start far from the fixed point meets the accel
+            # tail's clamped Aitken step: a lambda coordinate it moves far
+            # shifts g in every column its row touches, so g is held by
+            # the size of every entry (rtol REP_G_CAP), not by the share
+            # beyond tol (measured on NVIDIA H100 80GB HBM3,
+            # 700 W: 2.77% of the 4 replicates' g beyond TOL at config
+            # #2's step, the largest 8.3e-4 of |twin|; the single K1 does
+            # the same, each replicate being bitwise its single call)
+            hold(rec, "fused_local_solve[rep]", f"{label} g", got[1:],
+                 want[1:], tol, 1.0 if warm else 0.0,
+                 cap=REP_G_CAP if warm else None)
+            hold(rec, "fused_local_solve[rep]", f"{label} lambda",
+                 got[:1], want[:1], tol, 1e-2)
+            passes = [solve_passes(rr[i], up[i], lam0[i], **kw)
+                      for i in range(R_REP)]
+            log(f"  {label}: each replicate bitwise its single solve; "
+                f"lambda passes a replicate (twin replay) {passes}")
+            # replicate 0's own exit: at its fixed point (f32; bf16's
+            # rounding keeps its change above the tol) and MISSING
+            if case == "cold" or (case == "warm" and dtype == BF16):
+                continue
+            if passes[0] != 4 or min(passes[1:]) <= 4:
+                raise AssertionError(f"{label}: replicate 0 does not "
+                                     f"exit after the first pass alone")
+            if case == "warm":
+                forced = fused_step.fused_local_solve(
+                    rr[0], up[0], lam0[0], **dict(kw, local_tol=-1.0))
+                if torch.equal(forced[1], got[1][0]):
+                    raise AssertionError(f"{label}: replicate 0's early "
+                                         "exit changed nothing")
+            log(f"  {label}: replicate 0 exits after the first loop "
+                "pass, the others run on"
+                + ("; its solve with the loop forced on differs"
+                   if case == "warm" else ""))
+
+
+def _hold_k4_rep(rec, shape, rows, up, t1, t0):
+    """K4[rep] over rows shared and rows of each replicate's own, f32 and
+    bf16, both divides (`phase_kernels_rep`)."""
+    for dtype in (torch.float32, BF16):
+        dname = "bf16" if dtype == BF16 else "f32"
+        for approx in (False, True):
+            for shared in (True, False):
+                rr = rows[0] if shared else rows
+                label = (f"K4[rep] {shape} {dname} approx={approx} "
+                         f"rows {'shared' if shared else 'own'}")
+                got = twice(label, lambda: stats_packed.lambda_stats_packed(
+                    rr, up, t1, t0, approx_div=approx, dtype=dtype))
+                singles = [stats_packed.lambda_stats_packed(
+                    rr if shared else rr[i], up[i], t1[i], t0[i],
+                    approx_div=approx, dtype=dtype)
+                    for i in range(R_REP)]
+                _bitwise_per_replicate(label, got, singles)
+                twins = [stats_packed.lambda_stats_packed_twin(
+                    rr if shared else rr[i], up[i], t1[i], t0[i],
+                    approx_div=approx, dtype=dtype)
+                    for i in range(R_REP)]
+                tol = (TOL_APPROX if approx else
+                       TOL if dtype == torch.float32 else TOL_BF16_PASS)
+                hold(rec, "lambda_stats_packed[rep]", label, got,
+                     [torch.stack(x) for x in zip(*twins)], tol)
+    log(f"  K4[rep] {shape}: each replicate bitwise its single pass")
+
+
+def _time_rep(rec, shape, kernels, rows, up, lamb, t1, t0, main):
+    """K1 (cold, the local mode's step) and K4 (rows shared, the eval's
+    pass) at R = 4 in turns with R single calls, f32 and bf16, beside R x
+    the single bound; each kernel's first shape gives its entry in the
+    kernels' line and the twins' time."""
+    k = up.shape[-1]
+    out = []
+    if "K1" in kernels:
+        e = dict(shape=shape)
+        flops = moved = entries = 0
+        for i in range(R_REP):
+            kw = dict(main, warm_start=False)
+            n_pass = solve_passes(rows[i], up[i], lamb[i], **kw) + 1
+            flops += present(rows[i]) * lambda_pass_flops(k) * n_pass
+            entries += present(rows[i]) * n_pass
+            moved += nbytes(rows[i], up[i], up[i]) + lamb[i].numel() * 4
+        for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
+            kw = dict(main, dtype=dtype)
+            e[key + "serial_ms"], e[key + "ms"] = in_turns(
+                lambda: [fused_step.fused_local_solve(rows[i], up[i],
+                                                      lamb[i], **kw)
+                         for i in range(R_REP)],
+                lambda: fused_step.fused_local_solve(rows, up, lamb, **kw))
+        set_bound(e, flops, moved)
+        e["bf16_bound_ms"] = max(entries * 8 * k / BF16_FLOPS * 1e3,
+                                 entries * 2 / FP32_FLOPS * 1e3,
+                                 moved / HBM_BYTES * 1e3)
+        out.append(("K1[rep]", rec["fused_local_solve[rep]"], e,
+                    lambda: [fused_step.fused_local_solve_twin(
+                        rows[i], up[i], lamb[i], **main)
+                        for i in range(R_REP)]))
+    if "K4" in kernels:
+        e = dict(shape=shape)
+        for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
+            e[key + "serial_ms"], e[key + "ms"] = in_turns(
+                lambda: [stats_packed.lambda_stats_packed(
+                    rows[0], up[i], t1[i], t0[i], dtype=dtype)
+                    for i in range(R_REP)],
+                lambda: stats_packed.lambda_stats_packed(rows[0], up, t1, t0,
+                                                         dtype=dtype))
+        ent = present(rows[0]) * R_REP
+        moved = nbytes(rows[0], up, t1, t0, t1, t0)
+        set_bound(e, ent * lambda_pass_flops(k), moved)
+        e["bf16_bound_ms"] = max(ent * 8 * k / BF16_FLOPS * 1e3,
+                                 ent * 2 / FP32_FLOPS * 1e3,
+                                 moved / HBM_BYTES * 1e3)
+        out.append(("K4[rep]", rec["lambda_stats_packed[rep]"], e,
+                    lambda: [stats_packed.lambda_stats_packed_twin(
+                        rows[0], up[i], t1[i], t0[i])
+                        for i in range(R_REP)]))
+    for name, r, e, twins in out:
+        log(f"  {name} {shape}: batched {e['ms']:.4f} ms, {R_REP} single "
+            f"calls in turns {e['serial_ms']:.4f} ms; bf16 "
+            f"{e['bf16_ms']:.4f} / {e['bf16_serial_ms']:.4f} ms; bound "
+            f"{e['bound_ms']:.5f} (bf16 {e['bf16_bound_ms']:.5f}) ms")
+        r["shapes"].append(e)
+        if "ms" not in r:              # the kernel's first shape
+            r.update({key: e[key] for key in (
+                "shape", "ms", "serial_ms", "bf16_ms", "bf16_serial_ms",
+                "bound_ms", "bound_by", "bf16_bound_ms")})
+            r["library_ms"] = None
+            r["plain_ms"] = time_ms(twins, 5)
+            log(f"  {name} twins at {shape}: {R_REP} calls "
+                f"{r['plain_ms']:.3f} ms")
+
+
 def phase_kernels_bf16(dev, rec):
     """The bf16 bodies of K1, K2, K4 and of the λ and γ passes (the
     reference's kernels at dtype=jnp.bfloat16), each against its bf16
@@ -1469,14 +1725,20 @@ def phase_wide_bign(dev, rec, cfg, packed_d):
         "wide, re-run bitwise equal, gamma finite")
 
 
+def canonical_data():
+    """Config #1's data as the verify skill's canonical drive makes it:
+    (theta, beta, GenotypeData)."""
+    theta_true, beta_true, x = simulate_psd(1000, 10_000, 3, seed=11)
+    return theta_true, beta_true, GenotypeData.from_dense(
+        x, validation_frac=0.005, heldout_frac=0.005, seed=11)
+
+
 def phase_canonical(dev, rec, lambda_mode="local", dtype="float32"):
     """Config #1 through fit, as the verify skill's canonical drive. The
     stored mode warm-starts K1 from the stored lambda and scores it
     directly: no lambda re-solve (K4). dtype "bfloat16" runs the bf16
     bodies (and never the f32 ones). Returns the fit's summary."""
-    theta_true, beta_true, x = simulate_psd(1000, 10_000, 3, seed=11)
-    data = GenotypeData.from_dense(x, validation_frac=0.005,
-                                   heldout_frac=0.005, seed=11)
+    theta_true, beta_true, data = canonical_data()
     cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=50,
                     max_steps=3000, seed=11, lambda_mode=lambda_mode,
                     compute_dtype=dtype)
@@ -2125,6 +2387,242 @@ def phase_stream_config5(dev, rec, tmp):
     rec["lambda_stats_packed"]["config5_width"] = e
 
 
+# Phase 9: batched replicates (svi/replicates.py), R_REP seeds in lockstep
+REP_SEEDS = tuple(range(R_REP))
+# config #2's width: the reference's replicates_ab.py shape (:24-27) and
+# its eval carve (:55-60)
+CONFIG2 = (940, 640_000, 7, 1024)     # N, L, K, B
+
+
+def _only_batched(path, counts, dtype="float32"):
+    """K1 and K4 launched only with the replicate axis in a batched run:
+    their launches at `dtype` are the batched ones, and the other
+    dtype's body never ran."""
+    sfx, other = ("[bf16]", "") if dtype == "bfloat16" else ("", "[bf16]")
+    for k in ("fused_local_solve", "lambda_stats_packed"):
+        if counts[k + sfx] != counts[k + "[rep]"] or counts[k + other]:
+            raise AssertionError(f"{path}: {k} launched without the "
+                                 f"replicate axis ({counts[k + sfx]} "
+                                 f"{dtype} launches, {counts[k + '[rep]']} "
+                                 f"batched, {counts[k + other]} of the other "
+                                 "body)")
+
+
+def _against_serial(path, dev, cfg, data, res, lamb=False, only=None):
+    """Each replicate of a batched fit (or replicate `only`) against a
+    single fit with its seed: the same stop step, gamma (and lambda)
+    bitwise at the stop, the validation ll within 1e-6; with every
+    replicate, the same best. Returns the single fits."""
+    idx = range(len(res.replicates)) if only is None else [only]
+    serial = [fit(cfg.replace(seed=res.replicates[i].seed,
+                              dma_gather=False), data, device=dev)
+              for i in idx]
+    for i, sr in zip(idx, serial):
+        rr = res.replicates[i]
+        same = (rr.steps == sr.steps
+                and torch.equal(res.states.gamma[i], sr.state.gamma)
+                and (not lamb or torch.equal(res.states.lamb[i],
+                                             sr.state.lamb)))
+        gap = abs(rr.validation_ll - sr.validation_ll)
+        log(f"  {path} seed {rr.seed}: batched / single steps {rr.steps} / "
+            f"{sr.steps}, validation ll {rr.validation_ll:.6f} / "
+            f"{sr.validation_ll:.6f} (gap {gap:.2e}), heldout "
+            f"{rr.heldout_ll:.6f} / {sr.heldout_ll:.6f}, gamma"
+            + (" and lambda" if lamb else "") + " bitwise: " + str(same))
+        if not (same and gap <= 1e-6):
+            raise AssertionError(f"{path}: replicate {i} (seed {rr.seed}) "
+                                 "differs from its single fit")
+    best = int(np.argmax([sr.validation_ll for sr in serial]))
+    if only is None and res.best != best:
+        raise AssertionError(f"{path}: best replicate {res.best}, single "
+                             f"fits' {best}")
+    return serial
+
+
+def rep_step_ms(dev, cfg, packed, seeds, nsteps):
+    """Host-clock ms a step of the batched replicates' steady chunk and of
+    len(seeds) single fits' chunks (one after another), in turns (single,
+    batched, batched, single), each from fresh states after a warm-up
+    chunk, and the host's ms a step for the R generators and draws alone
+    (enqueued, not waited for)."""
+    l_s = packed.shape[0]
+    cfg = cfg.replace(dma_gather=False)
+    rchunk = engine.make_replicate_run_chunk(cfg, nsteps, l_s)
+    schunk = engine.make_run_chunk(cfg, nsteps, l_s)
+
+    def timed(run, state):
+        state = run(state)                      # warm-up chunk
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / nsteps * 1e3
+
+    def batched():
+        return timed(lambda st: rchunk(st, packed),
+                     engine.init_replicate_state(cfg, seeds, l_padded=l_s,
+                                                 device=dev))
+
+    def single():
+        return timed(lambda sts: [schunk(st, packed) for st in sts],
+                     [engine.init_state(cfg.replace(seed=s), l_padded=l_s,
+                                        device=dev) for s in seeds])
+
+    turns = [single(), batched(), batched(), single()]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for step in range(nsteps):
+        for s in seeds:
+            engine._sample_batch(engine.step_generator(s, step, dev), l_s,
+                                 cfg.batch_size, dev)
+    draws = (time.perf_counter() - t) / nsteps * 1e3
+    torch.cuda.synchronize()
+    return dict(single_ms=(turns[0] + turns[3]) / 2,
+                batched_ms=(turns[1] + turns[2]) / 2, turns=turns,
+                draws_host_ms=draws)
+
+
+def phase_replicates(dev, rec):
+    """Batched replicates through `fit_replicates_batched`: (a) config #1,
+    R = 4, seeds 0-3, to convergence in the local mode against 4 single
+    fits (stop step, gamma bitwise at the stop, validation ll, best
+    index), every replicate within phase 2's quality limits, K1 and K4
+    launched only with the replicate axis, no twin, K3 never; the batched
+    step's ms against 4 single steps in turns; (b) the stored mode, R = 3,
+    100 steps: gamma and lambda bitwise the single fits'; (c) bf16, R = 4,
+    100 steps: bitwise the single bf16 fits', no f32 body; (d) config #2's
+    width (940 x 640,000, K = 7, B = 1,024), R = 4, up to 6,000 steps:
+    each replicate's stop, validation ll, theta MAE and heldout against
+    the oracle, the best seed's single fit beside it (bitwise), the best
+    replicate within theta MAE 0.02 and 0.02 nats of the oracle; steps in
+    turns."""
+    from terastructure_tpu_torch.svi.replicates import fit_replicates_batched
+
+    theta_true, beta_true, data = canonical_data()
+    h = data.heldout
+    p = (theta_true[h.ind_idx] * beta_true[h.snp_idx]).sum(-1)
+    oracle = float(psd.binomial2_loglik(
+        torch.from_numpy(h.x), torch.from_numpy(p).float()).mean())
+    cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=50,
+                    max_steps=3000, seed=11)
+    absent = ("gather_row_blocks", "fused_local_solve_dma",
+              "fused_local_solve_dma[bf16]")
+
+    log("phase 9a: config #1, R = 4, local mode, to convergence")
+    reset_counts()
+    res = fit_replicates_batched(cfg, data, REP_SEEDS, device=dev)
+    counts = read_counts(rec, "phase 9a batched",
+                         ("fused_local_solve[rep]",
+                          "lambda_stats_packed[rep]"), absent)
+    _only_batched("phase 9a", counts)
+    last = res.trace[-1]["step"]
+    if counts["fused_local_solve[rep]"] != last:
+        raise AssertionError("phase 9a: K1[rep] did not run once a step")
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+    log(f"  batched: {last} lockstep steps, chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f}, best seed "
+        f"{res.replicates[res.best].seed}")
+    for i, rr in enumerate(res.replicates):
+        th = psd.theta_mean(res.states.gamma[i]).cpu().numpy()
+        err = mean_abs_theta_error(th, theta_true)
+        log(f"  seed {rr.seed}: converged={rr.converged} steps={rr.steps} "
+            f"validation={rr.validation_ll:.6f} heldout={rr.heldout_ll:.5f} "
+            f"(oracle {oracle:.5f}) theta_mae={err:.4f}")
+        if not (rr.converged and err < 0.05
+                and rr.heldout_ll > oracle - 0.02):
+            raise AssertionError(f"phase 9a: seed {rr.seed} failed phase "
+                                 "2's quality limits")
+    t0 = time.time()
+    serial = _against_serial("phase 9a", dev, cfg, data, res)
+    serial_chunk_s = sum(r["chunk_s"] for sr in serial for r in sr.trace)
+    log(f"  the 4 single fits: {time.time() - t0:.2f} s, chunk_s "
+        f"{serial_chunk_s:.3f} (batched {chunk_s:.3f})")
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    steps = rep_step_ms(dev, cfg, packed_d, REP_SEEDS, 50)
+    log(f"  config #1 step ms, single x {R_REP} / batched in turns: "
+        + ", ".join(f"{t:.4f}" for t in steps["turns"])
+        + f"; the R draws' host ms a step {steps['draws_host_ms']:.4f}")
+
+    log("phase 9b: config #1, R = 3, stored mode, 100 steps")
+    scfg = cfg.replace(lambda_mode="stored", max_steps=100, conv_tol=-1e9)
+    reset_counts()
+    res = fit_replicates_batched(scfg, data, REP_SEEDS[:3], device=dev)
+    counts = read_counts(rec, "phase 9b batched", ("fused_local_solve[rep]",),
+                         absent + ("lambda_stats_packed",
+                                   "lambda_stats_packed[bf16]"))
+    _only_batched("phase 9b", counts)
+    _against_serial("phase 9b", dev, scfg, data, res, lamb=True)
+
+    log("phase 9c: config #1, R = 4, compute_dtype bfloat16, 100 steps")
+    bcfg = cfg.replace(compute_dtype="bfloat16", max_steps=100,
+                       conv_tol=-1e9)
+    reset_counts()
+    res = fit_replicates_batched(bcfg, data, REP_SEEDS, device=dev)
+    counts = read_counts(rec, "phase 9c batched",
+                         ("fused_local_solve[rep]",
+                          "lambda_stats_packed[rep]"), absent)
+    _only_batched("phase 9c", counts, "bfloat16")
+    _against_serial("phase 9c", dev, bcfg, data, res)
+
+    log("phase 9d: config #2's width, R = 4, up to 6,000 steps")
+    phase_config2_replicates(dev, rec)
+
+
+def phase_config2_replicates(dev, rec):
+    """Phase 9d (phase_replicates)."""
+    from terastructure_tpu_torch.svi.replicates import fit_replicates_batched
+
+    n, l, k, b = CONFIG2
+    t0 = time.time()
+    packed, theta = simulate_packed_device(n, l, k, seed=0, device=dev)
+    data = GenotypeData.from_packed(
+        packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
+        max_eval_entries=min(max(int(0.005 * n * l), 100), 200_000),
+        eval_snp_pool=2048)
+    h = data.heldout
+    beta = simulated_beta(n, l, k, seed=0)
+    p = (theta[h.ind_idx] * beta[h.snp_idx]).sum(-1)
+    oracle = float(psd.binomial2_loglik(torch.from_numpy(h.x),
+                                        torch.from_numpy(p)).mean())
+    log(f"  config #2 data: simulate + carve {time.time() - t0:.1f} s")
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, rfreq=100, max_steps=6000,
+                    seed=0)
+    reset_counts()
+    res = fit_replicates_batched(cfg, data, REP_SEEDS, device=dev)
+    counts = read_counts(rec, "phase 9d batched",
+                         ("fused_local_solve[rep]",
+                          "lambda_stats_packed[rep]"),
+                         ("gather_row_blocks", "fused_local_solve_dma"))
+    _only_batched("phase 9d", counts)
+    last = res.trace[-1]["step"]
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    eval_s = sum(r.get("eval_s", 0.0) for r in res.trace)
+    log(f"  batched: {last} lockstep steps, chunk_s={chunk_s:.3f} "
+        f"eval_s={eval_s:.3f} wall_s={res.wall_s:.2f}")
+    maes = []
+    for i, rr in enumerate(res.replicates):
+        th = psd.theta_mean(res.states.gamma[i]).cpu().numpy()
+        maes.append(mean_abs_theta_error(th, theta))
+        log(f"  seed {rr.seed}: converged={rr.converged} steps={rr.steps} "
+            f"validation={rr.validation_ll:.6f} heldout={rr.heldout_ll:.5f} "
+            f"(oracle {oracle:.5f}) theta_mae={maes[-1]:.5f}")
+    if not (maes[res.best] < 0.02
+            and abs(res.replicates[res.best].heldout_ll - oracle) < 0.02):
+        raise AssertionError("phase 9d: the best replicate misses theta MAE "
+                             "0.02 or 0.02 nats of the oracle")
+    t0 = time.time()
+    single = _against_serial("phase 9d", dev, cfg, data, res,
+                             only=res.best)[0]
+    log(f"  the best seed's single fit: {time.time() - t0:.2f} s, "
+        f"chunk_s {sum(r['chunk_s'] for r in single.trace):.3f}")
+    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    steps = rep_step_ms(dev, cfg, packed_d, REP_SEEDS, 20)
+    log(f"  config #2 step ms, single x {R_REP} / batched in turns: "
+        + ", ".join(f"{t:.4f}" for t in steps["turns"])
+        + f"; the R draws' host ms a step {steps['draws_host_ms']:.4f}")
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -2353,6 +2851,10 @@ def main(argv=()) -> int:
     log("phase 8: out-of-core streaming from a .bed through an on-disk "
         "cache")
     phase_stream(dev, rec, bign)
+    log("phase 9: batched replicates (fit_replicates_batched)")
+    tr = time.time()
+    phase_replicates(dev, rec)
+    log(f"  phase 9 in {time.time() - tr:.1f} s")
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

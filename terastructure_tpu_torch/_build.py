@@ -37,22 +37,21 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # out, src, starts, n_blocks, block_bytes, stream
     "tt_gather_row_blocks": [_P, _P, _P, _L, _L, _P],
-    # rows, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream
-    "tt_lambda_stats_packed": [_P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _P],
-    # rows, u_planes, lamb_init, lamb_out, g_out, lam, mid, t, part, dpart,
-    # active, gpart, B, W, K, nsplit_w, nsplit_b, local_iters, local_tol,
-    # beta_a, beta_b, warm_start, approx_div, accel, stream
-    "tt_fused_local_solve": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_I] * 3
-                            + [_P],
+    # R, rows, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx,
+    # rows_stride, stream (R replicates, rows_stride bytes apart, 0 shared)
+    "tt_lambda_stats_packed": [_I] + [_P] * 7 + [_I] * 5 + [_L, _P],
+    # R, rows, u_planes, lamb_init, lamb_out, g_out, lam, mid, t, part,
+    # dpart, active, gpart, B, W, K, nsplit_w, nsplit_b, local_iters,
+    # local_tol, beta_a, beta_b, warm_start, approx_div, accel, stream
+    "tt_fused_local_solve": [_I] + [_P] * 12 + [_I] * 6 + [_F] * 3
+                            + [_I] * 3 + [_P],
     # idx0, packed, L, group, then as tt_fused_local_solve from u_planes
     "tt_fused_local_solve_dma": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
                                 + [_F] * 3 + [_I] * 3 + [_P],
     # the bf16 bodies of K4, K1 and K2: the same arguments
-    "tt_lambda_stats_packed_bf16": [_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _P],
-    "tt_fused_local_solve_bf16": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_I] * 3
-                                 + [_P],
+    "tt_lambda_stats_packed_bf16": [_I] + [_P] * 7 + [_I] * 5 + [_L, _P],
+    "tt_fused_local_solve_bf16": [_I] + [_P] * 12 + [_I] * 6 + [_F] * 3
+                                 + [_I] * 3 + [_P],
     "tt_fused_local_solve_dma_bf16": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
                                      + [_F] * 3 + [_I] * 3 + [_P],
     # a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream

@@ -33,6 +33,15 @@ on the host and streams each minibatch to the card (svi/stream.py; the
 big-N step's K8 and K7, K4 for the eval and the export). The record adds
 the seconds of the .bed write and of the ingest; the directory is
 removed at the end.
+
+    python -m terastructure_tpu_torch.converge --config 1 --replicates 4
+
+--replicates R fits seeds 0..R-1 in lockstep with fit_replicates_batched
+(svi/replicates.py: K1 and K4 with their replicate axis) at the
+reference's replicates_ab.py settings (snp_group 1: K2 has no replicate
+axis yet), and prints one record per replicate (its seed, stop step,
+scores and theta MAE beside the batch's fields) and then the best
+replicate's, marked "best": the R-seed workflow on the card.
 """
 
 from __future__ import annotations
@@ -105,9 +114,10 @@ def run(config: int, *, device, max_steps: int = 20_000, scale: float = 1.0,
                     compute_dtype, tmp)
 
 
-def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
-    """run()'s body; tmp is the directory of the .bed and its cache, or
-    None for a resident fit."""
+def _data(config, device, scale, tmp):
+    """Simulate and carve `config` (a .bed and its cache in tmp, unless
+    None). Returns (n, l, k, data, theta, the oracle's heldout ll, the
+    I/O seconds, the seconds of it all)."""
     spec = CONFIGS[config]
     n = max(4, int(spec["n"] * scale) // 4 * 4)
     l = max(8, int(spec["l"] * scale) // 8 * 8)
@@ -121,25 +131,44 @@ def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
         packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
         max_eval_entries=min(max(int(0.005 * n * l), 100), 200_000),
         eval_snp_pool=2048 if (n >= 50_000 or l >= 131_072) else 0)
-    sim_s = time.time() - t0
-    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(batch_size or spec["batch"],
-                                                  l),
-                    rfreq=100, max_steps=max_steps, seed=0, snp_group=8,
-                    compute_dtype=compute_dtype)
-    for f in COUNTED:
-        f.launches = f.twin_calls = 0
-        if hasattr(f, "bf16_launches"):
-            f.bf16_launches = 0
-    res = fit(cfg, data, device=device, stream=tmp is not None)
-    counts = {f.__name__: (f.launches, f.twin_calls,
-                           getattr(f, "bf16_launches", 0)) for f in COUNTED}
-
-    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
     h = data.heldout
     beta = simulated_beta(n, l, k, seed=0)
     p = (theta[h.ind_idx] * beta[h.snp_idx]).sum(-1)
     oracle = float(psd.binomial2_loglik(torch.from_numpy(h.x),
                                         torch.from_numpy(p)).mean())
+    return n, l, k, data, theta, oracle, io, time.time() - t0
+
+
+def _reset_counts():
+    for f in COUNTED:
+        f.launches = f.twin_calls = 0
+        for c in ("bf16_launches", "rep_launches"):
+            if hasattr(f, c):
+                setattr(f, c, 0)
+
+
+def _counts():
+    """The kernels' launch counts: f32 bodies, bf16 bodies, launches with
+    the replicate axis (both dtypes), twin calls."""
+    return {key: {f.__name__: getattr(f, attr, 0) for f in COUNTED}
+            for key, attr in (("launches", "launches"),
+                              ("bf16_launches", "bf16_launches"),
+                              ("rep_launches", "rep_launches"),
+                              ("twin_calls", "twin_calls"))}
+
+
+def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
+    """run()'s body; tmp is the directory of the .bed and its cache, or
+    None for a resident fit."""
+    n, l, k, data, theta, oracle, io, sim_s = _data(config, device, scale,
+                                                    tmp)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(
+        batch_size or CONFIGS[config]["batch"], l), rfreq=100,
+        max_steps=max_steps, seed=0, snp_group=8, compute_dtype=compute_dtype)
+    _reset_counts()
+    res = fit(cfg, data, device=device, stream=tmp is not None)
+    counts = _counts()
+    th = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
     chunk_s = sum(r["chunk_s"] for r in res.trace)
     return dict(
         config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
@@ -150,10 +179,49 @@ def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
         validation_ll=res.validation_ll, wall_s=res.wall_s,
         chunk_s=chunk_s, eval_s=sum(r.get("eval_s", 0.0) for r in res.trace),
         checks=len(res.trace), sim_s=sim_s,
-        snp_updates_per_s=res.steps * cfg.batch_size / chunk_s,
-        launches={name: c[0] for name, c in counts.items()},
-        bf16_launches={name: c[2] for name, c in counts.items()},
-        twin_calls={name: c[1] for name, c in counts.items()})
+        snp_updates_per_s=res.steps * cfg.batch_size / chunk_s, **counts)
+
+
+def run_replicates(config: int, replicates: int, *, device,
+                   max_steps: int = 20_000, scale: float = 1.0,
+                   batch_size: int | None = None,
+                   compute_dtype: str = "float32") -> list:
+    """Simulate and carve `config` as run() does and fit seeds
+    0..replicates-1 with fit_replicates_batched at the reference's
+    replicates_ab.py settings (rfreq 100, snp_group 1). Returns one record
+    per replicate and last the best replicate's, marked best=True. The
+    batch's fields (wall, chunk and eval seconds, lockstep steps,
+    SNP-updates/s of all replicates over the chunks, launch counts) are
+    in every record."""
+    from terastructure_tpu_torch.svi.replicates import fit_replicates_batched
+
+    n, l, k, data, theta, oracle, _, sim_s = _data(config, device, scale,
+                                                   None)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(
+        batch_size or CONFIGS[config]["batch"], l), rfreq=100,
+        max_steps=max_steps, seed=0, compute_dtype=compute_dtype)
+    _reset_counts()
+    res = fit_replicates_batched(cfg, data, range(replicates), device=device)
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    steps = res.trace[-1]["step"] if res.trace else 0
+    batch = dict(
+        config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
+        compute_dtype=compute_dtype, replicates=replicates,
+        device=str(torch.device(device)), oracle_ll=oracle,
+        lockstep_steps=steps, wall_s=res.wall_s, chunk_s=chunk_s,
+        eval_s=sum(r.get("eval_s", 0.0) for r in res.trace),
+        checks=len(res.trace), sim_s=sim_s,
+        snp_updates_per_s=replicates * steps * cfg.batch_size / chunk_s,
+        **_counts())
+    out = []
+    for i, rr in enumerate(res.replicates):
+        th = psd.theta_mean(res.states.gamma[i]).cpu().numpy()
+        out.append(dict(batch, seed=rr.seed, steps=rr.steps,
+                        converged=rr.converged,
+                        theta_mae=mean_abs_theta_error(th, theta),
+                        heldout_ll=rr.heldout_ll,
+                        validation_ll=rr.validation_ll))
+    return out + [dict(out[res.best], best=True)]
 
 
 def main(argv=None) -> int:
@@ -166,11 +234,22 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="fit out of core from a .bed through an on-disk "
                          "cache (fit(stream=True))")
+    ap.add_argument("--replicates", type=int, default=0, metavar="R",
+                    help="fit seeds 0..R-1 in lockstep "
+                         "(fit_replicates_batched); a record a replicate, "
+                         "then the best's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("converge: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
+    if args.replicates:
+        for rec in run_replicates(args.config, args.replicates,
+                                  device="cuda", max_steps=args.max_steps,
+                                  scale=args.scale,
+                                  compute_dtype=args.compute_dtype):
+            print(json.dumps(rec), flush=True)
+        return 0
     print(json.dumps(run(args.config, device="cuda", max_steps=args.max_steps,
                          scale=args.scale, compute_dtype=args.compute_dtype,
                          stream=args.stream)),

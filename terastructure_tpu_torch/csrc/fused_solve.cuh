@@ -52,6 +52,17 @@
 // the f32 path's). The bf16 sequences are instantiated in their own
 // sources (fused_step_bf16.cu, fused_step_dma_bf16.cu), so that nvcc
 // builds them beside the f32 ones in parallel.
+//
+// Batched replicates (svi/replicates.py; the reference vmaps this kernel,
+// and Pallas lifts it by a grid dimension): `fused_solve` takes R
+// independent solves, each with its own rows, u planes, lambda and
+// scratch, R x the single solve's arrays back to back. Every kernel of the
+// sequence runs replicate z in blockIdx.z (delta_kernel: a CTA a
+// replicate) on the grid a single solve would use, and each replicate has
+// its own `active[z]`: a replicate's tol loop ends on its own, as the
+// reference's vmapped while_loop does, while the others run on. The
+// launch sequence (and the host's enqueue) is paid once for all R. R = 1
+// is the single solve.
 
 #pragma once
 
@@ -76,13 +87,18 @@ __device__ __forceinline__ float aitken(float prev, float cur, float nw) {
 }
 
 // lam = warm ? lamb_init : (beta_a, beta_b); t = T(lam); active = 1.
+// Replicate z = blockIdx.z: its (B, K, 2) arrays 2 bk floats apart.
 __global__ void init_kernel(const float* __restrict__ lamb_init, int warm,
                             float beta_a, float beta_b, float* __restrict__ lam,
                             float* __restrict__ t, int* __restrict__ active,
                             int bk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) *active = 1;
+  const long long z = blockIdx.z, o = z * 2 * bk;
+  if (i == 0) active[z] = 1;
   if (i >= bk) return;
+  lamb_init += o;
+  lam += o;
+  t += o;
   const float l0 = warm ? lamb_init[2 * i] : beta_a;
   const float l1 = warm ? lamb_init[2 * i + 1] : beta_b;
   lam[2 * i] = l0;
@@ -96,13 +112,22 @@ __global__ void init_kernel(const float* __restrict__ lamb_init, int warm,
 //   AITKEN: lam = aitken(lam, mid, new)
 //   FINAL:  out = new
 // and t = T(the lambda the next pass reads) for every mode but FINAL.
+// Replicate z = blockIdx.z: its part nsplit x 2 bk floats on, its (B, K,
+// 2) arrays 2 bk, its dpart 2 gridDim.x, its flag active[z].
 __global__ void __launch_bounds__(kUpd)
 update_kernel(int mode, const float* __restrict__ part, int nsplit, int bk,
               float beta_a, float beta_b, float* __restrict__ lam,
               float* __restrict__ mid, float* __restrict__ t,
               float* __restrict__ out, float* __restrict__ dpart,
               const int* __restrict__ active) {
-  if (mode == kLoop && *active == 0) return;
+  const long long z = blockIdx.z, o = z * 2 * bk;
+  if (mode == kLoop && active[z] == 0) return;
+  part += o * nsplit;
+  lam += o;
+  mid += o;
+  t += o;
+  out += o;
+  dpart += z * 2 * gridDim.x;
   __shared__ float sdiff[kUpd], smag[kUpd];
   const int i = blockIdx.x * kUpd + threadIdx.x;
   float diff = 0.f, mag = 0.f;
@@ -152,10 +177,13 @@ update_kernel(int mode, const float* __restrict__ part, int nsplit, int bk,
 }
 
 // delta = mean|new - lam| / (mean|lam| + 1); active &= delta > tol.
+// A CTA a replicate: replicate blockIdx.x's nblk partials and its flag.
 __global__ void __launch_bounds__(kUpd)
 delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
              int* __restrict__ active) {
+  active += blockIdx.x;
   if (*active == 0) return;
+  dpart += 2LL * nblk * blockIdx.x;
   __shared__ float sdiff[kUpd], smag[kUpd];
   float diff = 0.f, mag = 0.f;
   for (int j = threadIdx.x; j < nblk; j += kUpd) {
@@ -180,14 +208,18 @@ delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
 
 // The launch sequence of K1 and K2: they differ only in where the passes
 // read the batch's rows (`Rows`, psd_common.cuh). kBf16: the bf16 bodies.
+// R replicates (K1 only; K2 has R = 1): rows R x (B, W), up R x (4, W,
+// K), lamb_init, lamb_out, lam, mid, t R x (B, K, 2), g R x (4, W, K),
+// part R x (nsplit_w, B, K, 2), dpart R x (nupd, 2), active (R,), gpart
+// R x (nsplit_b, 4W, K), each replicate's block after the last.
 template <class Rows, bool kBf16>
 int fused_solve(Rows src, const float* up, const float* lamb_init,
                 float* lamb_out, float* g, float* lam, float* mid, float* t,
                 float* part, float* dpart, int* active, float* gpart, int B,
                 int W, int K, int nsplit_w, int nsplit_b, int local_iters,
                 float local_tol, float beta_a, float beta_b, int warm_start,
-                int approx_div, int accel, cudaStream_t stream) {
-  if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 ||
+                int approx_div, int accel, cudaStream_t stream, int R = 1) {
+  if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 || R < 1 ||
       tt::pick_km(K) < 0 || local_iters < 0)
     return (int)cudaErrorInvalidValue;
   const bool acc = accel && local_iters >= 3;
@@ -195,6 +227,14 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   const int bk = B * K;
   const int nupd = (bk + kUpd - 1) / kUpd;
   const tt::PackedLoader<Rows> loader{src};
+  const long long wk = 4LL * W * K;
+  tt::Rep lrep, grep;                   // replicate strides of the passes
+  lrep.rows = grep.rows = (long long)B * W;
+  lrep.u = grep.u = wk;
+  lrep.t = grep.t = 2LL * bk;
+  lrep.part = 2LL * nsplit_w * bk;
+  grep.part = nsplit_b * wk;
+  grep.out = wk;
 
   // the loop and tail passes' divide; the final pass divides exactly
   const int loop_div = approx_div ? tt::kDivFast : tt::kDivNewton;
@@ -202,24 +242,25 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   auto pass = [&](int div, const int* gate) -> int {
     return tt::launch_lambda_pass<tt::PackedLoader<Rows>, true, kBf16>(
         loader, up, t, t + 1, 2 * K, 2, part, B, W, K, nsplit_w, div, gate,
-        stream);
+        stream, R, lrep);
   };
+  const dim3 ugrid(nupd, 1, R);
   auto update = [&](int mode) -> int {
-    update_kernel<<<nupd, kUpd, 0, stream>>>(mode, part, nsplit_w, bk, beta_a,
-                                            beta_b, lam, mid, t, lamb_out,
-                                            dpart, active);
+    update_kernel<<<ugrid, kUpd, 0, stream>>>(mode, part, nsplit_w, bk, beta_a,
+                                             beta_b, lam, mid, t, lamb_out,
+                                             dpart, active);
     TT_CHECK_LAUNCH();
     return 0;
   };
   int err;
 
-  init_kernel<<<nupd, kUpd, 0, stream>>>(lamb_init, warm_start, beta_a, beta_b,
-                                         lam, t, active, bk);
+  init_kernel<<<ugrid, kUpd, 0, stream>>>(lamb_init, warm_start, beta_a,
+                                          beta_b, lam, t, active, bk);
   TT_CHECK_LAUNCH();
   for (int it = 0; it < loop_iters; ++it) {
     if ((err = pass(loop_div, active))) return err;
     if ((err = update(kLoop))) return err;
-    delta_kernel<<<1, kUpd, 0, stream>>>(dpart, nupd, bk, local_tol, active);
+    delta_kernel<<<R, kUpd, 0, stream>>>(dpart, nupd, bk, local_tol, active);
     TT_CHECK_LAUNCH();
   }
   if (acc) {
@@ -233,7 +274,7 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
 
   return tt::launch_gamma_stats<Rows, kBf16>(src, up, t, t + 1, 2 * K, 2,
                                              gpart, g, B, W, K, nsplit_b,
-                                             stream);
+                                             stream, R, grep);
 }
 
 }  // namespace

@@ -9,7 +9,7 @@
 #include "fused_solve.cuh"
 
 extern "C" int tt_fused_local_solve_bf16(
-    const uint8_t* rows, const float* up, const float* lamb_init,
+    int R, const uint8_t* rows, const float* up, const float* lamb_init,
     float* lamb_out, float* g, float* lam, float* mid, float* t, float* part,
     float* dpart, int* active, float* gpart, int B, int W, int K,
     int nsplit_w, int nsplit_b, int local_iters, float local_tol,
@@ -18,5 +18,5 @@ extern "C" int tt_fused_local_solve_bf16(
   return fused_solve<tt::ContiguousRows, true>(
       tt::ContiguousRows{rows}, up, lamb_init, lamb_out, g, lam, mid, t,
       part, dpart, active, gpart, B, W, K, nsplit_w, nsplit_b, local_iters,
-      local_tol, beta_a, beta_b, warm_start, approx_div, accel, stream);
+      local_tol, beta_a, beta_b, warm_start, approx_div, accel, stream, R);
 }

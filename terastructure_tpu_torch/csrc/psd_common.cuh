@@ -164,11 +164,31 @@ __device__ __forceinline__ float operand(float x) {
   return x;
 }
 
+// The replicate axis (batched replicates, svi/replicates.py): one launch
+// runs R independent problems, replicate z in blockIdx.z. Replicate z's
+// arrays start z x stride elements after replicate 0's, one stride per
+// kind of array; a stride of 0 shares the array across replicates (K4's
+// eval rows). Each body offsets its pointers in its prologue, so R = 1
+// (z = 0) is the single call, and each replicate runs on the grid a call
+// of its own would, so its sums add in the same order: a replicate's
+// result is bitwise the single call's on its inputs.
+struct Rep {
+  long long rows = 0;  // bytes of the packed rows
+  long long u = 0;     // floats of the u planes
+  long long t = 0;     // floats of t1 and t0 (K1's interleaved t)
+  long long part = 0;  // floats of the partial sums
+  long long out = 0;   // floats of the reduced outputs
+};
+
 // Batch row b of a gathered (B, W) matrix starts at rows + b*W.
 struct ContiguousRows {
   const uint8_t* rows;
   __device__ __forceinline__ const uint8_t* row(int b, int W) const {
     return rows + (long long)b * W;
+  }
+  // replicate z's rows, `off` bytes on (Rep::rows)
+  __device__ __forceinline__ ContiguousRows shifted(long long off) const {
+    return {rows + off};
   }
 };
 
@@ -185,6 +205,10 @@ struct GroupedRows {
     const long long s = idx0[b / group];
     if (s < 0 || s > L - group || s % group) return nullptr;
     return packed + (s + b % group) * W;
+  }
+  // K2 has no replicate axis yet (its launches are R = 1): one matrix
+  __device__ __forceinline__ GroupedRows shifted(long long) const {
+    return *this;
   }
 };
 
@@ -215,6 +239,10 @@ struct PackedLoader {
     return kRowsPerCta * (tc / 4 + 1);
   }
   Rows src;
+
+  __device__ __forceinline__ PackedLoader shifted(long long off) const {
+    return {src.shifted(off)};
+  }
 
   __device__ void prepare(const uint8_t** rowp, int b0, int B, int W) const {
     const int r = threadIdx.x;
@@ -316,6 +344,11 @@ struct AcatLoader {
   }
   const uint16_t* a1;
   const uint16_t* a0;
+
+  // K8 has no replicate axis yet (its launches are R = 1)
+  __device__ __forceinline__ AcatLoader shifted(long long) const {
+    return *this;
+  }
 
   __device__ void prepare(const uint8_t**, int, int, int) const {}
 
@@ -425,19 +458,26 @@ struct AcatLoader {
   }
 };
 
-// One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit), block kThreads.
-// t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0] = S1 (the
-// lambda0 statistic), [...,1] = S0. `active` (may be null): skip the pass
-// when *active == 0. kDiv: how `ratio` divides. (At bf16 the pass for
-// K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh, for both loaders.)
+// One raw lambda pass. grid (ceil(B/kRowsPerCta), nsplit, R), block
+// kThreads. t1[b*ts + k*tk], t0 likewise; part (nsplit, B, K, 2): [...,0]
+// = S1 (the lambda0 statistic), [...,1] = S0. `active` (may be null): skip
+// the pass when active[z] == 0. kDiv: how `ratio` divides. Replicate z =
+// blockIdx.z reads and writes at the strides of `rep`. (At bf16 the pass
+// for K <= 64 is lambda_pass_mma_kernel, psd_mma.cuh, for both loaders.)
 template <int KM, class Loader, int kDiv>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_kernel(Loader ld, const float* __restrict__ up,
                    const float* __restrict__ t1g,
                    const float* __restrict__ t0g, int ts, int tk,
                    float* __restrict__ part, int B, int W, int K, int wchunk,
-                   const int* __restrict__ active) {
-  if (active != nullptr && *active == 0) return;
+                   const int* __restrict__ active, Rep rep) {
+  const long long z = blockIdx.z;
+  if (active != nullptr && active[z] == 0) return;
+  ld = ld.shifted(z * rep.rows);
+  up += z * rep.u;
+  t1g += z * rep.t;
+  t0g += z * rep.t;
+  part += z * rep.part;
   constexpr int TC = Loader::cols(KM);
   // entries a lane works on at once: their u rows sit in registers
   constexpr int G = KM <= 8 ? 4 : KM <= 16 ? 2 : 1;
@@ -614,15 +654,23 @@ constexpr int kGRows = 64;      // rows staged in shared memory at once
 // 32 packed bytes (word-wide loads; rows located by `Rows`, a null row
 // reads as MISSING) in shared memory, then each thread runs `gamma_rows`
 // over them. A slice's rows are added in order, so its bits do not
-// depend on the CTA's layout. (At bf16 the pass for K <= 64 is
-// gamma_pass_mma_kernel, psd_mma.cuh.)
+// depend on the CTA's layout. Replicate z = blockIdx.z at the strides of
+// `rep`. (At bf16 the pass for K <= 64 is gamma_pass_mma_kernel,
+// psd_mma.cuh.)
 template <int KM, class Rows>
 __global__ void __launch_bounds__(kGThreads)
 gamma_pass_kernel(Rows src, const float* __restrict__ up,
                   const float* __restrict__ t1g,
                   const float* __restrict__ t0g, int ts, int tk,
-                  float* __restrict__ gpart, int B, int W, int K, int bchunk) {
+                  float* __restrict__ gpart, int B, int W, int K, int bchunk,
+                  Rep rep) {
   constexpr int RB = KM <= 16 ? 2 : 1;
+  const long long z = blockIdx.z;
+  src = src.shifted(z * rep.rows);
+  up += z * rep.u;
+  t1g += z * rep.t;
+  t0g += z * rep.t;
+  gpart += z * rep.part;
   __shared__ float4 tsm[kGRows * KM / 2];
   __shared__ uint32_t bsm[kGRows * kGCols / 4];
   const int s = threadIdx.x >> 5;
@@ -689,23 +737,32 @@ namespace tt {
 
 namespace {  // one copy per translation unit (no template to share)
 
-// g[j] = sum_y gpart[y, j], y in order.
+// g[j] = sum_y gpart[y, j], y in order; replicate blockIdx.z at strides
+// ps (gpart) and os (g).
 __global__ void gamma_reduce_kernel(const float* __restrict__ gpart,
                                     int nsplit, long long n,
-                                    float* __restrict__ g) {
+                                    float* __restrict__ g, long long ps,
+                                    long long os) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  gpart += blockIdx.z * ps;
+  g += blockIdx.z * os;
   float a = 0.f;
   for (int y = 0; y < nsplit; ++y) a += gpart[(long long)y * n + j];
   g[j] = a;
 }
 
-// l0[i] = sum_s part[s, i, 0], l1[i] = sum_s part[s, i, 1], s in order.
+// l0[i] = sum_s part[s, i, 0], l1[i] = sum_s part[s, i, 1], s in order;
+// replicate blockIdx.z at strides ps (part) and os (l0, l1).
 __global__ void split_reduce_kernel(const float* __restrict__ part,
                                     int nsplit, int bk, float* __restrict__ l0,
-                                    float* __restrict__ l1) {
+                                    float* __restrict__ l1, long long ps,
+                                    long long os) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= bk) return;
+  part += blockIdx.z * ps;
+  l0 += blockIdx.z * os;
+  l1 += blockIdx.z * os;
   float a = 0.f, c = 0.f;
   for (int s = 0; s < nsplit; ++s) {
     a += part[((long long)s * bk + i) * 2];
@@ -719,23 +776,26 @@ __global__ void split_reduce_kernel(const float* __restrict__ part,
 
 // Launch the gamma pass over `nsplit` row slices and their reduction.
 // gpart (nsplit, 4W, K) scratch, g (4, W, K). kBf16: the tensor-core body
-// (psd_mma.cuh) with ceil(KM / 8) n8 tiles of K, on the same grid.
+// (psd_mma.cuh) with ceil(KM / 8) n8 tiles of K, on the same grid. R
+// replicates in the grid's z at the strides of `rep` (gpart: rep.part,
+// g: rep.out).
 template <int KM, class Rows, bool kBf16>
 int gamma_stats(Rows src, const float* up, const float* t1g,
                 const float* t0g, int ts, int tk, float* gpart, float* g,
-                int B, int W, int K, int nsplit, cudaStream_t stream) {
+                int B, int W, int K, int nsplit, cudaStream_t stream, int R,
+                Rep rep) {
   const int bchunk = (B + nsplit - 1) / nsplit;
-  const dim3 grid((W + kGCols - 1) / kGCols, nsplit);
+  const dim3 grid((W + kGCols - 1) / kGCols, nsplit, R);
   if constexpr (kBf16)
     gamma_pass_mma_kernel<(KM + 7) / 8, Rows><<<grid, kMmaThreads, 0, stream>>>(
-        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk, rep);
   else
     gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
-        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk, rep);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
-  gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nsplit, ng, g);
+  gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
+                        stream>>>(gpart, nsplit, ng, g, rep.part, rep.out);
   TT_CHECK_LAUNCH();
   return 0;
 }
@@ -795,30 +855,32 @@ namespace tt {
 // kNewton is set: only the fused solve builds it); `active` as in
 // `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
 // tensor-core body (psd_mma.cuh) for either loader, packed rows (K1, K2,
-// K4) or count planes (K8), above it the K-chunked body.
+// K4) or count planes (K8), above it the K-chunked body. R replicates in
+// the grid's z at the strides of `rep` (K <= 64 only: the K-chunked
+// bodies use z for their chunks).
 template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,
                        int W, int K, int nsplit, int div, const int* active,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int R = 1, Rep rep = {}) {
   const int km = pick_km(K);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 ||
-      (div == kDivNewton && !kNewton))
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
+      (km == kWide && R > 1) || (div == kDivNewton && !kNewton))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return launch_lambda_pass_wide<Loader, kNewton, kBf16>(
         ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
-  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit);
+  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit, R);
   const int wchunk = split_chunk(W, nsplit);
 #define TT_PASS(KM, DIV)                                                  \
   if constexpr (kBf16) /* the tensor-core body: ceil(KM / 8) n8 tiles */  \
     lambda_pass_mma_kernel<(KM + 7) / 8, Loader, DIV>                     \
         <<<grid, kMmaThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part,  \
-                                           B, W, K, wchunk, active);      \
+                                           B, W, K, wchunk, active, rep); \
   else                                                                    \
     lambda_pass_kernel<KM, Loader, DIV>                                   \
         <<<grid, kThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part, B,  \
-                                        W, K, wchunk, active)
+                                        W, K, wchunk, active, rep)
 #define TT_LAUNCH(KM)                                 \
   if (div == kDivFast) {                              \
     TT_PASS(KM, kDivFast);                            \
@@ -835,14 +897,15 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
 }
 
 // Launch the gamma pass (gamma_stats, or gamma_stats_wide for K > 64);
-// kBf16 picks the bf16 bodies.
+// kBf16 picks the bf16 bodies. R replicates as in launch_lambda_pass.
 template <class Rows, bool kBf16 = false>
 int launch_gamma_stats(Rows src, const float* up, const float* t1g,
                        const float* t0g, int ts, int tk, float* gpart,
                        float* g, int B, int W, int K, int nsplit,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int R = 1, Rep rep = {}) {
   const int km = pick_km(K, true);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0)
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
+      (km == kWide && R > 1))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return gamma_stats_wide<Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g,
@@ -850,7 +913,7 @@ int launch_gamma_stats(Rows src, const float* up, const float* t1g,
   int err = 0;
 #define TT_LAUNCH(KM)                                                     \
   err = gamma_stats<KM, Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g, \
-                                     B, W, K, nsplit, stream)
+                                     B, W, K, nsplit, stream, R, rep)
   TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
   return err;

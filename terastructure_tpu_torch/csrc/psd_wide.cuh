@@ -334,7 +334,7 @@ int gamma_stats_wide(Rows src, const float* up, const float* t1g,
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nsplit, ng, g);
+      gpart, nsplit, ng, g, 0, 0);
   TT_CHECK_LAUNCH();
   return 0;
 }

@@ -47,7 +47,8 @@ int lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
     return err;
   const int bk = B * K;
   tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit,
-                                                                bk, l0, l1);
+                                                                bk, l0, l1, 0,
+                                                                0);
   TT_CHECK_LAUNCH();
   return 0;
 }

@@ -1182,11 +1182,12 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
   TT_CHECK_LAUNCH();
   const int bk = B * K;
   tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(lpart, nwt,
-                                                                bk, l0, l1);
+                                                                bk, l0, l1, 0,
+                                                                0);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g);
+      gpart, nbt, ng, g, 0, 0);
   TT_CHECK_LAUNCH();
   return 0;
 }
@@ -1227,7 +1228,7 @@ int batch_stats_fused(const uint8_t* rows, const float* up, const float* t1,
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g);
+      gpart, nbt, ng, g, 0, 0);
   TT_CHECK_LAUNCH();
   return 0;
 }

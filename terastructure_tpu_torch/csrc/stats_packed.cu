@@ -18,6 +18,13 @@
 // reference's dtype=jnp.bfloat16: T, U and R rounded to bf16 as the
 // products' operands, sums in f32), the pass of the eval re-solve and the
 // export at bf16.
+//
+// R > 1 runs R replicates of the pass in one launch (blockIdx.z,
+// psd_common.cuh `Rep`): the batched replicates' eval re-solve, where
+// every replicate's gamma meets the same eval rows. The rows are shared
+// (rows_stride 0) or R x (B, W) (rows_stride B W); u planes, t1, t0, l0,
+// l1 and the partial sums are R x the single call's, back to back. R = 1
+// is one pass.
 
 #include "psd_common.cuh"
 
@@ -26,36 +33,39 @@ namespace {
 template <bool kBf16>
 int lambda_stats(const uint8_t* rows, const float* up, const float* t1,
                  const float* t0, float* l0, float* l1, float* part, int B,
-                 int W, int K, int nsplit, int approx, cudaStream_t stream) {
+                 int W, int K, int nsplit, int approx, cudaStream_t stream,
+                 int R, long long rows_stride) {
   using Loader = tt::PackedLoader<tt::ContiguousRows>;
+  const int bk = B * K;
+  tt::Rep rep;
+  rep.rows = rows_stride;
+  rep.u = 4LL * W * K;
+  rep.t = rep.out = bk;
+  rep.part = 2LL * nsplit * bk;
   if (const int err = tt::launch_lambda_pass<Loader, false, kBf16>(
           Loader{{rows}}, up, t1, t0, K, 1, part, B, W, K, nsplit,
-          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream))
+          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream, R, rep))
     return err;
-  const int bk = B * K;
-  tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit, bk,
-                                                            l0, l1);
+  tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
+      part, nsplit, bk, l0, l1, rep.part, rep.out);
   TT_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-extern "C" int tt_lambda_stats_packed(const uint8_t* rows, const float* up,
-                                      const float* t1, const float* t0,
-                                      float* l0, float* l1, float* part,
-                                      int B, int W, int K, int nsplit,
-                                      int approx, cudaStream_t stream) {
+extern "C" int tt_lambda_stats_packed(
+    int R, const uint8_t* rows, const float* up, const float* t1,
+    const float* t0, float* l0, float* l1, float* part, int B, int W, int K,
+    int nsplit, int approx, long long rows_stride, cudaStream_t stream) {
   return lambda_stats<false>(rows, up, t1, t0, l0, l1, part, B, W, K, nsplit,
-                             approx, stream);
+                             approx, stream, R, rows_stride);
 }
 
-extern "C" int tt_lambda_stats_packed_bf16(const uint8_t* rows,
-                                           const float* up, const float* t1,
-                                           const float* t0, float* l0,
-                                           float* l1, float* part, int B,
-                                           int W, int K, int nsplit,
-                                           int approx, cudaStream_t stream) {
+extern "C" int tt_lambda_stats_packed_bf16(
+    int R, const uint8_t* rows, const float* up, const float* t1,
+    const float* t0, float* l0, float* l1, float* part, int B, int W, int K,
+    int nsplit, int approx, long long rows_stride, cudaStream_t stream) {
   return lambda_stats<true>(rows, up, t1, t0, l0, l1, part, B, W, K, nsplit,
-                            approx, stream);
+                            approx, stream, R, rows_stride);
 }

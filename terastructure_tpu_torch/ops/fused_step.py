@@ -24,6 +24,11 @@ dtype=torch.bfloat16 (compute_dtype "bfloat16") runs the bf16 sequences
 the three products rounded to bf16 and the sums stay f32, as in the
 reference's bf16 kernel; everything outside the products (the update
 with the unrounded t, the tol test, Aitken) is the f32 path's.
+
+Batched replicates (svi/replicates.py): K1 takes a leading replicate
+axis, R solves in one launch sequence (`tt_fused_local_solve` with R),
+each with its own tol exit, as the reference's vmapped kernel has; the
+twin of a batched call is the twin of each replicate, stacked.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import as_operand, solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_dtype, check_shapes, count_launch, gamma_grid, lambda_grid,
-    plane_counts, ratios_planar)
+    check_dtype, check_replicate_k, check_shapes, count_launch, gamma_grid,
+    lambda_grid, plane_counts, ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -167,25 +172,29 @@ def _check_solve_args(name, rows, u_planes, lamb_init, b, dtype):
 
 def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
                   local_tol, beta_a, beta_b, dtype, warm_start, approx_div,
-                  accel):
+                  accel, r=None):
     """Allocate the solve's outputs and scratch and call the C entry
     `entry` (tt_fused_local_solve or tt_fused_local_solve_dma; with the
     suffix _bf16 where dtype is bf16, the same arguments) with `lead_args`
-    (its row arguments) first. Returns (lamb_out, g)."""
+    (K1's R and rows, K2's row arguments) first. r:
+    the replicates of a batched call (every array gets the leading axis;
+    each replicate's grid is the single solve's), None for one solve.
+    Returns (lamb_out, g)."""
     dev = u_planes.device
-    k = u_planes.shape[2]
+    k = u_planes.shape[-1]
     nsplit_w, _ = lambda_grid(b, w)
     nsplit_b = gamma_grid(b, w, k)
     nupd = -(-b * k // 256)
+    lead = () if r is None else (r,)
 
     def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return torch.empty((*lead, *shape), dtype=torch.float32, device=dev)
 
     lamb_out, g = f32(b, k, 2), f32(4, w, k)
     lam, mid, t = f32(b, k, 2), f32(b, k, 2), f32(b, k, 2)
     part, dpart = f32(nsplit_w, b, k, 2), f32(nupd, 2)
     gpart = f32(nsplit_b, 4 * w, k)
-    active = torch.empty(1, dtype=torch.int32, device=dev)
+    active = torch.empty(lead or 1, dtype=torch.int32, device=dev)
     if dtype == torch.bfloat16:
         entry += "_bf16"
     err = getattr(_build.lib(), entry)(
@@ -214,27 +223,64 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
     and everything outside the products in f32; counted in
     `bf16_launches`). Returns (new_lamb_b (B, K, 2) f32, g_planes
     (4, W, K) f32).
+
+    Batched replicates: rows (R, B, W), u_planes (R, 4, W, K), lamb_init
+    (R, B, K, 2) run R solves in one launch sequence (counted in
+    `rep_launches` as well), each with its own tol exit; returns
+    (R, B, K, 2) and (R, 4, W, K), replicate r bitwise the single solve's
+    on its inputs. K <= 64 where R > 1 (the replicate axis runs the
+    K <= 64 bodies).
     """
-    _check_solve_args("fused_local_solve", rows, u_planes, lamb_init,
-                      rows.shape[0], dtype)
+    name = "fused_local_solve"
+    r = _check_replicates(name, rows, u_planes, lamb_init)
+    _check_solve_args(name, rows if r is None else rows[0],
+                      u_planes if r is None else u_planes[0],
+                      lamb_init if r is None else lamb_init[0],
+                      rows.shape[-2], dtype)
     kw = dict(local_iters=local_iters, local_tol=local_tol, beta_a=beta_a,
               beta_b=beta_b, dtype=dtype, warm_start=warm_start,
               approx_div=approx_div, accel=accel)
     if rows.device.type == "cpu":
         fused_local_solve.twin_calls += 1
-        return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
+        if r is None:
+            return fused_local_solve_twin(rows, u_planes, lamb_init, **kw)
+        outs = [fused_local_solve_twin(rows[i], u_planes[i], lamb_init[i],
+                                       **kw) for i in range(r)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     if rows.device.type != "cuda":
-        raise ValueError(f"fused_local_solve: unsupported device {rows.device}")
-    _build.require_cuda("fused_local_solve", rows, u_planes, lamb_init,
+        raise ValueError(f"{name}: unsupported device {rows.device}")
+    _build.require_cuda(name, rows, u_planes, lamb_init,
                         dtypes=(torch.uint8, torch.float32, torch.float32))
-    out = _launch_solve("tt_fused_local_solve", (rows.data_ptr(),), u_planes,
-                        lamb_init, *rows.shape, **kw)
+    out = _launch_solve("tt_fused_local_solve", (r or 1, rows.data_ptr()),
+                        u_planes, lamb_init, *rows.shape[-2:], r=r, **kw)
     count_launch(fused_local_solve, dtype)
+    if r is not None:
+        fused_local_solve.rep_launches += 1
     return out
+
+
+def _check_replicates(name, rows, u_planes, lamb_init):
+    """A batched call's replicate count R (rows (R, B, W), u_planes (R, 4,
+    W, K), lamb_init (R, B, K, 2)), None for a single call (rows (B,
+    W))."""
+    if rows.dim() != 3:
+        return None
+    r = rows.shape[0]
+    if u_planes.dim() != 4 or lamb_init.dim() != 4:
+        raise ValueError(f"{name}: rows (R, B, W), u_planes (R, 4, W, K), "
+                         "lamb_init (R, B, K, 2)")
+    if u_planes.shape[0] != r or lamb_init.shape[0] != r:
+        raise ValueError(f"{name}: {r} replicates of rows, "
+                         f"{u_planes.shape[0]} of u_planes, "
+                         f"{lamb_init.shape[0]} of lamb_init")
+    if r > 1:
+        check_replicate_k(name, u_planes.shape[-1])
+    return r
 
 
 fused_local_solve.launches = 0
 fused_local_solve.bf16_launches = 0
+fused_local_solve.rep_launches = 0
 fused_local_solve.twin_calls = 0
 
 

@@ -114,6 +114,17 @@ def pad_share(pad_rows, k, prior, first):
     return 0.0, pad_rows * k * (abs(beta_a) + abs(beta_b))
 
 
+def _tol_delta(new, lam, pad_rows, prior, first):
+    """The tol test's mean relative lambda change of one solve (B, K, 2),
+    with the reference's pad rows' share where it pads the batch."""
+    if pad_rows:
+        n = lam.numel() + pad_rows * lam.shape[1] * 2
+        pd, pm = pad_share(pad_rows, lam.shape[1], prior, first=first)
+        return (((new - lam).abs().sum() + pd) / n
+                / (((lam.abs().sum() + pm) / n) + 1.0))
+    return (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
+
+
 def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
                    pad_rows=0, prior=(1.0, 1.0), passes=None):
     """The local-solve schedule shared by every coordinate-ascent path.
@@ -139,23 +150,30 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
     loop passes the reference's while_loop would run: 1 + the passes
     after the first that `active` lets through, a scalar on the solve's
     device (the host reads no device value here).
+
+    lamb0 (R, B, K, 2) is R independent solves (batched replicates: the
+    reference's while_loop under vmap). Each replicate has its own tol
+    test and `active`, and its means are taken on its own slice as a
+    single solve takes them, so each replicate's result is bitwise the
+    single solve's.
     """
     accel = accel and local_iters >= 3
     loop_iters = local_iters - 2 if accel else local_iters
     lam = lamb0
-    active = torch.ones((), dtype=torch.bool, device=lamb0.device)
-    n = lam.numel() + pad_rows * lam.shape[1] * 2
+    replicates = lam.dim() == 4
+    shape = (lam.shape[0], 1, 1, 1) if replicates else ()
+    active = torch.ones(shape, dtype=torch.bool, device=lamb0.device)
     ran = []
     for i in range(loop_iters):
         if i and passes is not None:
             ran.append(active)
         new = iterate(lam)
-        if pad_rows:
-            pd, pm = pad_share(pad_rows, lam.shape[1], prior, first=i == 0)
-            delta = (((new - lam).abs().sum() + pd) / n
-                     / (((lam.abs().sum() + pm) / n) + 1.0))
+        if replicates:
+            delta = torch.stack([
+                _tol_delta(nr, lr, pad_rows, prior, i == 0)
+                for nr, lr in zip(new, lam)]).view(shape)
         else:
-            delta = (new - lam).abs().mean() / (lam.abs().mean() + 1.0)
+            delta = _tol_delta(new, lam, pad_rows, prior, i == 0)
         lam = torch.where(active, new, lam)
         active = active & (delta > local_tol)
     if passes is not None:

@@ -45,15 +45,17 @@ SM_COUNT = 132          # H100 SXM
 
 
 def u_to_planes(u: torch.Tensor) -> torch.Tensor:
-    """(N, K) -> (4, W, K) planar layout; requires N % 4 == 0."""
-    n, k = u.shape
-    return u.reshape(n // 4, 4, k).permute(1, 0, 2).contiguous()
+    """(..., N, K) -> (..., 4, W, K) planar layout; requires N % 4 == 0.
+    A leading axis (batched replicates) is carried through."""
+    *lead, n, k = u.shape
+    x = u.reshape(*lead, n // 4, 4, k)
+    return x.transpose(-3, -2).contiguous()
 
 
 def planes_to_flat(g: torch.Tensor) -> torch.Tensor:
-    """(4, W, K) -> (N, K), the inverse of u_to_planes."""
-    _, w, k = g.shape
-    return g.permute(1, 0, 2).reshape(4 * w, k)
+    """(..., 4, W, K) -> (..., N, K), the inverse of u_to_planes."""
+    *lead, _, w, k = g.shape
+    return g.transpose(-3, -2).reshape(*lead, 4 * w, k)
 
 
 def plane_counts(rows: torch.Tensor):
@@ -147,10 +149,11 @@ def batch_stats_fused_twin(rows, u_planes, t1, t0, *, approx_div=False,
 
 
 def pad_individuals(u: torch.Tensor, w: int) -> torch.Tensor:
-    """u (N, K) -> (4W, K), padding individuals with 1.0: their genotypes
-    decode as MISSING, so they add nothing."""
-    if u.shape[0] != 4 * w:
-        u = torch.cat([u, u.new_ones((4 * w - u.shape[0], u.shape[1]))])
+    """u (..., N, K) -> (..., 4W, K), padding individuals with 1.0: their
+    genotypes decode as MISSING, so they add nothing."""
+    *lead, n, k = u.shape
+    if n != 4 * w:
+        u = torch.cat([u, u.new_ones((*lead, 4 * w - n, k))], -2)
     return u
 
 
@@ -178,6 +181,15 @@ def check_dtype(name, dtype):
         raise NotImplementedError(
             f"{name}: compute dtype {dtype} is not ported (float32, "
             "bfloat16)")
+
+
+def check_replicate_k(name, k):
+    """The replicate axis runs the K <= 64 bodies only: the K-chunked
+    bodies (csrc/psd_wide.cuh) hold their chunks in the grid's z."""
+    if k > 64:
+        raise NotImplementedError(
+            f"{name}: the replicate axis at K = {k} > 64 (the K-chunked "
+            "bodies) is not ported (ROADMAP Queue 1, S6)")
 
 
 def count_launch(fn, dtype):
@@ -250,22 +262,53 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     t1 / t0. dtype: the products' operand type, float32 or bfloat16 (T,
     U and R rounded to bf16, sums in f32: the bf16 body, counted in
     `bf16_launches`).
+
+    Batched replicates: u_planes (R, 4, W, K) and t1, t0 (R, B, K) run R
+    passes in one launch (the replicate axis, counted in `rep_launches`
+    as well), over rows (B, W) that every replicate shares or (R, B, W)
+    of their own; returns (R, B, K) each, replicate r bitwise the single
+    call's on its inputs. The twin of a batched call is the twin of each
+    replicate, stacked.
     """
-    check_shapes("lambda_stats_packed", rows, u_planes)
-    check_dtype("lambda_stats_packed", dtype)
-    b, w = rows.shape
-    k = u_planes.shape[2]
-    check_t("lambda_stats_packed", b, k, t1, t0)
-    if _device_of("lambda_stats_packed", rows) == "cpu":
+    name = "lambda_stats_packed"
+    check_dtype(name, dtype)
+    r = u_planes.shape[0] if u_planes.dim() == 4 else None
+    shared = rows.dim() == 2
+    if r is None and not shared:
+        raise ValueError(f"{name}: rows (R, B, W) take u_planes (R, 4, W, "
+                         "K)")
+    if not shared and rows.shape[0] != r:
+        raise ValueError(f"{name}: rows (R, B, W) with R = {r}")
+    check_shapes(name, rows if shared else rows[0],
+                 u_planes if r is None else u_planes[0])
+    b, w = rows.shape[-2:]
+    k = u_planes.shape[-1]
+    if r is None:
+        check_t(name, b, k, t1, t0)
+    elif t1.shape != (r, b, k) or t0.shape != (r, b, k):
+        raise ValueError(f"{name}: t1, t0 must be (R, B, K) = ({r}, {b}, "
+                         f"{k})")
+    if r is not None and r > 1:
+        check_replicate_k(name, k)
+    if _device_of(name, rows) == "cpu":
         lambda_stats_packed.twin_calls += 1
-        return lambda_stats_packed_twin(rows, u_planes, t1, t0,
-                                        approx_div=approx_div, dtype=dtype)
-    _build.require_cuda("lambda_stats_packed", rows, u_planes, t1, t0,
+        if r is None:
+            return lambda_stats_packed_twin(rows, u_planes, t1, t0,
+                                            approx_div=approx_div,
+                                            dtype=dtype)
+        outs = [lambda_stats_packed_twin(rows if shared else rows[i],
+                                         u_planes[i], t1[i], t0[i],
+                                         approx_div=approx_div, dtype=dtype)
+                for i in range(r)]
+        return tuple(torch.stack(x) for x in zip(*outs))
+    _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
                                      lambda_grid(b, w)[0], approx_div,
                                      dtype == torch.bfloat16)
     count_launch(lambda_stats_packed, dtype)
+    if r is not None:
+        lambda_stats_packed.rep_launches += 1
     return out
 
 
@@ -274,25 +317,30 @@ def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div,
     """K4's launch at a given column split (validated CUDA tensors).
     `lambda_stats_packed` passes `lambda_grid`'s; chip_smoke.py's sweep
     passes others to show where the chosen split stands. bf16: the bf16
-    body's entry."""
-    b, w = rows.shape
-    k = u_planes.shape[2]
+    body's entry. u_planes (R, 4, W, K) with t1, t0 (R, B, K) launch R
+    replicates, over rows (B, W) shared or (R, B, W) their own."""
+    b, w = rows.shape[-2:]
+    k = u_planes.shape[-1]
+    lead = tuple(u_planes.shape[:-3])
     dev = rows.device
-    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    l0 = torch.empty((*lead, b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
-    part = torch.empty((nsplit, b, k, 2), dtype=torch.float32, device=dev)
+    part = torch.empty((*lead, nsplit, b, k, 2), dtype=torch.float32,
+                       device=dev)
     entry = ("tt_lambda_stats_packed_bf16" if bf16
              else "tt_lambda_stats_packed")
     err = getattr(_build.lib(), entry)(
-        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
-        l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k, nsplit,
-        int(approx_div), _build.stream_ptr(dev))
+        lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
+        t1.data_ptr(), t0.data_ptr(), l0.data_ptr(), l1.data_ptr(),
+        part.data_ptr(), b, w, k, nsplit, int(approx_div),
+        b * w if rows.dim() == 3 else 0, _build.stream_ptr(dev))
     _build.check(err, "lambda_stats_packed")
     return l0, l1
 
 
 lambda_stats_packed.launches = 0
 lambda_stats_packed.bf16_launches = 0
+lambda_stats_packed.rep_launches = 0
 lambda_stats_packed.twin_calls = 0
 
 
@@ -306,6 +354,11 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
     column subsample). pad_rows: the reference's all-MISSING batch rows
     that the tol test counts (`solve_schedule`). dtype: K4's compute
     dtype.
+
+    Batched replicates: u (R, N, K) and lamb_b (R, B, K, 2) run R solves
+    over the same rows (B, W), K4 with its replicate axis, each with its
+    own tol test (`solve_schedule`); returns
+    (R, B, K, 2), replicate r bitwise the single solve's.
     """
     u_planes = u_to_planes(u)
 

@@ -58,6 +58,35 @@ class FitResult:
     wall_s: float
 
 
+def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):
+    """(gamma, lamb) -> the mean predictive log-lik of an entry set (a 0-d
+    tensor), or None for an empty set. Local mode: the lambdas of its
+    SNPs are re-solved from gamma (lamb is not read). Stored mode: lamb
+    is read. Stacked replicates, gamma (R, N, K) and lamb (R, L, K, 2),
+    give (R,) log-liks, each replicate's as its single state's."""
+    if es is None or not len(es):
+        return None
+    if cfg.lambda_mode != "local":
+        i, j, xv = (torch.as_tensor(np.asarray(a)).to(device)
+                    for a in (es.ind_idx, es.snp_idx, es.x))
+        i, j = i.long(), j.long()
+
+        def stored(gamma, lamb):
+            if gamma.dim() == 3:
+                return torch.stack([engine.entry_loglik(
+                    g, lm, i, j, xv, form=cfg.predictive)
+                    for g, lm in zip(gamma, lamb)])
+            return engine.entry_loglik(gamma, lamb, i, j, xv,
+                                       form=cfg.predictive)
+
+        return stored
+    uniq, inv = np.unique(es.snp_idx, return_inverse=True)
+    rows = engine.pad_width(np.asarray(data.packed)[uniq])
+    f = engine.make_entry_loglik_recompute(
+        cfg, rows, inv.astype(np.int64), es.ind_idx, es.x, device=device)
+    return lambda gamma, lamb: f(gamma)
+
+
 def _not_ported(what, slice_):
     raise NotImplementedError(f"{what} is not ported yet ({slice_})")
 
@@ -106,25 +135,7 @@ def fit(
                                           int(packed.shape[0]))
     state = engine.init_state(cfg, l_padded=packed.shape[0], device=device)
 
-    def make_scorer(es):
-        """(state -> mean ll) for an entry set. Local mode: the lambdas of
-        its SNPs are re-solved from the current gamma. Stored mode: the
-        stored lambda is read."""
-        if es is None or not len(es):
-            return None
-        if not local_mode:
-            i, j, xv = (torch.as_tensor(np.asarray(a)).to(device)
-                        for a in (es.ind_idx, es.snp_idx, es.x))
-            i, j = i.long(), j.long()
-            return lambda st: float(engine.entry_loglik(
-                st.gamma, st.lamb, i, j, xv, form=cfg.predictive))
-        uniq, inv = np.unique(es.snp_idx, return_inverse=True)
-        rows = engine.pad_width(np.asarray(data.packed)[uniq])
-        f = engine.make_entry_loglik_recompute(
-            cfg, rows, inv.astype(np.int64), es.ind_idx, es.x, device=device)
-        return lambda st: float(f(st.gamma))
-
-    val_scorer = make_scorer(data.validation)
+    val_scorer = make_scorer(cfg, data, data.validation, device)
 
     trace: List[dict] = []
     best_ll = -np.inf
@@ -147,7 +158,7 @@ def fit(
             rec["predictive"] = cfg.predictive
         if val_scorer is not None:
             te = time.time()
-            ll = val_scorer(state)
+            ll = float(val_scorer(state.gamma, state.lamb))
             rec["eval_s"] = round(time.time() - te, 3)
             rec["validation_ll"] = ll
             if not np.isfinite(ll):
@@ -175,8 +186,9 @@ def fit(
             lamb = compute_lambda(cfg, state.gamma, packed)
         state = state._replace(lamb=lamb)
 
-    held_scorer = make_scorer(data.heldout)
-    held_ll = held_scorer(state) if held_scorer is not None else None
+    held_scorer = make_scorer(cfg, data, data.heldout, device)
+    held_ll = (float(held_scorer(state.gamma, state.lamb))
+               if held_scorer is not None else None)
     return FitResult(
         state=state,
         trace=trace,

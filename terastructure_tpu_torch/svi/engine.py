@@ -22,6 +22,15 @@ Ported: the resident, single-process path with kernel "auto"/"fused"
 (the big-N per-iteration path: K8, K4, and K7, K5 or K6 for the
 statistics), at compute_dtype "float32" and "bfloat16", in both lambda
 modes.
+
+Batched replicates (`make_replicate_step`, `make_replicate_run_chunk`;
+the entry point is svi/replicates.py): R seeds step in lockstep on one
+stacked state, the reference's vmapped step. Each replicate draws its own
+minibatch from its own generator, and one K1 launch sequence with a
+replicate axis solves all R; the glue runs on the stacked tensors. Only
+the fused branch on gathered rows is ported there (K1, the reference's
+dma_gather=False: no K3); the big-N path, K2's group DMA, K > 64 and
+kernel="dense" raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -454,6 +463,128 @@ def make_step(cfg: SVIConfig, l_sample: int | None = None):
     return step
 
 
+class ReplicateState(NamedTuple):
+    """R replicates' states stacked (the reference's vmapped SVIState)."""
+    gamma: torch.Tensor   # (R, N, K)
+    lamb: torch.Tensor    # (R, L, K, 2)
+    t: int                # the iteration counter (host), shared: the
+    #                       replicates step in lockstep
+    seeds: tuple          # each replicate's seed
+
+
+def init_replicate_state(cfg: SVIConfig, seeds, *, l_padded=None,
+                         device="cpu") -> ReplicateState:
+    """`init_state` of each seed, stacked: replicate r starts where a
+    single fit with seed r starts."""
+    states = [init_state(cfg.replace(seed=s), l_padded=l_padded,
+                         device=device) for s in seeds]
+    return ReplicateState(gamma=torch.stack([s.gamma for s in states]),
+                          lamb=torch.stack([s.lamb for s in states]),
+                          t=0,
+                          seeds=tuple(int(s) for s in seeds))
+
+
+def unstack_state(states: ReplicateState, i: int) -> SVIState:
+    """Replicate i's SVIState out of a stacked state (views of its rows)."""
+    return SVIState(gamma=states.gamma[i], lamb=states.lamb[i],
+                    t=states.t, seed=states.seeds[i])
+
+
+def check_replicate_path(cfg: SVIConfig, w: int, l_sample: int) -> None:
+    """Raise NotImplementedError where a batched step would leave the
+    ported slice: the fused solve (K1) on gathered rows at K <= 64."""
+    queued = "is not ported yet (ROADMAP Queue 1, S6)"
+    impl = step_impl(cfg, w)
+    if impl == "dense":
+        raise NotImplementedError(f"batched replicates with kernel='dense' "
+                                  f"{queued}")
+    if impl == "pallas":
+        raise NotImplementedError(
+            f"batched replicates on the big-N path (a replicate axis in "
+            f"K5-K8) {queued}")
+    if uses_group_dma(cfg, l_sample):
+        raise NotImplementedError(
+            f"batched replicates through K2's group DMA (snp_group="
+            f"{cfg.snp_group}; a replicate axis in K2) {queued}")
+    if cfg.k > 64:
+        raise NotImplementedError(
+            f"batched replicates at K = {cfg.k} > 64 (a replicate axis in "
+            f"the K-chunked bodies) {queued}")
+
+
+def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
+    """The batched replicates' step: (ReplicateState, packed) ->
+    ReplicateState, R single-device steps in lockstep.
+
+    Replicate r draws step t's minibatch from step_generator(seed_r, t)
+    as a single fit with seed r does with dma_gather=False (independent
+    per-row draws; the reference's batched step turns block draws off), so
+    K3 never runs. The R row sets are gathered into one (R, B, W) tensor
+    and K1 solves all R in one launch sequence; u, the gamma statistic and
+    the Robbins-Monro update run on the stacked tensors (rho is the same
+    for every replicate). In the stored lambda mode each replicate
+    gathers and scatters its own lambda rows, in place. Each replicate's
+    gamma (and lambda) is bitwise the single fit's.
+
+    Raises NotImplementedError outside the ported slice
+    (`check_replicate_path`).
+    """
+    _resolve_kernel(cfg)
+    cfg = cfg.replace(dma_gather=False)
+    l_s = l_sample or cfg.l
+    w = 128 * -(-cfg.n // 512)            # pad_width's byte width
+    check_replicate_path(cfg, w, l_s)
+    local_mode = cfg.lambda_mode == "local"
+    if not local_mode and cfg.lambda_mode != "stored":
+        raise ValueError(f"unknown lambda_mode {cfg.lambda_mode!r}")
+
+    def step(state: ReplicateState, packed) -> ReplicateState:
+        t = state.t
+        if packed.shape[1] != w:
+            raise ValueError(f"replicate step: packed width {packed.shape[1]}"
+                             f", expected {w}")
+        gamma, lamb = state.gamma, state.lamb
+        r, n = gamma.shape[:2]
+        dev = packed.device
+        idx = torch.stack([
+            _sample_batch(step_generator(seed, t, dev), l_s, cfg.batch_size,
+                          dev) for seed in state.seeds]).long()
+        rows = packed[idx]                                   # (R, B, W)
+        u = pad_individuals(ops.exp_elog_theta(gamma), w)
+        reps = torch.arange(r, device=dev)[:, None]
+        warm = not local_mode
+        lamb_init = (lamb[reps, idx] if warm else
+                     torch.zeros((r, cfg.batch_size, cfg.k, 2),
+                                 dtype=torch.float32, device=dev))
+        new_lamb_b, g = fused_step.fused_local_solve(
+            rows, u_to_planes(u), lamb_init, local_iters=cfg.local_iters,
+            local_tol=cfg.local_tol, beta_a=cfg.beta_a, beta_b=cfg.beta_b,
+            dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
+            approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
+        if warm:
+            lamb[reps, idx] = new_lamb_b
+        gamma_stat = (u * planes_to_flat(g))[:, :n]
+        gamma = _global_update(cfg, gamma, gamma_stat, t, l_s)
+        return state._replace(gamma=gamma, t=t + 1)
+
+    return step
+
+
+def make_replicate_run_chunk(cfg: SVIConfig, nsteps: int,
+                             l_sample: int | None = None):
+    """Runner of `nsteps` batched replicate steps (`make_replicate_step`);
+    like make_run_chunk it only enqueues device work, and in the stored
+    mode it consumes its input state."""
+    step = make_replicate_step(cfg, l_sample)
+
+    def run_chunk(state: ReplicateState, packed) -> ReplicateState:
+        for _ in range(nsteps):
+            state = step(state, packed)
+        return state
+
+    return run_chunk
+
+
 def make_run_chunk(cfg: SVIConfig, nsteps: int, l_sample: int | None = None):
     """Runner of `nsteps` SVI steps. It enqueues device work only: the
     host never waits on the device inside a chunk. In the stored lambda
@@ -485,6 +616,13 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
     entry to its row. Returns gamma -> mean log-lik (a 0-d tensor), which
     re-solves those SNPs' lambdas from the current gamma. Inputs move to
     the device once.
+
+    gamma may be stacked (R, N, K) (batched replicates): the returned
+    function then gives (R,) log-liks, the lambdas of all R re-solved at
+    once (K4 with its replicate axis), each replicate's score taken on
+    its own slice as a single fit's is (so bitwise the single scorer's
+    where the column subsample does not engage: its seed, cfg.seed's, is
+    shared by the replicates, as in the reference's batched scorer).
     """
     from terastructure_tpu_torch.svi.postprocess import solve_lambda_blocks
 
@@ -497,10 +635,7 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
     # (the column subsample engages only when N is large).
     sub_seed = cfg.seed ^ 0xE7A1
 
-    def f(gamma):
-        u = pad_individuals(ops.exp_elog_theta(gamma), w)
-        lamb_eval = solve_lambda_blocks(cfg, u, eval_rows, block=1024,
-                                        sub_seed=sub_seed)
+    def score(gamma, lamb_eval):
         if cfg.predictive == "variational":
             return psd.variational_predictive_loglik(
                 gamma[ind_idx], lamb_eval[row_of_entry], x).mean()
@@ -508,5 +643,14 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
         th = psd.theta_mean(gamma[ind_idx])
         p = (th * beta[row_of_entry]).sum(-1)
         return psd.binomial2_loglik(x, p).mean()
+
+    def f(gamma):
+        u = pad_individuals(ops.exp_elog_theta(gamma), w)
+        lamb_eval = solve_lambda_blocks(cfg, u, eval_rows, block=1024,
+                                        sub_seed=sub_seed)
+        if gamma.dim() == 3:
+            return torch.stack([score(g, lm)
+                                for g, lm in zip(gamma, lamb_eval)])
+        return score(gamma, lamb_eval)
 
     return f

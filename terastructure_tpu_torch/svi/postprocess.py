@@ -35,12 +35,19 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
     individuals with N/Ns-scaled statistics, and the final statistic is
     one exact full-N pass. Pass a fixed seed so eval scores stay
     deterministic across checks.
+
+    Batched replicates: u (R, 4W, K) solves every row for R replicates at
+    once (K4 with its replicate axis, the rows shared) and returns
+    (R, S, K, 2); one column subsample serves every replicate, as in the
+    reference's batched scorer.
     """
     dtype = getattr(torch, cfg.compute_dtype)
     dev = u.device
     s, w = packed_rows.shape
-    wp = u.shape[0] // 4
-    lamb0 = torch.empty((block, cfg.k, 2), dtype=torch.float32, device=dev)
+    lead = tuple(u.shape[:-2])                    # () or (R,)
+    wp = u.shape[-2] // 4
+    lamb0 = torch.empty((*lead, block, cfg.k, 2), dtype=torch.float32,
+                        device=dev)
     lamb0[..., 0] = cfg.beta_a
     lamb0[..., 1] = cfg.beta_b
     u_planes = u_to_planes(u)
@@ -50,7 +57,8 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
     if sub_seed is not None and sub_w >= 128 and wp >= 4 * sub_w:
         gen = torch.Generator().manual_seed(sub_seed)
         idx_w = torch.randperm(wp, generator=gen)[:sub_w].to(dev)
-        u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
+        u_sub = u.reshape(*lead, wp, 4, -1)[..., idx_w, :, :].reshape(
+            *lead, 4 * sub_w, -1)
 
     kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b,
               local_iters=cfg.local_iters, local_tol=cfg.local_tol,
@@ -71,7 +79,7 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
         l0, l1 = lambda_stats_packed(rows, u_planes, e1, e0, dtype=dtype)
         outs.append(torch.stack([cfg.beta_a + e1 * l0,
                                  cfg.beta_b + e0 * l1], -1))
-    return torch.cat(outs)[:s]
+    return torch.cat(outs, -3)[..., :s, :, :]
 
 
 def compute_lambda(cfg: SVIConfig, gamma, packed, *, block: int = 1024):

@@ -60,3 +60,22 @@ def test_converge_stream_record_at_a_tiny_size():
     assert rec["twin_calls"]["batch_stats_fused_v2_packed"] == 100
     assert rec["twin_calls"]["fused_local_solve"] == 0
     assert set(Path(tempfile.gettempdir()).glob("converge_stream_*")) == before
+
+
+def test_converge_replicates_records_at_a_tiny_size():
+    """--replicates: one record a replicate (seeds 0..R-1, K1's batched
+    twin once a lockstep step) and the best's last, marked."""
+    recs = converge.run_replicates(1, 2, device="cpu", max_steps=100,
+                                   scale=0.05, batch_size=64)
+    assert len(recs) == 3 and recs[-1]["best"]
+    assert [r["seed"] for r in recs[:2]] == [0, 1]
+    best = max(recs[:2], key=lambda r: r["validation_ll"])
+    assert recs[-1]["seed"] == best["seed"]
+    for r in recs:
+        assert (r["n"], r["l"], r["k"], r["replicates"]) == (48, 496, 3, 2)
+        assert r["steps"] <= r["lockstep_steps"] <= 100
+        for key in ("theta_mae", "heldout_ll", "oracle_ll", "validation_ll",
+                    "snp_updates_per_s"):
+            assert np.isfinite(r[key]), key
+        assert r["twin_calls"]["fused_local_solve"] == r["lockstep_steps"]
+        assert r["rep_launches"]["fused_local_solve"] == 0

@@ -804,3 +804,117 @@ def test_stream_worker_exception_propagates(cuda_device, monkeypatch):
     st = engine.init_state(cfg, device=cuda_device)
     with pytest.raises(OSError, match="step 4"):
         stream.make_stream_chunk(cfg, 6, cfg.l)(st, packed)
+
+
+# --- the replicate axis (batched replicates) ---------------------------------
+def _rep_problem(dev, r, b, n, k, seed):
+    """r replicates' (rows, u planes, lambda), each `_problem` of its own
+    seed."""
+    parts = [_problem(dev, b, n, k, seed + i) for i in range(r)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["cold_plain", "warm_plain",
+                                  "tol_fires_accel"])
+@pytest.mark.parametrize("shape", [(64, 512, 8), (40, 700, 3)])
+def test_rep_fused_kernel_is_the_single_kernel_per_replicate(
+        cuda_device, case, shape, dtype):
+    """K1 with the replicate axis (R = 3): each replicate bitwise the
+    single launch on its inputs, counted in rep_launches, and held to the
+    twin as the single kernel is (at bf16 the plain schedules only, as
+    test_bf16_fused_solves_match_twin: with the accel tail a bf(t) that
+    rounds the other way moves g by up to 0.6%, measured on 6% of g's
+    entries at shape0, NVIDIA H100 80GB HBM3, 700 W)."""
+    rows, up, lamb = _rep_problem(cuda_device, 3, *shape, seed=len(case))
+    kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0, dtype=dtype)
+    before = fused_step.fused_local_solve.rep_launches
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    assert fused_step.fused_local_solve.rep_launches == before + 1
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-3, atol=1e-5)
+    for i in range(3):
+        one = fused_step.fused_local_solve(rows[i], up[i], lamb[i], **kw)
+        assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i],
+                                                              one[1])
+        if dtype == torch.bfloat16 and kw.get("accel"):
+            continue
+        want = fused_step.fused_local_solve_twin(rows[i], up[i], lamb[i],
+                                                 **kw)
+        np.testing.assert_allclose(got[1][i].cpu().numpy(),
+                                   want[1].cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_rep_fused_kernel_exits_per_replicate(cuda_device):
+    """Replicate 1's rows all MISSING: its tol loop ends after the first
+    pass while the others run on, each bitwise its single solve."""
+    rows, up, lamb = _rep_problem(cuda_device, 3, 64, 512, 8, seed=5)
+    rows[1] = 0xFF
+    kw = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+              beta_b=1.0)
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    for i in range(3):
+        one = fused_step.fused_local_solve(rows[i], up[i], lamb[i], **kw)
+        assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i],
+                                                              one[1])
+    assert float(got[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rep_of_one_is_the_single_kernel(cuda_device, dtype):
+    """A leading replicate axis of one gives the single call's bits (both
+    launch the same entry, R = 1)."""
+    rows, up, lamb = _problem(cuda_device, 40, 700, 3, seed=2)
+    kw = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+              beta_b=1.0, dtype=dtype)
+    got = fused_step.fused_local_solve(rows[None], up[None], lamb[None],
+                                       **kw)
+    one = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    assert torch.equal(got[0][0], one[0]) and torch.equal(got[1][0], one[1])
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    got = stats_packed.lambda_stats_packed(rows, up[None], t1[None],
+                                           t0[None], dtype=dtype)
+    one = stats_packed.lambda_stats_packed(rows, up, t1, t0, dtype=dtype)
+    assert torch.equal(got[0][0], one[0]) and torch.equal(got[1][0], one[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("approx_div", [False, True])
+def test_rep_lambda_stats_is_the_single_pass_per_replicate(
+        cuda_device, dtype, shared, approx_div):
+    """K4 with the replicate axis (R = 3), over rows every replicate
+    shares or rows of their own: each replicate bitwise the single pass,
+    and held to the twin."""
+    rows, up, lamb = _rep_problem(cuda_device, 3, 72, 640, 8, seed=9)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    rr = rows[0] if shared else rows
+    before = stats_packed.lambda_stats_packed.rep_launches
+    got = stats_packed.lambda_stats_packed(rr, up, t1, t0,
+                                           approx_div=approx_div, dtype=dtype)
+    assert stats_packed.lambda_stats_packed.rep_launches == before + 1
+    tol = (dict(rtol=5e-3, atol=5e-3) if approx_div else
+           TOL if dtype == torch.float32 else dict(rtol=1e-3, atol=1e-6))
+    for i in range(3):
+        ri = rr if shared else rr[i]
+        one = stats_packed.lambda_stats_packed(ri, up[i], t1[i], t0[i],
+                                               approx_div=approx_div,
+                                               dtype=dtype)
+        assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i],
+                                                              one[1])
+        want = stats_packed.lambda_stats_packed_twin(
+            ri, up[i], t1[i], t0[i], approx_div=approx_div, dtype=dtype)
+        for g, w in zip((got[0][i], got[1][i]), want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       **tol)
+
+
+@pytest.mark.cuda
+def test_rep_kernels_refuse_k_above_64(cuda_device):
+    rows, up, lamb = _rep_problem(cuda_device, 2, 16, 256, 72, seed=1)
+    with pytest.raises(NotImplementedError):
+        fused_step.fused_local_solve(rows, up, lamb, local_iters=4,
+                                     local_tol=-1.0, beta_a=1.0, beta_b=1.0)

@@ -2,7 +2,7 @@
 blocked: the machine with the card has no JAX, and the port keeps its own
 copies of what it needs (config, label alignment, the .bed ingest and its
 native core, whose library is the port's own, never the reference's
-_bedops.so). `fit` without a device
+_bedops.so), and a small batched replicate fit. `fit` without a device
 runs on the card, and raises where there is none."""
 
 import ast
@@ -27,6 +27,13 @@ data = GenotypeData.from_dense(x, validation_frac=0.02, heldout_frac=0.02,
 res = fit(SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20, max_steps=40,
                     seed=1), data, device="cpu")
 assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+# batched replicates
+from terastructure_tpu_torch.svi.replicates import fit_replicates_batched
+rep = fit_replicates_batched(SVIConfig(n=32, l=128, k=2, batch_size=16,
+                                       rfreq=20, max_steps=40, seed=1),
+                             data, [1, 2], device="cpu")
+assert rep.replicates[0].steps == 40 and rep.states.gamma.shape == (2, 32, 2)
+assert all(np.isfinite(r.heldout_ll) for r in rep.replicates), rep
 # the streamed fit, its .bed ingest and the native core it builds
 import tempfile
 from terastructure_tpu_torch import native
