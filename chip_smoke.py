@@ -96,7 +96,27 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    bitwise; (c) bf16, 100 steps, bitwise, no f32 body; (d) config #2's
    width (940 x 640,000, K = 7, B = 1,024) to convergence, each
    replicate's stop, scores and theta MAE, the best within theta MAE
-   0.02 and 0.02 nats of the oracle and bitwise its single fit.
+   0.02 and 0.02 nats of the oracle and bitwise its single fit;
+10. the command line (`cli.main`, as `python -m
+   terastructure_tpu_torch.cli` runs it; `phase_cli`) from PLINK files in
+   a temporary directory removed at the end: (a) config #1 through
+   `simulate` and `fit` (the run directory's files, converged, theta MAE
+   < 0.05 against theta_true.txt, heldout within 0.02 of the oracle; K1
+   and K4 only), `compute-beta` (its beta.txt the fit's, text for text),
+   `fit --replicates 2 --batched` (a finite heldout in best.json) and
+   `fit --stream` at N = 32,768 (K7, K8, K4); (b) `fit --resume` from
+   400 to 800 steps against a straight 800, gamma.txt and lambda.txt byte
+   for byte, in both lambda modes, and a checkpoint saved asynchronously
+   at a mid-fit check restored bitwise to that check's state; (c) config
+   #3's width (2,504 x 1M, K = 8) from a .bed written from
+   simulate_packed_device, `fit --batch-size 1024 --eval-snp-pool 2048
+   --init-mode spectral` to convergence (K1, K3, K4; theta MAE < 0.02,
+   heldout within 0.02 of the oracle) with its seconds by part, the
+   spectral init's own PCA and k-means seconds and theta MAE, a
+   random-init `fit` at the same settings, and `pca --components 10`,
+   whose first 7 columns, the init's embedding and the exact top
+   principal subspace (the Gram matrix's eigenvectors) agree as
+   subspaces (every principal cosine >= PCA_SUBSPACE_COS).
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
@@ -131,6 +151,7 @@ prints that tree's bits and times.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import sys
@@ -141,15 +162,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from terastructure_tpu_torch import SVIConfig, _build
+from terastructure_tpu_torch import SVIConfig, _build, cli
 from terastructure_tpu_torch.converge import card_line
 from terastructure_tpu_torch.data import (GenotypeData, bed,
                                           simulate_packed_device, simulate_psd)
 from terastructure_tpu_torch.data.simulate import simulated_beta
+from terastructure_tpu_torch.io.checkpoint import restore_checkpoint
+from terastructure_tpu_torch.io.export import load_matrix
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
-from terastructure_tpu_torch.svi import engine, fit, stream
+from terastructure_tpu_torch.svi import engine, fit, init, stream
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
 TOL = 2e-4          # f32 kernel vs twin (sum order differs), as the reference's
@@ -1676,7 +1699,7 @@ def phase_wide_paths(dev, rec):
     data = GenotypeData.from_dense(x, validation_frac=0.005,
                                    heldout_frac=0.005, seed=11)
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=256, rfreq=20, seed=11)
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     if engine.step_impl(cfg, packed_d.shape[1]) != "fused":
         raise AssertionError("K = 72 at B = 256: the gate refused the fused "
                              "branch")
@@ -1806,7 +1829,7 @@ def phase_tgp(dev, rec):
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
         raise AssertionError("TGP fit scores are not finite")
 
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     state = engine.init_state(cfg, l_padded=l, device=dev)
     chunk = engine.make_run_chunk(cfg, cfg.rfreq, l)
     a = chunk(state, packed_d).gamma.cpu()
@@ -1881,7 +1904,7 @@ def phase_bign(dev, rec):
          "batch_stats_fused_v2_packed", "lambda_stats_acat"),
         ("fused_local_solve", "fused_local_solve_dma"))
 
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     state = res.state
     gammas = {}
     for sk in ("pair", "fused", "fused_v2"):
@@ -1966,7 +1989,7 @@ def phase_config3(dev, rec, data, theta):
     if not (np.isfinite(res.validation_ll) and np.isfinite(res.heldout_ll)):
         raise AssertionError("config #3 stored scores are not finite")
 
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     for c in (cfg, scfg):
         state = engine.init_state(c, l_padded=l, device=dev)
         chunk = engine.make_run_chunk(c, 100, l)
@@ -2082,7 +2105,7 @@ def phase_bign_bf16(dev, rec, bign):
              ("batch_stats_fused_v2_packed[bf16]", "lambda_stats_acat[bf16]"),
              absent + ("lambda_stats_packed[bf16]",))
 
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     state = res.state
     gammas = {}
     for sk in ("pair", "fused", "fused_v2"):
@@ -2295,7 +2318,7 @@ def phase_stream_bign(dev, rec, bign, tmp):
     # streamed, streamed, resident (the resident matrix from the carved
     # cache, which equals phase 4's)
     del batches, bs
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     resident = engine.make_run_chunk(cfg, 20, l)
     streamed = stream.make_stream_chunk(cfg, 20, l)
     turns = [steady_step_ms(fn, res.state, p, 20) for fn, p in (
@@ -2538,7 +2561,7 @@ def phase_replicates(dev, rec):
     serial_chunk_s = sum(r["chunk_s"] for sr in serial for r in sr.trace)
     log(f"  the 4 single fits: {time.time() - t0:.2f} s, chunk_s "
         f"{serial_chunk_s:.3f} (batched {chunk_s:.3f})")
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     steps = rep_step_ms(dev, cfg, packed_d, REP_SEEDS, 50)
     log(f"  config #1 step ms, single x {R_REP} / batched in turns: "
         + ", ".join(f"{t:.4f}" for t in steps["turns"])
@@ -2616,11 +2639,325 @@ def phase_config2_replicates(dev, rec):
                              only=res.best)[0]
     log(f"  the best seed's single fit: {time.time() - t0:.2f} s, "
         f"chunk_s {sum(r['chunk_s'] for r in single.trace):.3f}")
-    packed_d = torch.from_numpy(engine.pad_width(data.packed)).to(dev)
+    packed_d = engine.resident_packed(data.packed, dev)
     steps = rep_step_ms(dev, cfg, packed_d, REP_SEEDS, 20)
     log(f"  config #2 step ms, single x {R_REP} / batched in turns: "
         + ", ".join(f"{t:.4f}" for t in steps["turns"])
         + f"; the R draws' host ms a step {steps['draws_host_ms']:.4f}")
+
+
+# Phase 10: the command line (cli.py) on the card, from PLINK files in a
+# temporary directory. 10a: config #1 through `simulate`, `fit`,
+# `compute-beta`, `fit --replicates 2 --batched` and `fit --stream`; 10b:
+# `fit --resume` bitwise an uninterrupted fit in both lambda modes, and an
+# asynchronous mid-fit checkpoint; 10c: config #3's width from a .bed with
+# `--init-mode spectral`, and `pca`.
+RUN_FILES = ("theta.txt", "gamma.txt", "beta.txt", "lambda.txt",
+             "metrics.jsonl", "validation.txt", "infer.log", "config.json",
+             "result.json", "checkpoint")
+# the streamed CLI fit: the smallest N at which the big-N step's column
+# subsample engages (local_sub_n 8,192 individuals, 2,048 bytes, needs a
+# padded width of 4 x 2,048 bytes), so that K8 launches; config #1's N of
+# 1,000 runs the whole solve on K4
+CLI_STREAM = (32_768, 4_096, 3)      # N, L, K
+# The top K-1 = 7 singular values of the standardized config #3 matrix
+# lie within ~6% of each other (2,521-2,685 at L = 50,000 on the CPU),
+# so a column of one embedding is any rotation of the others' within
+# their span: the embeddings are held as subspaces, each principal
+# cosine at least this (measured on the CPU at L = 50,000: init against
+# the exact subspace 0.986-0.999, pca's first 7 columns against the
+# init 0.980-0.997).
+PCA_SUBSPACE_COS = 0.95
+
+
+def run_cli(*argv):
+    """cli.main(argv); then the root logger's handlers, which it points at
+    the run's infer.log and stderr, closed and removed."""
+    try:
+        return cli.main([str(a) for a in argv])
+    finally:
+        for h in logging.root.handlers[:]:
+            logging.root.removeHandler(h)
+            h.close()
+
+
+def launched_only(rec, path, launched, expect=None):
+    """read_counts with every kernel outside `launched` absent; `expect`
+    (default: all of `launched`) must have launched."""
+    return read_counts(rec, path, launched if expect is None else expect,
+                       absent=tuple(n for n in KERNELS if n not in launched))
+
+
+def oracle_ll(theta, beta, es):
+    """Mean heldout log-likelihood of the generating theta and beta on an
+    entry set."""
+    p = (np.asarray(theta)[es.ind_idx] * np.asarray(beta)[es.snp_idx]).sum(-1)
+    return float(psd.binomial2_loglik(
+        torch.from_numpy(es.x), torch.from_numpy(p).float()).mean())
+
+
+def run_quality(run, theta_true, beta_true, data):
+    """(result.json, theta MAE of theta.txt, oracle heldout) of a run."""
+    res = json.loads((run / "result.json").read_text())
+    err = mean_abs_theta_error(load_matrix(run / "theta.txt"), theta_true)
+    return res, err, oracle_ll(theta_true, beta_true, data.heldout)
+
+
+def phase_cli(dev, rec):
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        stem = phase_cli_config1(dev, rec, tmp)
+        log("phase 10b: resume, bitwise")
+        phase_cli_resume(dev, rec, tmp, stem)
+        for p in tmp.iterdir():
+            shutil.rmtree(p) if p.is_dir() else p.unlink()
+        log("phase 10c: config #3's width from a .bed, spectral init")
+        phase_cli_config3(dev, rec, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cli_config1(dev, rec, tmp):
+    stem = tmp / "c1"
+    t0 = time.time()
+    run_cli("simulate", "-n", 1000, "-l", 10_000, "-k", 3, "--seed", 11,
+            "-o", stem)
+    log(f"  simulate: {time.time() - t0:.2f} s")
+    common = ("--bed", f"{stem}.bed", "-k", 3, "--batch-size", 256,
+              "--seed", 11, "--out-base", tmp)
+    reset_counts()
+    t0 = time.time()
+    run_cli("fit", *common, "--label", "c1")
+    fit_s = time.time() - t0
+    launched_only(rec, "CLI fit config #1",
+                  ("fused_local_solve", "lambda_stats_packed"))
+    run = tmp / "n1000-k3-l10000-c1"
+    missing = [f for f in RUN_FILES if not (run / f).exists()]
+    if missing:
+        raise AssertionError(f"CLI fit: the run dir lacks {missing}")
+    data = GenotypeData.from_bed(f"{stem}.bed", seed=11)     # the fit's carve
+    res, err, oracle = run_quality(
+        run, load_matrix(f"{stem}.theta_true.txt"),
+        load_matrix(f"{stem}.beta_true.txt"), data)
+    log(f"  CLI fit config #1: {fit_s:.2f} s, converged={res['converged']} "
+        f"steps={res['steps']} theta_mae={err:.4f} "
+        f"heldout={res['heldout_ll']:.5f} oracle={oracle:.5f} "
+        f"timings={res['timings']}")
+    if not (res["converged"] and err < 0.05
+            and res["heldout_ll"] > oracle - 0.02):
+        raise AssertionError("CLI fit config #1 failed its quality checks")
+
+    fit_beta = (run / "beta.txt").read_bytes()
+    reset_counts()
+    t0 = time.time()
+    run_cli("compute-beta", "--run-dir", run, "--bed", f"{stem}.bed")
+    launched_only(rec, "CLI compute-beta", ("lambda_stats_packed",))
+    if (run / "beta.txt").read_bytes() != fit_beta:
+        raise AssertionError("compute-beta's beta.txt differs from the fit's")
+    log(f"  compute-beta: {time.time() - t0:.2f} s, beta.txt text for text "
+        "the fit's")
+
+    reset_counts()
+    t0 = time.time()
+    run_cli("fit", *common, "--replicates", 2, "--batched", "--label", "b")
+    launched_only(rec, "CLI fit --batched",
+                  ("fused_local_solve", "fused_local_solve[rep]",
+                   "lambda_stats_packed", "lambda_stats_packed[rep]"),
+                  expect=("fused_local_solve[rep]",
+                          "lambda_stats_packed[rep]"))
+    best = json.loads((tmp / "n1000-k3-l10000-b" / "best.json").read_text())
+    log(f"  CLI fit --batched --replicates 2: {time.time() - t0:.2f} s, "
+        f"best {best}")
+    if not np.isfinite(best["heldout_ll"] or np.nan):
+        raise AssertionError("batched best.json: no finite heldout")
+
+    n, l, k = CLI_STREAM
+    wide = tmp / "wide"
+    t0 = time.time()
+    run_cli("simulate", "-n", n, "-l", l, "-k", k, "-o", wide)
+    t1 = time.time()
+    reset_counts()
+    run_cli("fit", "--bed", f"{wide}.bed", "-k", k, "--batch-size", 256,
+            "--stream", "--max-steps", 200, "--label", "s", "--out-base", tmp)
+    launched_only(rec, "CLI fit --stream",
+                  ("lambda_stats_packed", "batch_stats_fused_v2_packed",
+                   "lambda_stats_acat"))
+    res = json.loads((tmp / f"n{n}-k{k}-l{l}-s" / "result.json").read_text())
+    log(f"  CLI fit --stream at N = {n:,}: simulate {t1 - t0:.2f} s, fit "
+        f"{time.time() - t1:.2f} s, steps={res['steps']} "
+        f"heldout={res['heldout_ll']:.5f} timings={res['timings']}")
+    if res["steps"] != 200 or not np.isfinite(res["heldout_ll"]):
+        raise AssertionError("CLI streamed fit: wrong steps or no heldout")
+    return stem
+
+
+def phase_cli_resume(dev, rec, tmp, stem):
+    for mode in ("local", "stored"):
+        common = ("fit", "--bed", f"{stem}.bed", "-k", 3, "--batch-size", 256,
+                  "--seed", 11, "--validation-frac", 0, "--heldout-frac", 0,
+                  "--lambda-mode", mode, "--out-base", tmp)
+        reset_counts()
+        t0 = time.time()
+        run_cli(*common, "--label", f"r-{mode}", "--max-steps", 400)
+        run_cli(*common, "--label", f"r-{mode}", "--max-steps", 800,
+                "--resume")
+        t1 = time.time()
+        run_cli(*common, "--label", f"s-{mode}", "--max-steps", 800)
+        launched_only(rec, f"CLI resume {mode}",
+                      ("fused_local_solve",)
+                      + (("lambda_stats_packed",) if mode == "local" else ()))
+        resumed = tmp / f"n1000-k3-l10000-r-{mode}"
+        straight = tmp / f"n1000-k3-l10000-s-{mode}"
+        steps = json.loads((resumed / "result.json").read_text())["steps"]
+        same = {f: (resumed / f).read_bytes() == (straight / f).read_bytes()
+                for f in ("gamma.txt", "lambda.txt")}
+        log(f"  {mode}: 400 + resume to {steps} in {t1 - t0:.2f} s, "
+            f"straight 800 in {time.time() - t1:.2f} s; byte-identical "
+            f"{same}")
+        if steps != 800 or not all(same.values()):
+            raise AssertionError(f"CLI resume ({mode}) is not the "
+                                 "uninterrupted fit")
+
+    # a checkpoint saved asynchronously at the second check (step 200),
+    # written while steps 201-300 scatter lambda in place
+    cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=100,
+                    max_steps=300, seed=11, lambda_mode="stored",
+                    validation_frac=0.0, heldout_frac=0.0)
+    data = GenotypeData.from_bed(f"{stem}.bed", seed=11, validation_frac=0.0,
+                                 heldout_frac=0.0)
+    ck = tmp / "mid"
+    reset_counts()
+    res = fit(cfg, data, device=dev, checkpoint_dir=str(ck),
+              checkpoint_every=2)
+    state, _ = restore_checkpoint(str(ck), device=dev)
+    at200 = fit(cfg.replace(max_steps=200), data, device=dev)
+    launched_only(rec, "mid-fit checkpoint", ("fused_local_solve",))
+    ok = (state.t == 200 and torch.equal(state.gamma, at200.state.gamma)
+          and torch.equal(state.lamb, at200.state.lamb))
+    log(f"  async checkpoint at step {state.t} of a {res.steps}-step stored "
+        f"fit: gamma and lambda bitwise a 200-step fit's: {ok}; the loop "
+        f"waited {res.timings['checkpoint_wait_s']} s on it")
+    if not ok:
+        raise AssertionError("the mid-fit checkpoint is not its check's "
+                             "state")
+
+
+def exact_subspace(packed_d, n, dims):
+    """The exact top-`dims` right singular vectors (N, dims) of the
+    standardized matrix: eigenvectors of its Gram matrix M^T M, summed
+    over slabs in f32 and solved in f64 on the card."""
+    gram = torch.zeros((n, n), dtype=torch.float32, device=packed_d.device)
+    block = init.slab_rows(n)
+    for i in range(0, packed_d.shape[0], block):
+        z = init._standardized_block(packed_d[i:i + block], n)
+        gram += z.T @ z
+    evals, evecs = torch.linalg.eigh(gram.double())
+    return (evecs[:, -dims:].flip(1).cpu().numpy(),
+            evals.flip(0)[:dims + 2].clamp_min(0).sqrt().cpu().numpy())
+
+
+def principal_cosines(a, b):
+    """Cosines of the principal angles between the column spans of a and b."""
+    qa, qb = np.linalg.qr(np.asarray(a))[0], np.linalg.qr(np.asarray(b))[0]
+    return np.linalg.svd(qa.T @ qb, compute_uv=False)
+
+
+def sync_s(t0):
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def phase_cli_config3(dev, rec, tmp):
+    n, l, k = TGP
+    t0 = time.time()
+    packed, theta = simulate_packed_device(n, l, k, seed=0, device=dev)
+    t1 = time.time()
+    path = write_plink(tmp, "c3", packed, n)
+    del packed
+    log(f"  simulate {t1 - t0:.1f} s, .bed write {time.time() - t1:.1f} s "
+        f"({os.path.getsize(path) / 1e9:.3f} GB)")
+    reset_counts()
+    t0 = time.time()
+    run_cli("fit", "--bed", path, "-k", k, "--batch-size", 1024,
+            "--eval-snp-pool", 2048, "--init-mode", "spectral", "--label",
+            "c3", "--out-base", tmp)
+    cli_s = time.time() - t0
+    launched_only(rec, "CLI fit config #3 width",
+                  ("fused_local_solve", "gather_row_blocks",
+                   "lambda_stats_packed"))
+    run = tmp / f"n{n}-k{k}-l{l}-c3"
+    data = GenotypeData.from_bed(path, seed=0, eval_snp_pool=2048)
+    beta = simulated_beta(n, l, k, seed=0)
+    res, err, oracle = run_quality(run, theta, beta, data)
+    tm = res["timings"]
+    log(f"  CLI fit --init-mode spectral: {cli_s:.2f} s of command, "
+        f"converged={res['converged']} steps={res['steps']} "
+        f"theta_mae={err:.5f} heldout={res['heldout_ll']:.5f} "
+        f"oracle={oracle:.5f}")
+    log("  its seconds: " + ", ".join(f"{key} {v}" for key, v in tm.items())
+        + f"; the rest of the command "
+        f"{cli_s - sum(tm.values()):.2f} (parse, config, logs)")
+    if not (res["converged"] and err < 0.02
+            and abs(res["heldout_ll"] - oracle) < 0.02):
+        raise AssertionError("CLI fit at config #3's width failed its "
+                             "quality checks")
+
+    # the spectral init on its own: its PCA passes and k-means, its theta
+    packed_d = engine.resident_packed(data.packed, dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    emb = init.pca_embedding(packed_d, n, k, seed=0, l_real=l)
+    pca_s = sync_s(t0)
+    t0 = time.time()
+    g0 = init.gamma_from_embedding(emb, k, alpha=1.0 / k, seed=0)
+    kmeans_s = sync_s(t0)
+    init_err = mean_abs_theta_error(psd.theta_mean(g0).cpu().numpy(), theta)
+    sizes = np.bincount(g0.argmax(1).cpu().numpy(), minlength=k)
+    dominant = np.bincount(theta.argmax(1), minlength=k)
+    t0 = time.time()
+    exact, sv = exact_subspace(packed_d, n, k - 1)
+    exact_s = sync_s(t0)
+    del packed_d
+    cos_init = principal_cosines(emb.cpu().numpy(), exact)
+    log(f"  spectral init alone: PCA passes {pca_s:.3f} s, k-means "
+        f"{kmeans_s:.3f} s, init theta_mae={init_err:.5f}, k-means "
+        f"cluster sizes {sorted(sizes.tolist())} against the dominant "
+        f"populations' {sorted(dominant.tolist())}; top singular "
+        f"values {np.round(sv, 1).tolist()} (exact, Gram {exact_s:.2f} s); "
+        f"principal cosines init / exact {np.round(cos_init, 4).tolist()}")
+
+    cfg = SVIConfig.from_json((run / "config.json").read_text()).replace(
+        init="random", label="random")
+    reset_counts()
+    res_r = fit(cfg, data, device=dev)
+    launched_only(rec, "random-init fit config #3 width",
+                  ("fused_local_solve", "gather_row_blocks",
+                   "lambda_stats_packed"))
+    th_r = psd.theta_mean(res_r.state.gamma).cpu().numpy()
+    log(f"  steps: spectral init {res['steps']}, random init {res_r.steps} "
+        f"(converged={res_r.converged}, theta_mae="
+        f"{mean_abs_theta_error(th_r, theta):.5f}, heldout="
+        f"{res_r.heldout_ll:.5f}, chunk_s "
+        f"{sum(r['chunk_s'] for r in res_r.trace):.2f})")
+    del data, res_r
+
+    reset_counts()
+    t0 = time.time()
+    run_cli("pca", "--bed", path, "--components", 10, "--seed", 0, "-o",
+            tmp / "pcs.txt")
+    pca_cli_s = time.time() - t0
+    launched_only(rec, "CLI pca", ())
+    pcs = load_matrix(tmp / "pcs.txt")
+    cos_pca = principal_cosines(pcs[:, :k - 1], emb.cpu().numpy())
+    cos_pca_x = principal_cosines(pcs[:, :k - 1], exact)
+    log(f"  CLI pca --components 10: {pca_cli_s:.2f} s, shape {pcs.shape}; "
+        f"principal cosines of its first {k - 1} columns / the init's "
+        f"{np.round(cos_pca, 4).tolist()}, / exact "
+        f"{np.round(cos_pca_x, 4).tolist()}")
+    if pcs.shape != (n, 10) or min(cos_init.min(), cos_pca.min(),
+                                   cos_pca_x.min()) < PCA_SUBSPACE_COS:
+        raise AssertionError("pca: the embeddings do not span the top "
+                             "principal subspace")
 
 
 def digests(dev):
@@ -2855,6 +3192,10 @@ def main(argv=()) -> int:
     tr = time.time()
     phase_replicates(dev, rec)
     log(f"  phase 9 in {time.time() - tr:.1f} s")
+    log("phase 10: the command line (cli.py); 10a: config #1")
+    tr = time.time()
+    phase_cli(dev, rec)
+    log(f"  phase 10 in {time.time() - tr:.1f} s")
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

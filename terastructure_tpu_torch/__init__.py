@@ -13,6 +13,11 @@ counterpart is easy to find:
     terastructure_tpu.ops.fused_step    -> terastructure_tpu_torch.ops.fused_step
     terastructure_tpu.svi.*             -> terastructure_tpu_torch.svi.*
     terastructure_tpu.native            -> terastructure_tpu_torch.native
+    terastructure_tpu.io.*              -> terastructure_tpu_torch.io.*
+    terastructure_tpu.utils.*           -> terastructure_tpu_torch.utils.*
+    terastructure_tpu.viz               -> terastructure_tpu_torch.viz
+    terastructure_tpu.cli               -> terastructure_tpu_torch.cli
+                                           (`python -m terastructure_tpu_torch.cli`)
 
 The Pallas kernels on the main path are hand-written CUDA C++ under
 `csrc/`, built with nvcc for sm_90a at first use (`_build.py`). Every

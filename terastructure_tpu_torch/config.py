@@ -148,7 +148,8 @@ class SVIConfig:
     # Init scale for gamma.
     gamma_init_scale: float = 0.1
 
-    # gamma initialization: "random", or "spectral" (not ported yet).
+    # gamma initialization: "random", or "spectral" (svi/init.py: the
+    # randomized-PCA + soft k-means warm start).
     init: str = "random"
 
     seed: int = 0

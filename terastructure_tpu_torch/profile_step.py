@@ -50,7 +50,7 @@ def run(config: int, *, steps: int, lambda_mode: str = "local",
     k, b = spec["k"], batch_size or spec["batch"]
     dev = torch.device("cuda")
     packed, _ = simulate_packed_device(n, l, k, seed=0, device=dev)
-    packed = torch.from_numpy(engine.pad_width(packed)).to(dev)
+    packed = engine.resident_packed(packed, dev)
     cfg = SVIConfig(n=n, l=l, k=k, batch_size=b, seed=0,
                     snp_group=snp_group, lambda_mode=lambda_mode,
                     compute_dtype=compute_dtype)

@@ -25,13 +25,24 @@ np.memmap of data/bed.bed_to_packed_cache) and streams each minibatch to
 the device (svi/stream.py): the out-of-core path for a matrix larger
 than the card's memory. It requires lambda_mode="local".
 
-Not yet ported (NotImplementedError): step_fn_factory (multi-GPU, S8),
-checkpoint_dir (S9), init="spectral" (S7).
+The reference's hooks: `state=` continues a fit (a restored checkpoint,
+io/checkpoint.py, or a text model, io/export.state_from_text_model);
+`packed=` is the width-padded matrix already on the device;
+`metrics_path` appends one JSON record a check, `trace_path` the plain
+trace `step<TAB>validation ll<TAB>wall s`; `callback(rec)` sees each
+record; `checkpoint_dir` saves the state asynchronously every
+`checkpoint_every` checks and at convergence, and the last save is
+written before `fit` returns. Step t draws from (seed, t), so a fit
+restored at step t and run to T ends bitwise where an uninterrupted run
+to T ends. init="spectral" starts gamma from svi/init.spectral_gamma.
+
+Not yet ported (NotImplementedError): step_fn_factory (multi-GPU, S8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import time
 from typing import Callable, List, Optional
@@ -41,7 +52,9 @@ import torch
 
 from terastructure_tpu_torch.config import SVIConfig
 from terastructure_tpu_torch.data.dataset import GenotypeData
+from terastructure_tpu_torch.io import checkpoint as ckpt
 from terastructure_tpu_torch.svi import engine, stream as stream_mod
+from terastructure_tpu_torch.svi.init import spectral_gamma
 from terastructure_tpu_torch.svi.postprocess import compute_lambda
 
 log = logging.getLogger("terastructure_tpu_torch")
@@ -56,6 +69,11 @@ class FitResult:
     validation_ll: float
     heldout_ll: Optional[float]
     wall_s: float
+    # seconds of the fit's parts outside the trace's chunk_s and eval_s:
+    # init_s (the initial gamma), export_s (the local mode's lambda),
+    # checkpoint_wait_s (the step loop inside save_checkpoint: the wait
+    # for the previous save and the snapshot), heldout_s
+    timings: dict = dataclasses.field(default_factory=dict)
 
 
 def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):
@@ -87,8 +105,10 @@ def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):
     return lambda gamma, lamb: f(gamma)
 
 
-def _not_ported(what, slice_):
-    raise NotImplementedError(f"{what} is not ported yet ({slice_})")
+def _wait(device) -> None:
+    """Wait for the device's queued work (where a timing needs it)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def fit(
@@ -96,26 +116,32 @@ def fit(
     data: GenotypeData,
     *,
     device=None,
+    state: Optional[engine.SVIState] = None,
     step_fn_factory: Optional[Callable] = None,
+    packed: Optional[torch.Tensor] = None,
+    metrics_path: Optional[str] = None,
+    trace_path: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 5,
+    callback: Optional[Callable[[dict], None]] = None,
     stream: bool = False,
 ) -> FitResult:
     """Run SVI until convergence or cfg.max_steps on one device.
 
     device: where the fit runs. None means the first CUDA card, and
     raises RuntimeError where there is none; pass device="cpu" to run on
-    the CPU. The width-padded packed matrix moves there once, unless
-    stream=True: then it stays on the host, and only minibatches, the
-    eval SNPs' rows and the export's row chunks move.
+    the CPU. The width-padded packed matrix moves there once (or comes as
+    `packed`, a uint8 tensor on that device), unless stream=True: then it
+    stays on the host, and only minibatches, the eval SNPs' rows and the
+    export's row chunks move. A given `state` moves to the device; in
+    the stored lambda mode its lamb is stepped in place when it is
+    already there.
     """
     if cfg.n != data.n or cfg.l != data.l:
         raise ValueError("config/data shape mismatch")
     if step_fn_factory is not None:
-        _not_ported("step_fn_factory", "slice S8, multi-GPU")
-    if checkpoint_dir is not None:
-        _not_ported("checkpoint_dir", "slice S9, I/O")
-    if cfg.init != "random":
-        _not_ported(f"init={cfg.init!r}", "slice S7, spectral init")
+        raise NotImplementedError("step_fn_factory is not ported yet "
+                                  "(slice S8, multi-GPU)")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("fit: no CUDA card; pass device='cpu' to run "
@@ -123,17 +149,38 @@ def fit(
         device = "cuda"
     device = torch.device(device)
     local_mode = cfg.lambda_mode == "local"
+    timings = {}
 
     if stream:
+        if packed is not None:
+            raise ValueError("stream=True keeps the host matrix on the "
+                             "host; don't pass a device `packed`")
         packed = data.packed                     # stays on the host
         run_chunk = stream_mod.make_stream_chunk(cfg, cfg.rfreq,
                                                  int(packed.shape[0]))
     else:
-        packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
-        packed = packed.to(device)
+        if packed is None:
+            packed = engine.resident_packed(data.packed, device)
+        elif packed.device.type != device.type:
+            raise ValueError(f"packed is on {packed.device}, the fit runs "
+                             f"on {device}")
         run_chunk = engine.make_run_chunk(cfg, cfg.rfreq,
                                           int(packed.shape[0]))
-    state = engine.init_state(cfg, l_padded=packed.shape[0], device=device)
+    ti = time.time()
+    if state is None:
+        state = engine.init_state(cfg, l_padded=packed.shape[0],
+                                  device=device)
+        if cfg.init == "spectral":
+            # the resident matrix where there is one, else the host's
+            src = data.packed if stream else packed
+            state = state._replace(gamma=spectral_gamma(
+                src, cfg.n, cfg.k, alpha=cfg.alpha_value, seed=cfg.seed,
+                l_real=cfg.l, device=device))
+            _wait(device)
+    else:
+        state = state._replace(gamma=state.gamma.to(device),
+                               lamb=state.lamb.to(device))
+    timings["init_s"] = round(time.time() - ti, 3)
 
     val_scorer = make_scorer(cfg, data, data.validation, device)
 
@@ -141,54 +188,90 @@ def fit(
     best_ll = -np.inf
     stall = 0
     converged = False
+    checks = 0
+    timings["checkpoint_wait_s"] = 0.0
     t0 = time.time()
-    while state.t < cfg.max_steps:
-        tc = time.time()
-        state = run_chunk(state, packed)
-        # the chunk only enqueues work: read one value to wait for it
-        float(state.gamma[0, 0])
-        tc = time.time() - tc
-        rec = {
-            "step": state.t,
-            "wall_s": round(time.time() - t0, 3),
-            "rho": float(cfg.rho(float(state.t))),
-            "chunk_s": round(tc, 3),
-        }
-        if not trace:
-            rec["predictive"] = cfg.predictive
-        if val_scorer is not None:
-            te = time.time()
-            ll = float(val_scorer(state.gamma, state.lamb))
-            rec["eval_s"] = round(time.time() - te, 3)
-            rec["validation_ll"] = ll
-            if not np.isfinite(ll):
-                log.error("validation ll is not finite at step %d", state.t)
+    mfile = open(metrics_path, "a") if metrics_path else None
+    tfile = open(trace_path, "a") if trace_path else None
+    try:
+        while state.t < cfg.max_steps:
+            tc = time.time()
+            state = run_chunk(state, packed)
+            # the chunk only enqueues work: read one value to wait for it
+            float(state.gamma[0, 0])
+            tc = time.time() - tc
+            rec = {
+                "step": state.t,
+                "wall_s": round(time.time() - t0, 3),
+                "rho": float(cfg.rho(float(state.t))),
+                "chunk_s": round(tc, 3),
+            }
+            if not trace:
+                rec["predictive"] = cfg.predictive
+            if val_scorer is not None:
+                te = time.time()
+                ll = float(val_scorer(state.gamma, state.lamb))
+                rec["eval_s"] = round(time.time() - te, 3)
+                rec["validation_ll"] = ll
+                if not np.isfinite(ll):
+                    log.error("validation ll is not finite at step %d",
+                              state.t)
+                    break
+                rel = (ll - best_ll) / (abs(best_ll) + 1e-12)
+                if ll > best_ll:
+                    best_ll = ll
+                stall = stall + 1 if rel < cfg.conv_tol else 0
+                if stall >= cfg.conv_patience:
+                    converged = True
+            trace.append(rec)
+            log.info("step %(step)d  val_ll %(validation_ll).6f",
+                     {**{"validation_ll": float("nan")}, **rec})
+            if mfile:
+                mfile.write(json.dumps(rec) + "\n")
+                mfile.flush()
+            if tfile and "validation_ll" in rec:
+                # the reference's plain trace: iteration, loglik, wall
+                tfile.write(f"{rec['step']}\t{rec['validation_ll']:.8f}"
+                            f"\t{rec['wall_s']}\n")
+                tfile.flush()
+            if callback:
+                callback(rec)
+            checks += 1
+            if checkpoint_dir and (converged or
+                                   checks % max(checkpoint_every, 1) == 0):
+                ts = time.time()
+                # the write overlaps the next chunk's steps
+                ckpt.save_checkpoint(checkpoint_dir, state, cfg, block=False)
+                timings["checkpoint_wait_s"] += time.time() - ts
+            if converged:
                 break
-            rel = (ll - best_ll) / (abs(best_ll) + 1e-12)
-            if ll > best_ll:
-                best_ll = ll
-            stall = stall + 1 if rel < cfg.conv_tol else 0
-            if stall >= cfg.conv_patience:
-                converged = True
-        trace.append(rec)
-        log.info("step %(step)d  val_ll %(validation_ll).6f",
-                 {**{"validation_ll": float("nan")}, **rec})
-        if converged:
-            break
+    finally:
+        if mfile:
+            mfile.close()
+        if tfile:
+            tfile.close()
+    timings["checkpoint_wait_s"] = round(timings["checkpoint_wait_s"], 3)
 
     if local_mode:
         # lambda is derived state in the local mode: materialize it for
         # export (the stored mode's lambda is the result)
+        tx = time.time()
         if stream:
             lamb = torch.from_numpy(stream_mod.compute_lambda_stream(
                 cfg, state.gamma, packed)).to(device)
         else:
             lamb = compute_lambda(cfg, state.gamma, packed)
         state = state._replace(lamb=lamb)
+        _wait(device)
+        timings["export_s"] = round(time.time() - tx, 3)
 
+    if checkpoint_dir:
+        ckpt.wait_until_finished()         # the last save, written
+    th = time.time()
     held_scorer = make_scorer(cfg, data, data.heldout, device)
     held_ll = (float(held_scorer(state.gamma, state.lamb))
                if held_scorer is not None else None)
+    timings["heldout_s"] = round(time.time() - th, 3)
     return FitResult(
         state=state,
         trace=trace,
@@ -198,4 +281,5 @@ def fit(
                        if trace else np.nan),
         heldout_ll=held_ll,
         wall_s=time.time() - t0,
+        timings=timings,
     )

@@ -69,6 +69,13 @@ def pad_width(packed: np.ndarray) -> np.ndarray:
     return packed
 
 
+def resident_packed(packed, device) -> torch.Tensor:
+    """The width-padded packed matrix (pad_width) as a uint8 tensor on
+    `device`: what `fit(packed=)`, `fit_replicates_batched(packed=)`,
+    `compute_lambda` and `compute_beta` take."""
+    return torch.from_numpy(pad_width(np.asarray(packed))).to(device)
+
+
 def init_state(cfg: SVIConfig, *, l_padded=None, device="cpu") -> SVIState:
     """Random gamma, prior lambda. gamma is drawn on the CPU from cfg.seed
     and then moved, so every device starts from the same values."""

@@ -71,21 +71,29 @@ class BatchedFitResult:
 
 
 def fit_replicates_batched(cfg: SVIConfig, data: GenotypeData, seeds, *,
-                           device=None, callback=None) -> BatchedFitResult:
+                           device=None, packed: Optional[torch.Tensor] = None,
+                           callback=None) -> BatchedFitResult:
     """Fit len(seeds) replicates in lockstep on one device.
 
     Each replicate stops by driver.fit's rule (relative validation-ll
     improvement below conv_tol for conv_patience consecutive checks);
     callback(rec) gets each check's record. device: None means the first
     CUDA card (RuntimeError where there is none); device="cpu" runs the
-    kernels' twins. The validation scorer's column subsample (big N only)
-    uses cfg.seed for every replicate, as the reference's does.
+    kernels' twins. packed: the width-padded matrix already on that
+    device (engine.resident_packed), else it moves there once. The
+    validation scorer's column subsample (big N only) uses cfg.seed for
+    every replicate, as the reference's does.
     """
     if cfg.n != data.n or cfg.l != data.l:
         raise ValueError("config/data shape mismatch")
     if cfg.init != "random":
-        raise NotImplementedError(f"init={cfg.init!r} is not ported yet "
-                                  "(slice S7, spectral init)")
+        raise NotImplementedError(
+            f"batched replicates start from random gamma; init={cfg.init!r} "
+            "is refused rather than ignored: the reference's batched fit "
+            "starts every replicate from random gamma whatever cfg.init "
+            "says (terastructure_tpu/svi/replicates.py:68-72), a quirk not "
+            "copied. Fit the replicates one by one (fit --replicates R "
+            "without --batched) for a spectral start")
     seeds = [int(s) for s in seeds]
     r = len(seeds)
     if r < 1:
@@ -99,8 +107,11 @@ def fit_replicates_batched(cfg: SVIConfig, data: GenotypeData, seeds, *,
     cfg_b = cfg.replace(dma_gather=False)
     stored = cfg.lambda_mode == "stored"
 
-    packed = torch.from_numpy(engine.pad_width(np.asarray(data.packed)))
-    packed = packed.to(device)
+    if packed is None:
+        packed = engine.resident_packed(data.packed, device)
+    elif packed.device.type != device.type:
+        raise ValueError(f"packed is on {packed.device}, the fit runs on "
+                         f"{device}")
     l_sample = int(packed.shape[0])
     run_chunk = engine.make_replicate_run_chunk(cfg_b, cfg.rfreq, l_sample)
     state = engine.init_replicate_state(cfg_b, seeds, l_padded=l_sample,

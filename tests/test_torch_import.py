@@ -2,8 +2,9 @@
 blocked: the machine with the card has no JAX, and the port keeps its own
 copies of what it needs (config, label alignment, the .bed ingest and its
 native core, whose library is the port's own, never the reference's
-_bedops.so), and a small batched replicate fit. `fit` without a device
-runs on the card, and raises where there is none."""
+_bedops.so), a small batched replicate fit, and the command line's
+simulate and fit (spectral init, text model, checkpoint). `fit` without
+a device runs on the card, and raises where there is none."""
 
 import ast
 import subprocess
@@ -50,6 +51,20 @@ with tempfile.TemporaryDirectory() as tmp:
                                        heldout_frac=0.02, seed=1),
               device="cpu", stream=True)
     assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+# the command line, the text model, the checkpoint and the spectral init
+from terastructure_tpu_torch import cli, viz  # noqa: F401
+from terastructure_tpu_torch.io import checkpoint, export  # noqa: F401
+from terastructure_tpu_torch.svi import init  # noqa: F401
+from terastructure_tpu_torch.utils import profiling  # noqa: F401
+with tempfile.TemporaryDirectory() as tmp:
+    cli.main(["simulate", "-n", "32", "-l", "128", "-k", "2", "-o",
+              tmp + "/s"])
+    cli.main(["fit", "--bed", tmp + "/s.bed", "-k", "2", "--batch-size",
+              "16", "--rfreq", "20", "--max-steps", "40", "--init-mode",
+              "spectral", "--out-base", tmp, "--force-cpu"])
+    g, _ = export.load_model(tmp + "/n32-k2-l128-run")
+    st, _ = checkpoint.restore_checkpoint(tmp + "/n32-k2-l128-run/checkpoint")
+    assert st.t == 40 and g.shape == (32, 2), (st.t, g.shape)
 maps = open("/proc/self/maps").read()
 assert "libbedops_" in maps and "_bedops.so" not in maps
 assert not {"jax", "terastructure_tpu"} & {

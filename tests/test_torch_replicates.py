@@ -122,6 +122,23 @@ def test_group_dma_path_raises():
         engine.make_replicate_step(cfg, l)
 
 
+def test_batched_fit_takes_a_resident_packed():
+    """packed= (the matrix already on the device) gives the bits of the
+    fit that uploads it itself; one on another device is refused."""
+    data = _data(64, 256, 2, 31)
+    cfg = SVIConfig(n=64, l=256, k=2, batch_size=32, rfreq=20, max_steps=40,
+                    conv_tol=-1e9, seed=100)
+    packed = engine.resident_packed(data.packed, "cpu")
+    a = fit_replicates_batched(cfg, data, [100, 101], device="cpu",
+                               packed=packed)
+    b = fit_replicates_batched(cfg, data, [100, 101], device="cpu")
+    assert torch.equal(a.states.gamma, b.states.gamma)
+    meta = engine.resident_packed(data.packed, "meta")
+    with pytest.raises(ValueError, match="packed is on"):
+        fit_replicates_batched(cfg, data, [100, 101], device="cpu",
+                               packed=meta)
+
+
 def test_batched_fit_needs_a_card_or_the_cpu_named():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
