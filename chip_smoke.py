@@ -117,16 +117,36 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    whose first 7 columns, the init's embedding and the exact top
    principal subspace (the Gram matrix's eigenvectors) agree as
    subspaces (every principal cosine >= PCA_SUBSPACE_COS).
+11. batched replicates on the big-N path (`phase_replicates_bign`, on
+   phase 4's data): (a) the local mode, R_REP = 4 seeds, 300 steps,
+   against a single fit per seed with dma_gather=False (gamma, every
+   check's validation ll and the heldout bitwise, both scored with the
+   batched scorer's eval subsample), K8, K7 and K4 launched only with the
+   replicate axis, no twin; the batched step's ms in turns with R single
+   steps, the 2R generators' host ms a step; (b) the stored mode, R = 2,
+   100 steps, snp_group 8, gamma and lambda bitwise; (c) bf16, R = 2, 100
+   steps, bitwise, no f32 body of K4-K8; (d) one step each with
+   stats_kernel "pair" (K4[rep] + K5[rep]) and "fused" (K6[rep]), bitwise
+   the single steps; (e) config #5's width (N = 1M resident, L cut to
+   16,384), R = 2, 20 steps, bitwise the single fits, with the step's ms
+   and the peak device memory.
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
 bitwise the single call on its inputs, a replicate that exits its tol
 loop alone, times in turns with R single calls beside R x the single
-bound (`phase_kernels_rep`).
+bound (`phase_kernels_rep`); and K8, K7, K5 and K6 with the axis (R = 4)
+at the big-N step's shape (K8 on the subsample's count planes), a
+ragged B = 4,092 and K = 3 and 16, f32 and bf16, each replicate bitwise
+its single call, re-runs bitwise, held to the twins, timed in turns with
+R single calls at the step's shape (`phase_kernels_rep_bign`).
 
 Prints the kernels' JSON line (the bf16 bodies as entries of their own,
 "fused_local_solve[bf16]" and so on, the replicate axis as
-"fused_local_solve[rep]" and "lambda_stats_packed[rep]"), the card line, and last
+"fused_local_solve[rep]", "lambda_stats_packed[rep]",
+"lambda_stats_acat[rep]", "batch_stats_fused_v2_packed[rep]",
+"gamma_stats_packed[rep]" and "batch_stats_fused_packed[rep]"), the
+card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card.
 
@@ -150,6 +170,7 @@ prints that tree's bits and times.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -284,6 +305,22 @@ KERNELS = {
         fn=stats_packed.lambda_stats_packed, counter="rep_launches",
         source="terastructure_tpu_torch/csrc/stats_packed.cu",
         replaces="terastructure_tpu/ops/stats_pallas.py:152"),
+    "lambda_stats_acat[rep]": dict(
+        fn=stats_packed.lambda_stats_acat, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/stats_acat.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:463"),
+    "batch_stats_fused_v2_packed[rep]": dict(
+        fn=stats_packed.batch_stats_fused_v2_packed, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/stats_fused.cuh",
+        replaces="terastructure_tpu/ops/stats_pallas.py:355"),
+    "gamma_stats_packed[rep]": dict(
+        fn=stats_packed.gamma_stats_packed, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/stats_gamma.cu",
+        replaces="terastructure_tpu/ops/stats_pallas.py:194"),
+    "batch_stats_fused_packed[rep]": dict(
+        fn=stats_packed.batch_stats_fused_packed, counter="rep_launches",
+        source="terastructure_tpu_torch/csrc/stats_fused.cuh",
+        replaces="terastructure_tpu/ops/stats_pallas.py:263"),
 }
 # the f32 bodies of the big-N step's kernels: none may launch at bf16
 BIGN_F32 = ("lambda_stats_packed", "gamma_stats_packed",
@@ -628,6 +665,7 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_wide(dev, rec)
     phase_kernels_bf16(dev, rec)
     phase_kernels_rep(dev, rec)
+    phase_kernels_rep_bign(dev, rec)
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -1368,6 +1406,150 @@ def _time_rep(rec, shape, kernels, rows, up, lamb, t1, t0, main):
             r["plain_ms"] = time_ms(twins, 5)
             log(f"  {name} twins at {shape}: {R_REP} calls "
                 f"{r['plain_ms']:.3f} ms")
+
+
+# The big-N step's kernels with the replicate axis (R_REP replicates, each
+# of its own inputs): the step's shape (K8 on its subsample's 4 x
+# BIGN_SUB_W count planes), a ragged B and K = 3 and 16; the first is
+# timed.
+REP_BIGN_SHAPES = [BIGN, (4092, BIGN[1], BIGN[2]), (BIGN[0], BIGN[1], 3),
+                   (BIGN[0], BIGN[1], 16)]
+REP_BIGN = {"K8": "lambda_stats_acat[rep]",
+            "K7": "batch_stats_fused_v2_packed[rep]",
+            "K5": "gamma_stats_packed[rep]",
+            "K6": "batch_stats_fused_packed[rep]"}
+
+
+def _bign_rep_calls(x, dtype, approx):
+    """name -> (the call of K8, K7, K5 or K6 at dtype on inputs x, single
+    or with a leading R; the twin of one replicate i)."""
+    rows, up, u, t1, t0, a1, a0, ups = x
+    return {
+        "K8": (lambda: stats_packed.lambda_stats_acat(
+                   a1, a0, ups, t1, t0, approx_div=approx, dtype=dtype),
+               lambda i: stats_packed.lambda_stats_acat_twin(
+                   a1[i], a0[i], ups[i], t1[i], t0[i], approx_div=approx,
+                   dtype=dtype)),
+        "K7": (lambda: stats_packed.batch_stats_fused_v2_packed(
+                   rows, u, t1, t0, approx_div=approx, dtype=dtype),
+               lambda i: twin_stats(rows[i], up[i], t1[i], t0[i], approx,
+                                    dtype)),
+        "K5": (lambda: [stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                        dtype)],
+               lambda i: [stats_packed.gamma_stats_packed_twin(
+                   rows[i], up[i], t1[i], t0[i], dtype)]),
+        "K6": (lambda: stats_packed.batch_stats_fused_packed(
+                   rows, u, t1, t0, dtype=dtype),
+               lambda i: twin_stats(rows[i], up[i], t1[i], t0[i],
+                                    dtype=dtype)),
+    }
+
+
+def _bign_rep_inputs(b, w, k, dev):
+    """R_REP replicates' big-N inputs: rows (R, B, W), u planes, u, t1,
+    t0, and K8's count planes and u planes over the first BIGN_SUB_W
+    columns (the step's subsample)."""
+    rows, up, lamb = _rep_inputs(b, w, k, b + w + k, dev)
+    rows[1, ::7] = 0xFF                   # rows of one replicate MISSING
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    ws = min(w, BIGN_SUB_W)
+    a1, a0 = stats_packed.decode_count_planes(rows[..., :ws].contiguous())
+    ups = up[..., :ws, :].contiguous()
+    return rows, up, u, t1, t0, a1, a0, ups
+
+
+def _one(x, i):
+    return tuple(t[i] for t in x)
+
+
+def phase_kernels_rep_bign(dev, rec):
+    """K8, K7, K5 and K6 with the replicate axis (R = 4) at
+    REP_BIGN_SHAPES, f32 and bf16 (K8 and K7 with both divides at the
+    step's shape): each replicate's outputs bitwise the single call's on
+    its inputs, a second run bitwise, and held against the twins at the
+    single kernels' tolerances (phase_kernels_bign,
+    phase_kernels_bign_bf16). At the step's shape each is timed in turns
+    with the R single calls, beside R x the single bound (the present
+    entries of every replicate), at both dtypes."""
+    for name in REP_BIGN.values():
+        rec[name]["max_abs_err"] = 0.0
+        rec[name]["shapes"] = []
+    for b, w, k in REP_BIGN_SHAPES:
+        x = _bign_rep_inputs(b, w, k, dev)
+        timed = (b, w, k) == BIGN
+        for dtype in (torch.float32, BF16):
+            dname = "bf16" if dtype == BF16 else "f32"
+            for kernel, name in REP_BIGN.items():
+                for approx in ((False, True) if timed and kernel in (
+                        "K7", "K8") else (False,)):
+                    shape = (f"R={R_REP} B={b} (4, {BIGN_SUB_W}) K={k}"
+                             if kernel == "K8" else
+                             f"R={R_REP} B={b} W={w} K={k}")
+                    label = f"{kernel}[rep] {shape} {dname} approx={approx}"
+                    call, twin = _bign_rep_calls(x, dtype, approx)[kernel]
+                    got = twice(label, call)
+                    _bitwise_per_replicate(label, got, [
+                        _bign_rep_calls(_one(x, i), dtype, approx)[kernel][0]()
+                        for i in range(R_REP)])
+                    want = [torch.stack(t) for t in zip(
+                        *[twin(i) for i in range(R_REP)])]
+                    tol = (TOL_APPROX if approx else
+                           TOL if dtype == torch.float32 else TOL_BF16_PASS)
+                    hold(rec, name, label, got, want, tol)
+                    del got, want
+                    torch.cuda.empty_cache()   # the twins' ~10 GB each
+        log(f"  K5-K8[rep] R={R_REP} B={b} W={w} K={k}: each replicate "
+            "bitwise its single call, re-runs bitwise")
+        if timed:
+            _time_rep_bign(rec, x)
+        del x
+        torch.cuda.empty_cache()
+
+
+def _time_rep_bign(rec, x):
+    """K8 (fast divide, as the step runs it), K7, K5 and K6 with the
+    replicate axis at the step's shape in turns with R_REP single calls,
+    f32 and bf16, beside R x the single bound, and R twins' time."""
+    rows, up, u, t1, t0, a1, a0, ups = x
+    k = up.shape[-1]
+    pr = present(rows)
+    ent8 = int(((a1 + a0) > 0).sum())
+    # (operations a present entry, entries, bytes, bf16 sums)
+    work = {"K8": (lambda_pass_flops(k), ent8,
+                   nbytes(a1, a0, ups, t1, t0, t1, t0), 1),
+            "K7": (12 * k + 2, pr, nbytes(rows, u, t1, t0, u, t1, t0), 2),
+            "K5": (lambda_pass_flops(k), pr, nbytes(rows, up, t1, t0, up), 1),
+            "K6": (12 * k + 2, pr, nbytes(rows, u, t1, t0, u, t1, t0), 2)}
+    for kernel, name in REP_BIGN.items():
+        approx = kernel == "K8"
+        shape = (f"R={R_REP} B={rows.shape[1]} (4, {ups.shape[-2]}) K={k}"
+                 if kernel == "K8" else
+                 f"R={R_REP} B={rows.shape[1]} W={rows.shape[2]} K={k}")
+        e = dict(shape=shape)
+        reps = 2 if kernel == "K6" else 5 if kernel != "K8" else 20
+        for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
+            singles = [_bign_rep_calls(_one(x, i), dtype, approx)[kernel][0]
+                       for i in range(R_REP)]
+            e[key + "serial_ms"], e[key + "ms"] = in_turns(
+                lambda: [f() for f in singles],
+                _bign_rep_calls(x, dtype, approx)[kernel][0], reps=reps)
+        flops, entries, moved, sums = work[kernel]
+        set_bound(e, entries * flops, moved)
+        tmp = {}
+        set_bound_bf16(tmp, entries, k, moved, sums)
+        e["bf16_bound_ms"] = tmp["bound_ms"]
+        r = rec[name]
+        r["shapes"].append(e)
+        r.update(e)
+        twin = _bign_rep_calls(x, torch.float32, approx)[kernel][1]
+        r["plain_ms"] = time_ms(lambda: [twin(i) for i in range(R_REP)], 2)
+        torch.cuda.empty_cache()
+        log(f"  {kernel}[rep] {shape}: batched {e['ms']:.4f} ms, {R_REP} "
+            f"single calls in turns {e['serial_ms']:.4f} ms; bf16 "
+            f"{e['bf16_ms']:.4f} / {e['bf16_serial_ms']:.4f} ms; bound "
+            f"{e['bound_ms']:.5f} (bf16 {e['bf16_bound_ms']:.5f}) ms; "
+            f"{R_REP} twins {r['plain_ms']:.3f} ms")
 
 
 def phase_kernels_bf16(dev, rec):
@@ -2417,12 +2599,13 @@ REP_SEEDS = tuple(range(R_REP))
 CONFIG2 = (940, 640_000, 7, 1024)     # N, L, K, B
 
 
-def _only_batched(path, counts, dtype="float32"):
-    """K1 and K4 launched only with the replicate axis in a batched run:
-    their launches at `dtype` are the batched ones, and the other
-    dtype's body never ran."""
+def _only_batched(path, counts, dtype="float32",
+                  kernels=("fused_local_solve", "lambda_stats_packed")):
+    """`kernels` (K1 and K4 by default) launched only with the replicate
+    axis in a batched run: their launches at `dtype` are the batched
+    ones, and the other dtype's body never ran."""
     sfx, other = ("[bf16]", "") if dtype == "bfloat16" else ("", "[bf16]")
-    for k in ("fused_local_solve", "lambda_stats_packed"):
+    for k in kernels:
         if counts[k + sfx] != counts[k + "[rep]"] or counts[k + other]:
             raise AssertionError(f"{path}: {k} launched without the "
                                  f"replicate axis ({counts[k + sfx]} "
@@ -2431,10 +2614,11 @@ def _only_batched(path, counts, dtype="float32"):
                                  "body)")
 
 
-def _against_serial(path, dev, cfg, data, res, lamb=False, only=None):
+def _against_serial(path, dev, cfg, data, res, lamb=False, only=None,
+                    ll_gap=1e-6):
     """Each replicate of a batched fit (or replicate `only`) against a
     single fit with its seed: the same stop step, gamma (and lambda)
-    bitwise at the stop, the validation ll within 1e-6; with every
+    bitwise at the stop, the validation ll within ll_gap; with every
     replicate, the same best. Returns the single fits."""
     idx = range(len(res.replicates)) if only is None else [only]
     serial = [fit(cfg.replace(seed=res.replicates[i].seed,
@@ -2452,7 +2636,7 @@ def _against_serial(path, dev, cfg, data, res, lamb=False, only=None):
             f"{sr.validation_ll:.6f} (gap {gap:.2e}), heldout "
             f"{rr.heldout_ll:.6f} / {sr.heldout_ll:.6f}, gamma"
             + (" and lambda" if lamb else "") + " bitwise: " + str(same))
-        if not (same and gap <= 1e-6):
+        if not (same and gap <= ll_gap):
             raise AssertionError(f"{path}: replicate {i} (seed {rr.seed}) "
                                  "differs from its single fit")
     best = int(np.argmax([sr.validation_ll for sr in serial]))
@@ -2467,7 +2651,8 @@ def rep_step_ms(dev, cfg, packed, seeds, nsteps):
     len(seeds) single fits' chunks (one after another), in turns (single,
     batched, batched, single), each from fresh states after a warm-up
     chunk, and the host's ms a step for the R generators and draws alone
-    (enqueued, not waited for)."""
+    (enqueued, not waited for; on the big-N path 2R generators, the
+    column subsample's too)."""
     l_s = packed.shape[0]
     cfg = cfg.replace(dma_gather=False)
     rchunk = engine.make_replicate_run_chunk(cfg, nsteps, l_s)
@@ -2494,10 +2679,15 @@ def rep_step_ms(dev, cfg, packed, seeds, nsteps):
     turns = [single(), batched(), batched(), single()]
     torch.cuda.synchronize()
     t = time.perf_counter()
+    big_n = engine.step_impl(cfg, packed.shape[1]) == "pallas"
     for step in range(nsteps):
         for s in seeds:
             engine._sample_batch(engine.step_generator(s, step, dev), l_s,
                                  cfg.batch_size, dev)
+            if big_n:
+                engine.subsample_columns(cfg, packed.shape[1],
+                                         engine.step_generator(
+                                             s, step, dev, engine.SUB_TAG))
     draws = (time.perf_counter() - t) / nsteps * 1e3
     torch.cuda.synchronize()
     return dict(single_ms=(turns[0] + turns[3]) / 2,
@@ -2644,6 +2834,159 @@ def phase_config2_replicates(dev, rec):
     log(f"  config #2 step ms, single x {R_REP} / batched in turns: "
         + ", ".join(f"{t:.4f}" for t in steps["turns"])
         + f"; the R draws' host ms a step {steps['draws_host_ms']:.4f}")
+
+
+# Phase 11: batched replicates on the big-N path, on phase 4's data.
+REP_BIGN_PATH = ("lambda_stats_acat", "batch_stats_fused_v2_packed",
+                 "lambda_stats_packed")      # K8, K7 and K4 (the eval)
+REP_BIGN_ABSENT = ("fused_local_solve", "fused_local_solve_dma",
+                   "gather_row_blocks", "fused_local_solve[bf16]",
+                   "fused_local_solve_dma[bf16]", "gamma_stats_packed",
+                   "batch_stats_fused_packed", "gamma_stats_packed[bf16]",
+                   "batch_stats_fused_packed[bf16]")
+
+
+@contextlib.contextmanager
+def shared_eval_subsample(seed):
+    """Score every fit with the local mode's eval column subsample of
+    `seed`: the batched scorer draws one for all replicates from cfg.seed
+    (the reference's rule, svi/replicates.py), a single fit its own from
+    its seed. At big N the subsample engages, so a single fit is held to
+    a batched replicate under the batched scorer's subsample."""
+    orig = engine.make_entry_loglik_recompute
+    engine.make_entry_loglik_recompute = (
+        lambda cfg, *a, **kw: orig(cfg.replace(seed=seed), *a, **kw))
+    try:
+        yield
+    finally:
+        engine.make_entry_loglik_recompute = orig
+
+
+def _rep_bign_fit(path, dev, rec, cfg, data, seeds, expect, absent,
+                  lamb=False):
+    """fit_replicates_batched on the big-N path: `expect` launched only
+    with the replicate axis, `absent` never, no twin; each replicate
+    against its single fit (`_against_serial`, every check's validation
+    ll bitwise, under the batched scorer's eval subsample). Returns the
+    batched fit, its counts and the single fits."""
+    from terastructure_tpu_torch.svi.replicates import fit_replicates_batched
+
+    reset_counts()
+    stats_packed.local_solve_acat.loop_passes = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = fit_replicates_batched(cfg, data, seeds, device=dev)
+        passes = [int(n) for n in stats_packed.local_solve_acat.loop_passes]
+    finally:
+        stats_packed.local_solve_acat.loop_passes = None
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(rec, f"{path} batched",
+                         [n + "[rep]" for n in expect], absent)
+    _only_batched(path, counts, cfg.compute_dtype, expect)
+    last = res.trace[-1]["step"]
+    hist = {n: passes.count(n) for n in sorted(set(passes))}
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    log(f"  {path}: {last} lockstep steps, {chunk_s / last * 1e3:.3f} ms a "
+        f"step (chunk seconds over steps), wall_s {res.wall_s:.2f}, peak "
+        f"device memory {peak / 1e9:.2f} GB; loop passes by count of "
+        f"replicate solves {hist}")
+    with shared_eval_subsample(cfg.seed):
+        serial = _against_serial(path, dev, cfg, data, res, lamb=lamb,
+                                 ll_gap=0.0)
+    for i, sr in enumerate(serial):
+        mine = [r["validation_ll"][i] for r in res.trace]
+        theirs = [r["validation_ll"] for r in sr.trace]
+        if mine != theirs or res.replicates[i].heldout_ll != sr.heldout_ll:
+            raise AssertionError(f"{path}: replicate {i}'s scores differ "
+                                 "from its single fit's")
+    log(f"  {path}: every check's validation ll and the heldout of each "
+        "replicate bitwise its single fit's")
+    return res, counts, serial
+
+
+def phase_replicates_bign(dev, rec, bign):
+    """Batched replicates where the fused gate refuses the shape, on phase
+    4's data (100K x 100K, K = 10, B = 4,096): (a) the local mode, R = 4
+    seeds, 300 steps at rfreq 100, against 4 single fits with
+    dma_gather=False (gamma, every check's validation ll and the heldout
+    bitwise, under the batched scorer's eval subsample), K8, K7 and K4
+    launched only with the replicate axis, no twin; the batched step's ms
+    in turns with R single steps and the host ms of the 2R generators a
+    step; (b) the stored mode, R = 2, 100 steps, snp_group 8: gamma and
+    lambda bitwise; (c) bf16, R = 2, 100 steps: bitwise, no f32 body of
+    K4-K8; (d) one step each with stats_kernel "pair" (K4[rep] +
+    K5[rep]) and "fused" (K6[rep]), R = 2, bitwise the single steps; (e)
+    config #5's width, N = 1M resident with L cut to 16,384 (a 4.1 GB
+    matrix), R = 2, 20 steps at rfreq 10, bitwise the single fits, with
+    the step ms and the peak device memory."""
+    data, cfg0 = bign["data"], bign["cfg"]
+    cfg = cfg0.replace(conv_tol=-1e9, dma_gather=False)
+    seeds = REP_SEEDS
+
+    log(f"phase 11a: the big-N path, R = {R_REP}, local mode, 300 steps")
+    _rep_bign_fit("phase 11a", dev, rec, cfg, data, seeds, REP_BIGN_PATH,
+                  REP_BIGN_ABSENT + tuple(n for n in KERNELS
+                                          if n.endswith("[bf16]")))
+    packed_d = engine.resident_packed(data.packed, dev)
+    steps = rep_step_ms(dev, cfg, packed_d, seeds, 20)
+    log(f"  big-N step ms, single x {R_REP} / batched in turns: "
+        + ", ".join(f"{t:.4f}" for t in steps["turns"])
+        + f"; the 2R generators' and draws' host ms a step "
+        f"{steps['draws_host_ms']:.4f}")
+
+    log("phase 11b: the big-N path, R = 2, stored mode, snp_group 8, "
+        "100 steps")
+    scfg = cfg.replace(lambda_mode="stored", max_steps=100)
+    _rep_bign_fit("phase 11b", dev, rec, scfg, data, seeds[:2],
+                  REP_BIGN_PATH[:2],
+                  REP_BIGN_ABSENT + ("lambda_stats_packed",) + tuple(
+                      n for n in KERNELS if n.endswith("[bf16]")),
+                  lamb=True)
+
+    log("phase 11c: the big-N path, R = 2, bfloat16, 100 steps")
+    bcfg = cfg.replace(compute_dtype="bfloat16", max_steps=100)
+    _rep_bign_fit("phase 11c", dev, rec, bcfg, data, seeds[:2],
+                  REP_BIGN_PATH, REP_BIGN_ABSENT + BIGN_F32)
+
+    log("phase 11d: one step with stats_kernel pair and fused, R = 2")
+    l_s = int(packed_d.shape[0])
+    for sk, kernels in (("pair", ("lambda_stats_packed",
+                                  "gamma_stats_packed")),
+                        ("fused", ("batch_stats_fused_packed",))):
+        kcfg = cfg.replace(stats_kernel=sk)
+        state = engine.init_replicate_state(kcfg, seeds[:2], l_padded=l_s,
+                                            device=dev)
+        reset_counts()
+        got = engine.make_replicate_step(kcfg, l_s)(state, packed_d).gamma
+        counts = read_counts(rec, f"phase 11d {sk}",
+                             [n + "[rep]" for n in kernels] +
+                             ["lambda_stats_acat[rep]"],
+                             ("batch_stats_fused_v2_packed",))
+        _only_batched(f"phase 11d {sk}", counts, "float32",
+                      kernels + ("lambda_stats_acat",))
+        for i, seed in enumerate(seeds[:2]):
+            one = engine.make_step(kcfg, l_s)(engine.init_state(
+                kcfg.replace(seed=seed), l_padded=l_s, device=dev), packed_d)
+            if not torch.equal(got[i], one.gamma):
+                raise AssertionError(f"phase 11d {sk}: replicate {i} "
+                                     "differs from its single step")
+        log(f"  phase 11d {sk}: each replicate bitwise its single step")
+    del packed_d
+
+    log("phase 11e: config #5's width, N = 1M resident, R = 2, 20 steps")
+    n, l, k = CONFIG5_WIDTH
+    t0 = time.time()
+    packed, _ = simulate_packed_device(n, l, k, seed=0, device=dev)
+    wdata = GenotypeData.from_packed(
+        packed, n, seed=0, validation_frac=0.005, heldout_frac=0.005,
+        max_eval_entries=200_000, eval_snp_pool=2048)
+    del packed
+    log(f"  config #5 width data: simulate + carve {time.time() - t0:.1f} s")
+    wcfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=10, max_steps=20,
+                     seed=0, snp_group=8, conv_tol=-1e9)
+    _rep_bign_fit(
+        "phase 11e", dev, rec, wcfg, wdata, seeds[:2], REP_BIGN_PATH,
+        REP_BIGN_ABSENT + tuple(n for n in KERNELS if n.endswith("[bf16]")))
 
 
 # Phase 10: the command line (cli.py) on the card, from PLINK files in a
@@ -3196,6 +3539,10 @@ def main(argv=()) -> int:
     tr = time.time()
     phase_cli(dev, rec)
     log(f"  phase 10 in {time.time() - tr:.1f} s")
+    log("phase 11: batched replicates on the big-N path")
+    tr = time.time()
+    phase_replicates_bign(dev, rec, bign)
+    log(f"  phase 11 in {time.time() - tr:.1f} s")
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

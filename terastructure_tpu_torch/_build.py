@@ -54,20 +54,21 @@ SIGNATURES = {
                                  + [_I] * 3 + [_P],
     "tt_fused_local_solve_dma_bf16": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
                                      + [_F] * 3 + [_I] * 3 + [_P],
-    # a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx, stream
-    "tt_lambda_stats_acat": [_P] * 8 + [_I] * 5 + [_P],
-    "tt_lambda_stats_acat_bf16": [_P] * 8 + [_I] * 5 + [_P],
-    # rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream
-    "tt_gamma_stats_packed": [_P] * 6 + [_I] * 4 + [_P],
-    "tt_gamma_stats_packed_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    # rows, u_planes, t1, t0, l0, l1, g, lpart, gpart, B, W, K, tile_rows,
-    # tile_cols, approx, stream
-    "tt_batch_stats_fused_v2": [_P] * 9 + [_I] * 6 + [_P],
-    # rows, u_planes, t1, t0, l0, l1, g, gpart, B, W, K, stream
-    "tt_batch_stats_fused": [_P] * 8 + [_I] * 3 + [_P],
+    # R, a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx,
+    # stream (R replicates, every array R x the single call's)
+    "tt_lambda_stats_acat": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    "tt_lambda_stats_acat_bf16": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    # R, rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream
+    "tt_gamma_stats_packed": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "tt_gamma_stats_packed_bf16": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # R, rows, u_planes, t1, t0, l0, l1, g, lpart, gpart, B, W, K,
+    # tile_rows, tile_cols, approx, stream
+    "tt_batch_stats_fused_v2": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    # R, rows, u_planes, t1, t0, l0, l1, g, gpart, B, W, K, stream
+    "tt_batch_stats_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P],
     # the bf16 bodies of K7 and K6: the same arguments
-    "tt_batch_stats_fused_v2_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "tt_batch_stats_fused_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    "tt_batch_stats_fused_v2_bf16": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "tt_batch_stats_fused_bf16": [_I] + [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

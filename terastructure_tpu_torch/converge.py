@@ -37,11 +37,12 @@ removed at the end.
     python -m terastructure_tpu_torch.converge --config 1 --replicates 4
 
 --replicates R fits seeds 0..R-1 in lockstep with fit_replicates_batched
-(svi/replicates.py: K1 and K4 with their replicate axis) at the
-reference's replicates_ab.py settings (snp_group 1: K2 has no replicate
-axis yet), and prints one record per replicate (its seed, stop step,
-scores and theta MAE beside the batch's fields) and then the best
-replicate's, marked "best": the R-seed workflow on the card.
+(svi/replicates.py: K1 and K4 with their replicate axis; at config 5 the
+big-N path, K8, K7 and K4 with it) at the reference's replicates_ab.py
+settings (snp_group 1: K2 has no replicate axis yet), and prints one
+record per replicate (its seed, stop step, scores and theta MAE beside
+the batch's fields) and then the best replicate's, marked "best": the
+R-seed workflow on the card.
 """
 
 from __future__ import annotations

@@ -173,7 +173,7 @@ __device__ __forceinline__ float operand(float x) {
 // of its own would, so its sums add in the same order: a replicate's
 // result is bitwise the single call's on its inputs.
 struct Rep {
-  long long rows = 0;  // bytes of the packed rows
+  long long rows = 0;  // bytes of the packed rows (K8: count-plane elements)
   long long u = 0;     // floats of the u planes
   long long t = 0;     // floats of t1 and t0 (K1's interleaved t)
   long long part = 0;  // floats of the partial sums
@@ -345,9 +345,9 @@ struct AcatLoader {
   const uint16_t* a1;
   const uint16_t* a0;
 
-  // K8 has no replicate axis yet (its launches are R = 1)
-  __device__ __forceinline__ AcatLoader shifted(long long) const {
-    return *this;
+  // replicate z's planes, `off` elements on (Rep::rows)
+  __device__ __forceinline__ AcatLoader shifted(long long off) const {
+    return {a1 + off, a0 + off};
   }
 
   __device__ void prepare(const uint8_t**, int, int, int) const {}

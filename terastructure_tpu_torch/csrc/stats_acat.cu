@@ -31,46 +31,58 @@
 // Every pass runs (`active` is null): at the big-N shape the reference's
 // tol test lets all of the solve's loop passes run (PERF.md §6),
 // so a device-side gate, as K1 has, would skip nothing.
+//
+// R > 1 runs R replicates of the pass in one launch (blockIdx.z,
+// psd_common.cuh `Rep`): the batched replicates' big-N solve, the
+// reference's lambda_stats_acat under jax.vmap. The planes, u planes, t1,
+// t0, l0, l1 and the partial sums are R x the single call's, back to back;
+// each body offsets its pointers before it stages a tile, and each
+// replicate runs the single call's grid, so its bits are the single
+// call's. R = 1 is one pass.
 
 #include "psd_common.cuh"
 
 namespace {
 
 template <bool kBf16>
-int lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
+int lambda_stats_acat(int R, const uint16_t* a1, const uint16_t* a0,
                       const float* up, const float* t1, const float* t0,
                       float* l0, float* l1, float* part, int B, int W, int K,
                       int nsplit, int approx, cudaStream_t stream) {
+  const int bk = B * K;
+  tt::Rep rep;
+  rep.rows = 4LL * B * W;
+  rep.u = 4LL * W * K;
+  rep.t = rep.out = bk;
+  rep.part = 2LL * nsplit * bk;
   if (const int err = tt::launch_lambda_pass<tt::AcatLoader, false, kBf16>(
           tt::AcatLoader{a1, a0}, up, t1, t0, K, 1, part, B, W, K, nsplit,
-          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream))
+          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream, R, rep))
     return err;
-  const int bk = B * K;
-  tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(part, nsplit,
-                                                                bk, l0, l1, 0,
-                                                                0);
+  tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
+      part, nsplit, bk, l0, l1, rep.part, rep.out);
   TT_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-extern "C" int tt_lambda_stats_acat(const uint16_t* a1, const uint16_t* a0,
-                                    const float* up, const float* t1,
-                                    const float* t0, float* l0, float* l1,
-                                    float* part, int B, int W, int K,
-                                    int nsplit, int approx,
+extern "C" int tt_lambda_stats_acat(int R, const uint16_t* a1,
+                                    const uint16_t* a0, const float* up,
+                                    const float* t1, const float* t0,
+                                    float* l0, float* l1, float* part, int B,
+                                    int W, int K, int nsplit, int approx,
                                     cudaStream_t stream) {
-  return lambda_stats_acat<false>(a1, a0, up, t1, t0, l0, l1, part, B, W, K,
-                                  nsplit, approx, stream);
+  return lambda_stats_acat<false>(R, a1, a0, up, t1, t0, l0, l1, part, B, W,
+                                  K, nsplit, approx, stream);
 }
 
-extern "C" int tt_lambda_stats_acat_bf16(const uint16_t* a1,
+extern "C" int tt_lambda_stats_acat_bf16(int R, const uint16_t* a1,
                                          const uint16_t* a0, const float* up,
                                          const float* t1, const float* t0,
                                          float* l0, float* l1, float* part,
                                          int B, int W, int K, int nsplit,
                                          int approx, cudaStream_t stream) {
-  return lambda_stats_acat<true>(a1, a0, up, t1, t0, l0, l1, part, B, W, K,
-                                 nsplit, approx, stream);
+  return lambda_stats_acat<true>(R, a1, a0, up, t1, t0, l0, l1, part, B, W,
+                                 K, nsplit, approx, stream);
 }

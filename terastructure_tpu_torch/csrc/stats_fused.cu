@@ -6,19 +6,20 @@
 #include "stats_fused.cuh"
 
 extern "C" int tt_batch_stats_fused_v2(
-    const uint8_t* rows, const float* up, const float* t1, const float* t0,
-    float* l0, float* l1, float* g, float* lpart, float* gpart, int B, int W,
-    int K, int tile_rows, int tile_cols, int approx, cudaStream_t stream) {
-  return batch_stats_fused_v2<false>(rows, up, t1, t0, l0, l1, g, lpart,
-                                     gpart, B, W, K, tile_rows, tile_cols,
-                                     approx, stream);
+    int R, const uint8_t* rows, const float* up, const float* t1,
+    const float* t0, float* l0, float* l1, float* g, float* lpart,
+    float* gpart, int B, int W, int K, int tile_rows, int tile_cols,
+    int approx, cudaStream_t stream) {
+  return batch_stats_fused_v2<false>(R, rows, up, t1, t0, l0, l1, g, lpart,
+                                    gpart, B, W, K, tile_rows, tile_cols,
+                                    approx, stream);
 }
 
-extern "C" int tt_batch_stats_fused(const uint8_t* rows, const float* up,
-                                    const float* t1, const float* t0,
-                                    float* l0, float* l1, float* g,
-                                    float* gpart, int B, int W, int K,
-                                    cudaStream_t stream) {
-  return batch_stats_fused<false>(rows, up, t1, t0, l0, l1, g, gpart, B, W,
-                                  K, stream);
+extern "C" int tt_batch_stats_fused(int R, const uint8_t* rows,
+                                    const float* up, const float* t1,
+                                    const float* t0, float* l0, float* l1,
+                                    float* g, float* gpart, int B, int W,
+                                    int K, cudaStream_t stream) {
+  return batch_stats_fused<false>(R, rows, up, t1, t0, l0, l1, g, gpart, B, W,
+                                 K, stream);
 }

@@ -102,6 +102,17 @@
 // bf16 (`tt::operand`) where they stage them: t where the CTA stages its
 // rows' t, u where it stages the sub-tile's u, R once after the divide.
 // kBf16 = false is the f32 code as it was.
+//
+// The replicate axis (K <= 64; batched replicates, the reference's passes
+// under jax.vmap): one launch runs R independent calls, replicate z in
+// the grid's z, over arrays that are R x the single call's, back to back.
+// Each body offsets its pointers in its prologue (rows by B W bytes, u by
+// 4 W K, t1 and t0 by B K, the lambda partials by a call's W tiles x B K
+// 2, the gamma partials by its row tiles x 4 W K, K6's l0 and l1 by B K),
+// before it stages anything, and each replicate runs on the grid its own
+// call would, so its sums add in the same order: its result is bitwise
+// the single call's. The reductions take R in z at the same strides. R =
+// 1 is the single call.
 #pragma once
 
 #include "psd_common.cuh"
@@ -325,8 +336,8 @@ __device__ __forceinline__ void lambda_row(const float* __restrict__ r1,
   }
 }
 
-// K7, K <= 64. grid (ceil(W/tile_cols), ceil(B/kV2Rows)); dynamic shared
-// memory v2_smem_bytes<KM>(). lpart (gridDim.x, B, K, 2), gpart
+// K7, K <= 64. grid (ceil(W/tile_cols), ceil(B/kV2Rows), R); dynamic
+// shared memory v2_smem_bytes<KM>(). lpart (gridDim.x, B, K, 2), gpart
 // (gridDim.y, 4W, K). Warp q owns rows b0 + [32q, 32q + 32) for the whole
 // W tile; per sub-tile of 8 byte columns:
 //   phase 1, lane = individual (plane lane / 8, column lane % 8):
@@ -344,6 +355,13 @@ stats_v2_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
                 float* __restrict__ lpart, float* __restrict__ gpart, int B,
                 int W, int K, int tile_cols) {
   constexpr int RB = KM <= 8 ? 2 : 1;    // rows in flight in phase 1
+  const long long z = blockIdx.z;        // the replicate
+  rows += z * B * W;
+  up += 4 * z * W * K;
+  t1g += z * B * K;
+  t0g += z * B * K;
+  lpart += z * gridDim.x * B * K * 2;
+  gpart += 4 * z * gridDim.y * W * K;
   extern __shared__ __align__(16) float v2_smem[];
   float4* tsm = reinterpret_cast<float4*>(v2_smem);  // (kV2Rows, KM/2)
   float* R = v2_smem + kV2Rows * 2 * KM;             // kV2Warps slices
@@ -556,7 +574,7 @@ struct V2MmaFetch {
   }
 };
 
-// K7 at bf16, K <= 8 KN. grid (ceil(W/tile_cols), ceil(B/kRows)); dynamic
+// K7 at bf16, K <= 8 KN. grid (ceil(W/tile_cols), ceil(B/kRows), R); dynamic
 // shared memory V2Mma<KN>::kSmemBytes. lpart (gridDim.x, B, K, 2), gpart
 // (gridDim.y, 4W, K), as stats_v2_kernel's.
 template <int KN, int kDiv>
@@ -569,6 +587,13 @@ stats_v2_mma_kernel(const uint8_t* __restrict__ rows,
                     int tile_cols) {
   using C = V2Mma<KN>;
   constexpr int KD = C::KD, MT = C::MT, KP = C::KP, US = C::US;
+  const long long z = blockIdx.z;        // the replicate (stats_v2_kernel)
+  rows += z * B * W;
+  up += 4 * z * W * K;
+  t1g += z * B * K;
+  t0g += z * B * K;
+  lpart += z * gridDim.x * B * K * 2;
+  gpart += 4 * z * gridDim.y * W * K;
   extern __shared__ __align__(16) unsigned char v2m_smem[];
   __nv_bfloat16* usm = reinterpret_cast<__nv_bfloat16*>(v2m_smem);
   uint32_t* bsm = reinterpret_cast<uint32_t*>(usm + 2 * C::NI * US);
@@ -751,7 +776,7 @@ stats_v2_mma_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// K6. grid ceil(B/32); dynamic shared memory tile_floats floats.
+// K6. grid (ceil(B/32), 1, R); dynamic shared memory tile_floats floats.
 // l0, l1 (B, K) final raw sums; gpart (gridDim.x, 4W, K).
 template <int KM, bool kBf16>
 __global__ void __launch_bounds__(kFThreads)
@@ -759,6 +784,14 @@ stats_v1_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
                 const float* __restrict__ t1g, const float* __restrict__ t0g,
                 float* __restrict__ l0, float* __restrict__ l1,
                 float* __restrict__ gpart, int B, int W, int K) {
+  const long long z = blockIdx.z;        // the replicate
+  rows += z * B * W;
+  up += 4 * z * W * K;
+  t1g += z * B * K;
+  t0g += z * B * K;
+  l0 += z * B * K;
+  l1 += z * B * K;
+  gpart += 4 * z * gridDim.x * W * K;
   extern __shared__ float smem[];
   const Tile sm = carve<KM>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1103,9 +1136,9 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
 // K7's launch: the body K picks (at bf16 and K <= 64 the tensor-core
 // body), then the lambda partials' and the gamma partials' reductions in
 // tile order. Arguments as tt_batch_stats_fused_v2; tile_rows must be the
-// body's (ops/stats_packed.py `v2_tile_rows`).
+// body's (ops/stats_packed.py `v2_tile_rows`). R replicates at K <= 64.
 template <bool kBf16>
-int batch_stats_fused_v2(const uint8_t* rows, const float* up,
+int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
                          const float* t1, const float* t0, float* l0,
                          float* l1, float* g, float* lpart, float* gpart,
                          int B, int W, int K, int tile_rows, int tile_cols,
@@ -1121,11 +1154,12 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
     body_cols = kd == 4 ? 8 : 16;
   }
   if (B <= 0 || W <= 0 || km < 0 || tile_rows != body_rows ||
-      tile_cols <= 0 || tile_cols % body_cols)
+      tile_cols <= 0 || tile_cols % body_cols || R < 1 ||
+      (km == tt::kWide && R > 1))
     return (int)cudaErrorInvalidValue;
   const int nwt = (W + tile_cols - 1) / tile_cols;
   const int nbt = (B + tile_rows - 1) / tile_rows;
-  const dim3 grid(nwt, nbt);
+  const dim3 grid(nwt, nbt, R);
   if (km == tt::kWide) {
     const int bytes =
         (kWideTileFloats + tile_rows * tt::kKC * 2) * (int)sizeof(float);
@@ -1181,26 +1215,27 @@ int batch_stats_fused_v2(const uint8_t* rows, const float* up,
   }
   TT_CHECK_LAUNCH();
   const int bk = B * K;
-  tt::split_reduce_kernel<<<(bk + 255) / 256, 256, 0, stream>>>(lpart, nwt,
-                                                                bk, l0, l1, 0,
-                                                                0);
+  tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
+      lpart, nwt, bk, l0, l1, 2LL * nwt * bk, bk);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
-  tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g, 0, 0);
+  tt::gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
+                            stream>>>(gpart, nbt, ng, g, nbt * ng, ng);
   TT_CHECK_LAUNCH();
   return 0;
 }
 
 // K6's launch: the body K picks, then the gamma partials' reduction in
-// row-tile order. Arguments as tt_batch_stats_fused.
+// row-tile order. Arguments as tt_batch_stats_fused. R replicates at
+// K <= 64.
 template <bool kBf16>
-int batch_stats_fused(const uint8_t* rows, const float* up, const float* t1,
-                      const float* t0, float* l0, float* l1, float* g,
-                      float* gpart, int B, int W, int K,
+int batch_stats_fused(int R, const uint8_t* rows, const float* up,
+                      const float* t1, const float* t0, float* l0, float* l1,
+                      float* g, float* gpart, int B, int W, int K,
                       cudaStream_t stream) {
   const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || km < 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || W <= 0 || km < 0 || R < 1 || (km == tt::kWide && R > 1))
+    return (int)cudaErrorInvalidValue;
   const int nbt = (B + kFRows - 1) / kFRows;
   if (km == tt::kWide) {
     const int bytes = kWideTileFloats * (int)sizeof(float);
@@ -1219,7 +1254,8 @@ int batch_stats_fused(const uint8_t* rows, const float* up, const float* t1,
         stats_v1_kernel<KM, kBf16>,                                          \
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                 \
     if (e != cudaSuccess) return (int)e;                                     \
-    stats_v1_kernel<KM, kBf16><<<nbt, kFThreads, bytes, stream>>>(           \
+    stats_v1_kernel<KM, kBf16>                                               \
+        <<<dim3(nbt, 1, R), kFThreads, bytes, stream>>>(                     \
         rows, up, t1, t0, l0, l1, gpart, B, W, K);                           \
   }
   TT_DISPATCH_KM(km, TT_LAUNCH)
@@ -1227,8 +1263,8 @@ int batch_stats_fused(const uint8_t* rows, const float* up, const float* t1,
   }
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
-  tt::gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nbt, ng, g, 0, 0);
+  tt::gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
+                            stream>>>(gpart, nbt, ng, g, nbt * ng, ng);
   TT_CHECK_LAUNCH();
   return 0;
 }

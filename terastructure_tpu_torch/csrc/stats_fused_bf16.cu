@@ -11,20 +11,20 @@
 #include "stats_fused.cuh"
 
 extern "C" int tt_batch_stats_fused_v2_bf16(
-    const uint8_t* rows, const float* up, const float* t1, const float* t0,
-    float* l0, float* l1, float* g, float* lpart, float* gpart, int B, int W,
-    int K, int tile_rows, int tile_cols, int approx, cudaStream_t stream) {
-  return batch_stats_fused_v2<true>(rows, up, t1, t0, l0, l1, g, lpart,
+    int R, const uint8_t* rows, const float* up, const float* t1,
+    const float* t0, float* l0, float* l1, float* g, float* lpart,
+    float* gpart, int B, int W, int K, int tile_rows, int tile_cols,
+    int approx, cudaStream_t stream) {
+  return batch_stats_fused_v2<true>(R, rows, up, t1, t0, l0, l1, g, lpart,
                                     gpart, B, W, K, tile_rows, tile_cols,
                                     approx, stream);
 }
 
-extern "C" int tt_batch_stats_fused_bf16(const uint8_t* rows,
-                                         const float* up, const float* t1,
-                                         const float* t0, float* l0,
-                                         float* l1, float* g, float* gpart,
-                                         int B, int W, int K,
-                                         cudaStream_t stream) {
-  return batch_stats_fused<true>(rows, up, t1, t0, l0, l1, g, gpart, B, W, K,
-                                 stream);
+extern "C" int tt_batch_stats_fused_bf16(int R, const uint8_t* rows,
+                                    const float* up, const float* t1,
+                                    const float* t0, float* l0, float* l1,
+                                    float* g, float* gpart, int B, int W,
+                                    int K, cudaStream_t stream) {
+  return batch_stats_fused<true>(R, rows, up, t1, t0, l0, l1, g, gpart, B, W,
+                                 K, stream);
 }

@@ -21,23 +21,45 @@
 // and R rounded to bf16 as the products' operands, sums in f32): the γ
 // pass K1 and K2 end with at bf16, through an entry of its own (the
 // reference's gamma_stats_packed(dtype=jnp.bfloat16)).
+//
+// R > 1 runs R replicates of the pass in one launch (blockIdx.z,
+// psd_common.cuh `Rep`): the batched replicates' big-N step with
+// stats_kernel="pair", the reference's gamma_stats_packed under jax.vmap.
+// rows, u planes, t1, t0, g and the partial sums are R x the single
+// call's, back to back, and each replicate runs the single call's grid:
+// its bits are the single call's. R = 1 is one pass.
 
 #include "psd_common.cuh"
 
-extern "C" int tt_gamma_stats_packed(const uint8_t* rows, const float* up,
-                                     const float* t1, const float* t0,
-                                     float* g, float* gpart, int B, int W,
-                                     int K, int nsplit, cudaStream_t stream) {
-  return tt::launch_gamma_stats(tt::ContiguousRows{rows}, up, t1, t0, K, 1,
-                                gpart, g, B, W, K, nsplit, stream);
+namespace {
+
+tt::Rep gamma_rep(int B, int W, int K, int nsplit) {
+  tt::Rep rep;
+  rep.rows = (long long)B * W;
+  rep.u = rep.out = 4LL * W * K;
+  rep.t = (long long)B * K;
+  rep.part = nsplit * rep.u;
+  return rep;
 }
 
-extern "C" int tt_gamma_stats_packed_bf16(const uint8_t* rows,
+}  // namespace
+
+extern "C" int tt_gamma_stats_packed(int R, const uint8_t* rows,
+                                     const float* up, const float* t1,
+                                     const float* t0, float* g, float* gpart,
+                                     int B, int W, int K, int nsplit,
+                                     cudaStream_t stream) {
+  return tt::launch_gamma_stats(tt::ContiguousRows{rows}, up, t1, t0, K, 1,
+                                gpart, g, B, W, K, nsplit, stream, R,
+                                gamma_rep(B, W, K, nsplit));
+}
+
+extern "C" int tt_gamma_stats_packed_bf16(int R, const uint8_t* rows,
                                           const float* up, const float* t1,
                                           const float* t0, float* g,
                                           float* gpart, int B, int W, int K,
                                           int nsplit, cudaStream_t stream) {
   return tt::launch_gamma_stats<tt::ContiguousRows, true>(
       tt::ContiguousRows{rows}, up, t1, t0, K, 1, gpart, g, B, W, K, nsplit,
-      stream);
+      stream, R, gamma_rep(B, W, K, nsplit));
 }

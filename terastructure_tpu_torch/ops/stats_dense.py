@@ -149,7 +149,8 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
     passes: None, or a list to which the solve appends the number of
     loop passes the reference's while_loop would run: 1 + the passes
     after the first that `active` lets through, a scalar on the solve's
-    device (the host reads no device value here).
+    device (the host reads no device value here); R solves append R
+    counts, one a replicate.
 
     lamb0 (R, B, K, 2) is R independent solves (batched replicates: the
     reference's while_loop under vmap). Each replicate has its own tol
@@ -177,7 +178,13 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
         lam = torch.where(active, new, lam)
         active = active & (delta > local_tol)
     if passes is not None:
-        passes.append(1 + sum(ran))
+        count = 1 + sum(ran)
+        if not replicates:
+            passes.append(count)
+        elif ran:
+            passes.extend(count.view(-1))
+        else:
+            passes.extend([count] * lam.shape[0])
     if accel:
         mid = iterate(lam)
         new = iterate(mid)

@@ -30,6 +30,13 @@ passes (K4, K5, K8) and K7 run on the tensor cores (csrc/psd_mma.cuh,
 csrc/stats_fused.cuh); K6 runs its SIMT body with the operands rounded
 where they are staged. Each wrapper counts its bf16 launches in
 `bf16_launches` (`count_launch`).
+
+Batched replicates: at K <= 64 every kernel also takes a leading R axis
+on each per-replicate input (K4's rows may be shared) and runs the R
+calls in one launch, replicate z in the grid's z (csrc/psd_common.cuh
+`Rep`), each replicate bitwise its single call; counted in
+`rep_launches` as well. On CPU tensors the twin of a batched call is the
+single twin of each replicate, stacked (`stack_twins`).
 """
 
 from __future__ import annotations
@@ -102,9 +109,10 @@ def decode_count_planes(rows: torch.Tensor):
     """Packed rows (B, W) uint8 -> allele-count planes (a1, a0), each
     (B, 4, W) bf16 with a1[b, s, w] the count of individual 4w+s (exact:
     counts are {0, 1, 2}; MISSING is 0 in both). The reference's layout
-    (stats_pallas.decode_count_planes); plain torch there and here."""
+    (stats_pallas.decode_count_planes); plain torch there and here.
+    Batched replicates' rows (R, B, W) give (R, B, 4, W)."""
     shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=rows.device)
-    x = (rows[:, None, :] >> shifts[:, None]) & 0x3            # (B, 4, W)
+    x = (rows.unsqueeze(-2) >> shifts[:, None]) & 0x3     # (..., B, 4, W)
     miss = x == 3
     xf = x.to(torch.bfloat16)
     zero = torch.zeros((), dtype=torch.bfloat16, device=rows.device)
@@ -192,13 +200,48 @@ def check_replicate_k(name, k):
             "bodies) is not ported (ROADMAP Queue 1, S6)")
 
 
-def count_launch(fn, dtype):
+def count_launch(fn, dtype, r=None):
     """One launch of fn's kernel: counted in fn.bf16_launches for its bf16
-    body, in fn.launches otherwise."""
+    body, in fn.launches otherwise, and in fn.rep_launches as well where
+    it has the replicate axis (r, the replicates, is not None)."""
     if dtype == torch.bfloat16:
         fn.bf16_launches += 1
     else:
         fn.launches += 1
+    if r is not None:
+        fn.rep_launches += 1
+
+
+def replicates(name, x, dims, u_planes, t1, t0):
+    """The replicate axis of a call: None for a single call (x with
+    `dims` dimensions), R where every per-replicate input has a leading R
+    (x, u_planes (R, 4, W, K), t1, t0 (R, B, K)). Raises on a mix, and at
+    K > 64 where R > 1 (`check_replicate_k`)."""
+    if x.dim() == dims:
+        return None
+    r = x.shape[0]
+    if (x.dim() != dims + 1 or u_planes.dim() != 4 or u_planes.shape[0] != r
+            or t1.dim() != 3 or t1.shape[0] != r or t0.shape[:1] != (r,)):
+        raise ValueError(f"{name}: a batched call takes every per-replicate "
+                         f"input with a leading R = {r}")
+    if r > 1:
+        check_replicate_k(name, u_planes.shape[-1])
+    return r
+
+
+def one_replicate(r, *xs):
+    """The inputs of a single call as they are (r None), or replicate 0's
+    of a batched call: what the single call's checks read."""
+    return xs if r is None else tuple(x[0] for x in xs)
+
+
+def stack_twins(twin, r, *args, **kw):
+    """The twin of a batched call: twin(*args) of each of the r
+    replicates (args with a leading R), stacked."""
+    outs = [twin(*(a[i] for a in args), **kw) for i in range(r)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return torch.stack(outs)
 
 
 def _entry(name, dtype):
@@ -306,9 +349,7 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
                                      lambda_grid(b, w)[0], approx_div,
                                      dtype == torch.bfloat16)
-    count_launch(lambda_stats_packed, dtype)
-    if r is not None:
-        lambda_stats_packed.rep_launches += 1
+    count_launch(lambda_stats_packed, dtype, r)
     return out
 
 
@@ -385,36 +426,48 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
     u_planes (4, W, K) f32; t1, t0 (B, K) f32. Returns (l0_raw, l1_raw),
     each (B, K) f32. dtype: the products' operand type, as
     `lambda_stats_packed`'s (the bf16 body counts in `bf16_launches`).
+    Batched replicates: a1, a0 (R, B, 4, W), u_planes (R, 4, W, K), t1,
+    t0 (R, B, K) -> (R, B, K) each.
     """
-    if a1.dim() != 3 or a1.shape[1] != 4 or a0.shape != a1.shape:
-        raise ValueError("lambda_stats_acat: a1, a0 must be (B, 4, W)")
-    check_shapes("lambda_stats_acat", a1[:, 0], u_planes)
-    check_dtype("lambda_stats_acat", dtype)
-    b, _, w = a1.shape
-    k = u_planes.shape[2]
-    check_t("lambda_stats_acat", b, k, t1, t0)
-    if _device_of("lambda_stats_acat", a1) == "cpu":
+    name = "lambda_stats_acat"
+    r = replicates(name, a1, 3, u_planes, t1, t0)
+    a, up, s1, s0 = one_replicate(r, a1, u_planes, t1, t0)
+    if a.dim() != 3 or a.shape[1] != 4 or a0.shape != a1.shape:
+        raise ValueError(f"{name}: a1, a0 must be (B, 4, W)")
+    check_shapes(name, a[:, 0], up)
+    check_dtype(name, dtype)
+    b, _, w = a.shape
+    k = up.shape[-1]
+    check_t(name, b, k, s1, s0)
+    if _device_of(name, a1) == "cpu":
         lambda_stats_acat.twin_calls += 1
-        return lambda_stats_acat_twin(a1, a0, u_planes, t1, t0,
-                                      approx_div=approx_div, dtype=dtype)
-    _build.require_cuda("lambda_stats_acat", a1, a0, u_planes, t1, t0,
+        args = (a1, a0, u_planes, t1, t0)
+        kw = dict(approx_div=approx_div, dtype=dtype)
+        if r is None:
+            return lambda_stats_acat_twin(*args, **kw)
+        return stack_twins(lambda_stats_acat_twin, r, *args, **kw)
+    _build.require_cuda(name, a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
     nsplit, _ = lambda_grid(b, w)
+    lead = () if r is None else (r,)
     dev = a1.device
-    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
+    l0 = torch.empty((*lead, b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
-    part = torch.empty((nsplit, b, k, 2), dtype=torch.float32, device=dev)
+    part = torch.empty((*lead, nsplit, b, k, 2), dtype=torch.float32,
+                       device=dev)
     err = _entry("tt_lambda_stats_acat", dtype)(
-        a1.data_ptr(), a0.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
-        t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), part.data_ptr(), b, w, k,
-        nsplit, int(approx_div), _build.stream_ptr(dev))
-    _build.check(err, "lambda_stats_acat")
-    count_launch(lambda_stats_acat, dtype)
+        r or 1, a1.data_ptr(), a0.data_ptr(), u_planes.data_ptr(),
+        t1.data_ptr(), t0.data_ptr(), l0.data_ptr(), l1.data_ptr(),
+        part.data_ptr(), b, w, k, nsplit, int(approx_div),
+        _build.stream_ptr(dev))
+    _build.check(err, name)
+    count_launch(lambda_stats_acat, dtype, r)
     return l0, l1
 
 
 lambda_stats_acat.launches = 0
 lambda_stats_acat.bf16_launches = 0
+lambda_stats_acat.rep_launches = 0
 lambda_stats_acat.twin_calls = 0
 
 
@@ -428,7 +481,11 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
     Where `local_solve_acat.loop_passes` is a list, each solve appends to
     it how many of its loop passes the reference's while_loop would run
-    (`solve_schedule(passes=)`: a device scalar; the host reads none)."""
+    (`solve_schedule(passes=)`: a device scalar; the host reads none).
+
+    Batched replicates: rows (R, B, W), u (R, N, K) and lamb_b (R, B, K,
+    2) run R solves, K8 with its replicate axis, each with its own tol
+    test; loop_passes then takes one count per replicate."""
     u_planes = u_to_planes(u)
     a1, a0 = decode_count_planes(rows)
 
@@ -455,32 +512,43 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     """Raw planar γ statistic (4, W, K) f32 = Σ_b Rᵀ [T1; T0] (exact
     divide); the caller re-interleaves with planes_to_flat and multiplies
     by u. dtype bf16: the γ pass K1 and K2 run at bf16 (U, T and R
-    rounded to bf16, sums in f32), counted in `bf16_launches`."""
-    check_shapes("gamma_stats_packed", rows, u_planes)
-    check_dtype("gamma_stats_packed", dtype)
-    b, w = rows.shape
-    k = u_planes.shape[2]
-    check_t("gamma_stats_packed", b, k, t1, t0)
-    if _device_of("gamma_stats_packed", rows) == "cpu":
+    rounded to bf16, sums in f32), counted in `bf16_launches`. Batched
+    replicates: rows (R, B, W), u_planes (R, 4, W, K), t1, t0 (R, B, K)
+    -> (R, 4, W, K)."""
+    name = "gamma_stats_packed"
+    r = replicates(name, rows, 2, u_planes, t1, t0)
+    rs, up, s1, s0 = one_replicate(r, rows, u_planes, t1, t0)
+    check_shapes(name, rs, up)
+    check_dtype(name, dtype)
+    b, w = rs.shape
+    k = up.shape[-1]
+    check_t(name, b, k, s1, s0)
+    if _device_of(name, rows) == "cpu":
         gamma_stats_packed.twin_calls += 1
-        return gamma_stats_packed_twin(rows, u_planes, t1, t0, dtype)
-    _build.require_cuda("gamma_stats_packed", rows, u_planes, t1, t0,
+        if r is None:
+            return gamma_stats_packed_twin(rows, u_planes, t1, t0, dtype)
+        return stack_twins(gamma_stats_packed_twin, r, rows, u_planes, t1,
+                           t0, dtype=dtype)
+    _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     nsplit = gamma_grid(b, w, k)
+    lead = () if r is None else (r,)
     dev = rows.device
-    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
-    gpart = torch.empty((nsplit, 4 * w, k), dtype=torch.float32, device=dev)
+    g = torch.empty((*lead, 4, w, k), dtype=torch.float32, device=dev)
+    gpart = torch.empty((*lead, nsplit, 4 * w, k), dtype=torch.float32,
+                        device=dev)
     err = _entry("tt_gamma_stats_packed", dtype)(
-        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
-        g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
+        r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
+        t0.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
         _build.stream_ptr(dev))
-    _build.check(err, "gamma_stats_packed")
-    count_launch(gamma_stats_packed, dtype)
+    _build.check(err, name)
+    count_launch(gamma_stats_packed, dtype, r)
     return g
 
 
 gamma_stats_packed.launches = 0
 gamma_stats_packed.bf16_launches = 0
+gamma_stats_packed.rep_launches = 0
 gamma_stats_packed.twin_calls = 0
 
 
@@ -490,7 +558,7 @@ def batch_stats_packed(rows, u, t1, t0, *, dtype=torch.float32):
     u (4W, K) (caller pads); t1, t0 (B, K) from the converged λ. Returns
     (gamma_stat (4W, K), l0 (B, K), l1 (B, K)), the λ statistics already
     scaled by t, as stats_dense.batch_stats. dtype: both kernels' compute
-    dtype.
+    dtype. Batched replicates: every input and output with a leading R.
     """
     u_planes = u_to_planes(u)
     l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0, dtype=dtype)
@@ -517,12 +585,33 @@ def v2_tile_rows(k: int, dtype=torch.float32) -> int:
 
 
 def _stats_args(name, rows, u, t1, t0):
-    """Validate a statistics pass's arguments: (u_planes, B, W, K)."""
+    """Validate a statistics pass's arguments, single or batched (a
+    leading R on each): (u_planes, R or None, B, W, K)."""
     u_planes = u_to_planes(u)
-    check_shapes(name, rows, u_planes)
-    b, w = rows.shape
-    check_t(name, b, u.shape[1], t1, t0)
-    return u_planes, b, w, u.shape[1]
+    r = replicates(name, rows, 2, u_planes, t1, t0)
+    rs, up, s1, s0 = one_replicate(r, rows, u_planes, t1, t0)
+    check_shapes(name, rs, up)
+    b, w = rs.shape
+    k = up.shape[-1]
+    check_t(name, b, k, s1, s0)
+    return u_planes, r, b, w, k
+
+
+def _fused_twin(rows, u_planes, t1, t0, r, **kw):
+    """K7's and K6's twin (`batch_stats_fused_twin`), single or batched."""
+    if r is None:
+        return batch_stats_fused_twin(rows, u_planes, t1, t0, **kw)
+    return stack_twins(batch_stats_fused_twin, r, rows, u_planes, t1, t0,
+                       **kw)
+
+
+def _fused_outputs(b, w, k, r, dev):
+    """K7's and K6's outputs: l0, l1 (B, K) and g (4, W, K), with a
+    leading R for a batched call."""
+    lead = () if r is None else (r,)
+    l0 = torch.empty((*lead, b, k), dtype=torch.float32, device=dev)
+    g = torch.empty((*lead, 4, w, k), dtype=torch.float32, device=dev)
+    return l0, torch.empty_like(l0), g, lead
 
 
 def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
@@ -534,38 +623,39 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     partials), both added in tile order. Same returns as
     `batch_stats_packed`. approx_div: fast divide (stats_approx_div).
     dtype: the products' operand type (the bf16 body counts in
-    `bf16_launches`)."""
+    `bf16_launches`). Batched replicates: rows (R, B, W), u (R, 4W, K),
+    t1, t0 (R, B, K), each return with a leading R."""
     name = "batch_stats_fused_v2_packed"
-    u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    u_planes, r, b, w, k = _stats_args(name, rows, u, t1, t0)
     check_dtype(name, dtype)
     if _device_of(name, rows) == "cpu":
         batch_stats_fused_v2_packed.twin_calls += 1
-        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
-                                           approx_div=approx_div,
-                                           dtype=dtype)
+        g, l0, l1 = _fused_twin(rows, u_planes, t1, t0, r,
+                                approx_div=approx_div, dtype=dtype)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
     tile_rows = v2_tile_rows(k, dtype)
     nwt, nbt = -(-w // V2_TILE_COLS), -(-b // tile_rows)
-    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
-    l1 = torch.empty_like(l0)
-    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
-    lpart = torch.empty((nwt, b, k, 2), dtype=torch.float32, device=dev)
-    gpart = torch.empty((nbt, 4 * w, k), dtype=torch.float32, device=dev)
+    l0, l1, g, lead = _fused_outputs(b, w, k, r, dev)
+    lpart = torch.empty((*lead, nwt, b, k, 2), dtype=torch.float32,
+                        device=dev)
+    gpart = torch.empty((*lead, nbt, 4 * w, k), dtype=torch.float32,
+                        device=dev)
     err = _entry("tt_batch_stats_fused_v2", dtype)(
-        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
-        l0.data_ptr(), l1.data_ptr(), g.data_ptr(), lpart.data_ptr(),
-        gpart.data_ptr(), b, w, k, tile_rows, V2_TILE_COLS,
+        r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
+        t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), g.data_ptr(),
+        lpart.data_ptr(), gpart.data_ptr(), b, w, k, tile_rows, V2_TILE_COLS,
         int(approx_div), _build.stream_ptr(dev))
     _build.check(err, name)
-    count_launch(batch_stats_fused_v2_packed, dtype)
+    count_launch(batch_stats_fused_v2_packed, dtype, r)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
 batch_stats_fused_v2_packed.launches = 0
 batch_stats_fused_v2_packed.bf16_launches = 0
+batch_stats_fused_v2_packed.rep_launches = 0
 batch_stats_fused_v2_packed.twin_calls = 0
 
 
@@ -575,32 +665,30 @@ def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
     """The exact full-N statistics pass, v1 (K6): a CTA owns 32 rows and
     walks all of W in order with λ in registers; γ goes out as per-row-
     tile partials added in order. Same returns as `batch_stats_packed`.
-    dtype: as `batch_stats_fused_v2_packed`'s."""
+    dtype and batched replicates: as `batch_stats_fused_v2_packed`'s."""
     name = "batch_stats_fused_packed"
-    u_planes, b, w, k = _stats_args(name, rows, u, t1, t0)
+    u_planes, r, b, w, k = _stats_args(name, rows, u, t1, t0)
     check_dtype(name, dtype)
     if _device_of(name, rows) == "cpu":
         batch_stats_fused_packed.twin_calls += 1
-        g, l0, l1 = batch_stats_fused_twin(rows, u_planes, t1, t0,
-                                           dtype=dtype)
+        g, l0, l1 = _fused_twin(rows, u_planes, t1, t0, r, dtype=dtype)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
-    l0 = torch.empty((b, k), dtype=torch.float32, device=dev)
-    l1 = torch.empty_like(l0)
-    g = torch.empty((4, w, k), dtype=torch.float32, device=dev)
-    gpart = torch.empty((-(-b // 32), 4 * w, k), dtype=torch.float32,
+    l0, l1, g, lead = _fused_outputs(b, w, k, r, dev)
+    gpart = torch.empty((*lead, -(-b // 32), 4 * w, k), dtype=torch.float32,
                         device=dev)
     err = _entry("tt_batch_stats_fused", dtype)(
-        rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
-        l0.data_ptr(), l1.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w, k,
-        _build.stream_ptr(dev))
+        r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
+        t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), g.data_ptr(),
+        gpart.data_ptr(), b, w, k, _build.stream_ptr(dev))
     _build.check(err, name)
-    count_launch(batch_stats_fused_packed, dtype)
+    count_launch(batch_stats_fused_packed, dtype, r)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
 
 
 batch_stats_fused_packed.launches = 0
 batch_stats_fused_packed.bf16_launches = 0
+batch_stats_fused_packed.rep_launches = 0
 batch_stats_fused_packed.twin_calls = 0

@@ -26,11 +26,12 @@ modes.
 Batched replicates (`make_replicate_step`, `make_replicate_run_chunk`;
 the entry point is svi/replicates.py): R seeds step in lockstep on one
 stacked state, the reference's vmapped step. Each replicate draws its own
-minibatch from its own generator, and one K1 launch sequence with a
-replicate axis solves all R; the glue runs on the stacked tensors. Only
-the fused branch on gathered rows is ported there (K1, the reference's
-dma_gather=False: no K3); the big-N path, K2's group DMA, K > 64 and
-kernel="dense" raise NotImplementedError.
+minibatch (and on the big-N path its own column subsample) from its own
+generators; the fused branch on gathered rows (K1, the reference's
+dma_gather=False: no K3) and the big-N path (K8, K7, K4, K5, K6) each
+launch their kernels once for all R with a replicate axis; the glue
+runs on the stacked tensors. K2's group DMA, K > 64 and kernel="dense"
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -144,9 +145,10 @@ def _gather_batch(cfg: SVIConfig, packed, lamb, gen, l_sample, *, draw=None):
     b = cfg.batch_size
     g = _group_size(cfg, l_sample)
     dev = packed.device
+    draw = (_draw_batch(cfg, gen, l_sample, g, dev) if draw is None
+            else draw.to(dev).long())
     if g == 1:
-        idx = (_sample_batch(gen, l_sample, b, dev) if draw is None
-               else draw.to(dev)).long()
+        idx = draw
 
         def scatter(new):
             lamb[idx] = new
@@ -155,9 +157,7 @@ def _gather_batch(cfg: SVIConfig, packed, lamb, gen, l_sample, *, draw=None):
 
     lg, ng = l_sample // g, b // g
     w, k = packed.shape[1], lamb.shape[1]
-    gidx = (torch.randint(0, lg, (ng,), generator=gen, device=dev,
-                          dtype=torch.int32) if draw is None
-            else draw.to(dev)).long()
+    gidx = draw
     idx = (gidx[:, None] * g + torch.arange(g, device=dev)).reshape(b)
     rows = packed[:l_sample].view(lg, g * w)[gidx].view(b, w)
     lamb_g = lamb[:l_sample].view(lg, g, k, 2)
@@ -166,6 +166,16 @@ def _gather_batch(cfg: SVIConfig, packed, lamb, gen, l_sample, *, draw=None):
         lamb_g[gidx] = new.view(ng, g, k, 2)
 
     return idx, rows, lamb_g[gidx].view(b, k, 2), scatter
+
+
+def _draw_batch(cfg: SVIConfig, gen, l_sample, g, dev) -> torch.Tensor:
+    """A step's draw from gen, int64: B row indices (`_sample_batch`)
+    where g is 1, else B/g indices of groups of g rows (the stored mode's
+    groups, `_gather_batch`)."""
+    if g == 1:
+        return _sample_batch(gen, l_sample, cfg.batch_size, dev).long()
+    return torch.randint(0, l_sample // g, (cfg.batch_size // g,),
+                         generator=gen, device=dev, dtype=torch.int32).long()
 
 
 def uses_group_dma(cfg: SVIConfig, l_sample: int) -> bool:
@@ -265,9 +275,11 @@ def step_core_fused_dma(cfg: SVIConfig, gamma, packed, idx0, lamb_init=None):
                                      packed, group=g))
 
 
-def _prior_lamb(cfg: SVIConfig, b: int, device) -> torch.Tensor:
-    """The cold start of a local solve: (B, K, 2) at the Beta prior."""
-    lamb = torch.empty((b, cfg.k, 2), dtype=torch.float32, device=device)
+def _prior_lamb(cfg: SVIConfig, b: int, device, lead=()) -> torch.Tensor:
+    """The cold start of a local solve: (*lead, B, K, 2) at the Beta
+    prior."""
+    lamb = torch.empty((*lead, b, cfg.k, 2), dtype=torch.float32,
+                       device=device)
     lamb[..., 0] = cfg.beta_a
     lamb[..., 1] = cfg.beta_b
     return lamb
@@ -315,25 +327,43 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     (`batch_pad_rows`), the solve's tol test counts the pad rows' known
     share, so the loop exits at the reference's pass.
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
+
+    Batched replicates (the reference's step under jax.vmap): gamma
+    (R, N, K), rows (R, B, W), lamb_b (R, B, K, 2) or None, and gen a
+    sequence of R generators or idx_w (R, sub_w), replicate r's own
+    subsample. Every kernel runs once for all R with its replicate axis,
+    each replicate with its own tol test; returns (R, B, K, 2) and
+    (R, N, K), replicate r bitwise the single step's on its inputs.
     """
     dtype = getattr(torch, cfg.compute_dtype)
-    b, w = rows.shape
-    n = gamma.shape[0]
+    *lead, b, w = rows.shape
+    n = gamma.shape[-2]
     if w % 128:        # the reference's padded width: same subsample range
-        rows = torch.cat([rows, rows.new_full((b, (-w) % 128), 0xFF)], 1)
-    wp = rows.shape[1]
+        rows = torch.cat([rows, rows.new_full((*lead, b, (-w) % 128), 0xFF)],
+                         -1)
+    wp = rows.shape[-1]
     u = pad_individuals(ops.exp_elog_theta(gamma), wp)
     if lamb_b is None:
-        lamb_b = _prior_lamb(cfg, b, rows.device)
+        lamb_b = _prior_lamb(cfg, b, rows.device, lead)
     kw = dict(beta_a=cfg.beta_a, beta_b=cfg.beta_b,
               pad_rows=batch_pad_rows(b), dtype=dtype)
-    if idx_w is None and gen is not None:
+    if idx_w is None and gen is not None and not lead:
         idx_w = subsample_columns(cfg, wp, gen)
+    elif idx_w is None and gen is not None:   # the shape decides for all R
+        subs = [subsample_columns(cfg, wp, g) for g in gen]
+        idx_w = None if subs[0] is None else torch.stack(subs)
     if idx_w is not None:
-        sub_w = idx_w.shape[0]
-        idx_w = idx_w.to(rows.device)
-        rows_sub = rows[:, idx_w].contiguous()
-        u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
+        sub_w = idx_w.shape[-1]
+        idx_w = idx_w.to(rows.device, torch.long)
+        if lead:       # replicate r's columns of its rows and of its u
+            rows_sub = torch.take_along_dim(
+                rows, idx_w[:, None, :].expand(*lead, b, sub_w), -1)
+            reps = torch.arange(lead[0], device=rows.device)[:, None]
+            u_sub = u.reshape(*lead, wp, 4, -1)[reps, idx_w].reshape(
+                *lead, 4 * sub_w, -1)
+        else:
+            rows_sub = rows[:, idx_w].contiguous()
+            u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
         solve = (pk.local_solve_acat if cfg.sub_decode_once
                  else pk.local_solve_packed)
         lamb_b = solve(rows_sub, u_sub, lamb_b, local_iters=cfg.local_iters,
@@ -359,7 +389,7 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
     else:
         raise ValueError(f"unknown stats_kernel {cfg.stats_kernel!r}")
     new_lamb_b = torch.stack([cfg.beta_a + l0, cfg.beta_b + l1], -1)
-    return new_lamb_b, gamma_stat[:n]
+    return new_lamb_b, gamma_stat[..., :n, :]
 
 
 def step_core_dense(cfg: SVIConfig, gamma, xb, lamb_b):
@@ -499,17 +529,14 @@ def unstack_state(states: ReplicateState, i: int) -> SVIState:
 
 def check_replicate_path(cfg: SVIConfig, w: int, l_sample: int) -> None:
     """Raise NotImplementedError where a batched step would leave the
-    ported slice: the fused solve (K1) on gathered rows at K <= 64."""
+    ported slice: the fused solve (K1) on gathered rows and the big-N
+    path (K8, K7, K4, K5, K6), at K <= 64."""
     queued = "is not ported yet (ROADMAP Queue 1, S6)"
     impl = step_impl(cfg, w)
     if impl == "dense":
         raise NotImplementedError(f"batched replicates with kernel='dense' "
                                   f"{queued}")
-    if impl == "pallas":
-        raise NotImplementedError(
-            f"batched replicates on the big-N path (a replicate axis in "
-            f"K5-K8) {queued}")
-    if uses_group_dma(cfg, l_sample):
+    if impl == "fused" and uses_group_dma(cfg, l_sample):
         raise NotImplementedError(
             f"batched replicates through K2's group DMA (snp_group="
             f"{cfg.snp_group}; a replicate axis in K2) {queued}")
@@ -526,12 +553,17 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
     Replicate r draws step t's minibatch from step_generator(seed_r, t)
     as a single fit with seed r does with dma_gather=False (independent
     per-row draws; the reference's batched step turns block draws off), so
-    K3 never runs. The R row sets are gathered into one (R, B, W) tensor
-    and K1 solves all R in one launch sequence; u, the gamma statistic and
-    the Robbins-Monro update run on the stacked tensors (rho is the same
-    for every replicate). In the stored lambda mode each replicate
-    gathers and scatters its own lambda rows, in place. Each replicate's
-    gamma (and lambda) is bitwise the single fit's.
+    K3 never runs. The R row sets are gathered into one (R, B, W) tensor.
+    The fused branch solves all R in one K1 launch sequence. The big-N
+    branch (where the fused gate refuses the shape) runs the batched
+    `step_core_packed`, replicate r's column subsample drawn from
+    step_generator(seed_r, t, SUB_TAG) as the single step draws it; in
+    the stored mode each replicate draws by `_gather_batch`'s rule (groups
+    where `_group_size` > 1). u, the gamma statistic and the Robbins-Monro
+    update run on the stacked tensors (rho is the same for every
+    replicate). In the stored lambda mode each replicate gathers and
+    scatters its own lambda rows, in place. Each replicate's gamma (and
+    lambda) is bitwise the single fit's.
 
     Raises NotImplementedError outside the ported slice
     (`check_replicate_path`).
@@ -541,9 +573,11 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
     l_s = l_sample or cfg.l
     w = 128 * -(-cfg.n // 512)            # pad_width's byte width
     check_replicate_path(cfg, w, l_s)
+    big_n = step_impl(cfg, w) == "pallas"
     local_mode = cfg.lambda_mode == "local"
     if not local_mode and cfg.lambda_mode != "stored":
         raise ValueError(f"unknown lambda_mode {cfg.lambda_mode!r}")
+    g = _group_size(cfg, l_s) if big_n and not local_mode else 1
 
     def step(state: ReplicateState, packed) -> ReplicateState:
         t = state.t
@@ -552,25 +586,36 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
                              f", expected {w}")
         gamma, lamb = state.gamma, state.lamb
         r, n = gamma.shape[:2]
+        b, k = cfg.batch_size, cfg.k
         dev = packed.device
-        idx = torch.stack([
-            _sample_batch(step_generator(seed, t, dev), l_s, cfg.batch_size,
-                          dev) for seed in state.seeds]).long()
-        rows = packed[idx]                                   # (R, B, W)
-        u = pad_individuals(ops.exp_elog_theta(gamma), w)
         reps = torch.arange(r, device=dev)[:, None]
         warm = not local_mode
-        lamb_init = (lamb[reps, idx] if warm else
-                     torch.zeros((r, cfg.batch_size, cfg.k, 2),
-                                 dtype=torch.float32, device=dev))
-        new_lamb_b, g = fused_step.fused_local_solve(
-            rows, u_to_planes(u), lamb_init, local_iters=cfg.local_iters,
-            local_tol=cfg.local_tol, beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-            dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
-            approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
+        # rows (R, B), or groups of g rows (R, B/g); as a view of g-row
+        # groups the matrix and lambda take one index for both
+        draw = torch.stack([_draw_batch(cfg, step_generator(seed, t, dev),
+                                        l_s, g, dev) for seed in state.seeds])
+        lg = l_s // g
+        rows = packed[:l_s].view(lg, g * w)[draw].view(r, b, w)
+        lamb_rows = lamb[:, :l_s].view(r, lg, g * k, 2)
+        lamb_init = lamb_rows[reps, draw].view(r, b, k, 2) if warm else None
+        if big_n:
+            new_lamb_b, gamma_stat = step_core_packed(
+                cfg, gamma, rows, lamb_b=lamb_init,
+                gen=[step_generator(seed, t, dev, SUB_TAG)
+                     for seed in state.seeds])
+        else:
+            u = pad_individuals(ops.exp_elog_theta(gamma), w)
+            new_lamb_b, gq = fused_step.fused_local_solve(
+                rows, u_to_planes(u),
+                lamb_init if warm else torch.zeros(
+                    (r, b, k, 2), dtype=torch.float32, device=dev),
+                local_iters=cfg.local_iters, local_tol=cfg.local_tol,
+                beta_a=cfg.beta_a, beta_b=cfg.beta_b,
+                dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
+                approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
+            gamma_stat = (u * planes_to_flat(gq))[:, :n]
         if warm:
-            lamb[reps, idx] = new_lamb_b
-        gamma_stat = (u * planes_to_flat(g))[:, :n]
+            lamb_rows[reps, draw] = new_lamb_b.view(r, b // g, g * k, 2)
         gamma = _global_update(cfg, gamma, gamma_stat, t, l_s)
         return state._replace(gamma=gamma, t=t + 1)
 

@@ -5,16 +5,17 @@ The reference's protocol fits R seeds and keeps the best validation
 log-likelihood. R serial `fit` calls pay the host's enqueue of every step
 R times; here the R states are stacked and stepped in lockstep
 (engine.make_replicate_step): every replicate shares the packed matrix
-on the card, and one K1 launch sequence with a replicate axis solves all
-R minibatches, so a step's launches are paid once for all R. The
+on the card, and one K1 launch sequence (or, on the big-N path, one
+batched `step_core_packed`) with a replicate axis solves all R
+minibatches, so a step's launches are paid once for all R. The
 validation scorer of the local lambda mode re-solves the eval SNPs'
 lambdas for all R at once (K4 with its replicate axis, the eval rows
 shared).
 
 Semantics, as the reference's:
   - each replicate's math is a single fit's with its seed and
-    dma_gather=False (its own minibatch stream; per-row draws, no K3), so
-    its gamma trajectory, and in the stored mode its lambda, is bitwise
+    dma_gather=False (its own minibatch stream; per-row draws, no K3; on
+    the big-N path its own column subsample), so its gamma trajectory, and in the stored mode its lambda, is bitwise
     that fit's;
   - each replicate's convergence is tracked on its own (driver.fit's
     rule); its score is frozen at its own stop, and the batch runs until
@@ -26,8 +27,10 @@ then), and its heldout log-likelihood is scored from that state: what a
 serial fit with its seed returns, but the export (the local mode's final
 lambda, which the batched fit does not make, as the reference does not).
 
-Ported: the fused branch (K1 on gathered rows, K <= 64) in both lambda
-modes at both compute dtypes; the rest raises NotImplementedError
+Ported, in both lambda modes at both compute dtypes, K <= 64: the fused
+branch (K1 on gathered rows) and the big-N path where the fused gate
+refuses the shape (K8, K7, K4 with their replicate axis; K5 or K6 under
+stats_kernel "pair" or "fused"); the rest raises NotImplementedError
 (engine.check_replicate_path).
 """
 

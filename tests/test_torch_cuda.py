@@ -918,3 +918,118 @@ def test_rep_kernels_refuse_k_above_64(cuda_device):
     with pytest.raises(NotImplementedError):
         fused_step.fused_local_solve(rows, up, lamb, local_iters=4,
                                      local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+
+
+def _rep_bign_calls(rows, up, t1, t0, approx_div, dtype):
+    """K8, K5, K6 and K7 on (rows, u planes, t1, t0), single or batched
+    (a leading R on each): name -> (wrapper, call)."""
+    u = stats_packed.planes_to_flat(up).contiguous()
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    return {
+        "K8": (stats_packed.lambda_stats_acat,
+               lambda: stats_packed.lambda_stats_acat(
+                   a1, a0, up, t1, t0, approx_div=approx_div, dtype=dtype)),
+        "K5": (stats_packed.gamma_stats_packed,
+               lambda: [stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                        dtype)]),
+        "K6": (stats_packed.batch_stats_fused_packed,
+               lambda: stats_packed.batch_stats_fused_packed(
+                   rows, u, t1, t0, dtype=dtype)),
+        "K7": (stats_packed.batch_stats_fused_v2_packed,
+               lambda: stats_packed.batch_stats_fused_v2_packed(
+                   rows, u, t1, t0, approx_div=approx_div, dtype=dtype)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("shape", [(300, 700, 10), (12, 384, 3),
+                                   (128, 512, 16)])
+@pytest.mark.parametrize("kernel", ["K8", "K5", "K6", "K7"])
+def test_rep_bign_kernels_are_the_single_calls_per_replicate(
+        cuda_device, kernel, shape, approx_div, dtype):
+    """K8, K5, K6 and K7 with the replicate axis (R = 3, inputs of each
+    replicate's own, one replicate's rows all MISSING): one launch,
+    counted in rep_launches; each replicate bitwise the single call on
+    its inputs and held to its twin as the single kernel is; a re-run
+    bitwise. (K5 and K6 have no fast divide: approx_div=True runs them
+    as False.)"""
+    rows, up, lamb = _rep_problem(cuda_device, 3, *shape, seed=len(kernel))
+    rows[1, : shape[0] // 2] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    approx = approx_div and kernel in ("K7", "K8")
+    fn, call = _rep_bign_calls(rows, up, t1, t0, approx, dtype)[kernel]
+    before = fn.rep_launches
+    got = call()
+    assert fn.rep_launches == before + 1
+    assert all(torch.equal(g, a) for g, a in zip(got, call()))
+    tol = (dict(rtol=5e-3, atol=5e-3) if approx else
+           TOL if dtype == torch.float32 else dict(rtol=1e-3, atol=1e-6))
+    for i in range(3):
+        _, one = _rep_bign_calls(rows[i], up[i], t1[i], t0[i], approx,
+                                 dtype)[kernel]
+        one = one()
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one)), i
+        if kernel in ("K5", "K8"):
+            twin = (stats_packed.gamma_stats_packed_twin(
+                rows[i], up[i], t1[i], t0[i], dtype),) if kernel == "K5" \
+                else stats_packed.lambda_stats_acat_twin(
+                    *stats_packed.decode_count_planes(rows[i]), up[i], t1[i],
+                    t0[i], approx_div=approx, dtype=dtype)
+        else:
+            g, l0, l1 = stats_packed.batch_stats_fused_twin(
+                rows[i], up[i], t1[i], t0[i], approx_div=approx, dtype=dtype)
+            u = stats_packed.planes_to_flat(up[i])
+            twin = (u * stats_packed.planes_to_flat(g), t1[i] * l0,
+                    t0[i] * l1)
+        for g, w in zip(one, twin):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rep_of_one_is_the_single_bign_kernel(cuda_device, dtype):
+    """A leading replicate axis of one gives the single call's bits for
+    K8, K5, K6 and K7 (both launch the same entry, R = 1)."""
+    rows, up, lamb = _problem(cuda_device, 40, 700, 10, seed=3)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    batched = _rep_bign_calls(rows[None], up[None], t1[None], t0[None],
+                              False, dtype)
+    for name, (_, one) in _rep_bign_calls(rows, up, t1, t0, False,
+                                          dtype).items():
+        got = batched[name][1]()
+        assert all(torch.equal(g[0], o) for g, o in zip(got, one())), name
+
+
+@pytest.mark.cuda
+def test_rep_bign_step_is_the_single_steps(cuda_device):
+    """The batched big-N step (engine.step_core_packed on stacked inputs,
+    each replicate's own subsample): K8, K7 and no twin, each replicate
+    bitwise its single step, at f32 and bf16."""
+    from terastructure_tpu_torch import SVIConfig
+    from terastructure_tpu_torch.svi import engine
+
+    n, k, b = 4096, 10, 64
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(np.stack([pack2bit(rng.integers(
+        0, 4, (b, n)).astype(np.int8)) for _ in range(2)])).to(cuda_device)
+    gamma = torch.from_numpy(rng.uniform(0.05, 30.0, (2, n, k)).astype(
+        np.float32)).to(cuda_device)
+    idx_w = torch.stack([torch.randperm(1024)[:128] for _ in range(2)])
+    for dtype in ("float32", "bfloat16"):
+        cfg = SVIConfig(n=n, l=100, k=k, batch_size=b, local_sub_n=512,
+                        compute_dtype=dtype)
+        fns = (stats_packed.lambda_stats_acat,
+               stats_packed.batch_stats_fused_v2_packed)
+        before = [f.rep_launches for f in fns]
+        twins = [f.twin_calls for f in fns]
+        got = engine.step_core_packed(cfg, gamma, rows, idx_w=idx_w)
+        assert [f.rep_launches - c for f, c in zip(fns, before)] == [
+            cfg.local_iters, 1]
+        assert [f.twin_calls for f in fns] == twins
+        for i in range(2):
+            one = engine.step_core_packed(cfg, gamma[i], rows[i],
+                                          idx_w=idx_w[i])
+            assert all(torch.equal(g[i], o) for g, o in zip(got, one))

@@ -103,7 +103,7 @@ def test_batched_local_fit_converges_selects_and_stops_as_single_fits():
 
 @pytest.mark.parametrize("change", [
     dict(kernel="dense"),
-    dict(kernel="pallas"),                     # the big-N path
+    dict(kernel="pallas", k=72),               # the big-N path at K > 64
     dict(k=72),                                # the K-chunked bodies
 ])
 def test_paths_outside_the_slice_raise(change):
