@@ -130,6 +130,18 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    the single steps; (e) config #5's width (N = 1M resident, L cut to
    16,384), R = 2, 20 steps, bitwise the single fits, with the step's ms
    and the peak device memory.
+12. the MCMC validators (mcmc/; `phase_validate`): (a) PSDPotential's
+   value and gradient at config #4's shape (500 x 5,000, K = 3, 4 chains,
+   float64 sums) with TF32 allowed for matmuls, against the same
+   potential in float64 on the CPU, within limits that TF32-rounded
+   operands miss (their errors and those of a plain matmul printed
+   beside); (b) HMC and NUTS on the reference's conjugate K = 1 problem,
+   posterior means within 0.03 of the exact ones, and a short 2-chain
+   NUTS run re-run bitwise; (c) compare_svi_mcmc at the reference's
+   scaled validator shapes, NUTS at 200 x 1,000 (2 chains, 200 + 200) and
+   SMC at 80 x 300 (256 particles), K = 3: theta MAE against SVI under
+   0.05 and 0.08, the SVI fit's K1 and K4 launches, no twin; (d) `cli
+   validate --simulate` prints the reference's JSON keys.
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
@@ -190,6 +202,10 @@ from terastructure_tpu_torch.data import (GenotypeData, bed,
 from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.io.checkpoint import restore_checkpoint
 from terastructure_tpu_torch.io.export import load_matrix
+from terastructure_tpu_torch.mcmc import PSDPotential, run_hmc, run_nuts
+from terastructure_tpu_torch.mcmc import hmc as mcmc_hmc
+from terastructure_tpu_torch.mcmc.potential import f32_product, init_params
+from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
@@ -3303,6 +3319,260 @@ def phase_cli_config3(dev, rec, tmp):
                              "principal subspace")
 
 
+# --------------------------------------------------------------------------
+# phase 12: the MCMC validators (mcmc/)
+
+VALIDATE_SHAPE = (500, 5_000, 3)   # config #4: N, L, K
+POT_CHAINS = 4
+POT_VALUE_TOL = 0.05    # nats of |log p| ~ 3e6: f32 terms give ~2e-3,
+POT_GRAD_TOL = 2e-5     # and TF32 operands ~6 nats; of max |grad|: f32
+                        # ~1e-7, TF32 ~3e-4 (CPU calibration at this shape)
+CONJ_MEAN_TOL = 0.03    # the reference tests' limit on posterior means
+# 12c NUTS, 2 chains x 200 draws. Chains that do not move from their
+# separate overdispersed starts give an aligned split R-hat of infinity or
+# NaN and an ESS near 0. beta mixes well there (ESS 224 and 267, R-hat 1.012
+# and 1.008 in two H100 runs): its limits are tight. theta has ESS 8-22
+# there (R-hat 1.07 and 1.18): too few draws for a tight limit.
+VALIDATE_RHAT_BETA = 1.1
+VALIDATE_MIN_ESS_BETA = 50.0
+VALIDATE_RHAT_THETA = 1.5
+VALIDATE_MIN_ACCEPT = 0.5   # its mean accept probability (0.8 targeted)
+VALIDATE_KEYS = {"theta_mae", "beta_mae", "svi_steps", "sampler",
+                 "convergence"}     # terastructure_tpu/cli.py:597-605
+
+
+def tf32(x):
+    """x's float32 values rounded to TF32's 10-bit mantissa, as a TF32
+    tensor-core product reads its operands; straight through for the
+    gradient."""
+    i = x.detach().contiguous().view(torch.int32)
+    r = ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    return x + (r - x).detach()
+
+
+def phase_validate(dev, rec):
+    """(a) the potential's precision at config #4's shape; (b) HMC and NUTS
+    against the exact conjugate posterior, NUTS re-run bitwise; (c)
+    compare_svi_mcmc at the reference's scaled validator shapes (NUTS
+    200 x 1,000, SMC 80 x 300, K = 3) with the SVI fit's launches; (d)
+    `cli validate`."""
+    t0 = time.time()
+    validate_precision(dev)
+    log(f"  12a in {time.time() - t0:.1f} s")
+    t1 = time.time()
+    validate_exact(dev)
+    log(f"  12b in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    validate_small(dev, rec)
+    log(f"  12c in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    validate_cli(rec)
+    log(f"  12d in {time.time() - t1:.1f} s")
+    log(f"  phase 12 in {time.time() - t0:.1f} s")
+
+
+def validate_precision(dev):
+    """12a: PSDPotential's value and gradient on the card (4 chains at
+    500 x 5,000, K = 3, float64 sums) against the same potential in
+    float64 on the CPU, with TF32 allowed for matmuls meanwhile: the
+    potential must not use it. Beside them, the errors of its plain
+    formula through a matmul (which TF32 may reach) and with TF32-rounded
+    operands, which the tolerances must catch."""
+    n, l, k = VALIDATE_SHAPE
+    _, _, x = simulate_psd(n, l, k, seed=4)
+    rng = np.random.default_rng(4)
+    host = {"z_theta": torch.from_numpy((0.5 * rng.standard_normal(
+                (POT_CHAINS, n, k))).astype(np.float32)),
+            "z_beta": torch.from_numpy((0.8 * rng.standard_normal(
+                (POT_CHAINS, l, k))).astype(np.float32))}
+    kw = dict(alpha=1.0 / k, scale_sigma=0.05, acc_dtype=torch.float64)
+    pot = PSDPotential(x=torch.from_numpy(x).to(dev), **kw)
+    pot64 = PSDPotential(x=torch.from_numpy(x), **kw)
+    tmpl = {name: v[0].to(dev) for name, v in host.items()}
+    target = mcmc_hmc.Target(pot, tmpl)
+    q = target.flat({name: v.to(dev) for name, v in host.items()})
+    # first in the phase: see PERF.md §7, a capture after the checks below
+    one, plain = (leaf_ms(mcmc_hmc.Target(f, tmpl), q) for f in (
+        pot, mcmc_hmc.batched(lambda d: pot.plain(d))))
+    log(f"  12a leapfrog step (a CUDA graph), {POT_CHAINS} chains: "
+        f"{one:.3f} ms with the one-node density, {plain:.3f} ms with "
+        f"autograd of its plain formula")
+    variants = {
+        "matmul": mcmc_hmc.batched(lambda d: pot.plain(
+            d, product=lambda t, b: t @ b.mT)),
+        "TF32 operands": mcmc_hmc.batched(lambda d: pot.plain(
+            d, product=lambda t, b: f32_product(tf32(t), tf32(b)))),
+    }
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lp, g = target.value_and_grad(q)
+        other = {name: mcmc_hmc.Target(f, tmpl).value_and_grad(q)
+                 for name, f in variants.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    lp64, g64 = mcmc_hmc.Target(
+        pot64, {name: v[0].double() for name, v in host.items()}
+    ).value_and_grad(q.cpu().double())
+    gmax = float(g64.abs().max())
+
+    def errs(a, b):
+        return (float((a.cpu() - lp64).abs().max()),
+                float((b.cpu().double() - g64).abs().max()) / gmax)
+
+    ev, eg = errs(lp, g)
+    log(f"  12a potential at {n} x {l} K={k}, {POT_CHAINS} chains, TF32 "
+        f"allowed: |log p - f64| {ev:.3g} nats (limit {POT_VALUE_TOL}; "
+        f"log p {float(lp64[0]):.6g}), |grad - f64| / max {eg:.3g} (limit "
+        f"{POT_GRAD_TOL})")
+    for name, (a, b) in other.items():
+        e = errs(a, b)
+        log(f"  12a   beside it, the plain formula with {name}: "
+            f"{e[0]:.3g} nats, {e[1]:.3g}")
+    if ev > POT_VALUE_TOL or eg > POT_GRAD_TOL:
+        raise AssertionError("12a: the potential is not float32 on the card")
+    e_tf = errs(*other["TF32 operands"])
+    if e_tf[0] <= POT_VALUE_TOL or e_tf[1] <= POT_GRAD_TOL:
+        raise AssertionError("12a: the limits would not catch TF32")
+    if torch.backends.cuda.matmul.allow_tf32 != prev:
+        raise AssertionError("12a: the TF32 setting was not restored")
+
+
+def leaf_ms(target, q, reps=20):
+    """Milliseconds of one captured hmc.Leapfrog step of `target` from q
+    (CUDA events over `reps` replays, after one)."""
+    lp, g = target.value_and_grad(q)
+    lf = mcmc_hmc.Leapfrog(target, q, lp)
+    lf.load(q, torch.zeros_like(q), g, lp, 1e-4, 1.0, reps + 1)
+    lf.step()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        lf.step()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def conjugate_problem(dev, seed=0, n=40, l=6):
+    """The reference's K = 1 test problem (tests/test_mcmc.py:18-31): the
+    exact posterior of beta_j is Beta(1 + sum_i x_ij, 1 + sum_i (2 - x_ij))."""
+    rng = np.random.default_rng(seed)
+    beta_true = rng.uniform(0.2, 0.8, size=l)
+    x = rng.binomial(2, np.broadcast_to(beta_true, (n, l))).astype(np.int8)
+    a = 1.0 + x.sum(0)
+    b = 1.0 + (2 - x).sum(0)
+    return PSDPotential(x=torch.from_numpy(x).to(dev), alpha=1.0), a / (a + b)
+
+
+def validate_exact(dev):
+    """12b: HMC and NUTS means within CONJ_MEAN_TOL of the exact posterior;
+    a short NUTS run (2 chains, 200 x 1,000, K = 3) re-run bitwise."""
+    pot, post_mean = conjugate_problem(dev)
+    for name, run in (
+            ("HMC", lambda: run_hmc(2, pot, init_params(pot, 1, k=1),
+                                    n_samples=800, n_warmup=300,
+                                    n_leapfrog=16)),
+            ("NUTS", lambda: run_nuts(4, pot, init_params(pot, 3, k=1),
+                                      n_samples=500, n_warmup=300,
+                                      max_depth=6))):
+        t = time.time()
+        samples, info = run()
+        beta = 1.0 / (1.0 + np.exp(-samples["z_beta"][:, :, 0]))
+        err = float(np.abs(beta.mean(0) - post_mean).max())
+        log(f"  12b {name} on the conjugate posterior: max |mean - exact| "
+            f"{err:.4f} (limit {CONJ_MEAN_TOL}), accept "
+            f"{info['accept_rate']:.3f}, eps {float(info['eps']):.4g}, "
+            f"{time.time() - t:.1f} s")
+        if err > CONJ_MEAN_TOL:
+            raise AssertionError(f"12b: {name} misses the exact posterior")
+    _, _, x = simulate_psd(200, 1000, 3, seed=5)
+    pot = PSDPotential(x=torch.from_numpy(x).to(dev), alpha=1 / 3,
+                       scale_sigma=0.05, acc_dtype=torch.float64)
+    runs = [run_nuts(11, pot, init_params(pot, 12, k=3, n_chains=2),
+                     n_samples=10, n_warmup=10, max_depth=5, n_chains=2)
+            for _ in range(2)]
+    same = all(np.array_equal(runs[0][0][v], runs[1][0][v])
+               for v in ("z_theta", "z_beta"))
+    log(f"  12b NUTS 2 chains 10 + 10 at 200 x 1,000 K=3, re-run bitwise: "
+        f"{same} ({runs[0][1]['leapfrog_sample']} leapfrog steps)")
+    if not same:
+        raise AssertionError("12b: a NUTS re-run with one seed differs")
+
+
+def validate_small(dev, rec):
+    """12c: compare_svi_mcmc on the card at the reference's scaled
+    validator shapes (BASELINE.md:25), the SVI fit through K1 and K4 only,
+    no twin. Beside theta MAE against SVI: NUTS's aligned R-hat, beta's
+    ESS, the accept rate and sampling steps; SMC's last temperature and
+    acceptance."""
+    for sampler, (n, l), limit, kw in (
+            ("nuts", (200, 1000), 0.05,
+             dict(n_samples=200, n_warmup=200, n_chains=2)),
+            ("smc", (80, 300), 0.08,
+             dict(n_particles=256, n_mutations=2, n_leapfrog=8,
+                  mutation_eps=0.1))):
+        _, _, x = simulate_psd(n, l, 3, seed=0, structured=True)
+        reset_counts()
+        rep = compare_svi_mcmc(x, 3, sampler=sampler, seed=0, device=dev,
+                               **kw)
+        launched_only(rec, f"validate {sampler} {n} x {l}",
+                      ("fused_local_solve", "lambda_stats_packed"))
+        d = rep.sampler_diag
+        more = (f"{d['n_stages']} stages" if sampler == "smc" else
+                f"leapfrog {d['leapfrog_warmup']} + {d['leapfrog_sample']}, "
+                f"warmup {d['warmup_s']:.1f} s, sampling "
+                f"{d['sample_s']:.1f} s, {d['convergence']}")
+        log(f"  12c {sampler} {n} x {l} K=3: theta MAE {rep.theta_mae:.4f} "
+            f"(limit {limit}), beta MAE {rep.beta_mae:.4f}, SVI "
+            f"{rep.svi_steps} steps {rep.svi_s:.1f} s, sampler "
+            f"{rep.sampler_s:.1f} s; {more}")
+        if not rep.theta_mae < limit:
+            raise AssertionError(f"12c: {sampler} theta MAE {rep.theta_mae}")
+        if sampler == "smc":
+            if not (d["temps"][-1] >= 1.0 - 1e-9
+                    and min(d["acceptance"]) > 0.0):
+                raise AssertionError(
+                    f"12c: SMC ended at temperature {d['temps'][-1]} with "
+                    f"acceptance {min(d['acceptance'])}")
+            continue
+        th, be = d["convergence"]["theta"], d["convergence"]["beta"]
+        log(f"  12c nuts: aligned R-hat theta {th['max_rhat']:.4f} (limit "
+            f"{VALIDATE_RHAT_THETA}), beta {be['max_rhat']:.4f} (limit "
+            f"{VALIDATE_RHAT_BETA}); min ESS beta {be['min_ess']:.1f} "
+            f"(limit {VALIDATE_MIN_ESS_BETA}); accept "
+            f"{d['accept_rate']:.3f} (limit {VALIDATE_MIN_ACCEPT})")
+        if not (th["max_rhat"] < VALIDATE_RHAT_THETA
+                and be["max_rhat"] < VALIDATE_RHAT_BETA
+                and be["min_ess"] > VALIDATE_MIN_ESS_BETA
+                and d["accept_rate"] > VALIDATE_MIN_ACCEPT
+                and d["leapfrog_sample"] > 0):
+            raise AssertionError(
+                f"12c: NUTS R-hat theta {th['max_rhat']} beta "
+                f"{be['max_rhat']}, ESS beta {be['min_ess']}, accept "
+                f"{d['accept_rate']}, {d['leapfrog_sample']} leapfrog "
+                f"steps in sampling")
+
+
+def validate_cli(rec):
+    """12d: `cli validate --simulate` prints the reference's keys."""
+    import io
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        run_cli("validate", "--simulate", "-n", 64, "-l", 256, "-k", 2,
+                "--n-samples", 50, "--n-warmup", 50, "--chains", 2)
+    launched_only(rec, "CLI validate", ("fused_local_solve",
+                                        "lambda_stats_packed"))
+    line = out.getvalue().strip().splitlines()[-1]
+    log(f"  12d CLI validate: {line}")
+    got = json.loads(line)
+    if set(got) != VALIDATE_KEYS or set(got["convergence"]) != {
+            "theta", "beta"}:
+        raise AssertionError(f"12d: keys {sorted(got)}")
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -3543,6 +3813,8 @@ def main(argv=()) -> int:
     tr = time.time()
     phase_replicates_bign(dev, rec, bign)
     log(f"  phase 11 in {time.time() - tr:.1f} s")
+    log("phase 12: the MCMC validators (mcmc/)")
+    phase_validate(dev, rec)
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

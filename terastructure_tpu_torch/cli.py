@@ -20,9 +20,14 @@ keeps the best validation run is `fit --replicates R` (`--batched`: in
 lockstep, svi/replicates.py). result.json adds `timings`, the seconds
 of the fit's parts.
 
-Not yet ported (NotImplementedError): `validate` (slice S10, MCMC);
-`--distributed`, `--coordinator` and `--ind-shards`/`--snp-shards` > 0
-(slice S8, multi-GPU).
+`validate` fits SVI and an MCMC sampler (NUTS, HMC, ChEES or SMC) on one
+matrix and prints the label-aligned discrepancy of their moments as one
+JSON line (mcmc/validate.compare_svi_mcmc):
+
+    python -m terastructure_tpu_torch.cli validate --simulate -n 200 -l 1000 -k 3
+
+Not yet ported (NotImplementedError): `--distributed`, `--coordinator`
+and `--ind-shards`/`--snp-shards` > 0 (slice S8, multi-GPU).
 """
 
 from __future__ import annotations
@@ -488,8 +493,35 @@ def cmd_plot(args):
 
 
 def cmd_validate(args):
-    raise NotImplementedError("validate (SVI against NUTS/HMC/SMC) is not "
-                              "ported yet (slice S10, MCMC)")
+    """SVI against a sampler on the same dense matrix: the reference's
+    JSON (theta_mae, beta_mae, svi_steps, sampler, and with several
+    chains the aligned R-hat/ESS summary). As in the reference, the SVI
+    fit takes compare_svi_mcmc's own settings, not the SVI flags."""
+    from terastructure_tpu_torch.data.pack import unpack2bit
+    from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
+
+    _not_ported_flags(args)
+    dev = _device(args)
+    data = _load_data(args, seed=args.seed)
+    x = unpack2bit(data.packed, data.n).T
+    if args.sub_n or args.sub_l:
+        x = x[: args.sub_n or x.shape[0], : args.sub_l or x.shape[1]]
+    kw = {}
+    if args.sampler in ("nuts", "hmc", "chees"):
+        kw = dict(n_samples=args.n_samples, n_warmup=args.n_warmup,
+                  n_chains=args.chains)
+    rep = compare_svi_mcmc(x, k=args.k, sampler=args.sampler,
+                           seed=args.seed, warm_start=not args.cold_start,
+                           device=dev, **kw)
+    out = dict(theta_mae=rep.theta_mae, beta_mae=rep.beta_mae,
+               svi_steps=rep.svi_steps,
+               sampler=args.sampler)
+    conv = rep.sampler_diag.get("convergence")
+    if conv:
+        out["convergence"] = {k_: {m: round(float(v), 4)
+                                   for m, v in d.items()}
+                              for k_, d in conv.items()}
+    print(json.dumps(out))
 
 
 def _translate_legacy(argv):
@@ -601,14 +633,24 @@ def main(argv=None):
     p.add_argument("--no-sort", action="store_true")
     p.set_defaults(fn=cmd_plot)
 
-    # its flags come with its port (slice S10); any are taken until then
-    p = sub.add_parser("validate", help="SVI vs NUTS/HMC/SMC moments "
-                       "(not ported yet)")
+    p = sub.add_parser("validate", help="SVI vs NUTS/HMC/SMC moments")
+    _add_data_args(p)
+    _add_model_args(p)
+    _add_svi_args(p)
+    p.add_argument("--sampler", default="nuts",
+                   choices=["nuts", "hmc", "chees", "smc"])
+    p.add_argument("--sub-n", type=int, default=0, help="subsample individuals")
+    p.add_argument("--sub-l", type=int, default=0, help="subsample SNPs")
+    p.add_argument("--n-samples", type=int, default=500)
+    p.add_argument("--n-warmup", type=int, default=400)
+    p.add_argument("--chains", type=int, default=4,
+                   help="NUTS/HMC chains (label-aligned R-hat/ESS "
+                        "reported when > 1)")
+    p.add_argument("--cold-start", action="store_true",
+                   help="disable the SVI warm-start/mass preconditioner")
     p.set_defaults(fn=cmd_validate)
 
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.cmd != "validate":
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
     return args.fn(args)
 
 

@@ -43,6 +43,24 @@ settings (snp_group 1: K2 has no replicate axis yet), and prints one
 record per replicate (its seed, stop step, scores and theta MAE beside
 the batch's fields) and then the best replicate's, marked "best": the
 R-seed workflow on the card.
+
+    python -m terastructure_tpu_torch.converge --config 4 --chains 4 --n-samples 600
+
+Config 4 is the reference's validator (500 x 5,000, K = 3): simulated and
+carved as the others, its matrix unpacked to dense, then
+mcmc/validate.compare_svi_mcmc fits SVI (K1 or the big-N step at
+B = 64, K4 in eval and export) and runs the sampler warm-started from
+it, as the reference's runner does (NUTS, 400 warmup + 500 samples by
+default; --sampler smc: the variational bridge with 512 particles, 2
+mutations of 8 leapfrog steps, the reference's validator_bench settings).
+Its record: theta and beta MAE against SVI, the largest aligned R-hat
+and the smallest ESS of theta and of beta (64 coordinates each, as the
+reference summarizes; and the largest split R-hat over every
+coordinate), SVI steps, the seconds of SVI, of the sampler's
+warmup and of its sampling, leapfrog steps, the peak device memory, and
+the kernels' launches. With NUTS at --scale 1 the record's
+`missed_limits` names each of CONFIG4_LIMITS it misses, and the exit
+code is 1 if it misses any.
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -71,6 +90,7 @@ CONFIGS = {        # benchmarks/baseline_configs.py:31-38
     1: dict(n=1000, l=10_000, k=3, batch=256),           # the canonical sim
     2: dict(n=940, l=640_000, k=7, batch=1024),          # HGDP shape
     3: dict(n=2504, l=1_000_000, k=8, batch=1024),       # TGP shape
+    4: dict(n=500, l=5000, k=3, batch=256),               # the validator
     5: dict(n=1_000_000, l=1_000_000, k=10, batch=4096),  # big-N regime
 }
 COUNTED = (fused_step.fused_local_solve_dma, fused_step.fused_local_solve,
@@ -183,6 +203,79 @@ def _fit(config, device, max_steps, scale, batch_size, compute_dtype, tmp):
         snp_updates_per_s=res.steps * cfg.batch_size / chunk_s, **counts)
 
 
+def run_validate(config: int, *, device, scale: float = 1.0,
+                 sampler: str = "nuts", chains: int = 4,
+                 n_samples: int = 500, n_warmup: int = 400,
+                 svi_max_steps: int = 4000) -> dict:
+    """Simulate and carve `config` (4: the validator) as run() does, unpack
+    it to a dense matrix and run compare_svi_mcmc on it (its SVI settings:
+    B = 64, rfreq 200, at most svi_max_steps steps); return the record."""
+    from terastructure_tpu_torch.data.pack import unpack2bit
+    from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
+
+    n, l, k, data, _, _, _, sim_s = _data(config, device, scale, None)
+    x = unpack2bit(data.packed, n).T
+    if sampler == "smc":
+        kw = dict(n_particles=512, n_mutations=2, n_leapfrog=8,
+                  mutation_eps=0.05)
+    else:
+        kw = dict(n_samples=n_samples, n_warmup=n_warmup, n_chains=chains)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(64, l),
+                    max_steps=svi_max_steps, rfreq=200, seed=0)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_counts()
+    rep = compare_svi_mcmc(x, k, sampler=sampler, seed=0, device=device,
+                           svi_config=cfg, **kw)
+    diag = rep.sampler_diag
+    conv = diag.get("convergence", {})
+    rec = dict(
+        config=config, n=n, l=l, k=k, sampler=sampler,
+        device=str(torch.device(device)), theta_mae=rep.theta_mae,
+        beta_mae=rep.beta_mae, svi_steps=rep.svi_steps, svi_s=rep.svi_s,
+        sampler_s=rep.sampler_s, sim_s=sim_s, peak_device_gb=(
+            torch.cuda.max_memory_allocated(device) / 1e9 if on_card
+            else None), **_counts())
+    if sampler == "smc":
+        rec.update(n_stages=diag["n_stages"], temps=diag["temps"],
+                   acceptance=diag["acceptance"])
+        return rec
+    rec.update(
+        chains=chains, n_samples=n_samples, n_warmup=n_warmup,
+        warmup_s=diag["warmup_s"], sample_s=diag["sample_s"],
+        leapfrog_warmup=diag["leapfrog_warmup"],
+        leapfrog_sample=diag["leapfrog_sample"],
+        accept_rate=diag["accept_rate"],
+        divergence_rate=diag["divergence_rate"],
+        eps=np.asarray(diag["eps"]).tolist())
+    for name in ("theta", "beta"):
+        if name in diag.get("max_split_rhat_all", {}):
+            rec[f"max_rhat_all_{name}"] = diag["max_split_rhat_all"][name]
+        if name in conv:
+            rec[f"max_rhat_{name}"] = conv[name]["max_rhat"]
+            rec[f"max_rank_rhat_{name}"] = conv[name]["max_rank_rhat"]
+            rec[f"min_ess_{name}"] = conv[name]["min_ess"]
+    return rec
+
+
+# config 4 with NUTS at full size: twice the reference's MAE records
+# (BASELINE.md:92), its R-hat and ESS acceptance limits
+CONFIG4_LIMITS = dict(theta_mae=0.0125, beta_mae=0.0065, max_rhat_theta=1.05,
+                      max_rhat_beta=1.05, min_ess_theta=50.0)
+
+
+def config4_misses(rec: dict) -> list:
+    """The names of CONFIG4_LIMITS that the record misses (an upper limit,
+    but min_ess_theta a lower one; a missing or NaN field misses)."""
+    missed = []
+    for name, limit in CONFIG4_LIMITS.items():
+        v = float(rec.get(name, math.nan))
+        if not (v > limit if name.startswith("min_") else v < limit):
+            missed.append(name)
+    return missed
+
+
 def run_replicates(config: int, replicates: int, *, device,
                    max_steps: int = 20_000, scale: float = 1.0,
                    batch_size: int | None = None,
@@ -239,11 +332,25 @@ def main(argv=None) -> int:
                     help="fit seeds 0..R-1 in lockstep "
                          "(fit_replicates_batched); a record a replicate, "
                          "then the best's")
+    ap.add_argument("--sampler", choices=("nuts", "smc"), default="nuts",
+                    help="config 4: the sampler held against SVI")
+    ap.add_argument("--chains", type=int, default=4,
+                    help="config 4, NUTS: chains (aligned R-hat/ESS)")
+    ap.add_argument("--n-samples", type=int, default=500,
+                    help="config 4, NUTS: samples a chain")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("converge: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
+    if args.config == 4:
+        rec = run_validate(4, device="cuda", scale=args.scale,
+                           sampler=args.sampler, chains=args.chains,
+                           n_samples=args.n_samples)
+        if args.sampler == "nuts" and args.scale == 1.0:
+            rec["missed_limits"] = config4_misses(rec)
+        print(json.dumps(rec), flush=True)
+        return 1 if rec.get("missed_limits") else 0
     if args.replicates:
         for rec in run_replicates(args.config, args.replicates,
                                   device="cuda", max_steps=args.max_steps,

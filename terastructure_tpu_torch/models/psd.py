@@ -5,8 +5,8 @@ x_ij ~ Binomial(2, theta_i^T beta_.j). Variational family
 q(theta_i) = Dir(gamma_i), gamma (N, K); q(beta_kj) = Beta(lamb_jk0,
 lamb_jk1), lamb (L, K, 2) with lamb[..., 0] counting allele 1.
 
-Digammas are `torch.special.digamma`. The MCMC priors wait for the MCMC
-slice.
+Digammas are `torch.special.digamma`. The priors and the full-data
+log-likelihood at the end serve the MCMC validators (mcmc/) and tests.
 """
 
 from __future__ import annotations
@@ -93,3 +93,37 @@ def predictive_loglik(gamma, lamb, ind_idx, snp_idx, x, form="plugin"):
     th = theta_mean(gamma[ind_idx])
     be = beta_mean(lamb[snp_idx])
     return binomial2_loglik(x, (th * be).sum(-1))
+
+
+def f32_product(theta: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """theta @ beta^T over the last axis in the inputs' dtype, with no
+    tensor-core or TF32 path: (..., N, K), (..., L, K) -> (..., N, L). The
+    reference runs this product at Precision.HIGHEST."""
+    return torch.sum(theta[..., :, None, :] * beta[..., None, :, :], dim=-1)
+
+
+def log_dirichlet_prior(theta, alpha):
+    """log Dir(theta | alpha * 1_K), theta: (..., K) on the simplex."""
+    k = theta.shape[-1]
+    log_norm = math.lgamma(k * alpha) - k * math.lgamma(alpha)
+    return log_norm + torch.sum((alpha - 1.0) * torch.log(theta), dim=-1)
+
+
+def log_beta_prior(beta, a, b):
+    """log Beta(beta | a, b) elementwise."""
+    log_norm = math.lgamma(a + b) - math.lgamma(a) - math.lgamma(b)
+    return (log_norm + (a - 1.0) * torch.log(beta)
+            + (b - 1.0) * torch.log1p(-beta))
+
+
+def data_loglik(theta, beta, x, mask=None):
+    """Full-data log-likelihood sum log Binomial(2, theta^T beta) at x.
+
+    theta: (N, K); beta: (L, K); x: (N, L) int in {0,1,2} with MISSING=3
+    allowed when mask is given (or derived).
+    """
+    p = f32_product(theta, beta)                 # (N, L)
+    if mask is None:
+        mask = x != MISSING
+    ll = binomial2_loglik(torch.where(mask, x, 0), p)
+    return torch.sum(torch.where(mask, ll, 0.0))

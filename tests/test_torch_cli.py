@@ -232,7 +232,6 @@ def test_flags_map_to_the_references_config(flags):
 
 
 @pytest.mark.parametrize("argv, slice_", [
-    (["validate", "--simulate", "-n", "16", "-l", "32", "-k", "2"], "S10"),
     (["fit", "--simulate", "-n", "16", "-l", "32", "-k", "2",
       "--ind-shards", "2"], "S8"),
     (["fit", "--simulate", "-n", "16", "-l", "32", "-k", "2",
@@ -245,9 +244,25 @@ def test_unported_paths_raise(argv, slice_):
         cli.main(argv + ["--force-cpu"])
 
 
+def test_cli_validate_prints_the_references_keys(capsys):
+    """`validate` runs SVI and NUTS on the simulated matrix and prints one
+    JSON line with the reference's keys (terastructure_tpu/cli.py:597-605:
+    the summary per constrained parameter with several chains)."""
+    cli.main(["validate", "--simulate", "-n", "16", "-l", "48", "-k", "2",
+              "--n-samples", "30", "--n-warmup", "30", "--chains", "2",
+              "--force-cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == {"theta_mae", "beta_mae", "svi_steps", "sampler",
+                        "convergence"}
+    assert out["sampler"] == "nuts" and out["svi_steps"] > 0
+    assert set(out["convergence"]) == {"theta", "beta"}
+    for v in out["convergence"].values():
+        assert set(v) == {"max_rhat", "max_rank_rhat", "min_ess"}
+
+
 def test_unknown_flags_are_refused_outside_validate():
-    """validate takes any flags until its port; every other subcommand
-    refuses one it does not know, as argparse does."""
+    """Every subcommand, validate too since its port, refuses a flag it
+    does not know, as argparse does; here `pca` one of validate's."""
     with pytest.raises(SystemExit) as e:
         cli.main(["pca", "--simulate", "-n", "16", "-l", "32",
                   "--sampler", "nuts", "--force-cpu"])

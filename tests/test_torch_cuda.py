@@ -1033,3 +1033,139 @@ def test_rep_bign_step_is_the_single_steps(cuda_device):
             one = engine.step_core_packed(cfg, gamma[i], rows[i],
                                           idx_w=idx_w[i])
             assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+# --------------------------------------------------------------------------
+# the MCMC validators (mcmc/): no kernel of their own, but the potential
+# must stay float32 on the card and the samplers must be right there
+
+
+def _tf32(x):
+    """x rounded to TF32's 10-bit mantissa (a TF32 product's operands);
+    straight through for the gradient."""
+    i = x.detach().contiguous().view(torch.int32)
+    return x + (((i + 0x1000) & ~0x1FFF).view(torch.float32) - x).detach()
+
+
+@pytest.mark.cuda
+def test_mcmc_potential_is_float32_with_tf32_allowed(cuda_device):
+    """PSDPotential's value and gradient on the card at config #4's
+    shape (2 chains, float64 sums) while TF32 is allowed for matmuls,
+    against float64 on the CPU: within 0.05 nats and 2e-5 of the largest
+    gradient, limits that TF32-rounded operands miss."""
+    from terastructure_tpu_torch.data.simulate import simulate_psd
+    from terastructure_tpu_torch.mcmc import PSDPotential, hmc
+    from terastructure_tpu_torch.mcmc.potential import f32_product
+
+    n, l, k = 500, 5000, 3
+    _, _, x = simulate_psd(n, l, k, seed=4)
+    rng = np.random.default_rng(4)
+    host = {"z_theta": torch.from_numpy((0.5 * rng.standard_normal(
+                (2, n, k))).astype(np.float32)),
+            "z_beta": torch.from_numpy((0.8 * rng.standard_normal(
+                (2, l, k))).astype(np.float32))}
+    kw = dict(alpha=1 / k, scale_sigma=0.05, acc_dtype=torch.float64)
+    pot = PSDPotential(x=torch.from_numpy(x).to(cuda_device), **kw)
+    tmpl = {name: v[0].to(cuda_device) for name, v in host.items()}
+    target = hmc.Target(pot, tmpl)
+    q = target.flat({name: v.to(cuda_device) for name, v in host.items()})
+    rounded = hmc.Target(hmc.batched(lambda d: pot.plain(
+        d, product=lambda t, b: f32_product(_tf32(t), _tf32(b)))), tmpl)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lp, g = target.value_and_grad(q)
+        lp_t, g_t = rounded.value_and_grad(q)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    lp64, g64 = hmc.Target(
+        PSDPotential(x=torch.from_numpy(x), **kw),
+        {name: v[0].double() for name, v in host.items()}
+    ).value_and_grad(q.cpu().double())
+    gmax = float(g64.abs().max())
+    assert float((lp.cpu() - lp64).abs().max()) < 0.05
+    assert float((g.cpu().double() - g64).abs().max()) < 2e-5 * gmax
+    assert float((lp_t.cpu() - lp64).abs().max()) > 0.05
+    assert float((g_t.cpu().double() - g64).abs().max()) > 2e-5 * gmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_mcmc_samplers_match_the_conjugate_posterior(cuda_device, sampler):
+    """HMC and NUTS on the card on the reference's K = 1 problem
+    (tests/test_mcmc.py:18-31): posterior means within 0.03 of the exact
+    Beta posterior; a NUTS re-run with the same seed is bitwise equal."""
+    from terastructure_tpu_torch.mcmc import PSDPotential, run_hmc, run_nuts
+    from terastructure_tpu_torch.mcmc.potential import init_params
+
+    rng = np.random.default_rng(0)
+    beta_true = rng.uniform(0.2, 0.8, size=6)
+    x = rng.binomial(2, np.broadcast_to(beta_true, (40, 6))).astype(np.int8)
+    a, b = 1.0 + x.sum(0), 1.0 + (2 - x).sum(0)
+    pot = PSDPotential(x=torch.from_numpy(x).to(cuda_device), alpha=1.0)
+    if sampler == "hmc":
+        run = lambda: run_hmc(2, pot, init_params(pot, 1, k=1),
+                              n_samples=800, n_warmup=300, n_leapfrog=16)
+    else:
+        run = lambda: run_nuts(4, pot, init_params(pot, 3, k=1),
+                               n_samples=500, n_warmup=300, max_depth=6)
+    samples, _ = run()
+    beta = 1.0 / (1.0 + np.exp(-samples["z_beta"][:, :, 0]))
+    np.testing.assert_allclose(beta.mean(0), a / (a + b), atol=0.03)
+    if sampler == "nuts":
+        again, _ = run()
+        assert np.array_equal(samples["z_beta"], again["z_beta"])
+
+
+def _mcmc_transitions(dev, seed=11):
+    """One HMC transition (12 leapfrog steps) and one NUTS transition
+    (max depth 6) for 2 chains at 200 x 1,000, K = 3, then a short ChEES
+    run (4 chains) on the reference's K = 1 conjugate problem, every draw
+    from seeded generators on `dev`: their outputs on the host, and
+    NUTS's depth."""
+    from terastructure_tpu_torch.data.simulate import simulate_psd
+    from terastructure_tpu_torch.mcmc import PSDPotential, hmc, nuts
+    from terastructure_tpu_torch.mcmc.chees import run_chees
+    from terastructure_tpu_torch.mcmc.potential import init_params
+
+    _, _, x = simulate_psd(200, 1000, 3, seed=5)
+    pot = PSDPotential(x=torch.from_numpy(x).to(dev), alpha=1 / 3,
+                       scale_sigma=0.05, acc_dtype=torch.float64)
+    params = init_params(pot, 12, k=3, n_chains=2)
+    target = hmc.Target(pot, {k: v[0] for k, v in params.items()})
+    q = target.flat(params)
+    inv_mass = torch.ones_like(q)
+    draws = hmc.TorchDraws(torch.Generator(device=dev).manual_seed(seed))
+    lp, g = target.value_and_grad(q)
+    out = list(hmc.hmc_kernel(target, 12)(draws, q, lp, g, 2e-3, inv_mass))
+    new, info = nuts.nuts_kernel(target, max_depth=6)(draws, q, 1e-3,
+                                                     inv_mass)
+    out += [new] + [info[k] for k in sorted(info)]
+    rng = np.random.default_rng(0)
+    x1 = rng.binomial(2, np.broadcast_to(rng.uniform(0.2, 0.8, 6), (40, 6)))
+    pot1 = PSDPotential(x=torch.from_numpy(x1.astype(np.int8)).to(dev),
+                        alpha=1.0)
+    samples, _ = run_chees(seed, pot1, init_params(pot1, 13, k=1,
+                                                   n_chains=4),
+                           n_samples=10, n_warmup=20, n_chains=4)
+    return ([t.cpu() for t in out]
+            + [torch.from_numpy(samples[k]) for k in sorted(samples)],
+            int(info["depth"].min()))
+
+
+@pytest.mark.cuda
+def test_mcmc_graph_steps_equal_the_uncaptured_steps(cuda_device,
+                                                     monkeypatch):
+    """The leapfrog steps as captured CUDA graphs (hmc.StepGraph) and as
+    plain calls of the same step on the card give the same bits: one HMC
+    transition, one NUTS transition of depth >= 3 (its masked checkpoint
+    slots and device leaf table) and a short ChEES run (per-chain step
+    counts), on the same seeded draws."""
+    from terastructure_tpu_torch.mcmc import hmc
+
+    graph, depth = _mcmc_transitions(cuda_device)
+    monkeypatch.setattr(hmc.StepGraph, "__call__", lambda self: self.fn())
+    plain, _ = _mcmc_transitions(cuda_device)
+    assert depth >= 3
+    for a, b in zip(graph, plain, strict=True):
+        assert torch.equal(a, b)

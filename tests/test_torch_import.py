@@ -3,8 +3,9 @@ blocked: the machine with the card has no JAX, and the port keeps its own
 copies of what it needs (config, label alignment, the .bed ingest and its
 native core, whose library is the port's own, never the reference's
 _bedops.so), a small batched replicate fit, and the command line's
-simulate and fit (spectral init, text model, checkpoint). `fit` without
-a device runs on the card, and raises where there is none."""
+simulate and fit (spectral init, text model, checkpoint), and a tiny
+NUTS validation (compare_svi_mcmc). `fit` without a device runs on the
+card, and raises where there is none."""
 
 import ast
 import subprocess
@@ -65,6 +66,13 @@ with tempfile.TemporaryDirectory() as tmp:
     g, _ = export.load_model(tmp + "/n32-k2-l128-run")
     st, _ = checkpoint.restore_checkpoint(tmp + "/n32-k2-l128-run/checkpoint")
     assert st.t == 40 and g.shape == (32, 2), (st.t, g.shape)
+# the MCMC validator: SVI, then NUTS on the same matrix
+from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
+rep = compare_svi_mcmc(x[:, :64], 2, sampler="nuts", seed=1, device="cpu",
+                       svi_config=SVIConfig(n=32, l=64, k=2, batch_size=16,
+                                            rfreq=20, max_steps=40, seed=1),
+                       n_samples=10, n_warmup=10, n_chains=2, max_depth=4)
+assert np.isfinite(rep.theta_mae) and rep.theta_mcmc.shape == (32, 2), rep
 maps = open("/proc/self/maps").read()
 assert "libbedops_" in maps and "_bedops.so" not in maps
 assert not {"jax", "terastructure_tpu"} & {
