@@ -142,6 +142,25 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    SMC at 80 x 300 (256 particles), K = 3: theta MAE against SVI under
    0.05 and 0.08, the SVI fit's K1 and K4 launches, no twin; (d) `cli
    validate --simulate` prints the reference's JSON keys.
+13. the multi-card fit (parallel/; `phase_sharded`): (a) one rank over
+   NCCL (world size 1): an NCCL all-reduce, then fit_sharded at config
+   #3's width (2,504 x 1M, K = 8, B = 1,024) for 200 steps (K1 and K4),
+   re-run bitwise; then four spawned ranks that share the card through
+   gloo with CUDA tensors (NCCL refuses two ranks on one GPU), each
+   with a timeout, every rank's failure raised here: (b) at (1, 4) on
+   config #3's width (B_local 256, 250,000 rows x 640 bytes a rank) one
+   step at local_tol 0, its reduced gamma statistic within 2e-4 of the
+   largest magnitude of the single-device K1 step's on the same 1,024
+   rows, gamma bitwise equal on the four ranks; (c) at (2, 2) on phase
+   4's data (the config-5 regime, 100K x 100K, K = 10, B = 4,096;
+   W_local 12,544, L_local 50,000) one step at local_sub_n 0,
+   kernel "pallas" and local_tol 0 against step_core_packed on the same
+   rows, the statistic within 2e-4 the same way; then 200 steps with the
+   default subsample (K8 and K7 on every rank) and the sharded
+   compute-beta of each rank's 50,000 rows (K4 on every rank), the 200
+   steps re-run bitwise. Its times are no speed figures: four processes
+   share one card's SMs, and gloo copies every all-reduce through the
+   host.
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
@@ -199,6 +218,7 @@ from terastructure_tpu_torch import SVIConfig, _build, cli
 from terastructure_tpu_torch.converge import card_line
 from terastructure_tpu_torch.data import (GenotypeData, bed,
                                           simulate_packed_device, simulate_psd)
+from terastructure_tpu_torch.data.pack import packed_width
 from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.io.checkpoint import restore_checkpoint
 from terastructure_tpu_torch.io.export import load_matrix
@@ -209,6 +229,10 @@ from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
+from terastructure_tpu_torch.parallel import fit_sharded, multihost, sharded
+from terastructure_tpu_torch.parallel import mesh as meshlib
+from terastructure_tpu_torch.parallel import stream as pstream
+from terastructure_tpu_torch.parallel.ranks import run_ranks
 from terastructure_tpu_torch.svi import engine, fit, init, stream
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
@@ -3573,6 +3597,295 @@ def validate_cli(rec):
         raise AssertionError(f"12d: keys {sorted(got)}")
 
 
+SHARDED_TOL = 2e-4    # a reduced statistic vs one device's, of its max |.|
+RANKS_TIMEOUT = 600   # seconds for phase 13's four ranks, spawn to exit
+
+
+def phase_sharded(dev, rec, tgp_data, bign):
+    """Phase 13: the multi-card fit (parallel/) on the one card. 13a: one
+    rank over NCCL; 13b and 13c: four ranks sharing the card over gloo."""
+    t0 = time.time()
+    phase_sharded_nccl(dev, rec, tgp_data)
+    log(f"  phase 13a in {time.time() - t0:.1f} s")
+    n, l, k = TGP
+    cfg_b = SVIConfig(n=n, l=l, k=k, batch_size=1024, seed=0, local_tol=0.0,
+                      snp_shards=4)
+    big = bign["cfg"]                  # phase 4's: B = 4,096
+    cfg_c = SVIConfig(n=big.n, l=big.l, k=big.k, batch_size=big.batch_size,
+                      seed=0, kernel="pallas", local_sub_n=0, local_tol=0.0,
+                      ind_shards=2, snp_shards=2)
+    # the block gather (K3) where L_local reaches dma_gather_min_l, as
+    # config #5 over 8 SNP ranks (L_local 125,000) takes it by default
+    cfg_k3 = cfg_c.replace(dma_gather_min_l=big.l // 2)
+    cfg_fit = cfg_k3.replace(kernel="auto", local_sub_n=big.local_sub_n,
+                             local_tol=big.local_tol)
+    rng = np.random.default_rng(13)
+    idx_b = rng.integers(0, l // 4, size=1024).astype(np.int32)
+    idx_c = rng.integers(0, big.l // 2, size=big.batch_size).astype(np.int32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        paths = (f"{tmp}/tgp.npy", f"{tmp}/bign.npy")
+        np.save(paths[0], tgp_data.packed)
+        np.save(paths[1], bign["data"].packed)
+        want_b = single_stat(dev, cfg_b, tgp_data.packed, idx_b, 4)
+        want_c = single_stat(dev, cfg_c, bign["data"].packed, idx_c, 2)
+        want_pair = single_stat(dev, cfg_c.replace(stats_kernel="pair"),
+                                bign["data"].packed, idx_c, 2)
+        tr = time.time()
+        outs = run_ranks(4, rank_phase13, (paths, cfg_b, idx_b, cfg_c, idx_c,
+                                           cfg_k3, cfg_fit),
+                         timeout=RANKS_TIMEOUT, device=torch.device("cuda", 0))
+        log(f"  phase 13b-c: four ranks in {time.time() - tr:.1f} s "
+            "(spawn, block reads, steps; ranks share the card: no speed "
+            "figure)")
+        # the rows K3's blocks drew on SNP shards 0 and 1 (ranks 0 and 1)
+        idx_k3 = torch.cat([outs[0]["k3"]["idx"], outs[1]["k3"]["idx"]])
+        want_k3 = single_stat(dev, cfg_k3, bign["data"].packed,
+                              idx_k3.numpy(), 2)
+    for o in outs:
+        r = o["rank"]
+        rank_counts(rec, f"13b rank {r}", o["b"]["counts"],
+                    ("fused_local_solve",))
+        rank_counts(rec, f"13c step rank {r}", o["c"]["counts"],
+                    ("lambda_stats_packed", "batch_stats_fused_v2_packed"),
+                    absent=("gamma_stats_packed", "gather_row_blocks"))
+        rank_counts(rec, f"13c pair step rank {r}", o["pair"]["counts"],
+                    ("lambda_stats_packed", "gamma_stats_packed"),
+                    absent=("batch_stats_fused_v2_packed",))
+        rank_counts(rec, f"13c K3 step rank {r}", o["k3"]["counts"],
+                    ("gather_row_blocks", "lambda_stats_packed",
+                     "batch_stats_fused_v2_packed"))
+        rank_counts(rec, f"13c 200 steps + compute-beta rank {r}",
+                    o["fit"]["counts"], ("gather_row_blocks",
+                                         "lambda_stats_acat",
+                                         "batch_stats_fused_v2_packed",
+                                         "lambda_stats_packed"))
+        rank_counts(rec, f"13c 200 streamed steps rank {r}",
+                    o["fit"]["stream_counts"],
+                    ("lambda_stats_acat", "batch_stats_fused_v2_packed"),
+                    absent=("gather_row_blocks",))
+        if not o["k3"]["gathered_bitwise"]:
+            raise AssertionError(f"13c rank {r}: K3's 8-row blocks differ "
+                                 "from indexing the block on their rows")
+        if not o["fit"]["rerun_bitwise"] or not o["fit"]["finite"]:
+            raise AssertionError(f"13c rank {r}: the 200 steps re-run "
+                                 "differ or are not finite")
+        if not o["fit"]["stream_bitwise"]:
+            raise AssertionError(f"13c rank {r}: the streamed 200 steps "
+                                 "differ from the resident ones")
+    for a in outs[1:]:
+        if not torch.equal(a["b"]["gamma"], outs[0]["b"]["gamma"]):
+            raise AssertionError("13b: gamma differs between the ranks of "
+                                 "the snp group")
+    log("  13b: gamma bitwise equal on the four ranks")
+    hold_sharded("13b (1, 4) reduced gamma statistic vs one K1 step",
+                 outs[0]["b"]["gstat"][:n], want_b)
+    by_i = {}
+    for o in outs:
+        g = o["c"]["gstat"]
+        if o["i"] in by_i and not torch.equal(by_i[o["i"]], g):
+            raise AssertionError("13c: the snp group's statistics differ")
+        by_i[o["i"]] = g
+    hold_sharded("13c (2, 2) reduced gamma statistic vs step_core_packed",
+                 torch.cat([by_i[0], by_i[1]])[:big.n], want_c)
+    for key, want, label in (
+            ("pair", want_pair, "stats_kernel='pair' (K4 + K5)"),
+            ("k3", want_k3, "K3's block gather")):
+        hold_sharded(f"13c (2, 2) {label} reduced gamma statistic vs "
+                     "step_core_packed", torch.cat(
+                         [outs[0][key]["gstat"], outs[2][key]["gstat"]])[
+                             :big.n], want)
+    log(f"  13c: 200 steps on every rank in "
+        f"{max(o['fit']['steps_s'] for o in outs):.2f} s, streamed in "
+        f"{max(o['fit']['stream_s'] for o in outs):.2f} s, compute-beta of "
+        f"50,000 rows a rank in "
+        f"{max(o['fit']['export_s'] for o in outs):.2f} s (four ranks "
+        "sharing the card, gloo through the host: no speed figure); re-run "
+        "and stream bitwise")
+
+
+def phase_sharded_nccl(dev, rec, data):
+    """13a: one rank over NCCL (world size 1): an NCCL all-reduce, then
+    fit_sharded at config #3's width for 200 steps (K1, and K4 in the
+    eval and the export), re-run bitwise."""
+    import torch.distributed as dist
+
+    n, l, k = TGP
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=1024, rfreq=100,
+                    max_steps=200, seed=0, snp_shards=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        rank_dev = multihost.initialize(f"file://{tmp}/store", 1, 0)
+        try:
+            x = torch.full((4,), 3.0, device=rank_dev)
+            dist.all_reduce(x)
+            if dist.get_backend() != "nccl" or not bool((x == 3.0).all()):
+                raise AssertionError("13a: the NCCL all-reduce failed")
+            mesh = meshlib.make_mesh(meshlib.MeshSpec(1, 1))
+            reset_counts()
+            res = fit_sharded(cfg, data, mesh=mesh)
+            read_counts(rec, "13a fit_sharded (NCCL, one rank)",
+                        ("fused_local_solve", "lambda_stats_packed"),
+                        absent=("fused_local_solve_dma",))
+            again = fit_sharded(cfg, data, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    if not (torch.equal(res.state.gamma, again.state.gamma)
+            and [r.get("validation_ll") for r in res.trace]
+            == [r.get("validation_ll") for r in again.trace]):
+        raise AssertionError("13a: a same-seed re-run is not bitwise equal")
+    log(f"  13a: backend nccl on {rank_dev}, steps={res.steps} "
+        f"validation_ll={res.validation_ll:.5f} "
+        f"heldout={res.heldout_ll:.5f}; re-run bitwise")
+    if not np.isfinite(res.heldout_ll):
+        raise AssertionError("13a: heldout is not finite")
+
+
+def single_stat(dev, cfg, packed, idx, snp):
+    """The single-device gamma statistic (N, K) of one step on the rows
+    the sharded step draws (idx: SNP shard s's local rows at [s B_l,
+    (s + 1) B_l)), from engine.init_state's gamma: K1 where the fused
+    gate passes (13b), else the big-N step_core_packed (13c)."""
+    l_local = cfg.l // snp
+    b_local = cfg.batch_size // snp
+    rows_g = np.repeat(np.arange(snp), b_local) * l_local + idx
+    rows = engine.resident_packed(packed[rows_g], dev)
+    gamma = engine.init_state(cfg, device=dev).gamma
+    reset_counts()
+    if engine.step_impl(cfg, rows.shape[1]) == "fused":
+        _, g = engine.step_core_fused(cfg, gamma, rows)
+    else:
+        _, g = engine.step_core_packed(cfg, gamma, rows)
+    return g.cpu()
+
+
+def hold_sharded(label, got, want):
+    """got within SHARDED_TOL of want's largest magnitude, everywhere."""
+    scale = float(want.abs().max())
+    compare(label, [got], [want], (SHARDED_TOL, SHARDED_TOL * scale))
+
+
+def rank_counts(rec, path, counts, expect, absent=()):
+    """A rank's launches (counts: name -> (launches, twin calls)) added to
+    rec; fails where a kernel of `expect` did not launch, one of `absent`
+    did, or a twin ran."""
+    log(f"  {path} launches: "
+        f"{ {name: c[0] for name, c in counts.items() if c[0]} }")
+    for name, (launches, twins) in counts.items():
+        rec[name]["launches"] = rec[name].get("launches", 0) + launches
+        if twins:
+            raise AssertionError(f"{path}: {name} ran its twin")
+    for name in expect:
+        if counts[name][0] <= 0:
+            raise AssertionError(f"{path}: {name} never launched")
+    for name in absent:
+        if counts[name][0]:
+            raise AssertionError(f"{path}: {name} launched "
+                                 f"{counts[name][0]}x")
+
+
+def _rank_counts():
+    return {name: (getattr(spec["fn"], spec.get("counter", "launches")),
+                   spec["fn"].twin_calls) for name, spec in KERNELS.items()}
+
+
+def rank_phase13(paths, cfg_b, idx_b, cfg_c, idx_c, cfg_k3, cfg_fit):
+    """What each of phase 13's four ranks runs (spawned; the group is
+    joined): 13b at (1, 4); at (2, 2) 13c's step with stats_kernel
+    fused_v2 and pair, a step on the rows K3 gathers, and the 200 steps
+    resident and streamed."""
+    t0 = time.time()
+    mesh14 = meshlib.make_mesh(meshlib.MeshSpec(1, 4))
+    out = dict(rank=mesh14.rank, b=_rank_step(mesh14, cfg_b, paths[0],
+                                              idx_b))
+    log(f"  rank {mesh14.rank}: 13b done at {time.time() - t0:.1f} s")
+    mesh22 = meshlib.make_mesh(meshlib.MeshSpec(2, 2))
+    out.update(i=mesh22.i, s=mesh22.s,
+               c=_rank_step(mesh22, cfg_c, paths[1], idx_c),
+               pair=_rank_step(mesh22, cfg_c.replace(stats_kernel="pair"),
+                               paths[1], idx_c),
+               k3=_rank_step(mesh22, cfg_k3, paths[1]))
+    log(f"  rank {mesh14.rank}: 13c steps done at {time.time() - t0:.1f} s")
+    out["fit"] = _rank_fit(mesh22, cfg_fit, paths[1])
+    log(f"  rank {mesh14.rank}: 13c fits done at {time.time() - t0:.1f} s")
+    return out
+
+
+def _rank_block(mesh, cfg, path):
+    data = GenotypeData(n=cfg.n, l=cfg.l, packed=np.load(path, mmap_mode="r"))
+    return sharded.prepare(cfg, data, mesh)
+
+
+def _rank_step(mesh, cfg, path, idx=None):
+    """One sharded step on the rows idx draws for this rank's SNP shard,
+    or with idx None on the rows step 0 draws and gathers (sample_gather:
+    K3's 8-row blocks where the plan takes them, held bitwise against
+    indexing the block on those rows): its reduced gamma statistic, its
+    gamma, its rows' local indices, its launches."""
+    plan, packed_l = _rank_block(mesh, cfg, path)
+    st = sharded.init_sharded_state(cfg, plan, mesh)
+    sample_gather, stats, apply_gamma, psum = sharded._build_step_parts(
+        cfg, plan, mesh)
+    reset_counts()
+    gathered = None
+    if idx is None:
+        rows, idx_l = sample_gather(packed_l, 0, cfg.seed)
+        gathered = torch.equal(rows, packed_l[idx_l.long()])
+    else:
+        b = plan.batch_per_shard
+        idx_l = torch.from_numpy(idx[mesh.s * b:(mesh.s + 1) * b]).to(
+            mesh.device)
+        rows = packed_l[idx_l.long()]
+    _, g = stats(st.gamma, st.lamb, rows, idx_l, 0, cfg.seed)
+    g = psum(g)()
+    gamma = apply_gamma(st.gamma, g, 0)
+    return dict(gstat=g.cpu(), gamma=gamma.cpu(), idx=idx_l.cpu(),
+                gathered_bitwise=gathered, counts=_rank_counts())
+
+
+def _rank_fit(mesh, cfg, path):
+    """200 sharded steps (two chunks of 100) from the init, the sharded
+    compute-beta of this rank's rows, the 200 steps again, and the 200
+    steps streamed from this rank's block on the host (parallel/stream.py,
+    as multihost.load_bed_shard leaves it: the real rows and byte columns
+    with their offsets)."""
+    plan, packed_l = _rank_block(mesh, cfg, path)
+    chunk = sharded.make_sharded_run_chunk(cfg, plan, mesh, 100)
+
+    def steps():
+        st = sharded.init_sharded_state(cfg, plan, mesh)
+        return chunk(chunk(st, packed_l), packed_l)
+
+    reset_counts()
+    t0 = time.time()
+    st = steps()
+    float(st.gamma[0, 0])                  # waits for the steps
+    steps_s = time.time() - t0
+    t0 = time.time()
+    lamb = sharded.make_sharded_compute_lambda(cfg, plan, mesh)(st.gamma,
+                                                                packed_l)
+    float(lamb[0, 0, 0])
+    export_s = time.time() - t0
+    counts = _rank_counts()
+    again = steps()
+    (r0, r1), (c0, c1) = sharded.block_bounds(plan, mesh)
+    host = np.ascontiguousarray(np.load(path, mmap_mode="r")[
+        r0:min(r1, cfg.l), c0:min(c1, packed_width(cfg.n))])
+    run = pstream.make_sharded_stream_chunk(cfg, plan, mesh, 100,
+                                            byte_col_offset=c0,
+                                            snp_row_offset=r0)
+    reset_counts()
+    t0 = time.time()
+    streamed = run(run(sharded.init_sharded_state(cfg, plan, mesh), host),
+                   host)
+    float(streamed.gamma[0, 0])
+    stream_s = time.time() - t0
+    return dict(counts=counts, steps_s=steps_s, export_s=export_s,
+                stream_counts=_rank_counts(), stream_s=stream_s,
+                rerun_bitwise=torch.equal(st.gamma, again.gamma),
+                stream_bitwise=torch.equal(st.gamma, streamed.gamma),
+                finite=bool(torch.isfinite(st.gamma).all()
+                            and torch.isfinite(lamb).all()))
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -3815,6 +4128,10 @@ def main(argv=()) -> int:
     log(f"  phase 11 in {time.time() - tr:.1f} s")
     log("phase 12: the MCMC validators (mcmc/)")
     phase_validate(dev, rec)
+    log("phase 13: the multi-card fit (parallel/): 13a one rank over NCCL")
+    tr = time.time()
+    phase_sharded(dev, rec, tgp[0], bign)
+    log(f"  phase 13 in {time.time() - tr:.1f} s")
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

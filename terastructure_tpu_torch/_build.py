@@ -15,6 +15,7 @@ Nothing here runs at import time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -105,12 +106,21 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the hash-named library unless it exists.
-    The ptxas report (registers, spills) is kept beside it as .log."""
-    global build_seconds
+    The ptxas report (registers, spills) is kept beside it as .log.
+    Processes that start at once (the ranks of a multi-card fit) build
+    it once: the first takes a file lock, the others wait on it and find
+    the library."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return so if so.exists() else _build(so)
+
+
+def _build(so: Path) -> Path:
+    global build_seconds
     cu, _ = _sources()
     nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")

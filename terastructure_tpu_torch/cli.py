@@ -26,8 +26,17 @@ JSON line (mcmc/validate.compare_svi_mcmc):
 
     python -m terastructure_tpu_torch.cli validate --simulate -n 200 -l 1000 -k 3
 
-Not yet ported (NotImplementedError): `--distributed`, `--coordinator`
-and `--ind-shards`/`--snp-shards` > 0 (slice S8, multi-GPU).
+Over several cards (parallel/), one process a card: started by torchrun,
+
+    torchrun --nproc-per-node 8 -m terastructure_tpu_torch.cli fit \
+        --bed big.bed -k 10 --distributed --snp-shards 8
+
+or on each host with `--coordinator host:port --num-processes P
+--process-id r`. Each rank reads only its block of the .bed; the lead
+(rank 0) writes the run directory (gamma.txt, theta.txt, result.json
+with `processes` and `mesh`), and `compute-beta --distributed` writes
+beta.txt. In one process, `--ind-shards`/`--snp-shards` run the sharded
+fit on one card (a world of one rank: a grid of 1 x 1 only).
 """
 
 from __future__ import annotations
@@ -42,9 +51,6 @@ import time
 
 import numpy as np
 import torch
-
-_S8 = "slice S8, multi-GPU"
-
 
 def _add_model_args(p):
     p.add_argument("-k", type=int, required=True, help="ancestral populations")
@@ -99,13 +105,14 @@ def _add_svi_args(p):
                    help="local: lambda recomputed on demand (fast); "
                         "stored: warm start + scatter")
     p.add_argument("--ind-shards", type=int, default=0,
-                   help="mesh axis over individuals (not ported yet)")
+                   help="grid axis over individuals (hosts); 0 = auto")
     p.add_argument("--snp-shards", type=int, default=0,
-                   help="mesh axis over SNPs (not ported yet)")
+                   help="grid axis over SNPs (the cards of a host); 0 = "
+                        "auto")
     p.add_argument("--gamma-psum-dtype", default="f32",
                    choices=("f32", "bf16"),
-                   help="precision of the gamma statistic where it would "
-                        "cross the sharded reduction")
+                   help="precision of the gamma statistic's all-reduce over "
+                        "'snp': bf16 halves its payload")
     p.add_argument("--force-cpu", action="store_true",
                    help="run on the CPU (tests/debug)")
     p.add_argument("--stream", action="store_true",
@@ -124,10 +131,11 @@ def _add_svi_args(p):
 
 def _add_dist_args(p):
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host (not ported yet)")
+                   help="one process a card over torch.distributed "
+                        "(torchrun's environment, or --coordinator)")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address host:port (implies "
-                        "--distributed; not ported yet)")
+                   help="coordinator address host:port, or an init-method "
+                        "URL (tcp://, file://); implies --distributed")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
 
@@ -143,17 +151,6 @@ def _add_data_args(p):
     p.add_argument("--idfile", default=None,
                    help="one individual ID per line; overrides .fam IDs "
                         "in every output")
-
-
-def _not_ported_flags(args) -> None:
-    """Raise NotImplementedError for the multi-process and sharded flags."""
-    if getattr(args, "distributed", False) or getattr(
-            args, "coordinator", None) is not None:
-        raise NotImplementedError(
-            f"--distributed/--coordinator is not ported yet ({_S8})")
-    if getattr(args, "ind_shards", 0) or getattr(args, "snp_shards", 0):
-        raise NotImplementedError(
-            f"--ind-shards/--snp-shards is not ported yet ({_S8})")
 
 
 def _device(args) -> torch.device:
@@ -320,16 +317,110 @@ def _fit_batched(args, cfg0, data0, packed, seeds, run_dir, dev, log):
     print(run_dir)
 
 
+def _distributed(args) -> bool:
+    return args.distributed or args.coordinator is not None
+
+
+def _mesh(cfg, dev):
+    """This rank's grid (cfg.ind_shards x cfg.snp_shards over the world);
+    exits non-zero, naming the world size, where they do not fit it."""
+    from terastructure_tpu_torch.parallel import mesh as meshlib
+    from terastructure_tpu_torch.parallel import multihost
+
+    try:
+        spec = meshlib.choose_mesh_shape(multihost.process_count(),
+                                         cfg.ind_shards, cfg.snp_shards)
+    except ValueError as e:
+        raise SystemExit(f"terastructure_tpu_torch: {e}") from None
+    return meshlib.make_mesh(spec, device=dev)
+
+
+def _initialize(args, dev):
+    """Join the process group (--distributed/--coordinator); the rank's
+    device."""
+    from terastructure_tpu_torch.parallel import multihost
+
+    return multihost.initialize(args.coordinator, args.num_processes,
+                                args.process_id, device=dev.type)
+
+
+def _fit_multiprocess(args, dev):
+    """One rank of a multi-process `fit` (the same on every rank). Each
+    rank reads only its block of the .bed (multihost.load_bed_shard); the
+    lead writes the run directory with the gamma and theta text exports,
+    result.json and the checkpoint (the whole padded state). Per-SNP
+    lambda and beta come from the compute-beta post-pass, which reads
+    that checkpoint."""
+    from terastructure_tpu_torch.data.bed import read_bim, read_fam
+    from terastructure_tpu_torch.io.checkpoint import save_checkpoint
+    from terastructure_tpu_torch.io.export import _write_matrix
+    from terastructure_tpu_torch.parallel import multihost
+    from terastructure_tpu_torch.parallel.fit import fit_sharded
+    from terastructure_tpu_torch.parallel.sharded import gather_state
+
+    if not args.bed:
+        raise SystemExit("multi-process fit requires --bed")
+    stem = os.path.splitext(args.bed)[0]
+    ind_ids = read_fam(stem + ".fam")
+    snp_ids = read_bim(stem + ".bim")
+    cfg = _cfg_from_args(args, len(ind_ids), len(snp_ids))
+    mesh = _mesh(cfg, dev)
+    ti = time.time()
+    data = multihost.load_bed_shard(
+        args.bed, cfg, mesh,
+        validation_frac=cfg.validation_frac,
+        heldout_frac=cfg.heldout_frac,
+        eval_snp_pool=args.eval_snp_pool or 2048)
+    ingest_s = round(time.time() - ti, 3)
+    run_dir = _setup_run_dir(cfg, args.out_base) if mesh.lead else None
+    log = logging.getLogger("terastructure_tpu_torch")
+    res = fit_sharded(
+        cfg, data, mesh=mesh, stream=args.stream,
+        metrics_path=(os.path.join(run_dir, "metrics.jsonl") if mesh.lead
+                      else None),
+        trace_path=(os.path.join(run_dir, "validation.txt") if mesh.lead
+                    else None))
+    full = gather_state(res.state, mesh)
+    if mesh.lead:
+        # the whole padded state (lambda at the prior in the local mode):
+        # what the compute-beta post-pass reads
+        save_checkpoint(os.path.join(run_dir, "checkpoint"), full, cfg)
+        gamma = full.gamma[: cfg.n].cpu().numpy()
+        theta = gamma / gamma.sum(axis=1, keepdims=True)
+        _write_matrix(os.path.join(run_dir, "gamma.txt"), gamma, ind_ids)
+        _write_matrix(os.path.join(run_dir, "theta.txt"), theta, ind_ids)
+        with open(os.path.join(run_dir, "result.json"), "w") as f:
+            json.dump(
+                dict(seed=cfg.seed, converged=res.converged, steps=res.steps,
+                     validation_ll=res.validation_ll,
+                     heldout_ll=res.heldout_ll, wall_s=res.wall_s,
+                     processes=multihost.process_count(),
+                     mesh=dict(ind=mesh.spec.ind, snp=mesh.spec.snp),
+                     timings=dict(ingest_s=ingest_s, **res.timings)),
+                f, indent=2)
+        log.info("multi-process fit done: %s", run_dir)
+        print(run_dir)
+
+
 def cmd_fit(args):
     from terastructure_tpu_torch.io.checkpoint import (restore_checkpoint,
                                                        save_checkpoint)
     from terastructure_tpu_torch.io.export import (save_model,
                                                    state_from_text_model)
+    from terastructure_tpu_torch.parallel import multihost
     from terastructure_tpu_torch.svi import fit
     from terastructure_tpu_torch.svi.engine import resident_packed
 
-    _not_ported_flags(args)
     dev = _device(args)
+    if _distributed(args):
+        try:
+            dev = _initialize(args, dev)
+            if multihost.process_count() > 1:
+                return _fit_multiprocess(args, dev)
+        finally:
+            if multihost.process_count() > 1:
+                torch.distributed.destroy_process_group()
+    sharded = bool(args.ind_shards or args.snp_shards)
     ti = time.time()
     data0 = _load_data(args, seed=args.seed)
     ingest_s = round(time.time() - ti, 3)
@@ -339,8 +430,15 @@ def cmd_fit(args):
     log.info("ingest: %.3f s", ingest_s)
 
     seeds = [args.seed + i for i in range(max(args.replicates, 1))]
+    if args.stream and sharded:
+        raise SystemExit("--stream is a single-device path; drop "
+                         "--ind-shards/--snp-shards")
+    if len(seeds) > 1 and args.batched and sharded:
+        raise SystemExit("--batched replicates is a single-device resident "
+                         "path (no --stream/--*-shards/--resume)")
     # one upload of the matrix for every replicate and the export
-    packed = None if args.stream else resident_packed(data0.packed, dev)
+    packed = (None if args.stream or sharded
+              else resident_packed(data0.packed, dev))
     if len(seeds) > 1 and args.batched:
         return _fit_batched(args, cfg0, data0, packed, seeds, run_dir, dev,
                             log)
@@ -373,11 +471,17 @@ def cmd_fit(args):
         elif args.init_model:
             state = state_from_text_model(args.init_model, cfg, device=dev)
             log.info("initialized from text model %s", args.init_model)
-        res = fit(cfg, data, device=dev, state=state, packed=packed,
-                  stream=args.stream,
-                  metrics_path=os.path.join(sub, "metrics.jsonl"),
-                  trace_path=os.path.join(sub, "validation.txt"),
-                  checkpoint_dir=ckpt_dir)
+        fit_kw = dict(state=state,
+                      metrics_path=os.path.join(sub, "metrics.jsonl"),
+                      trace_path=os.path.join(sub, "validation.txt"),
+                      checkpoint_dir=ckpt_dir)
+        if sharded:
+            from terastructure_tpu_torch.parallel import fit_sharded
+
+            res = fit_sharded(cfg, data, mesh=_mesh(cfg, dev), **fit_kw)
+        else:
+            res = fit(cfg, data, device=dev, packed=packed,
+                      stream=args.stream, **fit_kw)
         log.info(
             "seed=%d converged=%s steps=%d validation_ll=%.6f heldout_ll=%s",
             seed, res.converged, res.steps, res.validation_ll,
@@ -425,10 +529,11 @@ def cmd_compute_beta(args):
     from terastructure_tpu_torch.svi.postprocess import compute_beta
     from terastructure_tpu_torch.svi.stream import compute_beta_stream
 
-    _not_ported_flags(args)
     dev = _device(args)
     state, cfg = restore_checkpoint(os.path.join(args.run_dir, "checkpoint"),
                                     device=dev)
+    if _distributed(args):
+        return _compute_beta_multiprocess(args, state, cfg, dev)
     data = _load_data(args, seed=cfg.seed)
     if (data.n, data.l) != (cfg.n, cfg.l):
         raise SystemExit(
@@ -441,6 +546,36 @@ def cmd_compute_beta(args):
     out = os.path.join(args.run_dir, "beta.txt")
     _write_matrix(out, beta, data.snp_ids)
     print(out)
+
+
+def _compute_beta_multiprocess(args, state, cfg, dev):
+    """The sharded compute-beta post-pass: each rank reads only its block,
+    lambda is solved with the individual sums all-reduced over 'ind', and
+    the lead writes beta.txt (the reference's `-compute-beta`)."""
+    from terastructure_tpu_torch.io.export import _write_matrix
+    from terastructure_tpu_torch.models import psd
+    from terastructure_tpu_torch.parallel import multihost, sharded
+
+    if not args.bed:
+        raise SystemExit("distributed compute-beta requires --bed")
+    dev = _initialize(args, dev)
+    try:
+        mesh = _mesh(cfg, dev)
+        data = multihost.load_bed_shard(args.bed, cfg, mesh,
+                                        validation_frac=0, heldout_frac=0)
+        plan, packed = sharded.prepare(cfg, data, mesh)
+        st = sharded.shard_state(state, plan, mesh)
+        lamb = sharded.make_sharded_compute_lambda(cfg, plan, mesh)(
+            st.gamma, packed)
+        full = sharded.gather_state(st._replace(lamb=lamb), mesh)
+        if mesh.lead:
+            beta = psd.beta_mean(full.lamb[: cfg.l]).cpu().numpy()
+            out = os.path.join(args.run_dir, "beta.txt")
+            _write_matrix(out, beta)
+            print(out)
+    finally:
+        if multihost.process_count() > 1:
+            torch.distributed.destroy_process_group()
 
 
 def cmd_simulate(args):
@@ -500,7 +635,9 @@ def cmd_validate(args):
     from terastructure_tpu_torch.data.pack import unpack2bit
     from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
 
-    _not_ported_flags(args)
+    if _distributed(args) or args.ind_shards or args.snp_shards:
+        raise SystemExit("validate runs on one card (no --distributed, "
+                         "--coordinator or --*-shards)")
     dev = _device(args)
     data = _load_data(args, seed=args.seed)
     x = unpack2bit(data.packed, data.n).T

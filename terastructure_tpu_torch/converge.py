@@ -44,6 +44,15 @@ record per replicate (its seed, stop step, scores and theta MAE beside
 the batch's fields) and then the best replicate's, marked "best": the
 R-seed workflow on the card.
 
+    python -m terastructure_tpu_torch.converge --config 5 --scale 0.1 --ranks 4 --ind-shards 2
+
+--ranks R fits with fit_sharded (parallel/) over R ranks on a grid of
+--ind-shards x R / --ind-shards, spawned processes that share the one
+card through gloo (`run_ranks`): the multi-card program's quality on one
+card (each rank reads its block of the matrix; the lead scores). Its
+times are no speed figures: the ranks share the card's SMs and gloo
+copies every all-reduce through the host.
+
     python -m terastructure_tpu_torch.converge --config 4 --chains 4 --n-samples 600
 
 Config 4 is the reference's validator (500 x 5,000, K = 3): simulated and
@@ -83,6 +92,7 @@ from terastructure_tpu_torch.data import (GenotypeData, bed,
 from terastructure_tpu_torch.data.simulate import simulated_beta
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
+from terastructure_tpu_torch.parallel.ranks import run_ranks
 from terastructure_tpu_torch.svi import fit
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
@@ -318,6 +328,61 @@ def run_replicates(config: int, replicates: int, *, device,
     return out + [dict(out[res.best], best=True)]
 
 
+def _sharded_rank(cfg, packed_path, validation, heldout, theta):
+    """One rank of run_sharded: fit_sharded on this rank's block of the
+    saved matrix; the lead's record (None on the other ranks)."""
+    from terastructure_tpu_torch.parallel import fit_sharded
+    from terastructure_tpu_torch.parallel import mesh as meshlib
+    from terastructure_tpu_torch.parallel.sharded import gather_state
+
+    mesh = meshlib.make_mesh(meshlib.choose_mesh_shape(
+        cfg.ind_shards * cfg.snp_shards, cfg.ind_shards, cfg.snp_shards))
+    data = GenotypeData(n=cfg.n, l=cfg.l,
+                        packed=np.load(packed_path, mmap_mode="r"),
+                        validation=validation, heldout=heldout)
+    _reset_counts()
+    res = fit_sharded(cfg, data, mesh=mesh)
+    counts = _counts()
+    full = gather_state(res.state, mesh, lamb=False)
+    if not mesh.lead:
+        return None
+    th = psd.theta_mean(full.gamma[: cfg.n]).cpu().numpy()
+    chunk_s = sum(r["chunk_s"] for r in res.trace)
+    return dict(
+        steps=res.steps, converged=res.converged,
+        theta_mae=mean_abs_theta_error(th, theta),
+        heldout_ll=res.heldout_ll, validation_ll=res.validation_ll,
+        wall_s=res.wall_s, chunk_s=chunk_s,
+        eval_s=sum(r.get("eval_s", 0.0) for r in res.trace),
+        checks=len(res.trace),
+        snp_updates_per_s=res.steps * cfg.batch_size / chunk_s, **counts)
+
+
+def run_sharded(config: int, ranks: int, ind_shards: int, *,
+                max_steps: int = 20_000, scale: float = 1.0,
+                timeout: float = 3000.0) -> dict:
+    """Simulate and carve `config` as run() does, then fit it with
+    fit_sharded over `ranks` ranks (ind_shards x ranks / ind_shards)
+    that share the one card through gloo (run_ranks): the multi-card
+    program's results on one card. Its times are no speed figures: the
+    ranks share the card's SMs and gloo copies through the host."""
+    n, l, k, data, theta, oracle, _, sim_s = _data(config, "cuda", scale,
+                                                   None)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(CONFIGS[config]["batch"], l),
+                    rfreq=100, max_steps=max_steps, seed=0, snp_group=8,
+                    ind_shards=ind_shards, snp_shards=ranks // ind_shards)
+    with tempfile.TemporaryDirectory(prefix="converge_ranks_") as tmp:
+        path = f"{tmp}/packed.npy"
+        np.save(path, data.packed)
+        recs = run_ranks(ranks, _sharded_rank,
+                         (cfg, path, data.validation, data.heldout, theta),
+                         timeout=timeout, device=torch.device("cuda", 0))
+    return dict(config=config, n=n, l=l, k=k, batch_size=cfg.batch_size,
+                ranks=ranks, mesh=dict(ind=ind_shards,
+                                       snp=ranks // ind_shards),
+                shared_card=True, oracle_ll=oracle, sim_s=sim_s, **recs[0])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=3)
@@ -332,6 +397,11 @@ def main(argv=None) -> int:
                     help="fit seeds 0..R-1 in lockstep "
                          "(fit_replicates_batched); a record a replicate, "
                          "then the best's")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="fit with fit_sharded over this many ranks that "
+                         "share the card through gloo (run_sharded)")
+    ap.add_argument("--ind-shards", type=int, default=1,
+                    help="with --ranks: the grid's 'ind' axis")
     ap.add_argument("--sampler", choices=("nuts", "smc"), default="nuts",
                     help="config 4: the sampler held against SVI")
     ap.add_argument("--chains", type=int, default=4,
@@ -351,6 +421,11 @@ def main(argv=None) -> int:
             rec["missed_limits"] = config4_misses(rec)
         print(json.dumps(rec), flush=True)
         return 1 if rec.get("missed_limits") else 0
+    if args.ranks:
+        print(json.dumps(run_sharded(args.config, args.ranks, args.ind_shards,
+                                     max_steps=args.max_steps,
+                                     scale=args.scale)), flush=True)
+        return 0
     if args.replicates:
         for rec in run_replicates(args.config, args.replicates,
                                   device="cuda", max_steps=args.max_steps,

@@ -95,6 +95,7 @@ def read_bed(
     *,
     native: bool = True,
     byte_cols: Optional[tuple[int, int]] = None,
+    snp_rows: Optional[tuple[int, int]] = None,
 ) -> tuple[np.ndarray, Optional[list], Optional[list]]:
     """Read a PLINK .bed (+ sibling .fam/.bim when n/l not given).
 
@@ -102,9 +103,10 @@ def read_bed(
     (l, ceil(n/4)) in our code space, SNP-major, ready for the engine.
 
     byte_cols=(lo, hi) reads only that byte-column range of every SNP
-    row via memmap: the multi-host ingest, where each host loads just
-    its individuals' columns (the reference's parallel/multihost, not yet
-    ported) without touching the rest of a biobank-scale file.
+    row, and snp_rows=(lo, hi) only those rows, via memmap: the
+    multi-rank ingest (parallel/multihost.load_bed_shard), where each
+    rank loads just its block without touching the rest of a
+    biobank-scale file.
     """
     stem, ext = os.path.splitext(path)
     if ext != ".bed":
@@ -135,6 +137,8 @@ def read_bed(
         )
     mm = np.memmap(path, dtype=np.uint8, mode="r", offset=3,
                    shape=(l, w_bed))
+    if snp_rows is not None:
+        mm = mm[snp_rows[0]:snp_rows[1]]
     if byte_cols is not None:
         lo, hi = byte_cols
         raw = np.ascontiguousarray(mm[:, lo:hi])
@@ -228,7 +232,7 @@ def _fix_padding(packed: np.ndarray, n: int) -> np.ndarray:
     space); the engine requires padding to decode as MISSING.
     """
     rem = n % 4
-    if rem:
+    if rem and packed.shape[1]:
         # keep the low 2*rem bits, set the rest to 1s (3 = 0b11 each)
         keep_mask = np.uint8((1 << (2 * rem)) - 1)
         fill = np.uint8(0xFF & ~keep_mask)

@@ -10,7 +10,10 @@ on an np.memmap as on an array (`from_bed`, or `from_packed` on the cache
 of data/bed.bed_to_packed_cache): its lookups read the touched bytes and
 its recode writes them back to the mapped file.
 
-The device-resident carve waits for the multi-GPU slice.
+A rank of a multi-card fit holds a block of the matrix (byte_col_offset,
+snp_row_offset) and the full-width rows of the eval-SNP pool
+(eval_rows_full). The device-resident carve (the biobank demo) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -138,9 +141,35 @@ class GenotypeData:
     heldout: Optional[EntrySet] = None
     ind_ids: Optional[list] = None        # individual labels (.fam)
     snp_ids: Optional[list] = None        # SNP labels (.bim)
+    # Origin of `packed` in the whole matrix: a rank's block
+    # (parallel/multihost.load_bed_shard) starts at these.
+    byte_col_offset: int = 0
+    snp_row_offset: int = 0
+    # Full-width packed rows of the eval-SNP pool and their sorted SNP
+    # indices (the multi-rank loader sets them), so the local lambda
+    # mode's eval re-solve works where `packed` is a block.
+    eval_rows_full: Optional[np.ndarray] = None   # (S, ceil(n/4)) uint8
+    eval_row_snps: Optional[np.ndarray] = None    # (S,) int32 sorted
 
     # Per-set eval cap: ~500K entries already give MC error ~1e-3 nats.
     MAX_EVAL_ENTRIES = 500_000
+
+    @property
+    def is_local_slice(self) -> bool:
+        """Whether `packed` is a block of the matrix, not all of it."""
+        return (self.byte_col_offset != 0 or self.snp_row_offset != 0
+                or self.packed.shape != (self.l, packed_width(self.n)))
+
+    def pad_snps(self, multiple: int) -> "GenotypeData":
+        """Pad L up to a multiple with all-MISSING rows (0xFF) for an even
+        split. Padding SNPs contribute nothing where they are drawn."""
+        lp = -(-self.l // multiple) * multiple
+        if lp == self.packed.shape[0]:
+            return self
+        pad = np.full((lp - self.packed.shape[0], self.packed.shape[1]),
+                      0xFF, dtype=np.uint8)
+        return dataclasses.replace(
+            self, packed=np.concatenate([self.packed, pad]))
 
     @classmethod
     def from_packed(

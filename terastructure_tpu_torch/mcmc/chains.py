@@ -4,16 +4,19 @@ terastructure_tpu/mcmc/chains.py).
 The samplers keep chains (or particles) on a leading axis of every
 tensor. On one device that axis simply stays where the tensors are, which
 is what the reference does when it sees one device. Spreading the axis
-over several cards belongs to the multi-GPU slice (S8) and is not ported
-yet: asked for with more than one CUDA card visible, it raises rather
-than quietly running on one card.
+over several cards (NUTS's lockstep `.any()` and SMC's resampling across
+ranks) is the second part of the multi-card slice, not ported yet: the
+multi-card SVI fit (parallel/) does not cover it. Asked for with more
+than one CUDA card visible, it raises rather than quietly running on one
+card.
 """
 
 from __future__ import annotations
 
 import torch
 
-_S8 = "slice S8, multi-GPU"
+_NEXT = ("slice S8 part 2, chains and particles over cards: ROADMAP "
+         "Queue 1, next after the multi-card SVI fit")
 
 
 def maybe_shard_leading(tree, n: int, shard: bool):
@@ -23,7 +26,7 @@ def maybe_shard_leading(tree, n: int, shard: bool):
             and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "chains/particles over several CUDA cards are not ported yet "
-            f"({_S8}); pass shard_chains=False (shard_particles=False) to "
+            f"({_NEXT}); pass shard_chains=False (shard_particles=False) to "
             "run them on one card")
     return tree
 

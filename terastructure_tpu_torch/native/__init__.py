@@ -17,6 +17,7 @@ thread running.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -64,6 +65,14 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # processes that start at once (the ranks of a multi-card fit) build
+    # it once: the others wait on the lock and find the library
+    with open(BUILD_DIR / "bedops.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return so if so.exists() else _compile(so)
+
+
+def _compile(so: Path) -> Path:
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)],
                           capture_output=True, text=True)

@@ -70,19 +70,32 @@ def _ratios(a1, a0, u, t1, t0, dtype):
     return r1, r0
 
 
-def lambda_stats(a1, a0, u, t1, t0, dtype=torch.float32):
-    """One coordinate-ascent lambda statistic: (L0, L1), each (B, K)."""
-    r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
-    ud = as_operand(u, dtype)
-    return t1 * (r1 @ ud), t0 * (r0 @ ud)
+def _reduced(l0, l1, ind_reduce):
+    return (l0, l1) if ind_reduce is None else ind_reduce(l0, l1)
 
 
-def batch_stats(a1, a0, u, t1, t0, dtype=torch.float32) -> BatchStats:
-    """All sufficient statistics for a converged local solution."""
+def lambda_stats(a1, a0, u, t1, t0, dtype=torch.float32, ind_reduce=None):
+    """One coordinate-ascent lambda statistic: (L0, L1), each (B, K).
+
+    ind_reduce: None, or (l0, l1) -> (l0, l1) applied to the individual
+    sums before they are scaled by t (the sharded step's all-reduce over
+    the ranks that hold the other individuals)."""
     r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
     ud = as_operand(u, dtype)
-    l0 = t1 * (r1 @ ud)
-    l1 = t0 * (r0 @ ud)
+    l0, l1 = _reduced(r1 @ ud, r0 @ ud, ind_reduce)
+    return t1 * l0, t0 * l1
+
+
+def batch_stats(a1, a0, u, t1, t0, dtype=torch.float32,
+                ind_reduce=None) -> BatchStats:
+    """All sufficient statistics for a converged local solution. The
+    gamma statistic is this shard's partial (sharded: its SNPs only);
+    ind_reduce as `lambda_stats`'."""
+    r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
+    ud = as_operand(u, dtype)
+    l0, l1 = _reduced(r1 @ ud, r0 @ ud, ind_reduce)
+    l0 = t1 * l0
+    l1 = t0 * l1
     s = u * (r1.T @ as_operand(t1, dtype) + r0.T @ as_operand(t0, dtype))
     return BatchStats(gamma_stat=s, lam0_stat=l0, lam1_stat=l1)
 
@@ -193,13 +206,14 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel,
 
 
 def local_solve(a1, a0, u, lamb_b, *, beta_a, beta_b, local_iters,
-                local_tol, dtype=torch.float32, accel=False):
+                local_tol, dtype=torch.float32, accel=False, ind_reduce=None):
     """Local coordinate ascent phi <-> lambda for the minibatch SNPs on
-    `solve_schedule`. Returns the converged lamb_b (B, K, 2)."""
+    `solve_schedule`. Returns the converged lamb_b (B, K, 2). ind_reduce
+    as `lambda_stats`'."""
 
     def iterate(lam):
         t1, t0 = exp_elog_beta(lam)
-        l0, l1 = lambda_stats(a1, a0, u, t1, t0, dtype)
+        l0, l1 = lambda_stats(a1, a0, u, t1, t0, dtype, ind_reduce)
         return torch.stack([beta_a + l0, beta_b + l1], -1)
 
     return solve_schedule(iterate, lamb_b, local_iters=local_iters,

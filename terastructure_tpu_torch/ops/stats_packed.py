@@ -387,7 +387,8 @@ lambda_stats_packed.twin_calls = 0
 
 def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                        local_tol, stat_scale=1.0, approx_div=False,
-                       accel=False, pad_rows=0, dtype=torch.float32):
+                       accel=False, pad_rows=0, dtype=torch.float32,
+                       ind_reduce=None):
     """Local coordinate ascent from packed rows on the shared schedule.
 
     u: (N, K) with N = 4 * W (caller pads); returns lamb_b (B, K, 2).
@@ -400,6 +401,10 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
     over the same rows (B, W), K4 with its replicate axis, each with its
     own tol test (`solve_schedule`); returns
     (R, B, K, 2), replicate r bitwise the single solve's.
+
+    ind_reduce: None, or (l0, l1) -> (l0, l1) applied to each pass's raw
+    sums before they are scaled by t (the sharded step's all-reduce over
+    the ranks that hold the other individuals, parallel/sharded.py).
     """
     u_planes = u_to_planes(u)
 
@@ -408,6 +413,8 @@ def local_solve_packed(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
         t1, t0 = torch.exp(e1), torch.exp(e0)
         l0, l1 = lambda_stats_packed(rows, u_planes, t1, t0,
                                      approx_div=approx_div, dtype=dtype)
+        if ind_reduce is not None:
+            l0, l1 = ind_reduce(l0, l1)
         return torch.stack([beta_a + stat_scale * t1 * l0,
                             beta_b + stat_scale * t0 * l1], -1)
 
@@ -473,7 +480,8 @@ lambda_stats_acat.twin_calls = 0
 
 def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
                      local_tol, stat_scale=1.0, approx_div=False,
-                     accel=False, pad_rows=0, dtype=torch.float32):
+                     accel=False, pad_rows=0, dtype=torch.float32,
+                     ind_reduce=None):
     """`local_solve_packed` with the counts decoded once up front: the
     schedule iterates K8 over the planes instead of unpacking the rows
     every pass. Same arguments and result (dtype: K8's compute dtype;
@@ -485,7 +493,8 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
 
     Batched replicates: rows (R, B, W), u (R, N, K) and lamb_b (R, B, K,
     2) run R solves, K8 with its replicate axis, each with its own tol
-    test; loop_passes then takes one count per replicate."""
+    test; loop_passes then takes one count per replicate. ind_reduce: as
+    `local_solve_packed`'s."""
     u_planes = u_to_planes(u)
     a1, a0 = decode_count_planes(rows)
 
@@ -494,6 +503,8 @@ def local_solve_acat(rows, u, lamb_b, *, beta_a, beta_b, local_iters,
         t1, t0 = torch.exp(e1), torch.exp(e0)
         l0, l1 = lambda_stats_acat(a1, a0, u_planes, t1, t0,
                                    approx_div=approx_div, dtype=dtype)
+        if ind_reduce is not None:
+            l0, l1 = ind_reduce(l0, l1)
         return torch.stack([beta_a + stat_scale * t1 * l0,
                             beta_b + stat_scale * t0 * l1], -1)
 

@@ -36,7 +36,16 @@ written before `fit` returns. Step t draws from (seed, t), so a fit
 restored at step t and run to T ends bitwise where an uninterrupted run
 to T ends. init="spectral" starts gamma from svi/init.spectral_gamma.
 
-Not yet ported (NotImplementedError): step_fn_factory (multi-GPU, S8).
+The sharded path (parallel/fit.fit_sharded) passes `step_fn_factory`
+(its chunk runner), `mesh`, this rank's shards as `state` and its packed
+block as `packed` (or stream=True and the rank's host block). Then every
+check gathers gamma (and in the stored mode lambda) to the lead rank,
+which scores and broadcasts the log-likelihood, so every rank takes the
+same convergence decision; only the lead writes metrics, the trace and
+checkpoints (a checkpoint is the whole padded state, gathered first). In
+a run of several ranks the local mode's lambda is left at the prior (the
+sharded compute-beta is the export); a world of one rank materializes it
+as the single-device fit does.
 """
 
 from __future__ import annotations
@@ -76,6 +85,23 @@ class FitResult:
     timings: dict = dataclasses.field(default_factory=dict)
 
 
+def eval_rows(data: GenotypeData, uniq: np.ndarray) -> np.ndarray:
+    """Width-padded full-width packed rows of the eval SNPs `uniq`
+    (sorted): from data.eval_rows_full where the loader set it (a rank's
+    block holds only some columns), else from the matrix."""
+    if data.eval_rows_full is not None:
+        snps = np.asarray(data.eval_row_snps)
+        pos = np.searchsorted(snps, uniq)
+        if (pos >= len(snps)).any() or not np.array_equal(snps[pos], uniq):
+            raise ValueError("eval entry SNPs missing from eval_rows_full")
+        return engine.pad_width(np.asarray(data.eval_rows_full)[pos])
+    if data.is_local_slice:
+        raise ValueError("a block of the matrix needs eval_rows_full for the "
+                         "local mode's eval (multihost.load_bed_shard sets "
+                         "it)")
+    return engine.pad_width(np.asarray(data.packed)[uniq])
+
+
 def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):
     """(gamma, lamb) -> the mean predictive log-lik of an entry set (a 0-d
     tensor), or None for an empty set. Local mode: the lambdas of its
@@ -99,9 +125,9 @@ def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):
 
         return stored
     uniq, inv = np.unique(es.snp_idx, return_inverse=True)
-    rows = engine.pad_width(np.asarray(data.packed)[uniq])
     f = engine.make_entry_loglik_recompute(
-        cfg, rows, inv.astype(np.int64), es.ind_idx, es.x, device=device)
+        cfg, eval_rows(data, uniq), inv.astype(np.int64), es.ind_idx, es.x,
+        device=device)
     return lambda gamma, lamb: f(gamma)
 
 
@@ -125,8 +151,10 @@ def fit(
     checkpoint_every: int = 5,
     callback: Optional[Callable[[dict], None]] = None,
     stream: bool = False,
+    mesh=None,
 ) -> FitResult:
-    """Run SVI until convergence or cfg.max_steps on one device.
+    """Run SVI until convergence or cfg.max_steps on one device, or on
+    this rank of a grid (step_fn_factory and mesh, parallel/fit.py).
 
     device: where the fit runs. None means the first CUDA card, and
     raises RuntimeError where there is none; pass device="cpu" to run on
@@ -139,10 +167,13 @@ def fit(
     """
     if cfg.n != data.n or cfg.l != data.l:
         raise ValueError("config/data shape mismatch")
-    if step_fn_factory is not None:
-        raise NotImplementedError("step_fn_factory is not ported yet "
-                                  "(slice S8, multi-GPU)")
-    if device is None:
+    sharded = step_fn_factory is not None
+    if sharded and (mesh is None or state is None):
+        raise ValueError("step_fn_factory takes the grid (mesh) and this "
+                         "rank's sharded state (parallel.fit_sharded)")
+    if sharded:
+        device = mesh.device
+    elif device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("fit: no CUDA card; pass device='cpu' to run "
                                "on the CPU")
@@ -156,8 +187,13 @@ def fit(
             raise ValueError("stream=True keeps the host matrix on the "
                              "host; don't pass a device `packed`")
         packed = data.packed                     # stays on the host
-        run_chunk = stream_mod.make_stream_chunk(cfg, cfg.rfreq,
-                                                 int(packed.shape[0]))
+        run_chunk = (step_fn_factory or stream_mod.make_stream_chunk)(
+            cfg, cfg.rfreq, int(packed.shape[0]))
+    elif sharded:
+        if packed is None:
+            raise ValueError("the sharded fit passes this rank's packed "
+                             "block")
+        run_chunk = step_fn_factory(cfg, cfg.rfreq, int(packed.shape[0]))
     else:
         if packed is None:
             packed = engine.resident_packed(data.packed, device)
@@ -182,7 +218,31 @@ def fit(
                                lamb=state.lamb.to(device))
     timings["init_s"] = round(time.time() - ti, 3)
 
-    val_scorer = make_scorer(cfg, data, data.validation, device)
+    lead = mesh is None or mesh.lead
+    multiproc = mesh is not None and mesh.world > 1
+
+    def scorer_for(es):
+        """state -> the mean log-lik of an entry set (None for an empty
+        one), the same float on every rank: on a grid the lead scores the
+        gathered state and broadcasts the value."""
+        if es is None or not len(es):
+            return None
+        scorer = make_scorer(cfg, data, es, device) if lead else None
+        if not sharded:
+            return lambda st: float(scorer(st.gamma, st.lamb))
+        from terastructure_tpu_torch.parallel.sharded import gather_state
+
+        def f(st):
+            full = gather_state(st, mesh, lamb=not local_mode)
+            ll = 0.0
+            if lead:
+                lamb = None if local_mode else full.lamb[: cfg.l]
+                ll = float(scorer(full.gamma[: cfg.n], lamb))
+            return mesh.broadcast_float(ll)
+
+        return f
+
+    val_scorer = scorer_for(data.validation)
 
     trace: List[dict] = []
     best_ll = -np.inf
@@ -191,8 +251,8 @@ def fit(
     checks = 0
     timings["checkpoint_wait_s"] = 0.0
     t0 = time.time()
-    mfile = open(metrics_path, "a") if metrics_path else None
-    tfile = open(trace_path, "a") if trace_path else None
+    mfile = open(metrics_path, "a") if metrics_path and lead else None
+    tfile = open(trace_path, "a") if trace_path and lead else None
     try:
         while state.t < cfg.max_steps:
             tc = time.time()
@@ -210,7 +270,7 @@ def fit(
                 rec["predictive"] = cfg.predictive
             if val_scorer is not None:
                 te = time.time()
-                ll = float(val_scorer(state.gamma, state.lamb))
+                ll = val_scorer(state)
                 rec["eval_s"] = round(time.time() - te, 3)
                 rec["validation_ll"] = ll
                 if not np.isfinite(ll):
@@ -240,8 +300,14 @@ def fit(
             if checkpoint_dir and (converged or
                                    checks % max(checkpoint_every, 1) == 0):
                 ts = time.time()
-                # the write overlaps the next chunk's steps
-                ckpt.save_checkpoint(checkpoint_dir, state, cfg, block=False)
+                snap = state
+                if sharded:      # the whole padded state, on the lead
+                    from terastructure_tpu_torch.parallel.sharded import \
+                        gather_state
+                    snap = gather_state(state, mesh)
+                if lead:         # the write overlaps the next chunk's steps
+                    ckpt.save_checkpoint(checkpoint_dir, snap, cfg,
+                                         block=False)
                 timings["checkpoint_wait_s"] += time.time() - ts
             if converged:
                 break
@@ -252,15 +318,21 @@ def fit(
             tfile.close()
     timings["checkpoint_wait_s"] = round(timings["checkpoint_wait_s"], 3)
 
-    if local_mode:
+    if local_mode and multiproc:
+        # no rank holds every column of the matrix: the sharded
+        # compute-beta post-pass is the export; eval never read lambda
+        log.info("multi-process run: lambda left at prior in the result; "
+                 "run compute-beta for final per-SNP estimates")
+    elif local_mode:
         # lambda is derived state in the local mode: materialize it for
         # export (the stored mode's lambda is the result)
         tx = time.time()
+        gamma = state.gamma[: cfg.n]
         if stream:
             lamb = torch.from_numpy(stream_mod.compute_lambda_stream(
-                cfg, state.gamma, packed)).to(device)
+                cfg, gamma, packed)).to(device)
         else:
-            lamb = compute_lambda(cfg, state.gamma, packed)
+            lamb = compute_lambda(cfg, gamma, packed)
         state = state._replace(lamb=lamb)
         _wait(device)
         timings["export_s"] = round(time.time() - tx, 3)
@@ -268,9 +340,8 @@ def fit(
     if checkpoint_dir:
         ckpt.wait_until_finished()         # the last save, written
     th = time.time()
-    held_scorer = make_scorer(cfg, data, data.heldout, device)
-    held_ll = (float(held_scorer(state.gamma, state.lamb))
-               if held_scorer is not None else None)
+    held_scorer = scorer_for(data.heldout)
+    held_ll = held_scorer(state) if held_scorer is not None else None
     timings["heldout_s"] = round(time.time() - th, 3)
     return FitResult(
         state=state,

@@ -221,27 +221,27 @@ def _parse(mod, argv):
     ["--no-accel"], ["--local-iters", "2", "--accel"],
     ["--gamma-psum-dtype", "bf16", "--compute-dtype", "bfloat16",
      "--lambda-mode", "stored", "--init-mode", "spectral", "--kappa", "0.7"],
+    ["--ind-shards", "2"], ["--snp-shards", "4"],
+    ["--gamma-psum-dtype", "bf16"],
 ])
 def test_flags_map_to_the_references_config(flags):
     """Each flag set gives the reference's SVIConfig (the accel pairing,
-    --fast, the rest), compared as its JSON."""
+    --fast, the grid's axes, the rest), compared as its JSON."""
     argv = ["fit", "--simulate", "-n", "64", "-l", "128", "-k", "2"] + flags
     ours = cli._cfg_from_args(_parse(cli, argv), 64, 128)
     ref = ref_cli._cfg_from_args(_parse(ref_cli, argv), 64, 128)
     assert ours.to_json() == ref.to_json()
 
 
-@pytest.mark.parametrize("argv, slice_", [
-    (["fit", "--simulate", "-n", "16", "-l", "32", "-k", "2",
-      "--ind-shards", "2"], "S8"),
-    (["fit", "--simulate", "-n", "16", "-l", "32", "-k", "2",
-      "--distributed"], "S8"),
-    (["compute-beta", "--run-dir", "x", "--simulate", "--coordinator",
-      "h:1"], "S8"),
-])
-def test_unported_paths_raise(argv, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli.main(argv + ["--force-cpu"])
+@pytest.mark.parametrize("flag", ["--ind-shards", "--snp-shards"])
+def test_a_grid_larger_than_the_world_exits(tmp_path, flag):
+    """fit --ind-shards 2 (or --snp-shards 2) in a world of one rank exits
+    non-zero naming the world size, as the reference's choose_mesh_shape
+    refuses a mesh that does not fit its devices."""
+    with pytest.raises(SystemExit, match="world size 1"):
+        cli.main(["fit", "--simulate", "-n", "16", "-l", "32", "-k", "2",
+                  flag, "2", "--max-steps", "10", "--out-base",
+                  str(tmp_path), "--force-cpu"])
 
 
 def test_cli_validate_prints_the_references_keys(capsys):

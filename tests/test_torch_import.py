@@ -4,8 +4,10 @@ copies of what it needs (config, label alignment, the .bed ingest and its
 native core, whose library is the port's own, never the reference's
 _bedops.so), a small batched replicate fit, and the command line's
 simulate and fit (spectral init, text model, checkpoint), and a tiny
-NUTS validation (compare_svi_mcmc). `fit` without a device runs on the
-card, and raises where there is none."""
+NUTS validation (compare_svi_mcmc), and the multi-card fit's modules
+(parallel/: a world of one rank, resident and streamed, and the sharded
+compute-beta). `fit` without a device runs on the card, and raises where
+there is none."""
 
 import ast
 import subprocess
@@ -73,6 +75,22 @@ rep = compare_svi_mcmc(x[:, :64], 2, sampler="nuts", seed=1, device="cpu",
                                             rfreq=20, max_steps=40, seed=1),
                        n_samples=10, n_warmup=10, n_chains=2, max_depth=4)
 assert np.isfinite(rep.theta_mae) and rep.theta_mcmc.shape == (32, 2), rep
+# the multi-card fit (parallel/): a world of one rank on the CPU, the
+# sharded compute-beta, and the sharded stream
+from terastructure_tpu_torch.parallel import (fit_sharded, make_mesh,  # noqa
+                                              mesh, multihost, sharded,
+                                              stream as pstream)
+cfg = SVIConfig(n=32, l=128, k=2, batch_size=16, rfreq=20, max_steps=40,
+                seed=1, snp_shards=1)
+m = make_mesh(mesh.MeshSpec(1, 1), device="cpu")
+res = fit_sharded(cfg, data, mesh=m)
+assert res.steps == 40 and np.isfinite(res.heldout_ll), res
+res_s = fit_sharded(cfg, data, mesh=m, stream=True)
+assert (res_s.state.gamma == res.state.gamma).all()
+plan, packed = sharded.prepare(cfg, data, m)
+lamb = sharded.make_sharded_compute_lambda(cfg, plan, m)(res.state.gamma,
+                                                        packed)
+assert lamb.shape == (128, 2, 2) and bool(lamb.isfinite().all())
 maps = open("/proc/self/maps").read()
 assert "libbedops_" in maps and "_bedops.so" not in maps
 assert not {"jax", "terastructure_tpu"} & {
