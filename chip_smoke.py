@@ -161,6 +161,20 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    steps re-run bitwise. Its times are no speed figures: four processes
    share one card's SMs, and gloo copies every all-reduce through the
    host.
+14. batched replicates at K > 64 and with kernel="dense"
+   (`phase_replicates_wide`): (a) the fused branch at config #3's width
+   (2,504 x 1M, phase 3's data), K = 72, B = 1,024, snp_group 1, R = 4:
+   100 steps of fit_replicates_batched's chunk runner, K1[rep] once a
+   step (its K-chunked passes), K2 and K3 never, no twin, each replicate
+   bitwise its single 100 steps, then one batched eval through K4[rep],
+   each score its single scorer's; (b) the big-N branch on phase 4's
+   data, K = 72, B = 4,096, R = 2: 10 steps, K8[rep] 7 and K7[rep] 1 a
+   step, bitwise the single steps, the step's ms and the peak device
+   memory; (c) kernel="dense" at config #1, R = 4: one chunk bitwise the
+   single dense chunks (no kernel launches: the dense step has none),
+   then the batched eval (K4[rep]); (d) `cli fit --replicates 4
+   --batched -k 72 --max-steps 2000` at config #1: best.json names the
+   replicate with the best validation ll.
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
@@ -170,7 +184,13 @@ bound (`phase_kernels_rep`); and K8, K7, K5 and K6 with the axis (R = 4)
 at the big-N step's shape (K8 on the subsample's count planes), a
 ragged B = 4,092 and K = 3 and 16, f32 and bf16, each replicate bitwise
 its single call, re-runs bitwise, held to the twins, timed in turns with
-R single calls at the step's shape (`phase_kernels_rep_bign`).
+R single calls at the step's shape (`phase_kernels_rep_bign`); and the
+K-chunked bodies with the axis (K > 64, `phase_kernels_rep_wide`): K1,
+K4, K5, K6, K7 and K8 at R = 4, K = 72 and 256, f32 and bf16, each
+replicate bitwise its single wide call, held to the twins, then timed
+at K = 72 in turns with R single calls at the batched paths' shapes
+(K1 and K4 at config #3's width, B = 1,024; K8 on the big-N step's
+subsample; K5-K7 at the big-N step's shape), beside the bounds.
 
 Prints the kernels' JSON line (the bf16 bodies as entries of their own,
 "fused_local_solve[bf16]" and so on, the replicate axis as
@@ -706,6 +726,7 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_bf16(dev, rec)
     phase_kernels_rep(dev, rec)
     phase_kernels_rep_bign(dev, rec)
+    phase_kernels_rep_wide(dev, rec)
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -1292,9 +1313,11 @@ def phase_kernels_rep(dev, rec):
         _time_rep(rec, shape, kernels, rows, up, lamb, t1, t0, main)
 
 
-def _hold_k1_rep(rec, shape, rows, up, lamb, main):
+def _hold_k1_rep(rec, shape, rows, up, lamb, main, wide=False):
     """K1[rep] cold, warm and cold with replicate 0 all MISSING, f32 and
-    bf16 (`phase_kernels_rep`)."""
+    bf16 (`phase_kernels_rep`). wide (K > 64): g and lambda of every case
+    may differ from the twins on REP_WIDE_FRAC of their entries, g's each
+    within rtol REP_G_CAP."""
     rows_m = rows.clone()
     rows_m[0] = 0xFF              # replicate 0 all MISSING
     for dtype in (torch.float32, BF16):
@@ -1326,11 +1349,11 @@ def _hold_k1_rep(rec, shape, rows, up, lamb, main):
             # 700 W: 2.77% of the 4 replicates' g beyond TOL at config
             # #2's step, the largest 8.3e-4 of |twin|; the single K1 does
             # the same, each replicate being bitwise its single call)
+            frac = 1.0 if warm else REP_WIDE_FRAC if wide else 0.0
             hold(rec, "fused_local_solve[rep]", f"{label} g", got[1:],
-                 want[1:], tol, 1.0 if warm else 0.0,
-                 cap=REP_G_CAP if warm else None)
+                 want[1:], tol, frac, cap=REP_G_CAP if frac else None)
             hold(rec, "fused_local_solve[rep]", f"{label} lambda",
-                 got[:1], want[:1], tol, 1e-2)
+                 got[:1], want[:1], tol, REP_WIDE_FRAC if wide else 1e-2)
             passes = [solve_passes(rr[i], up[i], lam0[i], **kw)
                       for i in range(R_REP)]
             log(f"  {label}: each replicate bitwise its single solve; "
@@ -1590,6 +1613,220 @@ def _time_rep_bign(rec, x):
             f"{e['bf16_ms']:.4f} / {e['bf16_serial_ms']:.4f} ms; bound "
             f"{e['bound_ms']:.5f} (bf16 {e['bf16_bound_ms']:.5f}) ms; "
             f"{R_REP} twins {r['plain_ms']:.3f} ms")
+
+
+# The K-chunked bodies (K > 64) with the replicate axis, R_REP replicates
+# each of its own inputs: every kernel at K = 72 and 256 on ragged shapes
+# (held to the twins, bitwise per replicate and on a re-run), then timed at
+# K = 72 where the batched paths run them (phase 14): K1 at config #3's
+# width (B = 1,024, W = 640), K4 at its eval block (rows shared), K8 on
+# the big-N step's subsample, K5-K7 at the big-N step's shape.
+REP_WIDE = {"K1": "fused_local_solve[rep]", "K4": "lambda_stats_packed[rep]",
+            "K8": "lambda_stats_acat[rep]",
+            "K7": "batch_stats_fused_v2_packed[rep]",
+            "K5": "gamma_stats_packed[rep]",
+            "K6": "batch_stats_fused_packed[rep]"}
+REP_WIDE_K = 72
+REP_WIDE_TIMED = {"K1": (1024, 640), "K4": (1024, 640),
+                  "K8": (BIGN[0], BIGN_SUB_W), "K7": BIGN[:2],
+                  "K5": BIGN[:2], "K6": BIGN[:2]}
+# K1's schedules: the plain one, held to the twins as the single wide K1
+# is (phase_kernels_wide), and the main path's accel one (`_hold_k1_rep`
+# at the timed shape). REP_WIDE_FRAC: the share of K1[rep]'s g and lambda
+# at K > 64 on the accel schedule allowed beyond tol. There the clamped
+# Aitken step moves lambda beyond 2e-4 on up to 2% of its entries in f32
+# alone against the same schedule in f64 (tests/test_torch_replicates_
+# wide.py::test_accel_tail_moves_lambda_at_k72_in_f32_alone), so two f32
+# sum orders may differ on twice that.
+REP_WIDE_FRAC = 4e-2
+REP_WIDE_PLAIN = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
+REP_WIDE_MAIN = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+                     beta_b=1.0)
+
+
+def _wide_rep_inputs(b, w, k, dev):
+    """R_REP replicates' inputs of every kernel: rows (R, B, W) with rows
+    of one replicate MISSING, u planes, u, t1, t0, count planes of all W,
+    and lambda."""
+    rows, up, lamb = _rep_inputs(b, w, k, b + w + k, dev)
+    rows[1, ::5] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    u = stats_packed.planes_to_flat(up).contiguous()
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    return rows, up, u, t1, t0, a1, a0, up, lamb
+
+
+def _wide_rep_calls(x, dtype, approx, kw=REP_WIDE_PLAIN):
+    """name -> (the batched call of K1, K4, K5, K6, K7 or K8 at dtype on
+    inputs x, single or with a leading R; the twin of replicate i). K4
+    reads rows[0] for every replicate (the eval's shared rows); K1 runs
+    the schedule kw."""
+    calls = _bign_rep_calls(x[:8], dtype, approx)
+    rows, up, _, t1, t0 = x[:5]
+    lamb = x[8]
+    shared = rows if rows.dim() == 2 else rows[0]
+    k1 = dict(kw, dtype=dtype, approx_div=approx)
+    calls["K1"] = (
+        lambda: fused_step.fused_local_solve(rows, up, lamb, **k1),
+        lambda i: fused_step.fused_local_solve_twin(rows[i], up[i], lamb[i],
+                                                    **k1))
+    calls["K4"] = (
+        lambda: stats_packed.lambda_stats_packed(shared, up, t1, t0,
+                                                 approx_div=approx,
+                                                 dtype=dtype),
+        lambda i: stats_packed.lambda_stats_packed_twin(
+            shared, up[i], t1[i], t0[i], approx_div=approx, dtype=dtype))
+    return calls
+
+
+def _single_wide(x, i, kernel, dtype, approx, kw=REP_WIDE_PLAIN):
+    """Replicate i's single call of `kernel` (K4 over rows[0])."""
+    xi = list(_one(x, i))
+    if kernel == "K4":
+        xi[0] = x[0][0]
+    return _wide_rep_calls(tuple(xi), dtype, approx, kw)[kernel][0]()
+
+
+def _hold_wide(rec, kernel, label, got, want, dtype, approx):
+    """A wide [rep] call of `kernel` (plain schedule for K1) held to its
+    stacked twins at the K <= 64 [rep] tolerances."""
+    tol = (TOL_APPROX if approx else
+           TOL if dtype == torch.float32 else
+           TOL_BF16_SOLVE if kernel == "K1" else TOL_BF16_PASS)
+    name = REP_WIDE[kernel]
+    if kernel == "K1":
+        hold(rec, name, f"{label} g", got[1:], want[1:], tol)
+        hold(rec, name, f"{label} lambda", got[:1], want[:1], tol,
+             FLIP_FRAC if dtype == BF16 else 0.0)
+    else:
+        hold(rec, name, label, got, want, tol)
+
+
+def phase_kernels_rep_wide(dev, rec):
+    """K1, K4, K5, K6, K7 and K8 with the replicate axis (R = 4) at
+    K = 72 and 256, where the K-chunked bodies hold R x their chunks in
+    the grid's z: ragged shapes (B = 40, odd W, a replicate's rows
+    MISSING), f32 and bf16, both divides at K = 72 (K1, K4, K7, K8): each
+    replicate bitwise its single wide call, a re-run bitwise, held to the
+    twins at the K <= 64 [rep] tolerances; K1 also bitwise per replicate
+    on the main path's cold accel schedule. Then at K = 72 at the batched
+    paths' shapes (`REP_WIDE_TIMED`): held to the twins there and timed
+    (`_time_rep_wide`): the K > 64 rows of PERF.md (single = R single
+    calls / R)."""
+    for name in REP_WIDE.values():
+        rec[name]["wide"] = []
+    for k in (REP_WIDE_K, 256):
+        for kernel, name in REP_WIDE.items():
+            w = 235 if kernel in ("K1", "K4", "K8") else 300
+            x = _wide_rep_inputs(40, w, k, dev)
+            for dtype in (torch.float32, BF16):
+                dname = "bf16" if dtype == BF16 else "f32"
+                for approx in ((False, True) if k == REP_WIDE_K and kernel
+                               in ("K1", "K4", "K7", "K8") else (False,)):
+                    label = (f"{kernel}[rep] wide R={R_REP} B=40 W={w} K={k} "
+                             f"{dname} approx={approx}")
+                    call, twin = _wide_rep_calls(x, dtype, approx)[kernel]
+                    got = twice(label, call)
+                    _bitwise_per_replicate(label, got, [
+                        _single_wide(x, i, kernel, dtype, approx)
+                        for i in range(R_REP)])
+                    _hold_wide(rec, kernel, label, got, [
+                        torch.stack(t) for t in zip(
+                            *[twin(i) for i in range(R_REP)])], dtype, approx)
+                if kernel == "K1":
+                    label = f"K1[rep] wide R={R_REP} B=40 W={w} K={k} {dname}"
+                    _bitwise_per_replicate(
+                        f"{label} cold accel",
+                        _wide_rep_calls(x, dtype, False,
+                                        REP_WIDE_MAIN)["K1"][0](),
+                        [_single_wide(x, i, "K1", dtype, False, REP_WIDE_MAIN)
+                         for i in range(R_REP)])
+        log(f"  K1, K4, K5-K8[rep] wide R={R_REP} K={k}: each replicate "
+            "bitwise its single wide call, re-runs bitwise")
+    for kernel in REP_WIDE:
+        _time_rep_wide(rec, kernel, dev)
+        torch.cuda.empty_cache()
+
+
+def _time_rep_wide(rec, kernel, dev):
+    """`kernel` with the replicate axis at K = 72 at its timed shape, f32
+    and bf16 (K8 with the fast divide, as the step runs it): bitwise per
+    replicate there and held to the R stacked twins (`_hold_wide`; K1 on
+    the plain schedule there, and through `_hold_k1_rep` on the main
+    path's accel one: cold, warm with replicate 0 at its fixed point so
+    that it exits its tol loop first, and replicate 0 MISSING), then
+    in turns with R_REP single calls, beside R x the single bound (what
+    each replicate's data needs; the chunks' recompute of D is the body's
+    cost, not the function's) and R twins' time."""
+    b, w = REP_WIDE_TIMED[kernel]
+    k = REP_WIDE_K
+    x = _wide_rep_inputs(b, w, k, dev)
+    rows, up, u, t1, t0, a1, a0, _, lamb = x
+    approx = kernel == "K8"
+    kw = REP_WIDE_MAIN if kernel == "K1" else REP_WIDE_PLAIN
+    shape = f"R={R_REP} B={b} W={w} K={k}"
+    e = dict(shape=shape, library_ms=None)
+    reps = 1 if kernel in ("K6", "K7") else 2 if kernel == "K5" else 10
+    if kernel == "K1":
+        _hold_k1_rep(rec, f"wide {shape}", rows, up, lamb, kw, wide=True)
+    for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
+        label = (f"{kernel}[rep] wide {shape} "
+                 f"{'bf16' if dtype == BF16 else 'f32'} approx={approx}")
+        call, twin = _wide_rep_calls(x, dtype, approx)[kernel]
+        got = call()
+        _bitwise_per_replicate(label, got, [
+            _single_wide(x, i, kernel, dtype, approx)
+            for i in range(R_REP)])
+        _hold_wide(rec, kernel, label, got, [torch.stack(t) for t in zip(
+            *[twin(i) for i in range(R_REP)])], dtype, approx)
+        del got
+        torch.cuda.empty_cache()
+        call = _wide_rep_calls(x, dtype, approx, kw)[kernel][0]
+        e[key + "serial_ms"], e[key + "ms"] = in_turns(
+            lambda: [_single_wide(x, i, kernel, dtype, approx, kw)
+                     for i in range(R_REP)], call, reps=reps)
+        e[key + "single_ms"] = e[key + "serial_ms"] / R_REP
+    k1 = kernel == "K1"
+    if k1:
+        entries = moved = 0
+        for i in range(R_REP):
+            n_pass = solve_passes(rows[i], up[i], lamb[i], **kw) + 1
+            entries += present(rows[i]) * n_pass
+            moved += nbytes(rows[i], up[i], up[i]) + lamb[i].numel() * 4
+        flops, sums = entries * lambda_pass_flops(k), 1
+    elif kernel == "K4":
+        entries = present(rows[0]) * R_REP
+        flops, sums = entries * lambda_pass_flops(k), 1
+        moved = nbytes(rows[0], up, t1, t0, t1, t0)
+    elif kernel == "K8":
+        entries = int(((a1 + a0) > 0).sum())
+        flops, sums = entries * lambda_pass_flops(k), 1
+        moved = nbytes(a1, a0, up, t1, t0, t1, t0)
+    elif kernel == "K5":
+        entries = present(rows)
+        flops, sums = entries * lambda_pass_flops(k), 1
+        moved = nbytes(rows, up, t1, t0, up)
+    else:
+        entries = present(rows)
+        flops, sums = entries * (12 * k + 2), 2
+        moved = nbytes(rows, u, t1, t0, u, t1, t0)
+    set_bound(e, flops, moved)
+    tmp = {}
+    set_bound_bf16(tmp, entries, k, moved, sums)
+    e["bf16_bound_ms"] = tmp["bound_ms"]
+    e["single_bound_ms"] = e["bound_ms"] / R_REP
+    e["bf16_single_bound_ms"] = e["bf16_bound_ms"] / R_REP
+    twin = _wide_rep_calls(x, torch.float32, approx, kw)[kernel][1]
+    e["plain_ms"] = time_ms(lambda: [twin(i) for i in range(R_REP)], 1)
+    rec[REP_WIDE[kernel]]["wide"].append(e)
+    log(f"  {kernel}[rep] wide {shape}: batched {e['ms']:.4f} ms, {R_REP} "
+        f"single calls in turns {e['serial_ms']:.4f} ms (a single call "
+        f"{e['single_ms']:.4f}); bf16 {e['bf16_ms']:.4f} / "
+        f"{e['bf16_serial_ms']:.4f} ms (single {e['bf16_single_ms']:.4f}); "
+        f"bound {e['bound_ms']:.5f} (bf16 {e['bf16_bound_ms']:.5f}) ms, a "
+        f"single call's {e['single_bound_ms']:.5f} "
+        f"(bf16 {e['bf16_single_bound_ms']:.5f}); {R_REP} twins "
+        f"{e['plain_ms']:.3f} ms")
 
 
 def phase_kernels_bf16(dev, rec):
@@ -3029,6 +3266,193 @@ def phase_replicates_bign(dev, rec, bign):
         REP_BIGN_ABSENT + tuple(n for n in KERNELS if n.endswith("[bf16]")))
 
 
+# Phase 14: batched replicates at K > 64 (the K-chunked bodies with the
+# replicate axis) and with kernel="dense".
+WIDE_K = 72
+
+
+def _steps_ms(run, state, packed, nsteps):
+    """run(state, packed) on the card: (its state, host-clock ms a step,
+    synchronized at both ends)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = run(state, packed)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t) / nsteps * 1e3
+
+
+def _singles_bitwise_chunk(path, cfg, packed, states, seeds, nsteps):
+    """Each replicate of a batched run (states, a ReplicateState) against
+    `nsteps` single steps from its seed's fresh state: gamma (and lambda
+    in the stored mode) bitwise. Returns the single states and their ms
+    a step (one seed after another)."""
+    l_s = int(packed.shape[0])
+    chunk = engine.make_run_chunk(cfg, nsteps, l_s)
+    singles, ms = [], []
+    for i, s in enumerate(seeds):
+        st, t = _steps_ms(chunk, engine.init_state(
+            cfg.replace(seed=s), l_padded=l_s, device=packed.device),
+            packed, nsteps)
+        ms.append(t)
+        if not (torch.equal(states.gamma[i], st.gamma)
+                and bool(torch.isfinite(st.gamma).all())):
+            raise AssertionError(f"{path}: replicate {i} (seed {s}) differs "
+                                 "from its single steps")
+        singles.append(st)
+    log(f"  {path}: each replicate's gamma bitwise its single {nsteps} "
+        f"steps (single ms a step {', '.join(f'{t:.3f}' for t in ms)})")
+    return singles
+
+
+def phase_replicates_wide(dev, rec, tgp_data, bign):
+    """Batched replicates at K > 64 and with kernel="dense": (a) the fused
+    branch at config #3's width (2,504 x 1M), K = 72, B = 1,024,
+    snp_group 1, R = 4: 100 steps of fit_replicates_batched's chunk
+    runner, K1[rep] once a step (its K-chunked passes), K2 and K3 never,
+    no twin, each replicate bitwise its single 100 steps; then one
+    batched eval through K4[rep], each replicate's score its single
+    scorer's; (b) the big-N branch on phase 4's data (100K x 100K),
+    K = 72, B = 4,096, R = 2: 10 steps, K8[rep] 7 and K7[rep] 1 a step,
+    bitwise the single steps, the step's ms and the peak device memory;
+    (c) kernel="dense" at config #1, R = 4: one chunk bitwise the single
+    dense chunks (the dense step has no kernel of its own: none
+    launches), then the batched eval (K4[rep]); (d) `cli fit --replicates
+    4 --batched -k 72 --max-steps 2000` at config #1: best.json names the
+    replicate with the best validation ll."""
+    from terastructure_tpu_torch.svi.driver import make_scorer
+
+    t_phase = time.time()
+    log(f"phase 14a: the fused branch at config #3's width, K = {WIDE_K}, "
+        f"B = 1,024, R = {R_REP}, 100 steps")
+    n, l, _ = TGP
+    cfg = SVIConfig(n=n, l=l, k=WIDE_K, batch_size=1024, rfreq=100, seed=0,
+                    snp_group=1, dma_gather=False)
+    packed_d = engine.resident_packed(tgp_data.packed, dev)
+    l_s = int(packed_d.shape[0])
+    if engine.step_impl(cfg, packed_d.shape[1]) != "fused":
+        raise AssertionError("phase 14a: the gate refused the fused branch")
+    state = engine.init_replicate_state(cfg, REP_SEEDS, l_padded=l_s,
+                                        device=dev)
+    reset_counts()
+    state, ms = _steps_ms(engine.make_replicate_run_chunk(cfg, 100, l_s),
+                          state, packed_d, 100)
+    counts = read_counts(rec, "phase 14a batched", ("fused_local_solve[rep]",),
+                         absent=("gather_row_blocks", "fused_local_solve_dma",
+                                 "lambda_stats_packed"))
+    _only_batched("phase 14a", counts, kernels=("fused_local_solve",))
+    if counts["fused_local_solve[rep]"] != 100:
+        raise AssertionError("phase 14a: K1[rep] did not run once a step")
+    log(f"  phase 14a: {ms:.3f} ms a batched step of {R_REP} replicates")
+    singles = _singles_bitwise_chunk("phase 14a", cfg, packed_d, state,
+                                     REP_SEEDS, 100)
+    val = make_scorer(cfg, tgp_data, tgp_data.validation, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lls = val(state.gamma, state.lamb).cpu()
+    eval_s = time.perf_counter() - t0
+    counts = read_counts(rec, "phase 14a batched eval",
+                         ("lambda_stats_packed[rep]",),
+                         absent=("fused_local_solve",))
+    _only_batched("phase 14a eval", counts, kernels=("lambda_stats_packed",))
+    ones = [float(val(st.gamma, st.lamb)) for st in singles]
+    log(f"  phase 14a batched eval: {eval_s:.3f} s, validation ll "
+        f"{[round(float(v), 6) for v in lls]}, the single scorer's {ones}")
+    if [float(v) for v in lls] != ones or not np.isfinite(ones).all():
+        raise AssertionError("phase 14a: a batched score differs from its "
+                             "single scorer's")
+    del packed_d, state, singles
+
+    log(f"phase 14b: the big-N branch at 100K x 100K, K = {WIDE_K}, "
+        "B = 4,096, R = 2, 10 steps")
+    cfg = bign["cfg"].replace(k=WIDE_K, dma_gather=False)
+    packed_d = engine.resident_packed(bign["data"].packed, dev)
+    l_s = int(packed_d.shape[0])
+    seeds = REP_SEEDS[:2]
+    state = engine.init_replicate_state(cfg, seeds, l_padded=l_s, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, ms = _steps_ms(engine.make_replicate_run_chunk(cfg, 10, l_s),
+                          state, packed_d, 10)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(rec, "phase 14b batched",
+                         ("lambda_stats_acat[rep]",
+                          "batch_stats_fused_v2_packed[rep]"),
+                         absent=REP_BIGN_ABSENT + ("lambda_stats_packed",))
+    _only_batched("phase 14b", counts,
+                  kernels=("lambda_stats_acat", "batch_stats_fused_v2_packed"))
+    if (counts["lambda_stats_acat[rep]"], counts[
+            "batch_stats_fused_v2_packed[rep]"]) != (70, 10):
+        raise AssertionError("phase 14b: not K8[rep] 7 and K7[rep] 1 a step")
+    log(f"  phase 14b: {ms:.3f} ms a batched step of 2 replicates, peak "
+        f"device memory {peak / 1e9:.2f} GB")
+    _singles_bitwise_chunk("phase 14b", cfg, packed_d, state, seeds, 10)
+    del packed_d, state
+
+    log(f"phase 14c: kernel='dense' at config #1, R = {R_REP}, one chunk")
+    _, _, data = canonical_data()
+    cfg = SVIConfig(n=1000, l=10_000, k=3, batch_size=256, rfreq=50,
+                    seed=11, kernel="dense", dma_gather=False)
+    packed_d = engine.resident_packed(data.packed, dev)
+    l_s = int(packed_d.shape[0])
+    state = engine.init_replicate_state(cfg, REP_SEEDS, l_padded=l_s,
+                                        device=dev)
+    reset_counts()
+    state, ms = _steps_ms(engine.make_replicate_run_chunk(cfg, cfg.rfreq,
+                                                          l_s),
+                          state, packed_d, cfg.rfreq)
+    read_counts(rec, "phase 14c batched dense", (), absent=tuple(KERNELS))
+    log(f"  phase 14c: {ms:.3f} ms a batched dense step of {R_REP} "
+        "replicates (no kernel of its own launched)")
+    _singles_bitwise_chunk("phase 14c", cfg, packed_d, state, REP_SEEDS,
+                           cfg.rfreq)
+    reset_counts()
+    lls = make_scorer(cfg, data, data.validation, dev)(state.gamma,
+                                                       state.lamb)
+    counts = read_counts(rec, "phase 14c batched eval",
+                         ("lambda_stats_packed[rep]",))
+    _only_batched("phase 14c eval", counts, kernels=("lambda_stats_packed",))
+    log(f"  phase 14c batched eval (K4[rep]): validation ll "
+        f"{[round(float(v), 6) for v in lls]}")
+    del packed_d, state
+
+    log(f"phase 14d: cli fit --replicates 4 --batched -k {WIDE_K} "
+        "--max-steps 2000 at config #1")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_wide_"))
+    try:
+        stem = tmp / "c1"
+        run_cli("simulate", "-n", 1000, "-l", 10_000, "-k", 3, "--seed", 11,
+                "-o", stem)
+        reset_counts()
+        t0 = time.time()
+        run_cli("fit", "--bed", f"{stem}.bed", "-k", WIDE_K, "--batch-size",
+                256, "--seed", 11, "--replicates", R_REP, "--batched",
+                "--max-steps", 2000, "--label", "w", "--out-base", tmp)
+        fit_s = time.time() - t0
+        launched_only(rec, f"CLI fit --batched -k {WIDE_K}",
+                      ("fused_local_solve", "fused_local_solve[rep]",
+                       "lambda_stats_packed", "lambda_stats_packed[rep]"),
+                      expect=("fused_local_solve[rep]",
+                              "lambda_stats_packed[rep]"))
+        run = tmp / f"n1000-k{WIDE_K}-l10000-w"
+        best = json.loads((run / "best.json").read_text())
+        reps = {d.name: json.loads((d / "result.json").read_text())
+                for d in sorted(run.glob("replicate-s*"))}
+        lls = {d: r["validation_ll"] for d, r in reps.items()}
+        log(f"  CLI fit --batched -k {WIDE_K}: {fit_s:.2f} s, replicates "
+            + ", ".join(f"{d} steps={r['steps']} validation="
+                        f"{r['validation_ll']:.6f}" for d, r in reps.items())
+            + f"; best {best}")
+        if (len(reps) != R_REP or best["dir"] != max(lls, key=lls.get)
+                or not np.isfinite(best["heldout_ll"] or np.nan)):
+            raise AssertionError("phase 14d: best.json does not name the "
+                                 "replicate with the best validation ll")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 14 in {time.time() - t_phase:.1f} s")
+
+
 # Phase 10: the command line (cli.py) on the card, from PLINK files in a
 # temporary directory. 10a: config #1 through `simulate`, `fit`,
 # `compute-beta`, `fit --replicates 2 --batched` and `fit --stream`; 10b:
@@ -4132,6 +4556,8 @@ def main(argv=()) -> int:
     tr = time.time()
     phase_sharded(dev, rec, tgp[0], bign)
     log(f"  phase 13 in {time.time() - tr:.1f} s")
+    log("phase 14: batched replicates at K > 64 and with kernel='dense'")
+    phase_replicates_wide(dev, rec, tgp[0], bign)
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

@@ -39,10 +39,12 @@ removed at the end.
 --replicates R fits seeds 0..R-1 in lockstep with fit_replicates_batched
 (svi/replicates.py: K1 and K4 with their replicate axis; at config 5 the
 big-N path, K8, K7 and K4 with it) at the reference's replicates_ab.py
-settings (snp_group 1: K2 has no replicate axis yet), and prints one
-record per replicate (its seed, stop step, scores and theta MAE beside
-the batch's fields) and then the best replicate's, marked "best": the
-R-seed workflow on the card.
+settings (snp_group 1: the reference's batched fit has no path through
+K2's group DMA), and prints one record per replicate (its seed, stop
+step, scores and theta MAE beside the batch's fields) and then the best
+replicate's, marked "best": the R-seed workflow on the card. A scan of
+K over R seeds is `python -m terastructure_tpu_torch.cli fit --replicates
+R --batched -k K`.
 
     python -m terastructure_tpu_torch.converge --config 5 --scale 0.1 --ranks 4 --ind-shards 2
 

@@ -58,7 +58,8 @@
 // independent solves, each with its own rows, u planes, lambda and
 // scratch, R x the single solve's arrays back to back. Every kernel of the
 // sequence runs replicate z in blockIdx.z (delta_kernel: a CTA a
-// replicate) on the grid a single solve would use, and each replicate has
+// replicate; the K-chunked passes at K > 64: z = r x chunks + c,
+// psd_wide.cuh) on the grid a single solve would use, and each replicate has
 // its own `active[z]`: a replicate's tol loop ends on its own, as the
 // reference's vmapped while_loop does, while the others run on. The
 // launch sequence (and the host's enqueue) is paid once for all R. R = 1

@@ -69,7 +69,8 @@
 // These bodies are instantiated for K-widths KM = 4..64 (`pick_km`; the
 // gamma pass also KM = 12). K > 64
 // goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
-// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K. At compute dtype
+// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K; both kinds take
+// the replicate axis (`Rep`). At compute dtype
 // bf16 (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
 // planes) and K7's statistics run tensor-core bodies (psd_mma.cuh,
 // stats_fused.cuh); K6's statistics run its SIMT body with the operands
@@ -206,7 +207,9 @@ struct GroupedRows {
     if (s < 0 || s > L - group || s % group) return nullptr;
     return packed + (s + b % group) * W;
   }
-  // K2 has no replicate axis yet (its launches are R = 1): one matrix
+  // K2 has no replicate axis (its launches are R = 1; the reference's
+  // batched fit cannot lift its group DMA under vmap,
+  // terastructure_tpu/svi/replicates.py:26-30): one matrix
   __device__ __forceinline__ GroupedRows shifted(long long) const {
     return *this;
   }
@@ -856,8 +859,8 @@ namespace tt {
 // `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
 // tensor-core body (psd_mma.cuh) for either loader, packed rows (K1, K2,
 // K4) or count planes (K8), above it the K-chunked body. R replicates in
-// the grid's z at the strides of `rep` (K <= 64 only: the K-chunked
-// bodies use z for their chunks).
+// the grid's z at the strides of `rep` (the K-chunked bodies: R x their
+// chunks, psd_wide.cuh `wide_z`).
 template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,
@@ -865,11 +868,12 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        cudaStream_t stream, int R = 1, Rep rep = {}) {
   const int km = pick_km(K);
   if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
-      (km == kWide && R > 1) || (div == kDivNewton && !kNewton))
+      (div == kDivNewton && !kNewton))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return launch_lambda_pass_wide<Loader, kNewton, kBf16>(
-        ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream);
+        ld, up, t1, t0, ts, tk, part, B, W, K, nsplit, div, active, stream,
+        R, rep);
   const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit, R);
   const int wchunk = split_chunk(W, nsplit);
 #define TT_PASS(KM, DIV)                                                  \
@@ -904,12 +908,11 @@ int launch_gamma_stats(Rows src, const float* up, const float* t1g,
                        float* g, int B, int W, int K, int nsplit,
                        cudaStream_t stream, int R = 1, Rep rep = {}) {
   const int km = pick_km(K, true);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
-      (km == kWide && R > 1))
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1)
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return gamma_stats_wide<Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g,
-                                         B, W, K, nsplit, stream);
+                                         B, W, K, nsplit, stream, R, rep);
   int err = 0;
 #define TT_LAUNCH(KM)                                                     \
   err = gamma_stats<KM, Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g, \

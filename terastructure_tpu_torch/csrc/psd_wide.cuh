@@ -50,6 +50,14 @@
 // buffers as the K <= 64 bodies (part (nsplit, B, K, 2), gpart (nsplit,
 // 4W, K)), and the split reductions add them in split order, so a re-run
 // is bitwise equal.
+//
+// The replicate axis (batched replicates, the reference's kernels under
+// jax.vmap): R problems share the grid's z with the chunks, z = r x
+// chunks + c (`wide_z`), so gridDim.z is R x ceil(K / 32) (the launchers
+// keep it within 65,535). CTA (x, y, z) offsets its pointers by
+// replicate r's `Rep` strides in its prologue, before any staging, and
+// then runs chunk c exactly as the single call's CTA (x, y, c) does: a
+// replicate's result is bitwise its single call's. R = 1 is that call.
 #pragma once
 
 namespace tt {
@@ -61,25 +69,52 @@ constexpr int kWideGRows = 32;   // rows of a wide gamma CTA's block
 constexpr int kUStride = kGThreads + 1;  // wide gamma pass: u's k stride
 
 __host__ __device__ constexpr int round4(int K) { return (K + 3) & ~3; }
-inline int wide_chunks(int K) { return (K + kKC - 1) / kKC; }
+__host__ __device__ constexpr int wide_chunks(int K) {
+  return (K + kKC - 1) / kKC;
+}
+
+// A wide CTA's replicate and chunk: z = r x wide_chunks(K) + c.
+struct WideZ {
+  long long r;  // the replicate
+  int c;        // the chunk of K: columns [32 c, 32 c + 32)
+  int np;       // chunks (= pieces) of K
+};
+__device__ __forceinline__ WideZ wide_z(int K) {
+  const int np = wide_chunks(K);
+  return {(long long)(blockIdx.z / np), (int)(blockIdx.z % np), np};
+}
+
+// The grid's z of a wide launch of R replicates; 0 where it would pass
+// the hardware's 65,535 (the launchers then refuse the call).
+inline unsigned wide_grid_z(int K, int R) {
+  const long long z = (long long)wide_chunks(K) * R;
+  return z <= 65535 ? (unsigned)z : 0u;
+}
 
 // Columns of piece p: 32, or what is left of K rounded up to 4.
 __device__ __forceinline__ int piece_width(int K, int p) {
   return min(kKC, round4(K) - p * kKC);
 }
 
-// The wide lambda pass. grid (ceil(B/kRowsPerCta), nsplit, wide_chunks(K)),
-// block kThreads. Arguments as lambda_pass_kernel's; CTA z writes
-// part[..., k, :] for k in [32 z, 32 z + 32). kBf16: the bf16 body (t, u
-// and R rounded as products' operands, `operand`).
+// The wide lambda pass. grid (ceil(B/kRowsPerCta), nsplit, R x
+// wide_chunks(K)), block kThreads. Arguments as lambda_pass_kernel's; the
+// CTA of chunk c writes part[..., k, :] for k in [32 c, 32 c + 32) of its
+// replicate (`wide_z`). kBf16: the bf16 body (t, u and R rounded as
+// products' operands, `operand`).
 template <class Loader, int kDiv, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
                         const float* __restrict__ t1g,
                         const float* __restrict__ t0g, int ts, int tk,
                         float* __restrict__ part, int B, int W, int K,
-                        int wchunk, const int* __restrict__ active) {
-  if (active != nullptr && *active == 0) return;
+                        int wchunk, const int* __restrict__ active, Rep rep) {
+  const WideZ z = wide_z(K);
+  if (active != nullptr && active[z.r] == 0) return;
+  ld = ld.shifted(z.r * rep.rows);
+  up += z.r * rep.u;
+  t1g += z.r * rep.t;
+  t0g += z.r * rep.t;
+  part += z.r * rep.part;
   constexpr int TC = kWideCols;
   constexpr int G = 2;                             // entries at once
   constexpr int UB = 8;                            // u rows D holds at once
@@ -95,9 +130,9 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
   const bool row_ok = b < B;
   const int wbeg = blockIdx.y * wchunk;
   const int wend = min(W, wbeg + wchunk);
-  const int np = gridDim.z;                        // pieces = chunks
-  const int kc0 = blockIdx.z * kKC;
-  const int kwc = piece_width(K, blockIdx.z);      // the chunk's columns
+  const int np = z.np;                             // pieces = chunks
+  const int kc0 = z.c * kKC;
+  const int kwc = piece_width(K, z.c);             // the chunk's columns
 
   ld.prepare(rowp, b0, B, W);  // visible after the first tile's barrier
   float s1[kKC], s0[kKC];
@@ -110,7 +145,7 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
     __syncthreads();  // the previous tile is consumed
     ld.template stage<TC>(tile, rowp, b0, B, W, w0, nb);
     for (int q = 1; q <= np; ++q) {
-      const int p = (blockIdx.z + q) % np;         // the chunk's own last
+      const int p = (z.c + q) % np;                // the chunk's own last
       const int k0 = p * kKC, kw = piece_width(K, p);
       if (q > 1) __syncthreads();                  // the last piece is read
       for (int i = threadIdx.x; i < kw * kRowsPerCta; i += kThreads) {
@@ -210,16 +245,23 @@ lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
     if (kc0 + j < K) out[kc0 + j] = make_float2(s1[j], s0[j]);
 }
 
-// The wide gamma pass. grid (ceil(4W/kGThreads), nsplit, wide_chunks(K)),
-// block kGThreads. Arguments as gamma_pass_kernel's; CTA z writes
-// gpart[..., k] for k in [32 z, 32 z + 32). kBf16: the bf16 body.
+// The wide gamma pass. grid (ceil(4W/kGThreads), nsplit, R x
+// wide_chunks(K)), block kGThreads. Arguments as gamma_pass_kernel's; the
+// CTA of chunk c writes gpart[..., k] for k in [32 c, 32 c + 32) of its
+// replicate (`wide_z`). kBf16: the bf16 body.
 template <class Rows, bool kBf16 = false>
 __global__ void __launch_bounds__(kGThreads)
 gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
                        const float* __restrict__ t1g,
                        const float* __restrict__ t0g, int ts, int tk,
                        float* __restrict__ gpart, int B, int W, int K,
-                       int bchunk) {
+                       int bchunk, Rep rep) {
+  const WideZ z = wide_z(K);
+  src = src.shifted(z.r * rep.rows);
+  up += z.r * rep.u;
+  t1g += z.r * rep.t;
+  t0g += z.r * rep.t;
+  gpart += z.r * rep.part;
   constexpr int R = kWideGRows;
   __shared__ float usm[kKC * kUStride];                // (k, individual)
   __shared__ __align__(16) float2 tsm[R * kKC];        // (row, k)
@@ -229,9 +271,9 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
   const bool ok = i < 4 * W;
   const int s = ok ? i / W : 0;
   const int w = ok ? i % W : 0;
-  const int np = gridDim.z;                            // pieces = chunks
-  const int kc0 = blockIdx.z * kKC;
-  const int kwc = piece_width(K, blockIdx.z);          // the chunk's columns
+  const int np = z.np;                                 // pieces = chunks
+  const int kc0 = z.c * kKC;
+  const int kwc = piece_width(K, z.c);                 // the chunk's columns
   float g[kKC];
 #pragma unroll
   for (int j = 0; j < kKC; ++j) g[j] = 0.f;
@@ -243,7 +285,7 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
 #pragma unroll
     for (int r = 0; r < R; ++r) d1[r] = d0[r] = 0.f;
     for (int q = 1; q <= np; ++q) {
-      const int p = (blockIdx.z + q) % np;             // the chunk's own last
+      const int p = (z.c + q) % np;                    // the chunk's own last
       const int k0 = p * kKC, kw = piece_width(K, p);
       __syncthreads();                     // the last piece or block is read
       for (int j = threadIdx.x; j < kGThreads * kw; j += kGThreads) {
@@ -321,36 +363,41 @@ gamma_pass_wide_kernel(Rows src, const float* __restrict__ up,
 }
 
 // Launch the wide gamma pass over `nsplit` row slices and their reduction
-// (as gamma_stats).
+// (as gamma_stats, R replicates at the strides of `rep`).
 template <class Rows, bool kBf16 = false>
 int gamma_stats_wide(Rows src, const float* up, const float* t1g,
                      const float* t0g, int ts, int tk, float* gpart, float* g,
-                     int B, int W, int K, int nsplit, cudaStream_t stream) {
+                     int B, int W, int K, int nsplit, cudaStream_t stream,
+                     int R, Rep rep) {
+  const unsigned gz = wide_grid_z(K, R);
+  if (gz == 0) return (int)cudaErrorInvalidValue;
   const int bchunk = (B + nsplit - 1) / nsplit;
-  const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit,
-                  wide_chunks(K));
+  const dim3 grid((4 * W + kGThreads - 1) / kGThreads, nsplit, gz);
   gamma_pass_wide_kernel<Rows, kBf16><<<grid, kGThreads, 0, stream>>>(
-      src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk);
+      src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk, rep);
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
-  gamma_reduce_kernel<<<(unsigned)((ng + 255) / 256), 256, 0, stream>>>(
-      gpart, nsplit, ng, g, 0, 0);
+  gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
+                        stream>>>(gpart, nsplit, ng, g, rep.part, rep.out);
   TT_CHECK_LAUNCH();
   return 0;
 }
 
-// Launch one wide lambda pass (as launch_lambda_pass).
+// Launch one wide lambda pass (as launch_lambda_pass, R replicates at the
+// strides of `rep`).
 template <class Loader, bool kNewton, bool kBf16>
 int launch_lambda_pass_wide(Loader ld, const float* up, const float* t1,
                             const float* t0, int ts, int tk, float* part,
                             int B, int W, int K, int nsplit, int div,
-                            const int* active, cudaStream_t stream) {
-  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit,
-                  wide_chunks(K));
+                            const int* active, cudaStream_t stream, int R,
+                            Rep rep) {
+  const unsigned gz = wide_grid_z(K, R);
+  if (gz == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit, gz);
   const int wchunk = split_chunk(W, nsplit);
 #define TT_WIDE(DIV)                                                       \
   lambda_pass_wide_kernel<Loader, DIV, kBf16><<<grid, kThreads, 0, stream>>>( \
-      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active)
+      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active, rep)
   if (div == kDivFast) {
     TT_WIDE(kDivFast);
   } else if (div == kDivExact) {

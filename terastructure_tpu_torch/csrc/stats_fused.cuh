@@ -103,9 +103,10 @@
 // rows' t, u where it stages the sub-tile's u, R once after the divide.
 // kBf16 = false is the f32 code as it was.
 //
-// The replicate axis (K <= 64; batched replicates, the reference's passes
-// under jax.vmap): one launch runs R independent calls, replicate z in
-// the grid's z, over arrays that are R x the single call's, back to back.
+// The replicate axis (batched replicates, the reference's passes under
+// jax.vmap): one launch runs R independent calls, replicate z in the
+// grid's z (the K-chunked bodies: z = r x chunks + c, tt::wide_z), over
+// arrays that are R x the single call's, back to back.
 // Each body offsets its pointers in its prologue (rows by B W bytes, u by
 // 4 W K, t1 and t0 by B K, the lambda partials by a call's W tiles x B K
 // 2, the gamma partials by its row tiles x 4 W K, K6's l0 and l1 by B K),
@@ -929,14 +930,14 @@ __device__ __forceinline__ void d_piece_wide(const WideTile& sm, int kw,
 }
 
 // D over all K of rows [rb, rb+32) x the sub-tile at wc into R1/R0, a
-// piece at a time, the chunk's own piece (kc0 / 32 of np) last.
+// piece at a time, the chunk's own piece (c of np) last.
 template <bool kBf16>
 __device__ __forceinline__ void d_all_wide(
     const float* __restrict__ up, const float* __restrict__ t1g,
     const float* __restrict__ t0g, int B, int W, int K, int rb, int wc,
-    int np, const WideTile& sm) {
+    int c, int np, const WideTile& sm) {
   for (int q = 1; q <= np; ++q) {
-    const int p = (blockIdx.z + q) % np;
+    const int p = (c + q) % np;
     const int kw = min(tt::kKC, tt::round4(K) - p * tt::kKC);
     __syncthreads();  // the last piece, R and lambda block are read
     stage_piece_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, p * tt::kKC, kw,
@@ -1015,10 +1016,11 @@ __device__ __forceinline__ void write_gamma_wide(float* gtile, int W, int K,
     if (kc0 + j < K) out[kc0 + j] = g[j];
 }
 
-// K7, wide. grid (ceil(W/tile_cols), ceil(B/tile_rows), ceil(K/32));
+// K7, wide. grid (ceil(W/tile_cols), ceil(B/tile_rows), R x ceil(K/32));
 // dynamic shared memory kWideTileFloats + tile_rows*32*2 floats.
-// lpart (gridDim.x, B, K, 2), gpart (gridDim.y, 4W, K): CTA z writes
-// k in [32 z, 32 z + 32).
+// lpart (gridDim.x, B, K, 2), gpart (gridDim.y, 4W, K): the CTA of chunk
+// c writes k in [32 c, 32 c + 32) of its replicate (tt::wide_z; the
+// replicate's arrays at stats_v2_kernel's strides).
 template <bool kBf16>
 __global__ void __launch_bounds__(kFThreads)
 stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
@@ -1027,6 +1029,13 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
                      const float* __restrict__ t0g, float* __restrict__ lpart,
                      float* __restrict__ gpart, int B, int W, int K,
                      int tile_rows, int tile_cols, int approx) {
+  const tt::WideZ z = tt::wide_z(K);
+  rows += z.r * B * W;
+  up += 4 * z.r * W * K;
+  t1g += z.r * B * K;
+  t0g += z.r * B * K;
+  lpart += z.r * gridDim.x * B * K * 2;
+  gpart += 4 * z.r * gridDim.y * W * K;
   extern __shared__ __align__(16) float wide_smem[];
   const WideTile sm = carve_wide(wide_smem);
   float* lam = wide_smem + kWideTileFloats;    // (tile_rows, kKC, 2)
@@ -1036,8 +1045,7 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
   const int wend = min(W, wbeg + tile_cols);
   const int bbeg = blockIdx.y * tile_rows;
   const int bend = min(B, bbeg + tile_rows);
-  const int np = gridDim.z;                    // pieces = chunks
-  const int kc0 = blockIdx.z * tt::kKC;
+  const int kc0 = z.c * tt::kKC;
   const int kwc = min(tt::kKC, tt::round4(K) - kc0);
   for (int i = threadIdx.x; i < tile_rows * kLam; i += kFThreads) lam[i] = 0.f;
   float* gtile = gpart + (long long)blockIdx.y * 4 * W * K;
@@ -1047,7 +1055,7 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
 #pragma unroll
     for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
     for (int rb = bbeg; rb < bend; rb += kFRows) {
-      d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, np, sm);
+      d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, z.c, z.np, sm);
       ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g, approx);
       __syncthreads();
       float s1[tt::kKC], s0[tt::kKC];
@@ -1077,9 +1085,10 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// K6, wide. grid (ceil(B/32), 1, ceil(K/32)); dynamic shared memory
-// kWideTileFloats floats. l0, l1 (B, K); gpart (gridDim.x, 4W, K): CTA z
-// writes k in [32 z, 32 z + 32).
+// K6, wide. grid (ceil(B/32), 1, R x ceil(K/32)); dynamic shared memory
+// kWideTileFloats floats. l0, l1 (B, K); gpart (gridDim.x, 4W, K): the
+// CTA of chunk c writes k in [32 c, 32 c + 32) of its replicate
+// (tt::wide_z; the replicate's arrays at stats_v1_kernel's strides).
 template <bool kBf16>
 __global__ void __launch_bounds__(kFThreads)
 stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
@@ -1088,12 +1097,19 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
                      const float* __restrict__ t0g, float* __restrict__ l0,
                      float* __restrict__ l1, float* __restrict__ gpart, int B,
                      int W, int K) {
+  const tt::WideZ z = tt::wide_z(K);
+  rows += z.r * B * W;
+  up += 4 * z.r * W * K;
+  t1g += z.r * B * K;
+  t0g += z.r * B * K;
+  l0 += z.r * B * K;
+  l1 += z.r * B * K;
+  gpart += 4 * z.r * gridDim.x * W * K;
   extern __shared__ __align__(16) float wide_smem[];
   const WideTile sm = carve_wide(wide_smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rb = blockIdx.x * kFRows;
-  const int np = gridDim.z;                    // pieces = chunks
-  const int kc0 = blockIdx.z * tt::kKC;
+  const int kc0 = z.c * tt::kKC;
   const int kwc = min(tt::kKC, tt::round4(K) - kc0);
   float* gtile = gpart + (long long)blockIdx.x * 4 * W * K;
   float s1[tt::kKC], s0[tt::kKC];
@@ -1104,7 +1120,7 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
     float g[tt::kKC];
 #pragma unroll
     for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
-    d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, np, sm);
+    d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, z.c, z.np, sm);
     ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g, 0);
     write_gamma_wide(gtile, W, K, wc, kc0, g);
     __syncthreads();
@@ -1136,7 +1152,8 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
 // K7's launch: the body K picks (at bf16 and K <= 64 the tensor-core
 // body), then the lambda partials' and the gamma partials' reductions in
 // tile order. Arguments as tt_batch_stats_fused_v2; tile_rows must be the
-// body's (ops/stats_packed.py `v2_tile_rows`). R replicates at K <= 64.
+// body's (ops/stats_packed.py `v2_tile_rows`). R replicates (the K-chunked
+// body: R x its chunks in z).
 template <bool kBf16>
 int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
                          const float* t1, const float* t0, float* l0,
@@ -1155,7 +1172,7 @@ int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
   }
   if (B <= 0 || W <= 0 || km < 0 || tile_rows != body_rows ||
       tile_cols <= 0 || tile_cols % body_cols || R < 1 ||
-      (km == tt::kWide && R > 1))
+      (km == tt::kWide && tt::wide_grid_z(K, R) == 0))
     return (int)cudaErrorInvalidValue;
   const int nwt = (W + tile_cols - 1) / tile_cols;
   const int nbt = (B + tile_rows - 1) / tile_rows;
@@ -1168,9 +1185,9 @@ int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     stats_v2_wide_kernel<kBf16>
-        <<<dim3(nwt, nbt, tt::wide_chunks(K)), kFThreads, bytes, stream>>>(
-            rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows, tile_cols,
-            approx);
+        <<<dim3(nwt, nbt, tt::wide_grid_z(K, R)), kFThreads, bytes,
+           stream>>>(rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows,
+                     tile_cols, approx);
   } else if constexpr (kBf16) {
 #define TT_BODY(KN, DIV)                                                     \
   {                                                                          \
@@ -1226,15 +1243,16 @@ int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
 }
 
 // K6's launch: the body K picks, then the gamma partials' reduction in
-// row-tile order. Arguments as tt_batch_stats_fused. R replicates at
-// K <= 64.
+// row-tile order. Arguments as tt_batch_stats_fused. R replicates (the
+// K-chunked body: R x its chunks in z).
 template <bool kBf16>
 int batch_stats_fused(int R, const uint8_t* rows, const float* up,
                       const float* t1, const float* t0, float* l0, float* l1,
                       float* g, float* gpart, int B, int W, int K,
                       cudaStream_t stream) {
   const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || km < 0 || R < 1 || (km == tt::kWide && R > 1))
+  if (B <= 0 || W <= 0 || km < 0 || R < 1 ||
+      (km == tt::kWide && tt::wide_grid_z(K, R) == 0))
     return (int)cudaErrorInvalidValue;
   const int nbt = (B + kFRows - 1) / kFRows;
   if (km == tt::kWide) {
@@ -1244,7 +1262,7 @@ int batch_stats_fused(int R, const uint8_t* rows, const float* up,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     stats_v1_wide_kernel<kBf16>
-        <<<dim3(nbt, 1, tt::wide_chunks(K)), kFThreads, bytes, stream>>>(
+        <<<dim3(nbt, 1, tt::wide_grid_z(K, R)), kFThreads, bytes, stream>>>(
             rows, up, t1, t0, l0, l1, gpart, B, W, K);
   } else {
 #define TT_LAUNCH(KM)                                                        \

@@ -38,8 +38,8 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import as_operand, solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_dtype, check_replicate_k, check_shapes, count_launch, gamma_grid,
-    lambda_grid, plane_counts, ratios_planar)
+    check_dtype, check_shapes, count_launch, gamma_grid, lambda_grid,
+    plane_counts, ratios_planar)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -228,8 +228,7 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
     (R, B, K, 2) run R solves in one launch sequence (counted in
     `rep_launches` as well), each with its own tol exit; returns
     (R, B, K, 2) and (R, 4, W, K), replicate r bitwise the single solve's
-    on its inputs. K <= 64 where R > 1 (the replicate axis runs the
-    K <= 64 bodies).
+    on its inputs, at any K (K > 64: the K-chunked passes with the axis).
     """
     name = "fused_local_solve"
     r = _check_replicates(name, rows, u_planes, lamb_init)
@@ -273,8 +272,6 @@ def _check_replicates(name, rows, u_planes, lamb_init):
         raise ValueError(f"{name}: {r} replicates of rows, "
                          f"{u_planes.shape[0]} of u_planes, "
                          f"{lamb_init.shape[0]} of lamb_init")
-    if r > 1:
-        check_replicate_k(name, u_planes.shape[-1])
     return r
 
 

@@ -31,10 +31,11 @@ csrc/stats_fused.cuh); K6 runs its SIMT body with the operands rounded
 where they are staged. Each wrapper counts its bf16 launches in
 `bf16_launches` (`count_launch`).
 
-Batched replicates: at K <= 64 every kernel also takes a leading R axis
-on each per-replicate input (K4's rows may be shared) and runs the R
-calls in one launch, replicate z in the grid's z (csrc/psd_common.cuh
-`Rep`), each replicate bitwise its single call; counted in
+Batched replicates: every kernel also takes a leading R axis on each
+per-replicate input (K4's rows may be shared) and runs the R calls in
+one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`; the
+K-chunked bodies share z with their chunks, csrc/psd_wide.cuh
+`wide_z`), at any K, each replicate bitwise its single call; counted in
 `rep_launches` as well. On CPU tensors the twin of a batched call is the
 single twin of each replicate, stacked (`stack_twins`).
 """
@@ -191,15 +192,6 @@ def check_dtype(name, dtype):
             "bfloat16)")
 
 
-def check_replicate_k(name, k):
-    """The replicate axis runs the K <= 64 bodies only: the K-chunked
-    bodies (csrc/psd_wide.cuh) hold their chunks in the grid's z."""
-    if k > 64:
-        raise NotImplementedError(
-            f"{name}: the replicate axis at K = {k} > 64 (the K-chunked "
-            "bodies) is not ported (ROADMAP Queue 1, S6)")
-
-
 def count_launch(fn, dtype, r=None):
     """One launch of fn's kernel: counted in fn.bf16_launches for its bf16
     body, in fn.launches otherwise, and in fn.rep_launches as well where
@@ -215,8 +207,7 @@ def count_launch(fn, dtype, r=None):
 def replicates(name, x, dims, u_planes, t1, t0):
     """The replicate axis of a call: None for a single call (x with
     `dims` dimensions), R where every per-replicate input has a leading R
-    (x, u_planes (R, 4, W, K), t1, t0 (R, B, K)). Raises on a mix, and at
-    K > 64 where R > 1 (`check_replicate_k`)."""
+    (x, u_planes (R, 4, W, K), t1, t0 (R, B, K)). Raises on a mix."""
     if x.dim() == dims:
         return None
     r = x.shape[0]
@@ -224,8 +215,6 @@ def replicates(name, x, dims, u_planes, t1, t0):
             or t1.dim() != 3 or t1.shape[0] != r or t0.shape[:1] != (r,)):
         raise ValueError(f"{name}: a batched call takes every per-replicate "
                          f"input with a leading R = {r}")
-    if r > 1:
-        check_replicate_k(name, u_planes.shape[-1])
     return r
 
 
@@ -331,8 +320,6 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     elif t1.shape != (r, b, k) or t0.shape != (r, b, k):
         raise ValueError(f"{name}: t1, t0 must be (R, B, K) = ({r}, {b}, "
                          f"{k})")
-    if r is not None and r > 1:
-        check_replicate_k(name, k)
     if _device_of(name, rows) == "cpu":
         lambda_stats_packed.twin_calls += 1
         if r is None:

@@ -29,9 +29,10 @@ stacked state, the reference's vmapped step. Each replicate draws its own
 minibatch (and on the big-N path its own column subsample) from its own
 generators; the fused branch on gathered rows (K1, the reference's
 dma_gather=False: no K3) and the big-N path (K8, K7, K4, K5, K6) each
-launch their kernels once for all R with a replicate axis; the glue
-runs on the stacked tensors. K2's group DMA, K > 64 and kernel="dense"
-raise NotImplementedError.
+launch their kernels once for all R with a replicate axis, at any K;
+kernel="dense" runs each replicate's dense step; the glue runs on the
+stacked tensors. K2's group DMA raises NotImplementedError, as the
+reference's batched fit has no such path.
 """
 
 from __future__ import annotations
@@ -241,25 +242,32 @@ def _fused_solve(cfg: SVIConfig, gamma, w, b, device, lamb_init, solve):
     individuals in planes, the gamma statistic out. solve(u_planes,
     lamb_init, **kw) is the kernel call. lamb_init None is a cold start:
     the solve is handed zeros it never reads, as the reference does.
-    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
+    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)); a leading R on
+    gamma (batched replicates) carries through."""
+    *lead, n, _ = gamma.shape
     u = pad_individuals(ops.exp_elog_theta(gamma), w)
     warm = lamb_init is not None
     if not warm:
-        lamb_init = torch.zeros((b, cfg.k, 2), dtype=torch.float32,
+        lamb_init = torch.zeros((*lead, b, cfg.k, 2), dtype=torch.float32,
                                 device=device)
     new_lamb_b, g = solve(
         u_to_planes(u), lamb_init, local_iters=cfg.local_iters,
         local_tol=cfg.local_tol, beta_a=cfg.beta_a, beta_b=cfg.beta_b,
         dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
         approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
-    return new_lamb_b, (u * planes_to_flat(g))[: gamma.shape[0]]
+    return new_lamb_b, (u * planes_to_flat(g))[..., :n, :]
 
 
 def step_core_fused(cfg: SVIConfig, gamma, rows, lamb_init=None):
     """Fused local solve (K1) from packed rows (B, W); warm start from
     lamb_init (B, K, 2) where given, else cold at the prior.
-    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
-    b, w = rows.shape
+    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
+
+    Batched replicates: gamma (R, N, K), rows (R, B, W), lamb_init (R,
+    B, K, 2) or None: one K1 launch sequence with the replicate axis,
+    each replicate with its own tol exit; returns (R, B, K, 2) and (R,
+    N, K), replicate r bitwise the single step's on its inputs."""
+    b, w = rows.shape[-2:]
     return _fused_solve(cfg, gamma, w, b, rows.device, lamb_init,
                         functools.partial(fused_step.fused_local_solve, rows))
 
@@ -394,7 +402,17 @@ def step_core_packed(cfg: SVIConfig, gamma, rows, *, gen=None, idx_w=None,
 
 def step_core_dense(cfg: SVIConfig, gamma, xb, lamb_b):
     """Local solve + statistics from an unpacked minibatch xb (B, N).
-    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K))."""
+    Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
+
+    Batched replicates: gamma (R, N, K), xb (R, B, N), lamb_b (R, B, K,
+    2): each replicate's step, stacked. Plain torch with no kernel of its
+    own, so a replicate runs its single step's products and its result
+    is that step's bitwise (a batched product may sum in another
+    order)."""
+    if gamma.dim() == 3:
+        outs = [step_core_dense(cfg, g, x, lm)
+                for g, x, lm in zip(gamma, xb, lamb_b)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     dtype = getattr(torch, cfg.compute_dtype)
     a1, a0 = ops.allele_counts(xb, torch.float32)
     u = ops.exp_elog_theta(gamma)
@@ -528,22 +546,20 @@ def unstack_state(states: ReplicateState, i: int) -> SVIState:
 
 
 def check_replicate_path(cfg: SVIConfig, w: int, l_sample: int) -> None:
-    """Raise NotImplementedError where a batched step would leave the
-    ported slice: the fused solve (K1) on gathered rows and the big-N
-    path (K8, K7, K4, K5, K6), at K <= 64."""
-    queued = "is not ported yet (ROADMAP Queue 1, S6)"
-    impl = step_impl(cfg, w)
-    if impl == "dense":
-        raise NotImplementedError(f"batched replicates with kernel='dense' "
-                                  f"{queued}")
-    if impl == "fused" and uses_group_dma(cfg, l_sample):
+    """Raise NotImplementedError where a batched step would read its
+    minibatch through K2's group DMA, which the reference's batched fit
+    has no path for either: its scalar-prefetch DMA kernels do not lift
+    under vmap, so it forces dma_gather=False
+    (terastructure_tpu/svi/replicates.py:26-30). Every other branch runs
+    batched at any K: the fused solve (K1) on gathered rows, the big-N
+    path (K8, K7, K4, K5, K6) and kernel="dense"."""
+    if step_impl(cfg, w) == "fused" and uses_group_dma(cfg, l_sample):
         raise NotImplementedError(
             f"batched replicates through K2's group DMA (snp_group="
-            f"{cfg.snp_group}; a replicate axis in K2) {queued}")
-    if cfg.k > 64:
-        raise NotImplementedError(
-            f"batched replicates at K = {cfg.k} > 64 (a replicate axis in "
-            f"the K-chunked bodies) {queued}")
+            f"{cfg.snp_group} at L = {l_sample}): the reference's batched "
+            "fit has no such path, its group DMA kernel does not lift "
+            "under vmap (terastructure_tpu/svi/replicates.py:26-30); run "
+            "the replicates with snp_group=1, or one by one")
 
 
 def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
@@ -557,15 +573,18 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
     The fused branch solves all R in one K1 launch sequence. The big-N
     branch (where the fused gate refuses the shape) runs the batched
     `step_core_packed`, replicate r's column subsample drawn from
-    step_generator(seed_r, t, SUB_TAG) as the single step draws it; in
-    the stored mode each replicate draws by `_gather_batch`'s rule (groups
-    where `_group_size` > 1). u, the gamma statistic and the Robbins-Monro
+    step_generator(seed_r, t, SUB_TAG) as the single step draws it.
+    kernel="dense" runs `step_core_dense` on each replicate's unpacked
+    rows (plain torch, no kernel of its own: a replicate's products are
+    its single step's). In the stored mode the big-N and dense branches
+    draw by `_gather_batch`'s rule (groups where `_group_size` > 1), as
+    their single steps do. u, the gamma statistic and the Robbins-Monro
     update run on the stacked tensors (rho is the same for every
     replicate). In the stored lambda mode each replicate gathers and
     scatters its own lambda rows, in place. Each replicate's gamma (and
-    lambda) is bitwise the single fit's.
+    lambda) is bitwise the single fit's, at any K.
 
-    Raises NotImplementedError outside the ported slice
+    Raises NotImplementedError where the step would take K2's group DMA
     (`check_replicate_path`).
     """
     _resolve_kernel(cfg)
@@ -573,11 +592,11 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
     l_s = l_sample or cfg.l
     w = 128 * -(-cfg.n // 512)            # pad_width's byte width
     check_replicate_path(cfg, w, l_s)
-    big_n = step_impl(cfg, w) == "pallas"
+    impl = step_impl(cfg, w)
     local_mode = cfg.lambda_mode == "local"
     if not local_mode and cfg.lambda_mode != "stored":
         raise ValueError(f"unknown lambda_mode {cfg.lambda_mode!r}")
-    g = _group_size(cfg, l_s) if big_n and not local_mode else 1
+    g = _group_size(cfg, l_s) if impl != "fused" and not local_mode else 1
 
     def step(state: ReplicateState, packed) -> ReplicateState:
         t = state.t
@@ -598,22 +617,18 @@ def make_replicate_step(cfg: SVIConfig, l_sample: int | None = None):
         rows = packed[:l_s].view(lg, g * w)[draw].view(r, b, w)
         lamb_rows = lamb[:, :l_s].view(r, lg, g * k, 2)
         lamb_init = lamb_rows[reps, draw].view(r, b, k, 2) if warm else None
-        if big_n:
+        if impl == "pallas":
             new_lamb_b, gamma_stat = step_core_packed(
                 cfg, gamma, rows, lamb_b=lamb_init,
                 gen=[step_generator(seed, t, dev, SUB_TAG)
                      for seed in state.seeds])
+        elif impl == "dense":
+            new_lamb_b, gamma_stat = step_core_dense(
+                cfg, gamma, unpack2bit_torch(rows, n),
+                lamb_init if warm else _prior_lamb(cfg, b, dev, (r,)))
         else:
-            u = pad_individuals(ops.exp_elog_theta(gamma), w)
-            new_lamb_b, gq = fused_step.fused_local_solve(
-                rows, u_to_planes(u),
-                lamb_init if warm else torch.zeros(
-                    (r, b, k, 2), dtype=torch.float32, device=dev),
-                local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-                dtype=getattr(torch, cfg.compute_dtype), warm_start=warm,
-                approx_div=cfg.stats_approx_div, accel=cfg.local_accel)
-            gamma_stat = (u * planes_to_flat(gq))[:, :n]
+            new_lamb_b, gamma_stat = step_core_fused(cfg, gamma, rows,
+                                                     lamb_init)
         if warm:
             lamb_rows[reps, draw] = new_lamb_b.view(r, b // g, g * k, 2)
         gamma = _global_update(cfg, gamma, gamma_stat, t, l_s)

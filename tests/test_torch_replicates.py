@@ -1,9 +1,11 @@
 """Batched replicates (svi/replicates.py) in the port: the batched fit
 against the port's single fits, bitwise; the batched K1 and K4 twins and
 the batched eval re-solve against the reference's vmapped kernels in
-interpret mode; the paths the batched step does not take yet (CPU). The
-kernels' replicate axis is held to the single kernels on the card by
-tests/test_torch_cuda.py."""
+interpret mode; the batched step bitwise the single steps on the paths
+that once raised (K > 64, kernel="dense"); K2's group DMA, which has no
+batched path (CPU). K > 64 and kernel="dense" against the reference:
+tests/test_torch_replicates_wide.py. The kernels' replicate axis is held
+to the single kernels on the card by tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -107,18 +109,41 @@ def test_batched_local_fit_converges_selects_and_stops_as_single_fits():
     dict(k=72),                                # the K-chunked bodies
 ])
 def test_paths_outside_the_slice_raise(change):
-    cfg = SVIConfig(n=64, l=256, k=3, batch_size=32).replace(**change)
-    with pytest.raises(NotImplementedError):
-        engine.make_replicate_step(cfg)
+    """The paths that raised NotImplementedError before the replicate
+    axis reached the K-chunked bodies and kernel="dense" (the name is
+    kept from then): each now runs batched, and three batched steps
+    leave every replicate's gamma and lambda bitwise three single steps'
+    (dma_gather=False)."""
+    cfg = SVIConfig(n=64, l=256, k=3, batch_size=32,
+                    lambda_mode="stored").replace(**change)
+    rng = np.random.default_rng(len(change))
+    packed = torch.from_numpy(engine.pad_width(rng.integers(
+        0, 256, size=(256, 16), dtype=np.uint8)))
+    seeds = (2, 3)
+    state = engine.init_replicate_state(cfg, seeds)
+    step = engine.make_replicate_step(cfg)
+    for _ in range(3):
+        state = step(state, packed)
+    one = engine.make_step(cfg.replace(dma_gather=False))
+    for i, s in enumerate(seeds):
+        st = engine.init_state(cfg.replace(seed=s))
+        for _ in range(3):
+            st = one(st, packed)
+        assert torch.equal(state.gamma[i], st.gamma)
+        assert torch.equal(state.lamb[i], st.lamb)
 
 
 def test_group_dma_path_raises():
-    """K2's group DMA (snp_group >= 8 at biobank L) has no replicate
-    axis: the batched step raises before it draws anything."""
+    """K2's group DMA (snp_group >= 8 at biobank L) has no batched path,
+    in the reference either (its DMA kernel does not lift under vmap):
+    the batched step raises before it draws anything, naming that
+    limit."""
     l = 65_536 + 64
     cfg = SVIConfig(n=64, l=l, k=3, batch_size=64, snp_group=8)
     assert engine.uses_group_dma(cfg, l)
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError,
+                       match=r"K2's group DMA.*does not lift under vmap "
+                             r"\(terastructure_tpu/svi/replicates.py:26-30\)"):
         engine.make_replicate_step(cfg, l)
 
 
@@ -197,15 +222,23 @@ def test_batched_k1_twin_matches_vmapped_reference(dtype, case):
 
 
 def test_replicate_axis_refuses_k_above_64_where_r_exceeds_1():
-    """The K-chunked bodies have no replicate axis: a batched call with
-    R > 1 at K > 64 raises, on the CPU too; R = 1 is one solve."""
+    """K1 and K4 with R = 2 at K = 72, which raised before the K-chunked
+    bodies took the replicate axis (the name is kept from then): each
+    replicate of the batched call is bitwise its single call, one twin
+    call for all R; R = 1 is one solve."""
     rows, up, lamb = (torch.from_numpy(a) for a in _problems(r=2, k=72))
     kw = dict(local_iters=2, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
-    with pytest.raises(NotImplementedError, match="K = 72"):
-        fused_step.fused_local_solve(rows, up, lamb, **kw)
-    t1, t0 = (torch.ones(2, 16, 72) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="K = 72"):
-        stats_packed.lambda_stats_packed(rows[0], up, t1, t0)
+    before = fused_step.fused_local_solve.twin_calls
+    got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    assert fused_step.fused_local_solve.twin_calls == before + 1
+    for i in range(2):
+        one = fused_step.fused_local_solve(rows[i], up[i], lamb[i], **kw)
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    got = stats_packed.lambda_stats_packed(rows[0], up, t1, t0)
+    for i in range(2):
+        one = stats_packed.lambda_stats_packed(rows[0], up[i], t1[i], t0[i])
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
     one = fused_step.fused_local_solve(rows[:1], up[:1], lamb[:1], **kw)
     want = fused_step.fused_local_solve(rows[0], up[0], lamb[0], **kw)
     assert all(torch.equal(g[0], w) for g, w in zip(one, want))

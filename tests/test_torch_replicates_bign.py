@@ -118,9 +118,10 @@ def test_batched_twin_matches_vmapped_reference(kernel, dtype):
 
 
 def test_batched_kernels_refuse_a_mix_and_k_above_64():
-    """Every per-replicate input takes the leading R, or none does; R > 1
-    at K > 64 (the K-chunked bodies have no replicate axis) raises, on
-    the CPU too."""
+    """Every per-replicate input takes the leading R, or none does. R > 1
+    at K > 64, which raised before the K-chunked bodies took the
+    replicate axis (the name is kept from then), now runs: each
+    replicate bitwise its single call."""
     rows, u, up, t1, t0 = (torch.from_numpy(a) for a in _pass_inputs())
     with pytest.raises(ValueError, match="leading R"):
         pk.gamma_stats_packed(rows, up[0], t1, t0)
@@ -131,25 +132,21 @@ def test_batched_kernels_refuse_a_mix_and_k_above_64():
     with pytest.raises(ValueError, match="leading R"):
         pk.lambda_stats_acat(a1, a0, up[0], t1[0], t0[0])
     wide = [torch.from_numpy(a) for a in _pass_inputs(b=8, n=512, k=72)]
-    rows, u, up, t1, t0 = wide
-    for call in (lambda: pk.gamma_stats_packed(rows, up, t1, t0),
-                 lambda: pk.batch_stats_fused_packed(rows, u, t1, t0),
-                 lambda: pk.batch_stats_fused_v2_packed(rows, u, t1, t0),
-                 lambda: pk.lambda_stats_acat(*pk.decode_count_planes(rows),
-                                              up, t1, t0)):
-        with pytest.raises(NotImplementedError, match="K = 72"):
-            call()
+    for kernel in ("K5", "K6", "K7", "K8"):
+        port, _ = _ports(kernel, "float32")
+        _singles_bitwise(port(*wide), [port(*(a[i] for a in wide))
+                                       for i in range(R)])
 
 
 # --- the batched step against the reference's vmapped step ------------------
-def _step_inputs(b, seeds, codes=(4, 4)):
-    """Replicate r's packed rows (B, N/4) (genotype codes below codes[r]:
-    4 draws MISSING entries, 3 none) and gamma (N, K), from seeds[r]."""
+def _step_inputs(b, seeds, codes=(4, 4), n=N, k=K):
+    """Replicate r's packed rows (B, n/4) (genotype codes below codes[r]:
+    4 draws MISSING entries, 3 none) and gamma (n, k), from seeds[r]."""
     rows, gammas = [], []
     for seed, c in zip(seeds, codes):
         rng = np.random.default_rng(seed)
-        rows.append(pack2bit(rng.integers(0, c, size=(b, N)).astype(np.int8)))
-        gammas.append(rng.uniform(0.05, 30.0, size=(N, K)).astype(np.float32))
+        rows.append(pack2bit(rng.integers(0, c, size=(b, n)).astype(np.int8)))
+        gammas.append(rng.uniform(0.05, 30.0, size=(n, k)).astype(np.float32))
     return np.stack(rows), np.stack(gammas)
 
 
@@ -169,8 +166,8 @@ def _steps(cfg, rows, gamma, seeds):
     got = engine.step_core_packed(cfg, torch.from_numpy(gamma),
                                   torch.from_numpy(rows),
                                   idx_w=torch.from_numpy(idx_w))
-    lamb = jnp.stack([jnp.full((R, b, K), cfg.beta_a, jnp.float32),
-                      jnp.full((R, b, K), cfg.beta_b, jnp.float32)], -1)
+    lamb = jnp.stack([jnp.full((R, b, cfg.k), cfg.beta_a, jnp.float32),
+                      jnp.full((R, b, cfg.k), cfg.beta_b, jnp.float32)], -1)
     want = jax.vmap(lambda g, r_, l_, k_: ref_engine.step_core_packed(
         cfg, g, r_, l_, interpret=True, key=k_))(
         jnp.asarray(gamma), jnp.asarray(rows), lamb, jnp.stack(keys))
