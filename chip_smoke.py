@@ -175,6 +175,29 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    then the batched eval (K4[rep]); (d) `cli fit --replicates 4
    --batched -k 72 --max-steps 2000` at config #1: best.json names the
    replicate with the best validation ll.
+15. the rest of the multi-card slice (`phase_chains`): (a) MCMC chains
+   and SMC particles over ranks (mcmc/chains.py): four spawned ranks
+   sharing the card through gloo each call compare_svi_mcmc as `cli
+   validate --distributed` does (the lead fits SVI through K1 and K4
+   and broadcasts it; the chains or particles are split), NUTS at 200 x
+   1,000, K = 3, 4 chains (one a rank), and SMC at 80 x 300 with 64
+   particles, each twice: the second run bitwise the first on every rank,
+   the generator calls equal on every rank (lockstep), the moments within
+   CHAINS_MOMENT_TOL of the one-rank run in this process and within
+   phase 12's theta MAE limits of SVI; then the one-rank SMC again inside
+   a process group of one NCCL rank, bitwise the run without a group;
+   (b) the multi-rank dry run (parallel/dryrun.py) over four ranks
+   sharing the card: its four passes (the default step at (2, 2), the
+   fused branch through K1, the big-N step through K3, K8, K4 and K7, the
+   pipelined bf16 all-reduce), each on its named branch by the launch
+   counters, with finite gamma > 0 and log-likelihood; (c) the biobank
+   demo's resident fit: N = 1,000,448, L = 32,768, K = 10, simulated on
+   the card (simulate_packed_device_resident, 8.2 GB, bitwise
+   simulate_packed_device at a small shape first), carved there
+   (carve_eval_device) and fitted for 300 big-N steps with the demo's
+   settings (K3, K8, K7; K4 in the eval and export), the matrix and the
+   eval rows never on the host, the seconds of each part, the step time
+   and the peak device memory.
 Phase 1 also holds K1 and K4 with the replicate axis (R = 4) at the
 shapes phase 9 runs them at (config #1's and config #2's step and eval
 block, W = 256), the TGP step and a ragged B, f32 and bf16: every replicate
@@ -249,10 +272,11 @@ from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.ops import fused_step, gather, stats_packed
 from terastructure_tpu_torch.ops.stats_dense import exp_elog_theta
-from terastructure_tpu_torch.parallel import fit_sharded, multihost, sharded
+from terastructure_tpu_torch.parallel import dryrun, fit_sharded, multihost
 from terastructure_tpu_torch.parallel import mesh as meshlib
+from terastructure_tpu_torch.parallel import sharded
 from terastructure_tpu_torch.parallel import stream as pstream
-from terastructure_tpu_torch.parallel.ranks import run_ranks
+from terastructure_tpu_torch.parallel.ranks import RankPool, run_ranks
 from terastructure_tpu_torch.svi import engine, fit, init, stream
 from terastructure_tpu_torch.utils.labels import mean_abs_theta_error
 
@@ -4310,6 +4334,208 @@ def _rank_fit(mesh, cfg, path):
                             and torch.isfinite(lamb).all()))
 
 
+# Phase 15: the rest of the multi-card slice on the one card.
+CHAINS_RANKS = 4
+CHAINS_MOMENT_TOL = 0.02   # mean |E[theta]| of the sharded vs one-rank run
+CHAINS_RUNS = (            # sampler, (N, L), theta MAE limit, its kwargs
+    ("nuts", (200, 1000), 0.05, dict(n_samples=30, n_warmup=30,
+                                     n_chains=4)),
+    ("smc", (80, 300), 0.08, dict(n_particles=64, n_mutations=2,
+                                  n_leapfrog=8, mutation_eps=0.1)))
+BIOBANK = (1_000_448, 32_768, 10)   # N, L, K of the demo's resident fit
+BIOBANK_CHUNK = 64                  # SNPs a simulated chunk (divides L)
+BIOBANK_STEPS = 300
+
+
+def phase_chains(dev, rec):
+    """Phase 15 (see the module's docstring): 15a chains and particles
+    over ranks, 15b the dry run, 15c the resident biobank fit."""
+    t0 = time.time()
+    chains_over_ranks(dev, rec)
+    log(f"  15a in {time.time() - t0:.1f} s")
+    t1 = time.time()
+    rep = dryrun.dryrun(CHAINS_RANKS, dev.type, timeout=RANKS_TIMEOUT)
+    # the dry run's K1..K8 under this script's names (its passes run the
+    # f32 bodies)
+    name_of = {k: next(name for name, spec in KERNELS.items()
+                       if spec["fn"] is f and "counter" not in spec)
+               for k, f in dryrun.KERNELS.items()}
+    for p in rep["passes"]:
+        counts = {name: (0, 0) for name in KERNELS}
+        counts.update({name_of[k]: tuple(c) for k, c in p["counts"].items()})
+        rank_counts(rec, f"15b dry run pass {p['name']} ({p['branch']}, "
+                    f"grid {p['grid']}, lead)", counts,
+                    [name_of[k] for k in dryrun.BRANCHES[p["branch"]]])
+        log(f"  15b {p['name']}: gamma finite > 0 {p['gamma_ok']}, "
+            f"log-likelihood {p['loglik']:.6f}, {p['steps']} steps")
+    if rep["failures"]:
+        raise AssertionError(f"15b: {rep['failures']}")
+    log(f"  15b in {time.time() - t1:.1f} s (four ranks sharing the card)")
+    t1 = time.time()
+    resident_biobank(dev, rec)
+    log(f"  15c in {time.time() - t1:.1f} s")
+
+
+def rank_validate(sampler, shape, kw):
+    """What each of 15a's ranks runs: compare_svi_mcmc twice on the same
+    matrix (the lead's SVI broadcast, the chains split); the posterior
+    means, the generator calls and the lead's launches of each run."""
+    n, l = shape
+    _, _, x = simulate_psd(n, l, 3, seed=0, structured=True)
+    out = []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.time()
+        rep = compare_svi_mcmc(x, 3, sampler=sampler, seed=0,
+                               device=multihost.device(), **kw)
+        out.append(dict(theta=rep.theta_mcmc, beta=rep.beta_mcmc,
+                        theta_mae=rep.theta_mae, svi_steps=rep.svi_steps,
+                        draws=rep.sampler_diag["draws"],
+                        sampler_s=rep.sampler_s, s=time.time() - t0,
+                        counts=_rank_counts()))
+    return out
+
+
+def chains_over_ranks(dev, rec):
+    """15a (see the module's docstring)."""
+    one = {}
+    for sampler, shape, limit, kw in CHAINS_RUNS:
+        _, _, x = simulate_psd(*shape, 3, seed=0, structured=True)
+        reset_counts()
+        t0 = time.time()
+        rep = compare_svi_mcmc(x, 3, sampler=sampler, seed=0, device=dev,
+                               **kw)
+        one[sampler] = (rep, x)
+        log(f"  15a {sampler} one rank: theta MAE {rep.theta_mae:.4f}, "
+            f"{rep.sampler_s:.1f} s of sampler, "
+            f"{rep.sampler_diag['draws']} generator calls")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chains_") as tmp, \
+            RankPool(CHAINS_RANKS, tmp, device=dev,
+                     timeout=RANKS_TIMEOUT, threads=2) as pool:
+        for sampler, shape, limit, kw in CHAINS_RUNS:
+            outs = pool.run(rank_validate, sampler, shape, kw)
+            rep1 = one[sampler][0]
+            first = outs[0][0]
+            for r, runs in enumerate(outs):
+                a, b = runs
+                if not (np.array_equal(a["theta"], b["theta"])
+                        and np.array_equal(a["beta"], b["beta"])):
+                    raise AssertionError(f"15a {sampler}: rank {r}'s re-run "
+                                         "is not bitwise its first run")
+                if not (np.array_equal(a["theta"], first["theta"])
+                        and a["draws"] == first["draws"] > 0):
+                    raise AssertionError(
+                        f"15a {sampler}: rank {r} differs from the lead "
+                        f"(generator calls {a['draws']} vs "
+                        f"{first['draws']})")
+            for i, run in enumerate(outs[0]):
+                rank_counts(rec, f"15a {sampler} run {i + 1} lead",
+                            run["counts"], ("fused_local_solve",
+                                            "lambda_stats_packed"))
+            gap = float(np.abs(first["theta"] - rep1.theta_mcmc).mean())
+            bitwise = bool(np.array_equal(first["theta"], rep1.theta_mcmc))
+            log(f"  15a {sampler} over {CHAINS_RANKS} ranks: theta MAE "
+                f"{first['theta_mae']:.4f} (limit {limit}), mean |E[theta] "
+                f"- one rank's| {gap:.2e} (limit {CHAINS_MOMENT_TOL}; "
+                f"bitwise {bitwise}), generator calls {first['draws']} on "
+                f"every rank (one rank {rep1.sampler_diag['draws']}), "
+                f"re-run bitwise; runs {first['s']:.1f} / "
+                f"{outs[0][1]['s']:.1f} s (ranks share the card: no speed "
+                "figure)")
+            if not (first["theta_mae"] < limit and gap < CHAINS_MOMENT_TOL
+                    and first["svi_steps"] == rep1.svi_steps):
+                raise AssertionError(f"15a {sampler}: theta MAE "
+                                     f"{first['theta_mae']}, gap {gap}")
+    nccl_smc(dev, rec, *one["smc"])
+
+
+def nccl_smc(dev, rec, rep1, x):
+    """15a's one-rank SMC again inside a process group of one NCCL rank:
+    bitwise the run without a group."""
+    import torch.distributed as dist
+
+    sampler, shape, limit, kw = CHAINS_RUNS[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        multihost.initialize(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError("15a: the group is not NCCL")
+            reset_counts()
+            rep = compare_svi_mcmc(x, 3, sampler=sampler, seed=0,
+                                   device=dev, **kw)
+            launched_only(rec, "15a SMC in an NCCL group of one rank",
+                          ("fused_local_solve", "lambda_stats_packed"))
+        finally:
+            dist.destroy_process_group()
+    if not np.array_equal(rep.theta_mcmc, rep1.theta_mcmc):
+        raise AssertionError("15a: SMC in an NCCL group of one differs from "
+                             "the run without a group")
+    log("  15a: SMC in an NCCL group of one rank bitwise the run without "
+        "a group")
+
+
+def resident_biobank(dev, rec):
+    """15c (see the module's docstring)."""
+    from terastructure_tpu_torch.data.dataset import carve_eval_device
+    from terastructure_tpu_torch.data.simulate import (
+        simulate_packed_device_resident)
+    from terastructure_tpu_torch.svi import driver
+
+    small = simulate_packed_device(4096, 256, 10, seed=3, chunk=64,
+                                   missing_frac=0.01, device=dev)[0]
+    small_d = simulate_packed_device_resident(4096, 256, 10, seed=3,
+                                              chunk=64, missing_frac=0.01,
+                                              device=dev)[0]
+    if not np.array_equal(small_d.cpu().numpy(), small):
+        raise AssertionError("15c: the resident simulator differs from "
+                             "simulate_packed_device")
+    n, l, k = BIOBANK
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    packed, theta = simulate_packed_device_resident(
+        n, l, k, seed=0, chunk=BIOBANK_CHUNK, device=dev)
+    sim_s = sync_s(t0)
+    t0 = time.time()
+    packed, val, held, pool, rows = carve_eval_device(
+        packed, n, validation_frac=0.005, heldout_frac=0.005, seed=0,
+        max_eval_entries=200_000, eval_snp_pool=2048)
+    carve_s = sync_s(t0)
+    data = GenotypeData(n=n, l=l, packed=packed, validation=val,
+                        heldout=held, eval_row_snps=pool,
+                        eval_rows_full=rows)
+    uniq = np.unique(val.snp_idx)
+    if not (packed.device == rows.device == driver.eval_rows(
+            data, uniq).device == dev):
+        raise AssertionError("15c: the matrix or its eval rows left the "
+                             "card")
+    log(f"  15c: {n:,} x {l:,} K={k} simulated on the card in {sim_s:.2f} s "
+        f"({packed.numel() / 1e9:.2f} GB packed), carved in {carve_s:.2f} s "
+        f"({len(val):,} + {len(held):,} entries over {len(pool)} SNPs)")
+    # the demo's settings (benchmarks/biobank_demo.py:224-228)
+    cfg = SVIConfig(n=n, l=l, k=k, batch_size=min(4096, l // 2),
+                    rfreq=BIOBANK_STEPS // 3, max_steps=BIOBANK_STEPS,
+                    seed=0, kernel="pallas", lambda_mode="local",
+                    stats_approx_div=True, dma_gather_min_l=16_384)
+    res, summary = bign_fit(
+        dev, rec, cfg, data, theta,
+        ("gather_row_blocks", "lambda_stats_acat",
+         "batch_stats_fused_v2_packed", "lambda_stats_packed"),
+        ("fused_local_solve", "fused_local_solve_dma"))
+    beta = simulated_beta(n, l, k, seed=0, chunk=BIOBANK_CHUNK)
+    oracle = oracle_ll(theta, beta, held)
+    lls = [r["validation_ll"] for r in res.trace]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+    log(f"  15c: {res.steps} steps, {summary['step_ms']:.3f} ms a step, fit "
+        f"wall {res.wall_s:.2f} s (export {res.timings['export_s']} s); "
+        f"validation ll by check {lls}, heldout {res.heldout_ll:.5f} "
+        f"(oracle {oracle:.5f}); peak device memory {peak:.2f} GB")
+    if not lls[-1] > lls[0]:
+        raise AssertionError(f"15c: the validation ll did not rise: {lls}")
+    del data, packed, rows
+
+
 def digests(dev):
     """sha256 of each kernel's outputs on seeded inputs, through the
     wrappers only, so that another tree's package can run it: two trees
@@ -4558,6 +4784,11 @@ def main(argv=()) -> int:
     log(f"  phase 13 in {time.time() - tr:.1f} s")
     log("phase 14: batched replicates at K > 64 and with kernel='dense'")
     phase_replicates_wide(dev, rec, tgp[0], bign)
+    log("phase 15: chains over ranks, the dry run, the resident biobank "
+        "fit")
+    tr = time.time()
+    phase_chains(dev, rec)
+    log(f"  phase 15 in {time.time() - tr:.1f} s")
     log(f"all phases in {time.time() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=spec["source"],

@@ -26,6 +26,13 @@ JSON line (mcmc/validate.compare_svi_mcmc):
 
     python -m terastructure_tpu_torch.cli validate --simulate -n 200 -l 1000 -k 3
 
+With --distributed (or --coordinator) the lead fits SVI and broadcasts
+it, the chains or particles are split over the ranks and the lead prints
+the line:
+
+    torchrun --nproc-per-node 4 -m terastructure_tpu_torch.cli validate \
+        --simulate -n 200 -l 1000 -k 3 --chains 4 --distributed
+
 Over several cards (parallel/), one process a card: started by torchrun,
 
     torchrun --nproc-per-node 8 -m terastructure_tpu_torch.cli fit \
@@ -631,34 +638,48 @@ def cmd_validate(args):
     """SVI against a sampler on the same dense matrix: the reference's
     JSON (theta_mae, beta_mae, svi_steps, sampler, and with several
     chains the aligned R-hat/ESS summary). As in the reference, the SVI
-    fit takes compare_svi_mcmc's own settings, not the SVI flags."""
+    fit takes compare_svi_mcmc's own settings, not the SVI flags.
+
+    --distributed (torchrun's environment, or --coordinator): every rank
+    loads the same matrix, the lead fits SVI and broadcasts it, the
+    chains (particles) are split over the ranks (mcmc/chains.py), and
+    the lead prints the JSON line."""
     from terastructure_tpu_torch.data.pack import unpack2bit
     from terastructure_tpu_torch.mcmc.validate import compare_svi_mcmc
+    from terastructure_tpu_torch.parallel import multihost
 
-    if _distributed(args) or args.ind_shards or args.snp_shards:
-        raise SystemExit("validate runs on one card (no --distributed, "
-                         "--coordinator or --*-shards)")
+    if args.ind_shards or args.snp_shards:
+        raise SystemExit("validate splits chains over the ranks: no "
+                         "--ind-shards or --snp-shards")
     dev = _device(args)
-    data = _load_data(args, seed=args.seed)
-    x = unpack2bit(data.packed, data.n).T
-    if args.sub_n or args.sub_l:
-        x = x[: args.sub_n or x.shape[0], : args.sub_l or x.shape[1]]
-    kw = {}
-    if args.sampler in ("nuts", "hmc", "chees"):
-        kw = dict(n_samples=args.n_samples, n_warmup=args.n_warmup,
-                  n_chains=args.chains)
-    rep = compare_svi_mcmc(x, k=args.k, sampler=args.sampler,
-                           seed=args.seed, warm_start=not args.cold_start,
-                           device=dev, **kw)
-    out = dict(theta_mae=rep.theta_mae, beta_mae=rep.beta_mae,
-               svi_steps=rep.svi_steps,
-               sampler=args.sampler)
-    conv = rep.sampler_diag.get("convergence")
-    if conv:
-        out["convergence"] = {k_: {m: round(float(v), 4)
-                                   for m, v in d.items()}
-                              for k_, d in conv.items()}
-    print(json.dumps(out))
+    if _distributed(args):
+        dev = _initialize(args, dev)
+    try:
+        data = _load_data(args, seed=args.seed)
+        x = unpack2bit(data.packed, data.n).T
+        if args.sub_n or args.sub_l:
+            x = x[: args.sub_n or x.shape[0], : args.sub_l or x.shape[1]]
+        kw = {}
+        if args.sampler in ("nuts", "hmc", "chees"):
+            kw = dict(n_samples=args.n_samples, n_warmup=args.n_warmup,
+                      n_chains=args.chains)
+        rep = compare_svi_mcmc(x, k=args.k, sampler=args.sampler,
+                               seed=args.seed,
+                               warm_start=not args.cold_start, device=dev,
+                               **kw)
+        out = dict(theta_mae=rep.theta_mae, beta_mae=rep.beta_mae,
+                   svi_steps=rep.svi_steps,
+                   sampler=args.sampler)
+        conv = rep.sampler_diag.get("convergence")
+        if conv:
+            out["convergence"] = {k_: {m: round(float(v), 4)
+                                       for m, v in d.items()}
+                                  for k_, d in conv.items()}
+        if multihost.process_index() == 0:
+            print(json.dumps(out))
+    finally:
+        if multihost.process_count() > 1:
+            torch.distributed.destroy_process_group()
 
 
 def _translate_legacy(argv):

@@ -72,6 +72,14 @@ warmup and of its sampling, leapfrog steps, the peak device memory, and
 the kernels' launches. With NUTS at --scale 1 the record's
 `missed_limits` names each of CONFIG4_LIMITS it misses, and the exit
 code is 1 if it misses any.
+
+    python -m terastructure_tpu_torch.converge --config 4 --ranks 4 [--sampler smc]
+
+With --ranks R, config 4 runs over R spawned ranks that share the card
+through gloo (`run_ranks`): each simulates the same matrix, the lead fits
+SVI (K1, K4) and broadcasts it, the chains or particles are split over
+the ranks (mcmc/chains.py), and the lead's record, with `ranks`, is
+printed. Its times are no speed figures.
 """
 
 from __future__ import annotations
@@ -277,6 +285,27 @@ CONFIG4_LIMITS = dict(theta_mae=0.0125, beta_mae=0.0065, max_rhat_theta=1.05,
                       max_rhat_beta=1.05, min_ess_theta=50.0)
 
 
+def _validate_rank(config, scale, sampler, chains, n_samples):
+    """One rank of run_validate over ranks: the lead's record (None on the
+    other ranks)."""
+    from terastructure_tpu_torch.parallel import multihost
+
+    rec = run_validate(config, device=multihost.device(), scale=scale,
+                       sampler=sampler, chains=chains, n_samples=n_samples)
+    return rec if multihost.process_index() == 0 else None
+
+
+def run_validate_ranks(config: int, ranks: int, *, scale: float = 1.0,
+                       sampler: str = "nuts", chains: int = 4,
+                       n_samples: int = 500, timeout: float = 3000.0) -> dict:
+    """run_validate over `ranks` ranks sharing the card through gloo
+    (run_ranks): the lead's record, with `ranks`."""
+    recs = run_ranks(ranks, _validate_rank,
+                     (config, scale, sampler, chains, n_samples),
+                     timeout=timeout, device=torch.device("cuda", 0))
+    return dict(recs[0], ranks=ranks, shared_card=True)
+
+
 def config4_misses(rec: dict) -> list:
     """The names of CONFIG4_LIMITS that the record misses (an upper limit,
     but min_ess_theta a lower one; a missing or NaN field misses)."""
@@ -401,7 +430,8 @@ def main(argv=None) -> int:
                          "then the best's")
     ap.add_argument("--ranks", type=int, default=0,
                     help="fit with fit_sharded over this many ranks that "
-                         "share the card through gloo (run_sharded)")
+                         "share the card through gloo (run_sharded); "
+                         "config 4: split the chains over them")
     ap.add_argument("--ind-shards", type=int, default=1,
                     help="with --ranks: the grid's 'ind' axis")
     ap.add_argument("--sampler", choices=("nuts", "smc"), default="nuts",
@@ -416,9 +446,14 @@ def main(argv=None) -> int:
         return 1
     print(card_line(), flush=True)
     if args.config == 4:
-        rec = run_validate(4, device="cuda", scale=args.scale,
-                           sampler=args.sampler, chains=args.chains,
-                           n_samples=args.n_samples)
+        if args.ranks:
+            rec = run_validate_ranks(4, args.ranks, scale=args.scale,
+                                     sampler=args.sampler, chains=args.chains,
+                                     n_samples=args.n_samples)
+        else:
+            rec = run_validate(4, device="cuda", scale=args.scale,
+                               sampler=args.sampler, chains=args.chains,
+                               n_samples=args.n_samples)
         if args.sampler == "nuts" and args.scale == 1.0:
             rec["missed_limits"] = config4_misses(rec)
         print(json.dumps(rec), flush=True)

@@ -12,8 +12,11 @@ its recode writes them back to the mapped file.
 
 A rank of a multi-card fit holds a block of the matrix (byte_col_offset,
 snp_row_offset) and the full-width rows of the eval-SNP pool
-(eval_rows_full). The device-resident carve (the biobank demo) is not
-ported yet.
+(eval_rows_full). A matrix simulated on the card
+(data/simulate.simulate_packed_device_resident) is carved there by
+`carve_eval_device`: the lookups run on the device and only the entry
+arrays cross to the host; its GenotypeData holds the device tensor as
+`packed` and the pool's rows as `eval_rows_full`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import logging
 from typing import Optional
 
 import numpy as np
+import torch
 
 from terastructure_tpu_torch.data.pack import pack2bit, packed_width
 from terastructure_tpu_torch.models.psd import MISSING
@@ -74,25 +78,14 @@ def _missing_rate(packed: np.ndarray, n: int, l: int,
     return float((_lookup_packed(packed, pi, pj) == MISSING).mean())
 
 
-def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
-                   n_held: int, rng: np.random.Generator,
-                   snp_pool: int = 0):
-    """Sample distinct non-missing entries, split validation/heldout and
-    recode them MISSING in `packed` (in place). Returns (validation,
-    heldout).
-
-    Rejection sampling against the packed matrix; the loop stops when
-    rounds stop finding new entries and truncates with a warning.
-    snp_pool > 0 restricts the entries to a random pool of that many SNPs,
-    which bounds the 'local' lambda mode's per-check eval re-solve.
-    """
+def _sample_entries(lookup, n: int, l: int, n_val: int, n_held: int,
+                    rng: np.random.Generator, pool, miss_rate: float):
+    """Distinct non-missing entries for the eval sets, in the reference's
+    draws: rejection sampling of (individual, SNP) candidates (the SNPs
+    from `pool` where given) against lookup(i, j), the genotype codes,
+    until rounds stop finding new entries (then truncated, with a
+    warning), shuffled. Returns (obs_i, obs_j, n_val, n_held)."""
     want = n_val + n_held
-    if not want:
-        return None, None
-    pool = None
-    if snp_pool and snp_pool < l:
-        pool = rng.choice(l, size=snp_pool, replace=False).astype(np.int64)
-    miss_rate = _missing_rate(packed, n, l, rng)
     ii = np.empty(0, np.int64)
     stall = 0
     while len(ii) < want and stall < 3:
@@ -102,7 +95,7 @@ def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
             cj = rng.integers(0, l, size=m)
         else:
             cj = pool[rng.integers(0, len(pool), size=m)]
-        ok = _lookup_packed(packed, ci, cj) != MISSING
+        ok = lookup(ci, cj) != MISSING
         cand = np.concatenate([ii, cj[ok] * np.int64(n) + ci[ok]])
         new = np.unique(cand)                            # sorted, distinct
         stall = stall + 1 if len(new) == len(ii) else 0
@@ -116,8 +109,30 @@ def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
         n_held = len(ii) - n_val
         want = len(ii)
     ii = rng.permutation(ii)[:want]
-    obs_j = (ii // n).astype(np.int32)
-    obs_i = (ii % n).astype(np.int32)
+    return (ii % n).astype(np.int32), (ii // n).astype(np.int32), n_val, \
+        n_held
+
+
+def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
+                   n_held: int, rng: np.random.Generator,
+                   snp_pool: int = 0):
+    """Sample distinct non-missing entries, split validation/heldout and
+    recode them MISSING in `packed` (in place). Returns (validation,
+    heldout).
+
+    Rejection sampling against the packed matrix (_sample_entries).
+    snp_pool > 0 restricts the entries to a random pool of that many SNPs,
+    which bounds the 'local' lambda mode's per-check eval re-solve.
+    """
+    if not n_val + n_held:
+        return None, None
+    pool = None
+    if snp_pool and snp_pool < l:
+        pool = rng.choice(l, size=snp_pool, replace=False).astype(np.int64)
+    miss_rate = _missing_rate(packed, n, l, rng)
+    obs_i, obs_j, n_val, n_held = _sample_entries(
+        lambda i, j: _lookup_packed(packed, i, j), n, l, n_val, n_held, rng,
+        pool, miss_rate)
 
     def make(sel):
         i, j = obs_i[sel], obs_j[sel]
@@ -126,8 +141,80 @@ def _carve_entries(packed: np.ndarray, n: int, l: int, n_val: int,
         return es
 
     validation = make(slice(0, n_val)) if n_val else None
-    heldout = make(slice(n_val, want)) if n_held else None
+    heldout = make(slice(n_val, n_val + n_held)) if n_held else None
     return validation, heldout
+
+
+def carve_eval_device(packed, n: int, *, validation_frac: float = 0.005,
+                      heldout_frac: float = 0.005, seed: int = 0,
+                      max_eval_entries: Optional[int] = None,
+                      eval_snp_pool: int = 2048):
+    """The eval-set carve of a packed matrix that lives on a device (a
+    uint8 tensor (L, ceil(n/4)), e.g. simulate_packed_device_resident's),
+    without a host copy of it: the lookups (the missing-rate probe, the
+    candidates, the entries' values) run on the device and only their
+    index and value arrays cross to the host; the MISSING recode is one
+    in-place scatter-OR of the touched bytes (entries sharing a byte
+    merged on the host first). The entries are always drawn from a pool
+    of eval_snp_pool SNPs. The pool, the probe and the candidates come
+    from the reference's numpy generator (seed + 1,000,003) in its order,
+    so a seed gives the reference's pool and entries on the same matrix.
+
+    Returns (packed, validation, heldout, pool, eval_rows): packed
+    recoded in place, the pool sorted (S,) int32, eval_rows the pool's
+    recoded (S, W) rows on the device. Give pool and eval_rows to
+    GenotypeData as eval_row_snps and eval_rows_full, so the local lambda
+    mode's eval reads its rows on the device."""
+    l, w = packed.shape
+    if w != packed_width(n):
+        raise ValueError(f"packed width {w} != ceil({n}/4)")
+    dev = packed.device
+
+    def idx(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.long)
+
+    def lookup(i, j):
+        it = idx(i)
+        byte = packed[idx(j), it >> 2].to(torch.int32)
+        return ((byte >> (2 * (it & 3))) & 3).to(torch.int8).cpu().numpy()
+
+    rng = np.random.default_rng(seed + 1_000_003)
+    pool = np.sort(rng.choice(l, size=min(eval_snp_pool, l),
+                              replace=False).astype(np.int64))
+    probe = 1 << 20              # the sampled missing rate, as at scale
+    miss_rate = float((lookup(rng.integers(0, n, size=probe),
+                              rng.integers(0, l, size=probe)) == MISSING
+                       ).mean())
+    nnz = int(n * l * (1.0 - miss_rate))
+    cap = (GenotypeData.MAX_EVAL_ENTRIES if max_eval_entries is None
+           else max_eval_entries)
+    n_val = min(int(round(validation_frac * nnz)), cap)
+    n_held = min(int(round(heldout_frac * nnz)), cap)
+    if not n_val + n_held:
+        return packed, None, None, pool.astype(np.int32), None
+    obs_i, obs_j, n_val, n_held = _sample_entries(lookup, n, l, n_val,
+                                                  n_held, rng, pool,
+                                                  miss_rate)
+    vals = lookup(obs_i, obs_j)
+
+    # one OR mask per touched byte, then one scatter into the matrix
+    m8 = (np.uint8(3) << (2 * (obs_i & 3)).astype(np.uint8))
+    bkey = obs_j.astype(np.int64) * w + (obs_i >> 2)
+    order = np.argsort(bkey, kind="stable")
+    bkey_s, m8_s = bkey[order], m8[order]
+    starts = np.flatnonzero(np.r_[True, bkey_s[1:] != bkey_s[:-1]])
+    mm = torch.from_numpy(np.bitwise_or.reduceat(m8_s, starts)).to(dev)
+    ub = bkey_s[starts]
+    at = (idx(ub // w), idx(ub % w))
+    packed.index_put_(at, packed[at] | mm)
+
+    def make(sel):
+        return EntrySet(ind_idx=obs_i[sel], snp_idx=obs_j[sel], x=vals[sel])
+
+    validation = make(slice(0, n_val)) if n_val else None
+    heldout = make(slice(n_val, n_val + n_held)) if n_held else None
+    return (packed, validation, heldout, pool.astype(np.int32),
+            packed[idx(pool)])
 
 
 @dataclasses.dataclass
@@ -136,7 +223,8 @@ class GenotypeData:
 
     n: int
     l: int
-    packed: np.ndarray                    # uint8 (l, W) train codes
+    packed: np.ndarray                    # uint8 (l, W) train codes (or a
+                                          # device tensor: carve_eval_device)
     validation: Optional[EntrySet] = None
     heldout: Optional[EntrySet] = None
     ind_ids: Optional[list] = None        # individual labels (.fam)
@@ -149,6 +237,7 @@ class GenotypeData:
     # indices (the multi-rank loader sets them), so the local lambda
     # mode's eval re-solve works where `packed` is a block.
     eval_rows_full: Optional[np.ndarray] = None   # (S, ceil(n/4)) uint8
+    # (a device tensor where carve_eval_device carved `packed` there)
     eval_row_snps: Optional[np.ndarray] = None    # (S,) int32 sorted
 
     # Per-set eval cap: ~500K entries already give MC error ~1e-3 nats.

@@ -3,7 +3,10 @@
 `simulate_psd` is the reference's numpy draw, bitwise equal for the same
 seed. `simulate_packed_device` draws Binomial(2, theta.beta) genotypes
 and packs them on the torch device in SNP chunks, which builds a
-biobank-shaped matrix in seconds on a GPU.
+biobank-shaped matrix in seconds on a GPU; it returns the matrix on the
+host. `simulate_packed_device_resident` writes the same chunks into a
+preallocated matrix on the device, which stays there (no host round
+trip: the biobank demo's 8 GB matrix at N = 1M).
 """
 
 from __future__ import annotations
@@ -108,22 +111,73 @@ def simulate_packed_device(n, l, k, *, seed: int = 0,
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     theta = _structured_theta(rng, n, k)
-    theta_d = torch.from_numpy(theta).to(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    w = n // 4
-    shifts = torch.arange(0, 8, 2, dtype=torch.int32, device=device)
-    packed = np.empty((l, w), np.uint8)
+    draw = _ChunkDraw(theta, seed, missing_frac, device)
+    packed = np.empty((l, n // 4), np.uint8)
     for (j0, j1), beta in _beta_chunks(rng, n, l, k, chunk):
-        p = (torch.from_numpy(beta).to(device) @ theta_d.T).clamp_(0.0, 1.0)
-        u = torch.rand(p.shape, generator=gen, device=device)
+        packed[j0:j1] = draw(beta).cpu().numpy()
+    return packed, theta
+
+
+class _ChunkDraw:
+    """The packed rows (C, n/4) uint8 on the device of one SNP chunk's
+    beta (C, k): genotypes by inverse CDF from one uniform per entry, x =
+    [u >= (1-p)^2] + [u >= 1-p^2] with p = beta theta^T, then MISSING
+    where a second uniform < missing_frac; the uniforms from one torch
+    generator seeded with `seed`, in chunk order."""
+
+    def __init__(self, theta, seed, missing_frac, device):
+        self.theta_d = torch.from_numpy(theta).to(device)
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.missing_frac = missing_frac
+        self.device = device
+        self.shifts = torch.arange(0, 8, 2, dtype=torch.int32, device=device)
+
+    def __call__(self, beta):
+        dev = self.device
+        p = (torch.from_numpy(beta).to(dev) @ self.theta_d.T).clamp_(0.0, 1.0)
+        u = torch.rand(p.shape, generator=self.gen, device=dev)
         x = ((u >= (1.0 - p) * (1.0 - p)).to(torch.int32)
              + (u >= 1.0 - p * p).to(torch.int32))
-        if missing_frac > 0:
-            u3 = torch.rand(p.shape, generator=gen, device=device)
-            x = torch.where(u3 < missing_frac, MISSING, x)
-        q = x.reshape(j1 - j0, w, 4) << shifts       # byte b: inds 4b..4b+3
-        rows = (q[..., 0] | q[..., 1] | q[..., 2] | q[..., 3]).to(torch.uint8)
-        packed[j0:j1] = rows.cpu().numpy()
+        if self.missing_frac > 0:
+            u3 = torch.rand(p.shape, generator=self.gen, device=dev)
+            x = torch.where(u3 < self.missing_frac, MISSING, x)
+        q = x.reshape(p.shape[0], -1, 4) << self.shifts  # byte b: 4b..4b+3
+        return (q[..., 0] | q[..., 1] | q[..., 2] | q[..., 3]).to(torch.uint8)
+
+
+def simulate_packed_device_resident(n, l, k, *, seed: int = 0,
+                                    missing_frac: float = 0.0, chunk: int = 0,
+                                    device="cuda", progress=None):
+    """simulate_packed_device whose packed matrix stays on the device:
+    (packed (l, n/4) uint8 tensor on `device`, theta (n, k) f32 host).
+
+    Each chunk's rows are written into one preallocated (l, n/4) tensor
+    (filled with 0xFF, MISSING, first), with no host round trip: for
+    matrices that fit the card but whose host copy is the cost (8.2 GB at
+    N = 1,000,448, L = 32,768). The draws are simulate_packed_device's,
+    so the matrix is bitwise its matrix for the same seed and chunk where
+    l % chunk == 0. Otherwise the tail chunk, as in the reference, draws
+    a whole chunk and writes it at row l - chunk, over the end of the
+    chunk before it (every row stays a PSD draw; the tail's beta is then
+    not simulated_beta's). progress(j1, l) is called after each chunk.
+    Requires n % 4 == 0."""
+    if n % 4:
+        raise ValueError("simulate_packed_device requires n % 4 == 0")
+    device = torch.device(device)
+    if chunk <= 0:
+        chunk = int(max(8, min(1 << 16, (1 << 28) // (4 * n))))
+    chunk = min(chunk, l)
+    rng = np.random.default_rng(seed)
+    theta = _structured_theta(rng, n, k)
+    draw = _ChunkDraw(theta, seed, missing_frac, device)
+    packed = torch.full((l, n // 4), 0xFF, dtype=torch.uint8, device=device)
+    for j0 in range(0, l, chunk):
+        beta = np.clip(rng.beta(1, 1, size=(chunk, k)), 1e-4,
+                       1 - 1e-4).astype(np.float32)
+        o = min(j0, l - chunk)           # the clamped tail write
+        packed[o:o + chunk] = draw(beta)
+        if progress is not None:
+            progress(min(j0 + chunk, l), l)
     return packed, theta
 
 

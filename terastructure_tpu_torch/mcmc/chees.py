@@ -26,6 +26,13 @@ hmc.Leapfrog's step (one CUDA graph on a card) with a per-chain step
 count, looped until every chain has taken its steps (the masked steps
 change nothing). Samples reach the host through hmc.SampleSink, every
 `dispatch_chunk` transitions.
+
+Over ranks (mcmc/chains.py) each rank integrates its own chains; the
+cross-chain statistics (the mean acceptance, the ChEES criterion's mean
+state and sums, the mass moments) are taken over every chain's values,
+gathered in chain order, so every rank adapts eps, T and the mass to
+the same values, those of one rank holding every chain; the trajectory
+loop runs to the largest step count of any rank.
 """
 
 from __future__ import annotations
@@ -36,10 +43,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from terastructure_tpu_torch.mcmc.chains import maybe_shard_leading
+from terastructure_tpu_torch.mcmc import chains
 from terastructure_tpu_torch.mcmc.hmc import (
     Leapfrog, SampleSink, TorchDraws, as_generator, chain_start, da_init,
-    da_update, kinetic, samples_dict, warmup_windows)
+    da_update, gather_samples, kinetic, samples_dict, stack_chains,
+    warmup_windows)
 
 
 def _halton2(i: np.ndarray) -> np.ndarray:
@@ -93,16 +101,20 @@ def run_chees(
     of inv_mass0 (only where inv_mass0 is given); sample_traj_mult
     lengthens the frozen trajectory for the sampling phase only, clamped
     to eps * max_leapfrog (reported as traj_truncated).
+    In a process group (shard_chains), the chains are split over the
+    ranks and every rank returns every chain's samples
+    (diagnostics["draws"]: this rank's generator calls).
     """
     if n_chains < 2:
         raise ValueError("ChEES adaptation needs >= 2 chains")
-    if shard_chains:
-        init_params = maybe_shard_leading(init_params, n_chains, True)
-    target, q, inv_mass = chain_start(log_prob, init_params, n_chains,
-                                      inv_mass0)
+    split = chains.split(n_chains, shard_chains)
+    if not split.holds:
+        return split.idle()
+    target, q, inv_mass = chain_start(log_prob, split.local(init_params),
+                                      n_chains, inv_mass0)
     dev = q.device
     c, dim = q.shape
-    draws = TorchDraws(as_generator(key, dev))
+    draws = split.draws(TorchDraws(as_generator(key, dev)))
     lp, g = target.value_and_grad(q)
     lf = Leapfrog(target, q, lp)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -133,7 +145,7 @@ def run_chees(
         h0 = -lp + kinetic(p, inv_mc, lp.dtype)
         # steps beyond a chain's n_steps pass through; stop when none is left
         lf.load(q, p, g, lp, eps, inv_mc, n_steps)
-        for _ in range(int(n_steps.max())):
+        for _ in range(split.max_int(int(n_steps.max()))):
             lf.step()
         q1, p1, lp1, g1 = lf.q, lf.p, lf.lp, lf.g
         h1 = -lp1 + kinetic(p1, inv_mc, lp.dtype)
@@ -147,7 +159,7 @@ def run_chees(
 
         # eps: dual averaging on the cross-chain mean acceptance
         if adapt_eps:
-            st["da"] = da = da_update(da, torch.mean(acc_prob),
+            st["da"] = da = da_update(da, torch.mean(split.gather(acc_prob)),
                                       target=target_accept)
 
         # T: Adam ascent on the ChEES gradient; divergent chains are masked
@@ -157,12 +169,15 @@ def run_chees(
                 acc_prob)
             w = torch.where(ok, acc_prob, 0.0)
             q1m = torch.where(ok[:, None], q1, 0.0)
-            m = torch.sum(q1m, dim=0) / torch.clamp(torch.sum(ok), min=1)
+            m = torch.sum(split.gather(q1m), dim=0) / torch.clamp(
+                torch.sum(split.gather(ok.long())), min=1)
             dsq = (torch.sum((q1m - m) ** 2, dim=-1)
                    - torch.sum((q - m) ** 2, dim=-1))
             v1 = inv_mc * torch.where(ok[:, None], p1, 0.0)
             dirn = torch.sum((q1m - m) * v1, dim=-1)
-            grad_t = (torch.sum(w * dsq * dirn)
+            w, wdd = split.gather(torch.stack([w, w * dsq * dirn], 1)
+                                  ).T.contiguous()
+            grad_t = (torch.sum(wdd)
                       / torch.clamp(torch.sum(w), min=1e-6)) * u
             grad_lt = grad_t * torch.exp(st["log_t"])
             grad_lt = torch.where(torch.isfinite(grad_lt), grad_lt, 0.0)
@@ -181,9 +196,10 @@ def run_chees(
 
         # mass: cross-chain + time second moments
         if adapt_mass:
-            st["msum"] = st["msum"] + torch.sum(q_new, dim=0)
-            st["msq"] = st["msq"] + torch.sum(q_new**2, dim=0)
-            st["mcnt"] = st["mcnt"] + c
+            q_all = split.gather(q_new)
+            st["msum"] = st["msum"] + torch.sum(q_all, dim=0)
+            st["msq"] = st["msq"] + torch.sum(q_all**2, dim=0)
+            st["mcnt"] = st["mcnt"] + n_chains
         return q_new, lp_new, g_new, acc_prob
 
     halton_i = 0
@@ -240,11 +256,12 @@ def run_chees(
                 **f64)
     sink = SampleSink(dispatch_chunk)
     q, lp, g, accs = drive(q, lp, g, n_samples, (False, False, False), sink)
-    samples = samples_dict(target, sink.result(), True)
-    return samples, {
-        "accept_rate": float(torch.stack(accs).mean()),
+    samples = samples_dict(target, gather_samples(split, sink), True)
+    return split.share((samples, {
+        "accept_rate": float(stack_chains(split, accs).mean()),
         "eps": float(torch.exp(st["da"].log_eps)),
         "trajectory_length": float(torch.exp(st["log_t"])),
         "n_leapfrog_bucket": last_l_max,
         "traj_truncated": bool(traj_truncated),
-    }
+        "draws": draws.calls,
+    }))

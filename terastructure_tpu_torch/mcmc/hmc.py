@@ -130,12 +130,15 @@ class TorchDraws:
 
     def __init__(self, generator: torch.Generator):
         self.gen = generator
+        self.calls = 0          # the generator's calls (lockstep checks)
 
     def normal(self, shape, dtype, device):
+        self.calls += 1
         return torch.randn(shape, generator=self.gen, dtype=dtype,
                            device=device)
 
     def uniform(self, shape, dtype, device):
+        self.calls += 1
         return torch.rand(shape, generator=self.gen, dtype=dtype,
                           device=device)
 
@@ -405,6 +408,21 @@ def samples_dict(target: Target, qs: np.ndarray, vmapped: bool) -> dict:
     return out if vmapped else {k: v[0] for k, v in out.items()}
 
 
+def gather_samples(split, sink: SampleSink) -> np.ndarray:
+    """(C, S, dim) host samples of every chain, in chain order, from this
+    rank's sink (mcmc/chains.py)."""
+    qs = sink.result()
+    return split.gather(torch.from_numpy(qs)).numpy() if split.sharded \
+        else qs
+
+
+def stack_chains(split, xs) -> torch.Tensor:
+    """(S, C): S per-transition tensors of this rank's chains (C_local,),
+    every chain's, laid out as torch.stack(xs) lays them out on one rank
+    (so their mean sums in the same order)."""
+    return split.gather(torch.stack(xs, 1)).T.contiguous()
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -435,14 +453,20 @@ def run_hmc(
     inv_mass0: optional diagonal preconditioner dict (no chain axis, e.g.
     potential.svi_informed_inits' q-variances) used through warmup
     phases 1-2 and as the Welford shrinkage target in phase 3.
+    In a process group (shard_chains), the chains are split over the
+    ranks (mcmc/chains.py) and every rank returns every chain's result;
+    diagnostics["draws"] counts this rank's generator calls.
     """
-    from terastructure_tpu_torch.mcmc.chains import maybe_shard_leading
+    from terastructure_tpu_torch.mcmc import chains
 
     vmapped = n_chains > 1
-    init_params = maybe_shard_leading(init_params, n_chains, shard_chains)
-    target, q, im0 = chain_start(log_prob, init_params, n_chains, inv_mass0)
+    split = chains.split(n_chains, shard_chains)
+    if not split.holds:
+        return split.idle()
+    target, q, im0 = chain_start(log_prob, split.local(init_params),
+                                 n_chains, inv_mass0)
     dev = q.device
-    draws = TorchDraws(as_generator(key, dev))
+    draws = split.draws(TorchDraws(as_generator(key, dev)))
     kernel = hmc_kernel(target, n_leapfrog)
     c = q.shape[0]
     lp, g = target.value_and_grad(q)
@@ -475,9 +499,10 @@ def run_hmc(
             acc_sum = acc_sum + acc / thin
         sink.add(q)
         accs.append(acc_sum)
-    samples = samples_dict(target, sink.result(), vmapped)
-    eps_out = eps.cpu().numpy()
-    return samples, {
-        "accept_rate": float(torch.stack(accs).mean()),
+    samples = samples_dict(target, gather_samples(split, sink), vmapped)
+    eps_out = split.gather(eps).cpu().numpy()
+    return split.share((samples, {
+        "accept_rate": float(stack_chains(split, accs).mean()),
         "eps": eps_out if vmapped else eps_out[0],
-    }
+        "draws": draws.calls,
+    }))

@@ -29,10 +29,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from terastructure_tpu_torch.mcmc import chains
 from terastructure_tpu_torch.mcmc.hmc import (
     SampleSink, StepGraph, Target, TorchDraws, _sync, as_generator,
-    chain_start, da_init, da_update, kinetic, samples_dict, warmup_windows,
-    welford_init, welford_update, welford_variance)
+    chain_start, da_init, da_update, gather_samples, kinetic, samples_dict,
+    stack_chains, warmup_windows, welford_init, welford_update,
+    welford_variance)
 
 
 class _Point(NamedTuple):
@@ -101,14 +103,18 @@ def _leaf_table(max_depth: int, device) -> torch.Tensor:
 
 
 def nuts_kernel(target: Target, max_depth: int = 8,
-                max_delta_energy: float = 1000.0):
+                max_delta_energy: float = 1000.0,
+                split: chains.ChainSplit | None = None):
     """One NUTS transition for every chain.
 
     kernel(draws, q, eps, inv_mass) -> (q, info): q (C, dim), eps one per
     chain, inv_mass (C, dim) or (dim,); info holds per-chain tensors
     accept_prob, num_steps, diverging, depth and log_prob. The subtrees
-    reuse one `_Subtree` (its leaf step captured once on a card)."""
+    reuse one `_Subtree` (its leaf step captured once on a card). split:
+    this rank's share of the chains over ranks; its global OR ends each
+    loop when no chain on any rank is active (None: one rank)."""
 
+    split = split or chains.ChainSplit(0)
     trees = {}
 
     def kernel(draws, q0, eps, inv_mass):
@@ -119,7 +125,7 @@ def nuts_kernel(target: Target, max_depth: int = 8,
         edt = lp0.dtype
         if "tree" not in trees:
             trees["tree"] = _Subtree(target, q0, edt, max_depth,
-                                     max_delta_energy)
+                                     max_delta_energy, split)
         tree = trees["tree"]
         p0 = draws.momentum((c, dim), q0.dtype, dev) / torch.sqrt(inv_mass)
         init = _Point(torch.stack([q0, p0, g0], 1), lp0)
@@ -136,7 +142,7 @@ def nuts_kernel(target: Target, max_depth: int = 8,
 
         for d in range(max_depth):
             active = ~turning & ~diverging
-            if not bool(active.any()):
+            if not split.any(active):
                 break
             forward = draws.direction((c,), dev)
             eps_d = torch.where(forward, eps, -eps)[:, None]
@@ -182,9 +188,10 @@ class _Subtree:
     """A subtree's state for every chain on static buffers, and its leaf
     step (`hmc.StepGraph`: a CUDA graph on a card). The host loop draws
     the leaf's uniform, points the step at the leaf's checkpoint slots and
-    runs it while any chain is active: one sync a leaf."""
+    runs it while any chain is active (on any rank: `split.any`): one
+    sync a leaf."""
 
-    def __init__(self, target, q, edt, max_depth, max_delta_energy):
+    def __init__(self, target, q, edt, max_depth, max_delta_energy, split):
         c, dim = q.shape
         dev, dt = q.device, q.dtype
 
@@ -192,6 +199,7 @@ class _Subtree:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self.target, self.max_delta_energy = target, max_delta_energy
+        self.split = split
         self.qpg, self.pr_qpg = z(c, 3, dim), z(c, 3, dim)
         self.lp, self.pr_lp = z(c, dtype=edt), z(c, dtype=edt)
         self.log_w, self.sum_acc = z(c, dtype=edt), z(c, dtype=edt)
@@ -272,7 +280,7 @@ class _Subtree:
                     self.leaves, self.turning, self.diverging):
             buf.zero_()
         for leaf in range(n_leaves):
-            if not bool(self.act.any()):
+            if not self.split.any(self.act):
                 break
             self.u.copy_(draws.leaf_uniform((c,), edt, self.u.device))
             self.ctrl.copy_(self.table[leaf])
@@ -310,15 +318,22 @@ def run_nuts(
     to the host every `dispatch_chunk` transitions. The diagnostics add,
     beyond the reference's, the seconds of warmup and of sampling and the
     leapfrog steps of each (all chains).
-    """
-    from terastructure_tpu_torch.mcmc.chains import maybe_shard_leading
 
+    In a process group (shard_chains), the chains are split over the
+    ranks (mcmc/chains.py): each rank integrates its own, the loops end
+    on a global OR, and every rank returns every chain's samples and
+    step size and the diagnostics over all chains ("draws": this rank's
+    generator calls, equal on every rank holding chains).
+    """
     vmapped = n_chains > 1
-    init_params = maybe_shard_leading(init_params, n_chains, shard_chains)
-    target, q, im0 = chain_start(log_prob, init_params, n_chains, inv_mass0)
+    split = chains.split(n_chains, shard_chains)
+    if not split.holds:
+        return split.idle()
+    target, q, im0 = chain_start(log_prob, split.local(init_params),
+                                 n_chains, inv_mass0)
     dev = q.device
-    draws = TorchDraws(as_generator(key, dev))
-    kernel = nuts_kernel(target, max_depth=max_depth)
+    draws = split.draws(TorchDraws(as_generator(key, dev)))
+    kernel = nuts_kernel(target, max_depth=max_depth, split=split)
     c = q.shape[0]
     steps = {"warmup": 0, "sample": 0}
     t0 = time.time()
@@ -352,14 +367,16 @@ def run_nuts(
         accs.append(info["accept_prob"])
         divs.append(info["diverging"])
         steps["sample"] += int(info["num_steps"].sum())
-    samples = samples_dict(target, sink.result(), vmapped)
-    eps_out = eps.cpu().numpy()
-    return samples, {
-        "accept_rate": float(torch.stack(accs).mean()),
-        "divergence_rate": float(torch.stack(divs).float().mean()),
+    samples = samples_dict(target, gather_samples(split, sink), vmapped)
+    sample_s = time.time() - t1
+    eps_out = split.gather(eps).cpu().numpy()
+    return split.share((samples, {
+        "accept_rate": float(stack_chains(split, accs).mean()),
+        "divergence_rate": float(stack_chains(split, divs).float().mean()),
         "eps": eps_out if vmapped else eps_out[0],
         "warmup_s": t1 - t0,
-        "sample_s": time.time() - t1,
-        "leapfrog_warmup": steps["warmup"],
-        "leapfrog_sample": steps["sample"],
-    }
+        "sample_s": sample_s,
+        "leapfrog_warmup": split.sum_int(steps["warmup"]),
+        "leapfrog_sample": split.sum_int(steps["sample"]),
+        "draws": draws.calls,
+    }))

@@ -14,6 +14,16 @@ time (hmc.Target's chunk): at 512 particles and 500 x 5,000 one
 evaluation over all of them would touch 1.28e9 entries. The chunk is
 fixed, not read from free memory, so results do not depend on the
 machine.
+
+Over ranks (mcmc/chains.py; the reference's "collective resampling and
+step-size adaptation") each rank holds P/d particles and evaluates and
+mutates only those. A stage gathers the (P,) log-likelihoods, so every
+rank computes the same next temperature, evidence increment and
+systematic-resampling parents (one shared draw); it then gathers the
+(P, dim) positions and takes its slice's parents: (d - 1)/d * P * dim * 4
+bytes received a rank a stage. A mutation round's mean acceptance is
+taken over the gathered (P,) acceptances, so eps adapts from every
+particle; the particles are gathered at the end.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from terastructure_tpu_torch.mcmc import chains
 from terastructure_tpu_torch.mcmc.hmc import (
     Target, TorchDraws, _sync, as_batched, as_generator, batched,
     hmc_kernel)
@@ -102,18 +113,22 @@ def run_smc(
     adapt_eps: after each mutation round the HMC step size is rescaled
     from the mean acceptance across all particles, log-eps moving toward
     target_accept. `mutation_eps` seeds the schedule.
-    """
-    from terastructure_tpu_torch.mcmc.chains import maybe_shard_leading
 
-    init_particles = maybe_shard_leading(init_particles, n_particles,
-                                         shard_particles)
-    params = {k: torch.as_tensor(v) for k, v in init_particles.items()}
+    In a process group (shard_particles), the particles are split over
+    the ranks (see above) and every rank returns all of them;
+    diagnostics["draws"] counts this rank's generator calls.
+    """
+    split = chains.split(n_particles, shard_particles)
+    if not split.holds:
+        return split.idle()
+    params = {k: torch.as_tensor(v)
+              for k, v in split.local(init_particles).items()}
     template = {k: v[0] for k, v in params.items()}
     prior_b, lik_b = as_batched(log_prior), as_batched(log_lik)
     lik_t = Target(lik_b, template)
     q = lik_t.flat(params).to(torch.float32)
     dev = q.device
-    draws = TorchDraws(as_generator(key, dev))
+    draws = split.draws(TorchDraws(as_generator(key, dev)))
     if inv_mass0 is not None:
         im1 = lik_t.flat({k: torch.as_tensor(v, device=dev)[None]
                           for k, v in inv_mass0.items()})[0]
@@ -137,7 +152,7 @@ def run_smc(
     eps = float(mutation_eps)
     temps, acc_rates, eps_trace = [0.0], [], []
     for _ in range(max_stages):
-        ll = lik_t.value(q)
+        ll = split.gather(lik_t.value(q))            # (P,), every rank
         ll_host = ll.cpu().numpy()
         if log_weights is None:
             log_weights = torch.zeros(n_particles, dtype=ll.dtype, device=dev)
@@ -150,7 +165,8 @@ def run_smc(
         prev = torch.log_softmax(log_weights, dim=0)
         log_z_inc = torch.logsumexp(prev + inc, dim=0)
         parents = systematic_resample(draws, log_w, n_particles)
-        q = q[parents]
+        q = split.gather(q)[parents[split.lo:split.hi] if split.sharded
+                            else parents]
 
         # mutate with HMC targeting the tempered posterior
         temp_now.fill_(new_temp)
@@ -168,7 +184,8 @@ def run_smc(
         for _ in range(n_mutations):
             lp, g = target.value_and_grad(q)
             q, _, _, acc = kernel(draws, q, lp, g, eps, inv_mass)
-            mean_acc = float(torch.mean(acc))    # cross-particle reduction
+            # cross-particle reduction, over every rank's particles
+            mean_acc = float(torch.mean(split.gather(acc)))
             if adapt_eps:
                 eps = float(np.clip(
                     eps * np.exp(0.7 * (mean_acc - target_accept)),
@@ -183,11 +200,13 @@ def run_smc(
         if temps[-1] >= 1.0 - 1e-9:
             break
     _sync(dev)
+    q = split.gather(q)
     particles = {k: v.cpu().numpy() for k, v in lik_t.unflat(q).items()}
-    return particles, {
+    return split.share((particles, {
         "temps": temps,
         "acceptance": acc_rates,
         "eps": eps_trace,
         "log_evidence": log_evidence,
         "n_stages": len(temps) - 1,
-    }
+        "draws": draws.calls,
+    }))

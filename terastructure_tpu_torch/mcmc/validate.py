@@ -7,6 +7,12 @@ E[theta] and E[beta]. The potential sums its energies in float64
 (`acc_dtype`), passed down explicitly: the port sets no global precision
 flag. Everything runs on `device`: None means the first CUDA card, and
 raises where there is none; device="cpu" runs on the CPU.
+
+In a process group of several ranks (`cli validate --distributed`,
+`converge --config 4 --ranks R`), every rank calls compare_svi_mcmc on
+the same matrix: the lead (rank 0) alone fits SVI and broadcasts the
+fitted gamma and lambda, then every rank runs the sampler on its share
+of the chains or particles (mcmc/chains.py) and returns the same report.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from terastructure_tpu_torch.config import SVIConfig
 from terastructure_tpu_torch.data.dataset import GenotypeData
@@ -28,6 +35,7 @@ from terastructure_tpu_torch.mcmc.potential import (
     svi_informed_inits)
 from terastructure_tpu_torch.models import psd
 from terastructure_tpu_torch.svi import fit
+from terastructure_tpu_torch.svi.engine import SVIState
 from terastructure_tpu_torch.utils.labels import align_columns
 
 
@@ -238,6 +246,28 @@ def _smc_bridge_moments(pot, k, *, n_particles, key, rng, svi_state,
     return theta_m, beta_m, diag
 
 
+def _lead_fit(cfg: SVIConfig, x, seed: int, dev):
+    """(the fitted SVIState, its steps): the SVI fit on this device, or in
+    a process group of several ranks the lead's fit, broadcast to every
+    rank (one broadcast of gamma, lambda and the step count)."""
+    multi = dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+    res = None
+    if not multi or dist.get_rank() == 0:
+        data = GenotypeData.from_dense(
+            x, validation_frac=0.01, heldout_frac=0.0, seed=seed)
+        res = fit(cfg, data, device=dev)
+        if not multi:
+            return res.state, res.steps
+    box = [None if res is None else (res.state.gamma.cpu(),
+                                     res.state.lamb.cpu(), res.state.t,
+                                     res.steps)]
+    dist.broadcast_object_list(box, src=0)
+    gamma, lamb, t, steps = box[0]
+    return SVIState(gamma=gamma.to(dev), lamb=lamb.to(dev), t=t,
+                    seed=cfg.seed), steps
+
+
 def compare_svi_mcmc(
     x: np.ndarray,
     k: int,
@@ -261,17 +291,15 @@ def compare_svi_mcmc(
         n=n, l=l, k=k, batch_size=min(64, l), max_steps=4000,
         rfreq=200, seed=seed,
     )
-    data = GenotypeData.from_dense(
-        x, validation_frac=0.01, heldout_frac=0.0, seed=seed)
     t0 = time.time()
-    res = fit(cfg, data, device=dev)
-    theta_svi = psd.theta_mean(res.state.gamma[:n]).cpu().numpy()
-    beta_svi = psd.beta_mean(res.state.lamb[:l]).cpu().numpy()
+    state, svi_steps = _lead_fit(cfg, x, seed, dev)
+    theta_svi = psd.theta_mean(state.gamma[:n]).cpu().numpy()
+    beta_svi = psd.beta_mean(state.lamb[:l]).cpu().numpy()
     t1 = time.time()
 
     theta_mcmc, beta_mcmc, diag = mcmc_moments(
         x, k, alpha=cfg.alpha_value, sampler=sampler, seed=seed,
-        svi_state=res.state if warm_start else None, device=dev,
+        svi_state=state if warm_start else None, device=dev,
         **sampler_kw)
     t2 = time.time()
 
@@ -286,7 +314,7 @@ def compare_svi_mcmc(
         beta_svi=beta_svi[:, perm],
         beta_mcmc=beta_mcmc,
         sampler_diag=diag,
-        svi_steps=res.steps,
+        svi_steps=svi_steps,
         svi_s=t1 - t0,
         sampler_s=t2 - t1,
     )

@@ -85,21 +85,28 @@ class FitResult:
     timings: dict = dataclasses.field(default_factory=dict)
 
 
-def eval_rows(data: GenotypeData, uniq: np.ndarray) -> np.ndarray:
+def eval_rows(data: GenotypeData, uniq: np.ndarray):
     """Width-padded full-width packed rows of the eval SNPs `uniq`
     (sorted): from data.eval_rows_full where the loader set it (a rank's
-    block holds only some columns), else from the matrix."""
+    block holds only some columns), else from the matrix. Rows that lie
+    on a device (data/dataset.carve_eval_device) are gathered and padded
+    there, a tensor on that device; host rows give a host array."""
     if data.eval_rows_full is not None:
         snps = np.asarray(data.eval_row_snps)
         pos = np.searchsorted(snps, uniq)
         if (pos >= len(snps)).any() or not np.array_equal(snps[pos], uniq):
             raise ValueError("eval entry SNPs missing from eval_rows_full")
-        return engine.pad_width(np.asarray(data.eval_rows_full)[pos])
-    if data.is_local_slice:
+        src, at = data.eval_rows_full, pos
+    elif data.is_local_slice:
         raise ValueError("a block of the matrix needs eval_rows_full for the "
                          "local mode's eval (multihost.load_bed_shard sets "
                          "it)")
-    return engine.pad_width(np.asarray(data.packed)[uniq])
+    else:
+        src, at = data.packed, uniq
+    if isinstance(src, torch.Tensor):
+        return engine.pad_width(src[torch.from_numpy(at).to(src.device,
+                                                             torch.long)])
+    return engine.pad_width(np.asarray(src)[at])
 
 
 def make_scorer(cfg: SVIConfig, data: GenotypeData, es, device):

@@ -62,11 +62,14 @@ class SVIState(NamedTuple):
     seed: int             # base seed; step t draws from (seed, t)
 
 
-def pad_width(packed: np.ndarray) -> np.ndarray:
+def pad_width(packed):
     """Pad the byte width to a multiple of 128 with 0xFF (MISSING), as the
-    reference driver does: the fused gate requires it."""
+    reference driver does: the fused gate requires it. A numpy array or a
+    tensor (padded where it lies)."""
     wpad = (-packed.shape[1]) % 128
-    if wpad:
+    if wpad and isinstance(packed, torch.Tensor):
+        packed = torch.nn.functional.pad(packed, (0, wpad), value=0xFF)
+    elif wpad:
         packed = np.pad(packed, ((0, 0), (0, wpad)), constant_values=0xFF)
     return packed
 
@@ -74,7 +77,11 @@ def pad_width(packed: np.ndarray) -> np.ndarray:
 def resident_packed(packed, device) -> torch.Tensor:
     """The width-padded packed matrix (pad_width) as a uint8 tensor on
     `device`: what `fit(packed=)`, `fit_replicates_batched(packed=)`,
-    `compute_lambda` and `compute_beta` take."""
+    `compute_lambda` and `compute_beta` take. A matrix already on the
+    device (data/simulate.simulate_packed_device_resident) is used where
+    it is, copied only where its width needs padding."""
+    if isinstance(packed, torch.Tensor):
+        return pad_width(packed.to(device))
     return torch.from_numpy(pad_width(np.asarray(packed))).to(device)
 
 
@@ -693,7 +700,9 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
     """
     from terastructure_tpu_torch.svi.postprocess import solve_lambda_blocks
 
-    eval_rows = torch.as_tensor(np.asarray(eval_rows)).to(device)
+    if not isinstance(eval_rows, torch.Tensor):
+        eval_rows = torch.as_tensor(np.asarray(eval_rows))
+    eval_rows = eval_rows.to(device)
     row_of_entry = torch.as_tensor(np.asarray(row_of_entry)).long().to(device)
     ind_idx = torch.as_tensor(np.asarray(ind_idx)).long().to(device)
     x = torch.as_tensor(np.asarray(x)).to(device)
