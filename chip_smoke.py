@@ -21,9 +21,11 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    twins on ragged B, odd W, K = 3..33, whole rows MISSING and a null
    group, with a bitwise re-run of each; K3 against `index_select` in
    turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
-   and G = 1; the K-chunked bodies of K > 64 (K1, K2, K4 and K8 at K = 72
-   and 256, K5, K6 and K7 at K = 72, 130 and 256, against their twins and
-   their own second runs; one timed shape per family); the bf16 bodies
+   and G = 1; the K > 64 bodies (K1, K2, K4 and K8 at K = 72 and 256, K5
+   and K6 at K = 72, 130 and 256, K7 at K = 65, 72, 96, 128, 129, 130, 256
+   and 1000 at f32 and bf16 with both divides, and at the big-N shape
+   with K = 72, against their twins and their own second runs; one timed
+   shape per family); the bf16 bodies
    (compute_dtype="bfloat16") of K1, K2, K4 and of the λ and γ passes
    against their bf16 twins at the TGP shape, config #1's and config #3's
    K2 step, ragged B, odd W, K = 3..33 and 72, rows MISSING, a null group,
@@ -208,8 +210,8 @@ at the big-N step's shape (K8 on the subsample's count planes), a
 ragged B = 4,092 and K = 3 and 16, f32 and bf16, each replicate bitwise
 its single call, re-runs bitwise, held to the twins, timed in turns with
 R single calls at the step's shape (`phase_kernels_rep_bign`); and the
-K-chunked bodies with the axis (K > 64, `phase_kernels_rep_wide`): K1,
-K4, K5, K6, K7 and K8 at R = 4, K = 72 and 256, f32 and bf16, each
+K > 64 bodies with the axis (`phase_kernels_rep_wide`): K1, K4, K5,
+K6, K7 and K8 at R = 4, K = 72 and 256 (K7 at 128 too), f32 and bf16, each
 replicate bitwise its single wide call, held to the twins, then timed
 at K = 72 in turns with R single calls at the batched paths' shapes
 (K1 and K4 at config #3's width, B = 1,024; K8 on the big-N step's
@@ -236,8 +238,10 @@ chooses.
 prints a digest of each kernel's outputs on seeded inputs at K <= 64 and
 at K = 72 (the K-chunked bodies), the eager time of the K3 and K4
 wrappers and the host cost of the calls they make for the device and
-the stream, and the device time of K7 and K8 at bf16 at the big-N
-shapes, through the wrappers only: a copy of this script run from
+the stream, the device time of K7 and K8 at bf16 at the big-N shapes,
+and of K7 at K > 64 (the big-N shape at K = 72, B = 1,024 W = 2,048
+K = 256, and R = 4 at K = 72; f32 and bf16), through the wrappers only:
+a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
 prints that tree's bits and times.
 """
@@ -612,7 +616,7 @@ def twice(label, fn):
 def hold(rec, name, label, got, want, tol, frac=0.0, cap=None):
     """compare, and keep the largest error in rec[name]["max_abs_err"]."""
     err = compare(label, got, want, tol, frac, cap)
-    rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+    rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
 
 
 def twin_stats(rows, up, t1, t0, approx_div=False, dtype=torch.float32):
@@ -1126,26 +1130,33 @@ def phase_kernels_wide(dev, rec):
                  fused_step.fused_local_solve_twin(rows2, up2, lamb2, **kw),
                  tol)
 
-    for kk in (72, 130, 256):
+    for kk in K7_WIDE_KS:
         rows3, up3, u3, t13, t03 = _stats_inputs(40, 300, kk, kk, dev)
         rows3[3] = 0xFF
         shape = f"B=40 W=300 K={kk}"
-        hold(rec, "gamma_stats_packed", f"K5 wide {shape}",
-             twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
-                 rows3, up3, t13, t03)]),
-             [stats_packed.gamma_stats_packed_twin(rows3, up3, t13, t03)],
-             TOL)
-        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
-            hold(rec, "batch_stats_fused_v2_packed",
-                 f"K7 wide {shape} approx={approx}",
+        if kk in (72, 130, 256):
+            hold(rec, "gamma_stats_packed", f"K5 wide {shape}",
+                 twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
+                     rows3, up3, t13, t03)]),
+                 [stats_packed.gamma_stats_packed_twin(rows3, up3, t13,
+                                                       t03)], TOL)
+            hold(rec, "batch_stats_fused_packed", f"K6 wide {shape}",
+                 twice("K6 wide",
+                       lambda: stats_packed.batch_stats_fused_packed(
+                           rows3, u3, t13, t03)),
+                 twin_stats(rows3, up3, t13, t03), TOL)
+        for dtype, approx in ((torch.float32, False), (torch.float32, True),
+                              (BF16, False), (BF16, True)):
+            tol = (TOL_APPROX if approx else
+                   TOL if dtype == torch.float32 else TOL_BF16_PASS)
+            name = ("batch_stats_fused_v2_packed[bf16]" if dtype == BF16
+                    else "batch_stats_fused_v2_packed")
+            hold(rec, name, f"K7 wide {shape} {dtype} approx={approx}",
                  twice("K7 wide",
                        lambda: stats_packed.batch_stats_fused_v2_packed(
-                           rows3, u3, t13, t03, approx_div=approx)),
-                 twin_stats(rows3, up3, t13, t03, approx), tol)
-        hold(rec, "batch_stats_fused_packed", f"K6 wide {shape}",
-             twice("K6 wide", lambda: stats_packed.batch_stats_fused_packed(
-                 rows3, u3, t13, t03)),
-             twin_stats(rows3, up3, t13, t03), TOL)
+                           rows3, u3, t13, t03, approx_div=approx,
+                           dtype=dtype)),
+                 twin_stats(rows3, up3, t13, t03, approx, dtype), tol)
     log("  wide bodies: every second run bitwise equal; K2 bitwise K1")
 
     # one timed shape per family at K = 72 and 256, beside its bound (the
@@ -1176,7 +1187,7 @@ def phase_kernels_wide(dev, rec):
         rec["lambda_stats_packed"]["wide"].append(e)
 
         b, w = 1024, 2048
-        rows, up, u, t1, t0 = _stats_inputs(b, w, k, 75, dev)
+        x = rows, up, u, t1, t0 = k7_wide_inputs(dev, b, w, k)
         pr = present(rows)
         for name, kernel, twin, flops, moved in (
                 ("gamma_stats_packed",
@@ -1196,38 +1207,93 @@ def phase_kernels_wide(dev, rec):
                  pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0))):
             e = dict(shape=f"B={b} W={w} K={k}")
             label = f"{name} wide {e['shape']}"
+            k7 = name == "batch_stats_fused_v2_packed"
             if k == 72:
                 _timed(e, label, kernel, twin, flops, moved)
             else:
-                e["ms"], e["plain_ms"] = time_ms(kernel, 3), None
+                e["ms"], e["plain_ms"] = (
+                    k7_wide_ms(x, torch.float32, 5) if k7
+                    else time_ms(kernel, 3), None)
                 log(f"  {label}: kernel {e['ms']:.4f} ms")
                 set_bound(e, flops, moved)
+            if k7:
+                _k7_wide_bf16(e, x, k, moved, 3 if k == 72 else 5)
             rec[name]["wide"].append(e)
-        del rows, up, u, t1, t0
+        del rows, up, u, t1, t0, x
 
     # K7 and K6 at the big-N shape with K = 72: their partial buffers
-    # (K7: B/256 row tiles of gamma; K6: B/32) beside the kernel's time
+    # (K7: B tiles of `v2_b_tile` rows of gamma, 256 here; K6: B/32)
+    # beside the kernel's time. K7 is held to its twin there first, f32
+    # and bf16, both divides: the shape its B tiles of 4 row tiles and 98
+    # W tiles of 16 sub-tiles take on the main path (the twin's (B, 4W)
+    # temporaries, ~10 GB, freed before the timing)
     b, w, _ = BIGN
     k = 72
-    rows, up, u, t1, t0 = _stats_inputs(b, w, k, 76, dev)
+    x = rows, up, u, t1, t0 = k7_wide_inputs(dev, b, w, k)
     pr = present(rows)
+    shape = f"B={b} W={w} K={k}"
+    for dtype, approx in ((torch.float32, False), (torch.float32, True),
+                          (BF16, False), (BF16, True)):
+        hold(rec, ("batch_stats_fused_v2_packed[bf16]" if dtype == BF16
+                   else "batch_stats_fused_v2_packed"),
+             f"K7 wide {shape} {dtype} approx={approx}",
+             twice("K7 wide", lambda: stats_packed.batch_stats_fused_v2_packed(
+                 rows, u, t1, t0, approx_div=approx, dtype=dtype)),
+             twin_stats(rows, up, t1, t0, approx, dtype),
+             TOL_APPROX if approx else
+             TOL if dtype == torch.float32 else TOL_BF16_PASS)
+        torch.cuda.empty_cache()
     for name, kernel, slices in (
-            ("batch_stats_fused_v2_packed",
-             lambda: stats_packed.batch_stats_fused_v2_packed(rows, u, t1,
-                                                              t0),
-             -(-b // stats_packed.V2_WIDE_TILE_ROWS)),
+            ("batch_stats_fused_v2_packed", None,
+             stats_packed.v2_partial_shapes(b, w, k)[1][0]),
             ("batch_stats_fused_packed",
              lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
              -(-b // 32))):
-        e = dict(shape=f"B={b} W={w} K={k}", plain_ms=None,
+        e = dict(shape=shape, plain_ms=None,
                  gamma_partials_bytes=slices * 4 * w * k * 4)
-        e["ms"] = time_ms(kernel, 2)
+        e["ms"] = (k7_wide_ms(x, torch.float32, 3) if kernel is None
+                   else time_ms(kernel, 2))
         log(f"  {name} wide {e['shape']}: kernel {e['ms']:.4f} ms, gamma "
             f"partials {e['gamma_partials_bytes'] / 1e9:.3f} GB")
-        set_bound(e, pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0))
+        moved = nbytes(rows, u, t1, t0, u, t1, t0)
+        set_bound(e, pr * (12 * k + 2), moved)
+        if kernel is None:
+            _k7_wide_bf16(e, x, k, moved, 3)
         rec[name]["wide"].append(e)
         torch.cuda.empty_cache()
-    del rows, up, u, t1, t0
+    del rows, up, u, t1, t0, x
+
+
+def k7_wide_inputs(dev, b, w, k, r=None):
+    """K7's inputs at K > 64 from the seed b + w + k: rows, u planes, u,
+    t1 and t0, each with a leading r where r is given (`_rep_inputs`)."""
+    if r is None:
+        return _stats_inputs(b, w, k, b + w + k, dev)
+    rows, up, lamb = _rep_inputs(b, w, k, b + w + k, dev, r)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    return rows, up, stats_packed.planes_to_flat(up).contiguous(), t1, t0
+
+
+def k7_wide_ms(x, dtype, reps):
+    """Device ms of a call of K7 through its wrapper on x
+    (`k7_wide_inputs`) at dtype: CUDA events over reps launches after a
+    warm-up. phase_kernels_wide and --digest time it so."""
+    rows, _, u, t1, t0 = x
+    ms = time_ms(lambda: stats_packed.batch_stats_fused_v2_packed(
+        rows, u, t1, t0, dtype=dtype), reps)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _k7_wide_bf16(e, x, k, moved, reps):
+    """K7's bf16 body at K > 64 timed beside the f32 body's entry e
+    (`k7_wide_ms`), with its bf16 bound."""
+    e["bf16_ms"] = k7_wide_ms(x, BF16, reps)
+    tmp = {}
+    set_bound_bf16(tmp, present(x[0]), k, moved, sums=2)
+    e["bf16_bound_ms"] = tmp["bound_ms"]
+    log(f"  K7[bf16] wide {e['shape']}: kernel {e['bf16_ms']:.4f} ms, "
+        f"bound {e['bf16_bound_ms']:.5f} ms")
 
 
 def pin(label, got, f32, free=()):
@@ -1275,6 +1341,10 @@ def in_turns(fa, fb, timer="events", reps=20):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
+# K7 at K > 64 (`stats_v2_wide_kernel`): one piece of K (65..128, pieces
+# of 80, 96 and 128 columns) and several (129, 130: two of 80; 256: two of
+# 128; 1000: eight of 128)
+K7_WIDE_KS = (65, 72, 96, 128, 129, 130, 256, 1000)
 R_REP = 4    # replicates of the replicate-axis checks and of phase 9
 # B, W, K of the replicate-axis cases and the kernels each runs there:
 # first the shapes phase 9 runs (pad_width makes config #1's 1,000 and
@@ -1728,9 +1798,11 @@ def _hold_wide(rec, kernel, label, got, want, dtype, approx):
 
 def phase_kernels_rep_wide(dev, rec):
     """K1, K4, K5, K6, K7 and K8 with the replicate axis (R = 4) at
-    K = 72 and 256, where the K-chunked bodies hold R x their chunks in
-    the grid's z: ragged shapes (B = 40, odd W, a replicate's rows
-    MISSING), f32 and bf16, both divides at K = 72 (K1, K4, K7, K8): each
+    K = 72 and 256 (K7 at K = 128 too, its widest single piece of K): the
+    K-chunked bodies hold R x their chunks in the grid's z, K7's the
+    replicate alone; ragged shapes (B = 40, odd W, a replicate's rows
+    MISSING), f32 and bf16, both divides at K = 72 (K1, K4, K7, K8) and
+    128 (K7): each
     replicate bitwise its single wide call, a re-run bitwise, held to the
     twins at the K <= 64 [rep] tolerances; K1 also bitwise per replicate
     on the main path's cold accel schedule. Then at K = 72 at the batched
@@ -1739,14 +1811,17 @@ def phase_kernels_rep_wide(dev, rec):
     calls / R)."""
     for name in REP_WIDE.values():
         rec[name]["wide"] = []
-    for k in (REP_WIDE_K, 256):
+    for k in (REP_WIDE_K, 128, 256):
         for kernel, name in REP_WIDE.items():
+            if k == 128 and kernel != "K7":   # K7's widest single piece
+                continue
             w = 235 if kernel in ("K1", "K4", "K8") else 300
             x = _wide_rep_inputs(40, w, k, dev)
             for dtype in (torch.float32, BF16):
                 dname = "bf16" if dtype == BF16 else "f32"
-                for approx in ((False, True) if k == REP_WIDE_K and kernel
-                               in ("K1", "K4", "K7", "K8") else (False,)):
+                for approx in ((False, True) if k in (REP_WIDE_K, 128) and
+                               kernel in ("K1", "K4", "K7", "K8")
+                               else (False,)):
                     label = (f"{kernel}[rep] wide R={R_REP} B=40 W={w} K={k} "
                              f"{dname} approx={approx}")
                     call, twin = _wide_rep_calls(x, dtype, approx)[kernel]
@@ -1765,8 +1840,9 @@ def phase_kernels_rep_wide(dev, rec):
                                         REP_WIDE_MAIN)["K1"][0](),
                         [_single_wide(x, i, "K1", dtype, False, REP_WIDE_MAIN)
                          for i in range(R_REP)])
-        log(f"  K1, K4, K5-K8[rep] wide R={R_REP} K={k}: each replicate "
-            "bitwise its single wide call, re-runs bitwise")
+        log(f"  {'K7' if k == 128 else 'K1, K4, K5-K8'}[rep] wide "
+            f"R={R_REP} K={k}: each replicate bitwise its single wide call, "
+            "re-runs bitwise")
     for kernel in REP_WIDE:
         _time_rep_wide(rec, kernel, dev)
         torch.cuda.empty_cache()
@@ -2042,8 +2118,8 @@ def phase_kernels_bign_bf16(dev, rec):
              "K6": "batch_stats_fused_packed[bf16]",
              "K5": "gamma_stats_packed[bf16]",
              "K8": "lambda_stats_acat[bf16]"}
-    for name in names.values():
-        rec[name]["max_abs_err"] = 0.0
+    for name in names.values():   # K7[bf16] may hold its K > 64 cases
+        rec[name].setdefault("max_abs_err", 0.0)
     for b, w, k in BIGN_BF16_SHAPES:
         rows, up, u, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
         rows[5] = 0xFF
@@ -4703,6 +4779,28 @@ def bign_bf16_ms(dev):
     return out
 
 
+# K7 at K > 64 as --digest times it (`k7_wide_ms`): the big-N shape at
+# K = 72, the K = 256 timed shape of `phase_kernels_wide`, and the big-N
+# shape with the replicate axis; (B, W, K, R or None, launches timed)
+K7_WIDE_TIMED = ((BIGN[0], BIGN[1], 72, None, 3), (1024, 2048, 256, None, 5),
+                 (BIGN[0], BIGN[1], 72, R_REP, 1))
+
+
+def wide_k7_ms(dev):
+    """Device ms a call of K7 at K > 64, f32 and bf16, at K7_WIDE_TIMED:
+    --digest prints them in whichever tree's package is imported, so that
+    two trees' bodies are timed in turns."""
+    out = {}
+    for b, w, k, r, reps in K7_WIDE_TIMED:
+        x = k7_wide_inputs(dev, b, w, k, r)
+        for dtype, name in ((torch.float32, "K7"), (BF16, "K7[bf16]")):
+            rep = f"[rep] wide R={r} " if r else " wide "
+            out[f"{name}{rep}B={b} W={w} K={k}"] = k7_wide_ms(x, dtype, reps)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=()) -> int:
     if list(argv) not in ([], ["--kernels"], ["--digest"]):
         print("usage: chip_smoke.py [--kernels | --digest]", file=sys.stderr)
@@ -4731,7 +4829,8 @@ def main(argv=()) -> int:
     if argv == ["--digest"]:
         print(json.dumps({"digests": digests(dev),
                           "wrapper_eager_ms": wrapper_eager_ms(dev),
-                          "bign_bf16_ms": bign_bf16_ms(dev)}))
+                          "bign_bf16_ms": bign_bf16_ms(dev),
+                          "wide_k7_ms": wide_k7_ms(dev)}))
         print(card)
         return 0
 

@@ -1,7 +1,8 @@
 // The K-chunked ("wide") bodies of the lambda pass and the gamma pass, for
 // K > 64. Included by psd_common.cuh after the K <= 64 bodies, whose
-// loaders, row sources and divides they reuse; K6/K7's wide body is in
-// stats_fused.cuh.
+// loaders, row sources and divides they reuse; K6's wide body, built the
+// same way, is in stats_fused.cuh (K7's K > 64 body there is not
+// K-chunked).
 //
 // They stand for the same TPU kernels as the K <= 64 bodies: the lambda
 // pass for terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass`
@@ -42,9 +43,14 @@
 // What bounds it at K > 64: the shared-memory load rate and the recompute.
 // D is computed ceil(K / 32) times: at K = 72, 3 x 2K + 2K = 8K FMAs an
 // entry against the 4K an unchunked pass would do, and at K = 256 8 x 2K +
-// 2K = 18K against 4K. This is a repair, not a redesign: the K <= 64
-// bodies are unchanged, and no K the reference's acceptance configs run
-// goes here.
+// 2K = 18K against 4K. These bodies are a repair, not a redesign: the
+// K <= 64 bodies are unchanged, and no K the reference's acceptance
+// configs run goes here. K7's K-chunked body, the costliest of the kind
+// (115.8 ms a call at the big-N shape with K = 72, NVIDIA H100 80GB HBM3,
+// 700 W), has been redesigned: stats_fused.cuh `stats_v2_wide_kernel`
+// computes D once an entry with no chunks, in 13.1-13.4 ms at f32 and
+// 4.9 at bf16 (its note; PERF.md). The lambda pass's (K8 wide: 7 a big-N
+// step) and the gamma pass's are next.
 //
 // No atomics: each chunk writes its own k columns of the same partial-sum
 // buffers as the K <= 64 bodies (part (nsplit, B, K, 2), gpart (nsplit,

@@ -79,33 +79,78 @@
 // faster at KM = 8 and spilled above it (PERF.md), so the rest is
 // latency at 16 warps an SM, or issue.
 //
-// K > 64: `stats_v2_wide_kernel` and `stats_v1_wide_kernel`, the same tile
-// step with the K outputs cut into chunks of tt::kKC = 32 (blockIdx.z), as
-// the wide bodies of psd_wide.cuh (whose note says why). Each CTA computes
-// D over all K a piece of 32 columns of K at a time (u of the 128
-// individuals k-major, stride 129, each thread reading its own column; t
-// of the 32 rows as float2 rows, read as broadcasts), adding each piece
-// into R1/R0, which hold D until phase 1 turns them into R. The chunk's own
-// piece comes last and serves its g (phase 1) and lambda (phase 2) sums.
-// Shared memory does not grow with K (58 KB, K7 + its 256-row lambda
-// block 64 KB), so both take any K; K7's wide tile keeps its 256 rows
-// (ops/stats_packed.py `V2_WIDE_TILE_ROWS`). Each chunk writes its own k
-// columns of lpart and gpart; the reductions are the K <= 64 path's.
+// K > 64, K6: `stats_v1_wide_kernel`, the same tile step with the K
+// outputs cut into chunks of tt::kKC = 32 (blockIdx.z), as the wide
+// bodies of psd_wide.cuh (whose note says why). Each CTA computes D over
+// all K a piece of 32 columns of K at a time (u of the 128 individuals
+// k-major, stride 129, each thread reading its own column; t of the 32
+// rows as float2 rows, read as broadcasts), adding each piece into R1/R0,
+// which hold D until phase 1 turns them into R. The chunk's own piece
+// comes last and serves its g (phase 1) and lambda (phase 2) sums. Shared
+// memory does not grow with K (58 KB). Each chunk writes its own k
+// columns of the gamma partials; the reduction is the K <= 64 path's.
+//
+// K > 64, K7: `stats_v2_wide_kernel<KP, kBf16>`, a body of its own, with
+// no K chunks: the grid is (W tiles of 256 byte columns, B tiles,
+// replicates). K is cut into pieces of at most 128 columns (KP = 80, 96,
+// 112 or 128, `w7_piece_cols`): K = 65..128, which the reference's
+// 128-lane padding runs at the cost of K = 8, is one piece. A CTA of 8
+// warps takes its B tile a row tile of 64 rows at a time, held as 128
+// M-rows (t1 and t0 of each row), and walks its W tile in sub-tiles of 16
+// byte columns (64 individuals), three products a sub-tile over the
+// whole tile:
+//   D = t u^T (128 M-rows x 64 individuals, k = K): once an entry;
+//   R = A / (D + eps), into a shared R tile;
+//   S += R u (128 M-rows x K, k = the 64 individuals): in registers for
+//     the W tile, leaving once as the row tile's lambda partial;
+//   g = t^T R (K x 64 individuals, k = the 128 M-rows): added, row tile
+//     after row tile, into the B tile's gamma partial.
+// A B tile holds 4 row tiles (256 rows, the K-chunked body's tile: 0.46
+// GB of gamma partials at the big-N shape with K = 72, 18.4 GB at N = 1M
+// with R = 4), or 2 or 1 where 4 would leave fewer than 256 CTAs a
+// replicate (ops/stats_packed.py `v2_b_tile`); each partial is written
+// and read back by one CTA, in row-tile order, so no atomics. t of a row
+// tile is staged once; u and the packed bytes of the next sub-tile arrive
+// by 16-byte cp.async in a second buffer while one runs. Above 128
+// columns D is summed over the pieces first (each staged), then each
+// piece is staged again for its S and g, S added into the row tile's rows
+// of lpart: the operands are staged twice, D's FMAs
+// done once. f32: SIMT, register-blocked as an SGEMM (a thread owns 8
+// M-rows x 4 individuals of D, 8 M-rows x KP / 16 columns of S, 4
+// individuals x KP / 16 columns of g; float4 operand reads), no TF32.
+// bf16: the three products on mma.sync m16n8k16, R rounded once and read
+// by ldmatrix as S's A operand and, transposed, as g's B operand.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at f32 the FP32
+// issue of its FMAs (6 KP an entry, K padded to the piece) and the exact
+// divides; at bf16 not the products but what runs between the barriers
+// of 8-warp CTAs (the decode, the divides, the staging) and the gamma
+// partials, written and added again. Builds that left out one product,
+// or the divide, at a time (trial builds, not kept) showed the f32
+// time spread over the three products, g's the largest, with the divides
+// a smaller share; at bf16 the products a small share, the divides a
+// larger one and the rest between the barriers. A call
+// (`chip_smoke.py --digest`, the two reductions included) at the big-N
+// shape with K = 72 takes 13.1-13.4 ms at f32 against a 3.785 ms bound,
+// and 4.9 ms at bf16 against 0.256, as with B tiles of one row tile
+// (which hold 4x the gamma partials): the adds into the partial cost what
+// the reduction no longer reads.
 //
 // At compute dtype bf16 (kBf16, the reference's dtype=jnp.bfloat16:
 // `_ratios_tile` and the dots of `_batch_stats_v2_kernel` and
 // `_batch_stats_kernel`, stats_pallas.py:68-93, :225-259, :317-350) D =
 // bf(t) bf(u), the gamma sums bf(R) bf(t) and the lambda sums bf(R) bf(u),
-// each product exact in f32 and the sums f32. K7 at K <= 64 runs its
-// tensor-core body, `stats_v2_mma_kernel` (below, with its note); K6 and
-// every K > 64 body are the f32 bodies with their operands rounded to
-// bf16 (`tt::operand`) where they stage them: t where the CTA stages its
-// rows' t, u where it stages the sub-tile's u, R once after the divide.
-// kBf16 = false is the f32 code as it was.
+// each product exact in f32 and the sums f32. K7 runs tensor-core bodies,
+// `stats_v2_mma_kernel` at K <= 64 (below, with its note) and
+// `stats_v2_wide_kernel` above; K6 and its K > 64 body are the f32 bodies
+// with their operands rounded to bf16 (`tt::operand`) where they stage
+// them: t where the CTA stages its rows' t, u where it stages the
+// sub-tile's u, R once after the divide. kBf16 = false is the f32 code as
+// it was.
 //
 // The replicate axis (batched replicates, the reference's passes under
 // jax.vmap): one launch runs R independent calls, replicate z in the
-// grid's z (the K-chunked bodies: z = r x chunks + c, tt::wide_z), over
+// grid's z (K6's K-chunked body: z = r x chunks + c, tt::wide_z), over
 // arrays that are R x the single call's, back to back.
 // Each body offsets its pointers in its prologue (rows by B W bytes, u by
 // 4 W K, t1 and t0 by B K, the lambda partials by a call's W tiles x B K
@@ -115,6 +160,8 @@
 // the single call's. The reductions take R in z at the same strides. R =
 // 1 is the single call.
 #pragma once
+
+#include <type_traits>
 
 #include "psd_common.cuh"
 
@@ -948,12 +995,12 @@ __device__ __forceinline__ void d_all_wide(
 }
 
 // Phase 1, wide: R = A / (D + eps) of rows [rb, rb+32) x the thread's
-// individual in place of D, and g += r1 t1 + r0 t0 over the chunk's kwc
-// columns (the staged piece).
+// individual in place of D (the exact divide, K6's only), and g += r1 t1
+// + r0 t0 over the chunk's kwc columns (the staged piece).
 template <bool kBf16>
 __device__ __forceinline__ void ratios_gamma_wide(
     const uint8_t* __restrict__ rows, int B, int W, int rb, int wc, int kwc,
-    const WideTile& sm, float* g, int approx) {
+    const WideTile& sm, float* g) {
   const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
   const bool ok = w < W;
   for (int r = 0; r < kFRows; ++r) {
@@ -965,9 +1012,9 @@ __device__ __forceinline__ void ratios_gamma_wide(
       const float a1 = (float)code;
       const float a0 = 2.f - a1;
       x1 = tt::operand<kBf16>(
-          tt::ratio(a1, sm.r1[r * kRStride + threadIdx.x], approx));
+          tt::ratio<tt::kDivExact>(a1, sm.r1[r * kRStride + threadIdx.x]));
       x0 = tt::operand<kBf16>(
-          tt::ratio(a0, sm.r0[r * kRStride + threadIdx.x], approx));
+          tt::ratio<tt::kDivExact>(a0, sm.r0[r * kRStride + threadIdx.x]));
       const float2* tr = sm.ts + r * tt::kKC;
 #pragma unroll
       for (int j = 0; j < tt::kKC; ++j) {
@@ -1016,75 +1063,6 @@ __device__ __forceinline__ void write_gamma_wide(float* gtile, int W, int K,
     if (kc0 + j < K) out[kc0 + j] = g[j];
 }
 
-// K7, wide. grid (ceil(W/tile_cols), ceil(B/tile_rows), R x ceil(K/32));
-// dynamic shared memory kWideTileFloats + tile_rows*32*2 floats.
-// lpart (gridDim.x, B, K, 2), gpart (gridDim.y, 4W, K): the CTA of chunk
-// c writes k in [32 c, 32 c + 32) of its replicate (tt::wide_z; the
-// replicate's arrays at stats_v2_kernel's strides).
-template <bool kBf16>
-__global__ void __launch_bounds__(kFThreads)
-stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
-                     const float* __restrict__ up,
-                     const float* __restrict__ t1g,
-                     const float* __restrict__ t0g, float* __restrict__ lpart,
-                     float* __restrict__ gpart, int B, int W, int K,
-                     int tile_rows, int tile_cols, int approx) {
-  const tt::WideZ z = tt::wide_z(K);
-  rows += z.r * B * W;
-  up += 4 * z.r * W * K;
-  t1g += z.r * B * K;
-  t0g += z.r * B * K;
-  lpart += z.r * gridDim.x * B * K * 2;
-  gpart += 4 * z.r * gridDim.y * W * K;
-  extern __shared__ __align__(16) float wide_smem[];
-  const WideTile sm = carve_wide(wide_smem);
-  float* lam = wide_smem + kWideTileFloats;    // (tile_rows, kKC, 2)
-  constexpr int kLam = tt::kKC * 2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wbeg = blockIdx.x * tile_cols;
-  const int wend = min(W, wbeg + tile_cols);
-  const int bbeg = blockIdx.y * tile_rows;
-  const int bend = min(B, bbeg + tile_rows);
-  const int kc0 = z.c * tt::kKC;
-  const int kwc = min(tt::kKC, tt::round4(K) - kc0);
-  for (int i = threadIdx.x; i < tile_rows * kLam; i += kFThreads) lam[i] = 0.f;
-  float* gtile = gpart + (long long)blockIdx.y * 4 * W * K;
-
-  for (int wc = wbeg; wc < wend; wc += kFCols) {
-    float g[tt::kKC];
-#pragma unroll
-    for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
-    for (int rb = bbeg; rb < bend; rb += kFRows) {
-      d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, z.c, z.np, sm);
-      ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g, approx);
-      __syncthreads();
-      float s1[tt::kKC], s0[tt::kKC];
-#pragma unroll
-      for (int j = 0; j < tt::kKC; ++j) s1[j] = s0[j] = 0.f;
-      lambda_accum_wide(sm, kwc, s1, s0);
-      float* lr = lam + (rb - bbeg + lane) * kLam;
-      for (int j = 0; j < 4; ++j) {  // warps add in warp order
-        __syncthreads();
-        if (warp == j && rb + lane < bend) {
-#pragma unroll
-          for (int kk = 0; kk < tt::kKC; ++kk) {
-            lr[2 * kk] += s1[kk];
-            lr[2 * kk + 1] += s0[kk];
-          }
-        }
-      }
-    }
-    write_gamma_wide(gtile, W, K, wc, kc0, g);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < (bend - bbeg) * kLam; i += kFThreads) {
-    const int r = i / kLam, kk = (i % kLam) / 2;
-    if (kc0 + kk < K)
-      lpart[(((long long)blockIdx.x * B + bbeg + r) * K + kc0 + kk) * 2 +
-            i % 2] = lam[i];
-  }
-}
-
 // K6, wide. grid (ceil(B/32), 1, R x ceil(K/32)); dynamic shared memory
 // kWideTileFloats floats. l0, l1 (B, K); gpart (gridDim.x, 4W, K): the
 // CTA of chunk c writes k in [32 c, 32 c + 32) of its replicate
@@ -1121,7 +1099,7 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
 #pragma unroll
     for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
     d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, z.c, z.np, sm);
-    ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g, 0);
+    ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g);
     write_gamma_wide(gtile, W, K, wc, kc0, g);
     __syncthreads();
     lambda_accum_wide(sm, kwc, s1, s0);
@@ -1149,11 +1127,738 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
+// ---- K7, K > 64 -------------------------------------------------------------
+//
+// `stats_v2_wide_kernel<KP, kBf16>` (the note at the top of this file says
+// what bounds it and what its design does): a CTA of 8 warps takes a row
+// tile of 64 rows (128 M-rows: t1 and t0 of each row) at a time against
+// a W tile walked in sub-tiles of 16 byte columns (64 individuals), with
+// K in pieces of KP columns: D = t u^T, R = A / (D + eps), S += R u and
+// g = t^T R, three products over the tile.
+
+constexpr int kW7Threads = 256;          // 8 warps
+constexpr int kW7Rows = 64;              // rows of a row tile
+constexpr int kW7Group = 4;              // the most row tiles of a B tile
+constexpr int kW7M = 2 * kW7Rows;        // its M-rows: t1 and t0 of each row
+constexpr int kW7Cols = 16;              // byte columns of a sub-tile ...
+constexpr int kW7Ind = 4 * kW7Cols;      // ... its 64 individuals
+constexpr int kW7Piece = 128;            // the widest piece of K
+
+// K in w7_pieces(K) pieces of w7_piece_cols(K) columns, a multiple of 16
+// (80..128 at K > 64): K = 65..128 is one piece.
+__host__ __device__ constexpr int w7_pieces(int K) {
+  return (K + kW7Piece - 1) / kW7Piece;
+}
+__host__ __device__ constexpr int w7_piece_cols(int K) {
+  return ((K + w7_pieces(K) - 1) / w7_pieces(K) + 15) / 16 * 16;
+}
+
+// The M-row of CTA row r (0..63) and allele a (0: t1, R1; 1: t0, R0): the
+// m16 tile r / 8 holds t1 of its 8 rows, then t0 of the same rows.
+__device__ __forceinline__ int w7_m(int r, int a) {
+  return 16 * (r >> 3) + 8 * a + (r & 7);
+}
+
+// cp.async of 16 (or 4) bytes, filled with zeros past `bytes` (0: none read).
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(a),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(a),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Dynamic shared memory of the body: u as staged (f32, two buffers), t of
+// the CTA's M-rows for a piece, R of the sub-tile, bf(u) at bf16, and the
+// sub-tile's packed bytes (two buffers). Row strides are padded so that
+// the float4 and ldmatrix reads of 8 rows hit 32 distinct banks.
+template <int KP, bool kBf16>
+struct W7 {
+  static constexpr int FS = KP + 4;          // floats a staged u or f32 t row
+  static constexpr int HS = KP + 8;          // bf16 a t or u row
+  static constexpr int RFS = kW7Ind + 4;     // floats an f32 R row
+  static constexpr int RHS = kW7Ind + 8;     // bf16 a bf16 R row
+  static constexpr int kUf = 2 * kW7Ind * FS * 4;
+  static constexpr int kT = kW7M * (kBf16 ? 2 * HS : 4 * FS);
+  static constexpr int kR = kW7M * (kBf16 ? 2 * RHS : 4 * RFS);
+  static constexpr int kUb = kBf16 ? 2 * kW7Ind * HS : 0;
+  static constexpr int kCodes = 2 * kW7Rows * kW7Cols;
+  static constexpr int kBytes = kUf + kT + kR + kUb + kCodes;
+  static_assert(kBytes <= 232448, "a CTA's shared memory on the H100");
+
+  float* uf;           // 2 x (64 individuals, FS): row 16 s + c, plane s
+  void* t;             // (128 M-rows, FS floats | HS bf16)
+  void* r;             // (128 M-rows, RFS floats | RHS bf16)
+  __nv_bfloat16* ub;   // (64 individuals, HS): bf(u) (kBf16)
+  uint8_t* codes;      // 2 x (64 rows, 16 bytes)
+
+  __device__ explicit W7(unsigned char* p)
+      : uf(reinterpret_cast<float*>(p)),
+        t(p + kUf),
+        r(p + kUf + kT),
+        ub(reinterpret_cast<__nv_bfloat16*>(p + kUf + kT + kR)),
+        codes(p + kUf + kT + kR + kUb) {}
+  __device__ float* ufb(int buf) const { return uf + buf * kW7Ind * FS; }
+  __device__ uint8_t* cb(int buf) const {
+    return codes + buf * kW7Rows * kW7Cols;
+  }
+};
+
+// u of the sub-tile at byte column wc, columns [k0, k0 + KP) of K, into a
+// staging buffer by cp.async (row n = 16 s + c: plane s, column wc + c),
+// zero past K and wend; 16-byte copies where K % 4 == 0.
+template <int KP>
+__device__ __forceinline__ void w7_stage_u(float* uf,
+                                           const float* __restrict__ up,
+                                           int W, int K, int wc, int wend,
+                                           int k0) {
+  constexpr int Q = KP / 4, FS = KP + 4;
+  const bool vec = (K & 3) == 0;
+  for (int j = threadIdx.x; j < kW7Ind * Q; j += kW7Threads) {
+    const int n = j / Q, q = j - n * Q;
+    const int w = wc + (n & 15), k = k0 + 4 * q;
+    float* dst = uf + n * FS + 4 * q;
+    const bool ok = w < wend;
+    const float* src =
+        up + (ok ? ((long long)(n >> 4) * W + w) * K + k : 0);
+    if (vec) {
+      cp_async16z(dst, ok && k < K ? src : up, ok && k < K ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool rd = ok && k + e < K;
+        cp_async4z(dst + e, rd ? src + e : up, rd ? 4 : 0);
+      }
+    }
+  }
+}
+
+// The packed bytes of rows [b0, b0 + 64) at byte columns [wc, wc + 16),
+// MISSING past B and wend: a 16-byte cp.async a row where the row lies
+// whole and aligned, else byte loads.
+__device__ __forceinline__ void w7_stage_codes(uint8_t* cs,
+                                               const uint8_t* __restrict__ rows,
+                                               int B, int W, int b0, int wc,
+                                               int wend) {
+  const int r = threadIdx.x;
+  if (r >= kW7Rows) return;
+  uint8_t* dst = cs + r * kW7Cols;
+  const long long b = b0 + r;
+  const uint8_t* src = rows + b * W + wc;
+  if (b < B && wc + kW7Cols <= wend &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16z(dst, src, 16);
+    return;
+  }
+  uint32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[q] = 0xFFFFFFFFu;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * q + e;
+      if (b < B && wc + c < wend) {
+        v[q] &= ~(0xFFu << (8 * e));
+        v[q] |= (uint32_t)__ldg(src + c) << (8 * e);
+      }
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// t1, t0 of the CTA's rows, columns [k0, k0 + KP) of K, into its M-rows
+// (f32, or rounded to bf16), zero past B and K.
+template <int KP, bool kBf16>
+__device__ __forceinline__ void w7_stage_t(void* ts,
+                                           const float* __restrict__ t1g,
+                                           const float* __restrict__ t0g,
+                                           int B, int K, int b0, int k0) {
+  constexpr int P = KP / 2;                 // column pairs
+  for (int j = threadIdx.x; j < kW7M * P; j += kW7Threads) {
+    const int m = j / P, kp = j - m * P, k = k0 + 2 * kp;
+    const float* tg = (m >> 3) & 1 ? t0g : t1g;
+    const long long b = b0 + 8 * (m >> 4) + (m & 7);
+    const float x0 = b < B && k < K ? tg[b * K + k] : 0.f;
+    const float x1 = b < B && k + 1 < K ? tg[b * K + k + 1] : 0.f;
+    if constexpr (kBf16)
+      reinterpret_cast<uint32_t*>(ts)[m * (KP + 8) / 2 + kp] =
+          tt::pack_bf16(x0, x1);
+    else
+      reinterpret_cast<float2*>(ts)[m * (KP + 4) / 2 + kp] =
+          make_float2(x0, x1);
+  }
+}
+
+// ---- its f32 products: SIMT, register-blocked ----
+//
+// Thread (q, c) = (tid / 16, tid % 16). D: rows 4q..4q+3 (both alleles:
+// 8 M-rows) x the 4 individuals of byte column c (planes 0..3), t and u
+// read as float4 along K. S: the same 8 M-rows x K columns c + 16 j, R
+// read as float4 along the individuals. g: individuals 4q..4q+3 x K
+// columns c + 16 j, an M-row at a time. Every sum runs in a fixed order.
+template <int KP>
+struct W7Simt {
+  static constexpr int KS = KP / 16;        // K columns a thread: c + 16 j
+  static constexpr int FS = KP + 4, RFS = kW7Ind + 4;
+  float s[4][2][KS];                        // S of rows 4q + e, allele a
+  float d[4][2][4];                         // D of rows 4q + e, planes 0..3
+
+  __device__ __forceinline__ void zero_s() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < KS; ++j) s[e][a][j] = 0.f;
+  }
+
+  // nothing to convert: the products read the staged u
+  template <class L>
+  __device__ __forceinline__ void prepare(const L&, int) {}
+
+  // D (+)= t u^T over columns [0, nk) of the staged piece (nk % 4 == 0)
+  template <class L>
+  __device__ __forceinline__ void d_product(const L& sm, int buf, int nk,
+                                            bool first) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+    const float* tf = static_cast<const float*>(sm.t);
+    const float* ur = sm.ufb(buf) + c * FS;
+    if (first) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int p = 0; p < 4; ++p) d[e][a][p] = 0.f;
+    }
+#pragma unroll 2
+    for (int k = 0; k < nk; k += 4) {
+      float4 u[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        u[p] = *reinterpret_cast<const float4*>(ur + 16 * p * FS + k);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              tf + w7_m(4 * q + e, a) * FS + k);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            float x = d[e][a][p];
+            x = fmaf(t.x, u[p].x, x);
+            x = fmaf(t.y, u[p].y, x);
+            x = fmaf(t.z, u[p].z, x);
+            d[e][a][p] = fmaf(t.w, u[p].w, x);
+          }
+        }
+    }
+  }
+
+  // R = A / (D + eps) of the thread's 16 entries into the R tile
+  template <class L>
+  __device__ __forceinline__ void ratios(const L& sm, const uint8_t* codes,
+                                         int approx) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+    float* rf = static_cast<float*>(sm.r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 4 * q + e;
+      const uint32_t byte = codes[r * kW7Cols + c];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t code = (byte >> (2 * p)) & 3u;
+        const bool miss = code == 3u;
+        const float x = (float)code;
+        rf[w7_m(r, 0) * RFS + 16 * p + c] =
+            tt::ratio(miss ? 0.f : x, d[e][0][p], approx);
+        rf[w7_m(r, 1) * RFS + 16 * p + c] =
+            tt::ratio(miss ? 0.f : 2.f - x, d[e][1][p], approx);
+      }
+    }
+  }
+
+  // S += R u over the sub-tile's 64 individuals, in individual order
+  template <class L>
+  __device__ __forceinline__ void s_product(const L& sm, int buf) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+    const float* rf = static_cast<const float*>(sm.r);
+    const float* uf = sm.ufb(buf) + c;
+#pragma unroll 1
+    for (int n4 = 0; n4 < kW7Ind; n4 += 4) {
+      float4 rv[4][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          rv[e][a] = *reinterpret_cast<const float4*>(
+              rf + w7_m(4 * q + e, a) * RFS + n4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float uv[KS];
+#pragma unroll
+        for (int j = 0; j < KS; ++j) uv[j] = uf[(n4 + i) * FS + 16 * j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const float4 v = rv[e][a];
+            const float x = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+#pragma unroll
+            for (int j = 0; j < KS; ++j)
+              s[e][a][j] = fmaf(x, uv[j], s[e][a][j]);
+          }
+      }
+    }
+  }
+
+  // g = t^T R over the 128 M-rows, in M-row order, into the B tile's
+  // gamma partial at K columns k0 + (c + 16 j), summed onto what is there
+  // where `add`
+  template <class L>
+  __device__ __forceinline__ void g_write(const L& sm, float* gtile, int W,
+                                          int K, int wc, int wend, int k0,
+                                          bool add) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+    const float* tf = static_cast<const float*>(sm.t) + c;
+    const float* rf = static_cast<const float*>(sm.r) + 4 * q;
+    // g starts at the partial so far where `add` (every load issued
+    // before the first product waits on them)
+    float g[4][KS];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i, w = wc + (n & 15);
+      const float* in = gtile + ((long long)(n >> 4) * W + w) * K + k0;
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+        g[i][j] =
+            add && w < wend && k0 + c + 16 * j < K ? in[c + 16 * j] : 0.f;
+    }
+#pragma unroll 4
+    for (int m = 0; m < kW7M; ++m) {
+      const float4 rv = *reinterpret_cast<const float4*>(rf + m * RFS);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const float tv = tf[m * FS + 16 * j];
+        g[0][j] = fmaf(rv.x, tv, g[0][j]);
+        g[1][j] = fmaf(rv.y, tv, g[1][j]);
+        g[2][j] = fmaf(rv.z, tv, g[2][j]);
+        g[3][j] = fmaf(rv.w, tv, g[3][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i, w = wc + (n & 15);
+      if (w >= wend) continue;
+      float* out = gtile + ((long long)(n >> 4) * W + w) * K + k0;
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+        if (k0 + c + 16 * j < K)
+          out[c + 16 * j] = g[i][j];
+    }
+  }
+
+  // S of the thread's rows into the W tile's lambda partial (S1, S0) at
+  // K columns k0 + (c + 16 j), added to what is there where `add`
+  __device__ __forceinline__ void flush_s(float* ltile, int B, int K,
+                                          int b0, int k0, bool add) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long b = b0 + 4 * q + e;
+      if (b >= B) continue;
+      float2* out = reinterpret_cast<float2*>(ltile + b * K * 2) + k0;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int k = c + 16 * j;
+        if (k0 + k >= K) continue;
+        float2 v = make_float2(s[e][0][j], s[e][1][j]);
+        if (add) {
+          const float2 o = out[k];
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        out[k] = v;
+      }
+    }
+  }
+};
+
+// ---- its bf16 products: on the tensor cores (mma.sync m16n8k16) ----
+//
+// D: warp w takes m16 tile w (rows 8w..8w+7: bf(t1) in rows 0-7, bf(t0)
+// in 8-15) x the 64 individuals (8 n8 tiles), K the MMAs' k; R on the
+// accumulators, rounded to bf16 once, into the R tile. S: warp (wm, wn) =
+// (w % 4, w / 4) takes m16 tiles 2wm, 2wm + 1 x the n8 tiles of K half wn
+// (KP / 16 each), A from the R tile (ldmatrix), B from bf(u) (ldmatrix
+// .trans), the sums in registers for the W tile. g^T = bf(t)^T R: warp
+// (gm, gn) = (w / 4, w % 4) takes m16 tiles of K [gm MH, gm MH + MH) x the
+// 16 individuals of plane gn, k the 128 M-rows: A from the t tile and B
+// from the R tile, both by ldmatrix .trans.
+template <int KP>
+struct W7Mma {
+  static constexpr int KH = KP / 16;        // S: n8 tiles a warp; g: m16 tiles
+  static constexpr int MH = (KH + 1) / 2;   // g: m16 tiles a warp
+  static constexpr int HS = KP + 8, RHS = kW7Ind + 8;
+  float s[2][KH][4];                        // S: rows g (S1), g + 8 (S0)
+  float d[8][4];                            // D: n8 tile j
+
+  __device__ __forceinline__ void zero_s() {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+  }
+
+  // bf(u) of staging buffer buf into the bf16 u tile
+  template <class L>
+  __device__ __forceinline__ void prepare(const L& sm, int buf) {
+    constexpr int Q = KP / 4, FS = KP + 4;
+    const float* uf = sm.ufb(buf);
+    for (int j = threadIdx.x; j < kW7Ind * Q; j += kW7Threads) {
+      const int n = j / Q, q = j - n * Q;
+      const float4 v = *reinterpret_cast<const float4*>(uf + n * FS + 4 * q);
+      *reinterpret_cast<uint2*>(sm.ub + n * HS + 4 * q) =
+          make_uint2(tt::pack_bf16(v.x, v.y), tt::pack_bf16(v.z, v.w));
+    }
+    __syncthreads();
+  }
+
+  // D (+)= bf(t) bf(u)^T over columns [0, nk) of the piece (nk % 16 == 0)
+  template <class L>
+  __device__ __forceinline__ void d_product(const L& sm, int, int nk,
+                                            bool first) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
+    const __nv_bfloat16* ta =
+        tb + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) * HS +
+        8 * (lane >> 4);
+    const __nv_bfloat16* bb =
+        sm.ub + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
+    if (first) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int k = 0; k < nk; k += 16) {
+      uint32_t a[4];
+      tt::ldsm_x4(a, ta + k);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bq[4];
+        tt::ldsm_x4(bq, bb + 16 * jp * HS + k);
+        tt::mma_bf16(d[2 * jp], a, bq[0], bq[1]);
+        tt::mma_bf16(d[2 * jp + 1], a, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // R = A / (D + eps) on the accumulators, rounded, into the R tile: the
+  // thread's row 8w + g, individuals 8j + 2t (+1) of n8 tile j (plane
+  // j / 2, byte column 8 (j % 2) + 2t (+1))
+  template <class L>
+  __device__ __forceinline__ void ratios(const L& sm, const uint8_t* codes,
+                                         int approx) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const uint4 cw =
+        *reinterpret_cast<const uint4*>(codes + (8 * w + g) * kW7Cols);
+    const uint32_t lo = t >> 1 ? cw.y : cw.x, hi = t >> 1 ? cw.w : cw.z;
+    uint32_t* r1 = reinterpret_cast<uint32_t*>(
+                       static_cast<__nv_bfloat16*>(sm.r) + (16 * w + g) * RHS) +
+                   t;
+    uint32_t* r0 = r1 + 4 * RHS;           // 8 M-rows on (bf16 pairs)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t word = j & 1 ? hi : lo;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t code =
+            (word >> (8 * (2 * (t & 1) + e) + 2 * (j >> 1))) & 3u;
+        const bool miss = code == 3u;
+        const float a1 = (float)code;
+        x[e] = tt::ratio(miss ? 0.f : a1, d[j][e], approx);
+        x[2 + e] = tt::ratio(miss ? 0.f : 2.f - a1, d[j][2 + e], approx);
+      }
+      r1[4 * j] = tt::pack_bf16(x[0], x[1]);
+      r0[4 * j] = tt::pack_bf16(x[2], x[3]);
+    }
+  }
+
+  // S += R bf(u) over the sub-tile's 64 individuals, 16 at a time
+  template <class L>
+  __device__ __forceinline__ void s_product(const L& sm, int) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int wm = w & 3, wn = w >> 2;
+    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
+    const int row = (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int i0 = 0; i0 < kW7Ind; i0 += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        tt::ldsm_x4(a[mt], rb + (16 * (2 * wm + mt) + row) * RHS + i0 +
+                               8 * (lane >> 4));
+      const __nv_bfloat16* bb = sm.ub + (i0 + row) * HS + 8 * wn * KH;
+#pragma unroll
+      for (int jp = 0; jp < KH / 2; ++jp) {
+        uint32_t bq[4];
+        tt::ldsm_x4_trans(bq, bb + 16 * jp + 8 * (lane >> 4));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          tt::mma_bf16(s[mt][2 * jp], a[mt], bq[0], bq[1]);
+          tt::mma_bf16(s[mt][2 * jp + 1], a[mt], bq[2], bq[3]);
+        }
+      }
+      if constexpr (KH % 2) {
+        uint32_t bq[2];
+        tt::ldsm_x2_trans(bq, bb + 8 * (KH - 1));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tt::mma_bf16(s[mt][KH - 1], a[mt], bq[0], bq[1]);
+      }
+    }
+  }
+
+  // g^T = bf(t)^T R over the 128 M-rows, 16 at a time, into the B tile's
+  // gamma partial at K columns k0 + (16 mt + g (+ 8)), added to what is
+  // there where `add`
+  template <class L>
+  __device__ __forceinline__ void g_write(const L& sm, float* gtile, int W,
+                                          int K, int wc, int wend, int k0,
+                                          bool add) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int gm = w >> 2, gn = w & 3, g = lane >> 2, t = lane & 3;
+    const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
+    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
+    float acc[MH][2][4];
+#pragma unroll
+    for (int mi = 0; mi < MH; ++mi)
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
+    const __nv_bfloat16* br =
+        rb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RHS + 16 * gn +
+        8 * (lane >> 4);
+    const __nv_bfloat16* at =
+        tb + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int m0 = 0; m0 < kW7M; m0 += 16) {
+      uint32_t bq[4];
+      tt::ldsm_x4_trans(bq, br + m0 * RHS);
+#pragma unroll
+      for (int mi = 0; mi < MH; ++mi) {
+        const int mt = gm * MH + mi;
+        if (mt >= KH) continue;              // the warp's last tile (KH odd)
+        uint32_t a[4];
+        tt::ldsm_x4_trans(a, at + m0 * HS + 16 * mt);
+        tt::mma_bf16(acc[mi][0], a, bq[0], bq[1]);
+        tt::mma_bf16(acc[mi][1], a, bq[2], bq[3]);
+      }
+    }
+    // the partial so far, every load issued before the first add
+    float* gb = gtile + ((long long)gn * W + wc + 2 * t) * K + k0;
+    if (add) {
+#pragma unroll
+      for (int mi = 0; mi < MH; ++mi)
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int mt = gm * MH + mi;
+            const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
+            acc[mi][jn][e] = (mt < KH && wc + 2 * t + dw < wend && k0 + k < K
+                                  ? gb[dw * K + k]
+                                  : 0.f) +
+                             acc[mi][jn][e];
+          }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MH; ++mi) {
+      const int mt = gm * MH + mi;
+      if (mt >= KH) continue;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
+          if (wc + 2 * t + dw < wend && k0 + k < K)
+            gb[dw * K + k] = acc[mi][jn][e];
+        }
+    }
+  }
+
+  // S of the warp's tiles into the W tile's lambda partial (S1, S0) at K
+  // columns k0 + (8 (wn KH + j) + 2t (+1)), added where `add`
+  __device__ __forceinline__ void flush_s(float* ltile, int B, int K,
+                                          int b0, int k0, bool add) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int wm = w & 3, wn = w >> 2, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const long long b = b0 + 8 * (2 * wm + mt) + g;
+      if (b >= B) continue;
+      float2* out = reinterpret_cast<float2*>(ltile + b * K * 2) + k0;
+#pragma unroll
+      for (int j = 0; j < KH; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 8 * (wn * KH + j) + 2 * t + e;
+          if (k0 + k >= K) continue;
+          float2 v = make_float2(s[mt][j][e], s[mt][j][2 + e]);
+          if (add) {
+            const float2 o = out[k];
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          out[k] = v;
+        }
+    }
+  }
+};
+
+// K7, K > 64. grid (ceil(W/tile_cols), ceil(B/tile_rows), R); block
+// kW7Threads; dynamic shared memory W7<KP, kBf16>::kBytes; KP =
+// w7_piece_cols(K). A CTA's B tile of tile_rows (64, 128 or 256) is walked
+// as row tiles of 64, whose g go into the B tile's one gamma partial,
+// added in row-tile order. lpart (gridDim.x, B, K, 2), gpart (gridDim.y,
+// 4W, K), as stats_v2_kernel's. One piece (K <= 128): t staged once a row
+// tile, u and the bytes of the next sub-tile (of this row tile or the
+// next) copied (cp.async) while one runs; the lambda sums stay in
+// registers for the W tile. Several pieces: per sub-tile, D summed over
+// the pieces (each staged), then each piece staged again for its S and g;
+// its S added into the row tile's rows of lpart. At bf16 and KP <= 96 two
+// CTAs share an SM (128 registers, a few spilled; 95 and 109 KiB of
+// shared memory): a trial build at one CTA (194 registers, no spills) was
+// slower at the big-N shape with K = 72, its barriers idling the SM.
+template <int KP, bool kBf16>
+__global__ void __launch_bounds__(kW7Threads, kBf16 && KP <= 96 ? 2 : 1)
+stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
+                     const float* __restrict__ up,
+                     const float* __restrict__ t1g,
+                     const float* __restrict__ t0g, float* __restrict__ lpart,
+                     float* __restrict__ gpart, int B, int W, int K,
+                     int tile_rows, int tile_cols, int approx) {
+  using L = W7<KP, kBf16>;
+  const long long z = blockIdx.z;        // the replicate (stats_v2_kernel)
+  rows += z * B * W;
+  up += 4 * z * W * K;
+  t1g += z * B * K;
+  t0g += z * B * K;
+  lpart += z * gridDim.x * B * K * 2;
+  gpart += 4 * z * gridDim.y * W * K;
+  extern __shared__ __align__(16) unsigned char w7_smem[];
+  const L sm(w7_smem);
+  const int wbeg = blockIdx.x * tile_cols;
+  const int wend = min(W, wbeg + tile_cols);
+  const int bt0 = blockIdx.y * tile_rows;
+  // the row tiles of the B tile that hold rows
+  const int nrt = (min(tile_rows, B - bt0) + kW7Rows - 1) / kW7Rows;
+  const int np = w7_pieces(K);
+  const int nsub = (wend - wbeg + kW7Cols - 1) / kW7Cols;
+  float* ltile = lpart + (long long)blockIdx.x * B * K * 2;
+  float* gtile = gpart + (long long)blockIdx.y * 4 * W * K;
+  // the columns of piece p that D sums (the staged rest is zero)
+  auto span = [&](int p) {
+    const int n = min(KP, K - p * KP);
+    return kBf16 ? (n + 15) & ~15 : (n + 3) & ~3;
+  };
+  // piece p of t (rows from b0) and of u at byte column wc (and the
+  // bytes), staged and waited for: several pieces only
+  auto stage_piece = [&](int p, int b0, int wc, bool bytes) {
+    __syncthreads();                     // the last piece's readers are done
+    w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, B, K, b0, p * KP);
+    w7_stage_u<KP>(sm.ufb(0), up, W, K, wc, wend, p * KP);
+    if (bytes) w7_stage_codes(sm.cb(0), rows, B, W, b0, wc, wend);
+    cp_async_commit();
+    cp_async_wait_group<0>();
+    __syncthreads();
+  };
+  std::conditional_t<kBf16, W7Mma<KP>, W7Simt<KP>> body;
+  body.zero_s();
+  if (np == 1) {                         // the first sub-tile's u and bytes
+    w7_stage_u<KP>(sm.ufb(0), up, W, K, wbeg, wend, 0);
+    w7_stage_codes(sm.cb(0), rows, B, W, bt0, wbeg, wend);
+    cp_async_commit();
+  }
+  // sub-tile i of row tile rt, the it-th of the CTA
+  for (int it = 0, rt = 0, i = 0; it < nrt * nsub; ++it) {
+    const int b0 = bt0 + rt * kW7Rows, wc = wbeg + i * kW7Cols;
+    const bool last = i + 1 == nsub;     // the row tile's last sub-tile
+    const int buf = np == 1 ? it & 1 : 0;
+    if (np == 1) {
+      // t of the row tile: its last readers passed the barrier that ends
+      // the sub-tile before
+      if (i == 0) w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, B, K, b0, 0);
+      if (it + 1 < nrt * nsub) {         // the next sub-tile's, of this row
+        const int wn = last ? wbeg : wc + kW7Cols;  // tile or the next
+        w7_stage_u<KP>(sm.ufb(buf ^ 1), up, W, K, wn, wend, 0);
+        w7_stage_codes(sm.cb(buf ^ 1), rows, B, W, last ? b0 + kW7Rows : b0,
+                       wn, wend);
+      }
+      cp_async_commit();
+      cp_async_wait_group<1>();          // sub-tile it has landed
+      __syncthreads();
+      body.prepare(sm, buf);
+      body.d_product(sm, buf, span(0), true);
+    } else {
+      for (int p = 0; p < np; ++p) {
+        stage_piece(p, b0, wc, p == 0);
+        body.prepare(sm, 0);
+        body.d_product(sm, 0, span(p), p == 0);
+      }
+    }
+    body.ratios(sm, sm.cb(buf), approx);
+    for (int p = 0; p < np; ++p) {
+      if (np == 1) {
+        __syncthreads();                 // the R tile is written
+      } else {
+        stage_piece(p, b0, wc, false);
+        body.prepare(sm, 0);
+        body.zero_s();
+      }
+      body.s_product(sm, buf);
+      body.g_write(sm, gtile, W, K, wc, wend, p * KP, rt > 0);
+      if (np > 1) body.flush_s(ltile, B, K, b0, p * KP, i > 0);
+    }
+    if (np == 1) {
+      __syncthreads();                   // R, t, u and the bytes are read
+      if (last) {                        // the row tile's S leaves
+        body.flush_s(ltile, B, K, b0, 0, false);
+        body.zero_s();
+      }
+    }
+    if (last) {
+      ++rt;
+      i = 0;
+    } else {
+      ++i;
+    }
+  }
+}
+
 // K7's launch: the body K picks (at bf16 and K <= 64 the tensor-core
-// body), then the lambda partials' and the gamma partials' reductions in
-// tile order. Arguments as tt_batch_stats_fused_v2; tile_rows must be the
-// body's (ops/stats_packed.py `v2_tile_rows`). R replicates (the K-chunked
-// body: R x its chunks in z).
+// body; K > 64 `stats_v2_wide_kernel` at the piece width K takes), then
+// the lambda partials' and the gamma partials' reductions in tile order.
+// Arguments as tt_batch_stats_fused_v2; tile_rows must be the body's
+// (ops/stats_packed.py `v2_tile_rows`), at K > 64 1, 2 or 4 times it
+// (`v2_b_tile`). R replicates, replicate z in the grid's z.
 template <bool kBf16>
 int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
                          const float* t1, const float* t0, float* l0,
@@ -1163,31 +1868,45 @@ int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
   const int km = tt::pick_km(K, true);
   int body_rows = kV2Rows, body_cols = kV2Cols;
   if (km == tt::kWide) {
-    body_rows = tile_rows > 0 && tile_rows % kFRows == 0 ? tile_rows : -1;
-    body_cols = kFCols;
+    body_rows = kW7Rows;
+    body_cols = kW7Cols;
   } else if (kBf16) {
     const int kd = (km + 15) / 16;  // V2Mma<KN>: 4 / KD m-tiles a warp
     body_rows = 32 * (4 / kd);
     body_cols = kd == 4 ? 8 : 16;
   }
-  if (B <= 0 || W <= 0 || km < 0 || tile_rows != body_rows ||
-      tile_cols <= 0 || tile_cols % body_cols || R < 1 ||
-      (km == tt::kWide && tt::wide_grid_z(K, R) == 0))
+  // K > 64: a B tile of 1, 2 or 4 row tiles (ops/stats_packed.py
+  // `v2_b_tile`)
+  const bool rows_ok = km == tt::kWide
+                           ? tile_rows % body_rows == 0 &&
+                                 tile_rows <= kW7Group * body_rows
+                           : tile_rows == body_rows;
+  if (B <= 0 || W <= 0 || km < 0 || tile_rows <= 0 || !rows_ok ||
+      tile_cols <= 0 || tile_cols % body_cols || R < 1 || R > 65535)
     return (int)cudaErrorInvalidValue;
   const int nwt = (W + tile_cols - 1) / tile_cols;
   const int nbt = (B + tile_rows - 1) / tile_rows;
   const dim3 grid(nwt, nbt, R);
   if (km == tt::kWide) {
-    const int bytes =
-        (kWideTileFloats + tile_rows * tt::kKC * 2) * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_v2_wide_kernel<kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    stats_v2_wide_kernel<kBf16>
-        <<<dim3(nwt, nbt, tt::wide_grid_z(K, R)), kFThreads, bytes,
-           stream>>>(rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows,
-                     tile_cols, approx);
+#define TT_WIDE(KP)                                                          \
+  {                                                                          \
+    constexpr int bytes = W7<KP, kBf16>::kBytes;                             \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        stats_v2_wide_kernel<KP, kBf16>,                                     \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                 \
+    if (e != cudaSuccess) return (int)e;                                     \
+    stats_v2_wide_kernel<KP, kBf16><<<grid, kW7Threads, bytes, stream>>>(    \
+        rows, up, t1, t0, lpart, gpart, B, W, K, tile_rows, tile_cols,       \
+        approx);                                                             \
+  }
+    switch (w7_piece_cols(K)) {
+      case 80: TT_WIDE(80) break;
+      case 96: TT_WIDE(96) break;
+      case 112: TT_WIDE(112) break;
+      case 128: TT_WIDE(128) break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef TT_WIDE
   } else if constexpr (kBf16) {
 #define TT_BODY(KN, DIV)                                                     \
   {                                                                          \

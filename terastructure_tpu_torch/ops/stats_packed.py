@@ -21,15 +21,17 @@ CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
 The last four carry the big-N step (svi/engine.step_core_packed). Every
 kernel takes any K the twins take: K <= 64 runs the bodies instantiated
 at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
-(csrc/psd_wide.cuh, csrc/stats_fused.cuh).
+(csrc/psd_wide.cuh, csrc/stats_fused.cuh), but K7, whose K > 64 body
+computes D once an entry with K in pieces of up to 128 columns
+(csrc/stats_fused.cuh `stats_v2_wide_kernel`).
 
 Every kernel also takes dtype=torch.bfloat16 (compute_dtype
 "bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
 f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
-passes (K4, K5, K8) and K7 run on the tensor cores (csrc/psd_mma.cuh,
-csrc/stats_fused.cuh); K6 runs its SIMT body with the operands rounded
-where they are staged. Each wrapper counts its bf16 launches in
-`bf16_launches` (`count_launch`).
+passes (K4, K5, K8), and K7 at any K, run on the tensor cores
+(csrc/psd_mma.cuh, csrc/stats_fused.cuh); K6 runs its SIMT body with the
+operands rounded where they are staged. Each wrapper counts its bf16
+launches in `bf16_launches` (`count_launch`).
 
 Batched replicates: every kernel also takes a leading R axis on each
 per-replicate input (K4's rows may be shared) and runs the R calls in
@@ -565,8 +567,9 @@ def batch_stats_packed(rows, u, t1, t0, *, dtype=torch.float32):
 
 
 V2_TILE_ROWS = 128        # K7's CTA tile at K <= 64: rows (a lane each) ...
-V2_WIDE_TILE_ROWS = 256   # ... and at K > 64 (the K-chunked body)
+V2_WIDE_TILE_ROWS = 64    # ... and at K > 64 (128 M-rows: t1, t0 of each)
 V2_TILE_COLS = 256        # ... x byte columns (4 x 256 individuals)
+V2_WIDE_MIN_CTAS = 256    # K > 64: the fewest CTAs a B tile may leave
 
 
 def v2_tile_rows(k: int, dtype=torch.float32) -> int:
@@ -574,12 +577,44 @@ def v2_tile_rows(k: int, dtype=torch.float32) -> int:
     The bf16 tensor-core body at K <= 64 gives a warp 4 / KD m-tiles of 8
     rows (KD = ceil(K' / 16), K' the K-width `pick_km` instantiates), so
     that its registers do not grow with K: 128 rows at K <= 16, 64 at
-    K <= 32, 32 at K <= 64 (csrc/stats_fused.cuh `V2Mma`)."""
+    K <= 32, 32 at K <= 64 (csrc/stats_fused.cuh `V2Mma`). At K > 64 both
+    dtypes' body takes 64 rows, whose λ sums (128 M-rows x a piece of up
+    to 128 columns of K) its 8 warps hold in registers
+    (`stats_v2_wide_kernel`)."""
     if k > 64:
         return V2_WIDE_TILE_ROWS
     if dtype == torch.bfloat16:
         return 32 * (4 // (1 if k <= 16 else 2 if k <= 32 else 4))
     return V2_TILE_ROWS
+
+
+def v2_b_tile(b: int, w: int, k: int, dtype=torch.float32) -> int:
+    """Rows of K7's B tile at a call of b rows, w byte columns and K = k:
+    a CTA's rows, one γ partial each. At K <= 64 the body's row tile. At
+    K > 64 a CTA walks 4 row tiles of `v2_tile_rows` rows and adds their
+    g into one partial, so that the γ partials take (B/256, 4W, K) floats
+    as the K-chunked body's did (18.4 GB at N = 1M, K = 72 and R = 4,
+    not 74); 2 or 1 row tiles where 4 would leave fewer than
+    V2_WIDE_MIN_CTAS CTAs a replicate (B = 1,024, W = 2,048: 1), where the
+    partials are small (below 2 MiB x K)."""
+    rows = v2_tile_rows(k, dtype)
+    if k <= 64:
+        return rows
+    nwt = -(-w // V2_TILE_COLS)
+    for group in (4, 2):
+        if nwt * -(-b // (group * rows)) >= V2_WIDE_MIN_CTAS:
+            return group * rows
+    return rows
+
+
+def v2_partial_shapes(b: int, w: int, k: int, dtype=torch.float32):
+    """K7's partial sums at a call of b rows, w byte columns and K = k:
+    the λ partials (W tiles, B, K, 2), one per tile of V2_TILE_COLS byte
+    columns, and the γ partials (B tiles, 4W, K), one per `v2_b_tile`
+    rows; the launch adds each in tile order. A batched call holds R of
+    each."""
+    nwt, nbt = -(-w // V2_TILE_COLS), -(-b // v2_b_tile(b, w, k, dtype))
+    return (nwt, b, k, 2), (nbt, 4 * w, k)
 
 
 def _stats_args(name, rows, u, t1, t0):
@@ -634,13 +669,11 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     dev = rows.device
-    tile_rows = v2_tile_rows(k, dtype)
-    nwt, nbt = -(-w // V2_TILE_COLS), -(-b // tile_rows)
+    tile_rows = v2_b_tile(b, w, k, dtype)
     l0, l1, g, lead = _fused_outputs(b, w, k, r, dev)
-    lpart = torch.empty((*lead, nwt, b, k, 2), dtype=torch.float32,
-                        device=dev)
-    gpart = torch.empty((*lead, nbt, 4 * w, k), dtype=torch.float32,
-                        device=dev)
+    lshape, gshape = v2_partial_shapes(b, w, k, dtype)
+    lpart = torch.empty((*lead, *lshape), dtype=torch.float32, device=dev)
+    gpart = torch.empty((*lead, *gshape), dtype=torch.float32, device=dev)
     err = _entry("tt_batch_stats_fused_v2", dtype)(
         r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
         t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), g.data_ptr(),

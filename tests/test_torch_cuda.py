@@ -367,10 +367,11 @@ def test_wide_fused_solve_reruns_bitwise(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [72, 130, 256, 1000])
+@pytest.mark.parametrize("k", [65, 72, 96, 128, 129, 130, 256, 1000])
 def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
-    """K5, K7 (both divides) and K6 at K = 72, 130, 256 and 1000, B = 40,
-    W = 300: shared memory does not grow with K."""
+    """K5, K7 (both divides) and K6 at K = 65..1000, B = 40, W = 300:
+    shared memory does not grow with K (K7 takes K in pieces of at most
+    128 columns: one piece at K = 65..128, two at 129 and 130)."""
     rows, up, lamb = _problem(cuda_device, 40, 4 * 300, k, seed=k)
     rows[3] = 0xFF
     u = stats_packed.planes_to_flat(up).contiguous()
@@ -391,6 +392,54 @@ def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        **tol)
+
+
+# K7 at K > 64 (`stats_v2_wide_kernel`): one piece of K (65..128, piece
+# widths 80, 96 and 128) and several (129, 130: two of 80; 256: two of
+# 128; 1000: eight of 128)
+K7_WIDE_KS = [65, 72, 96, 128, 129, 130, 256, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(75, 301, 256), (128, 512, 256),
+                                   (300, 301, 1), (200, 512, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("k", K7_WIDE_KS)
+def test_k7_wide_body_matches_twin(cuda_device, monkeypatch, k, approx_div,
+                                   dtype, shape):
+    """K7 at K > 64, f32 and bf16, both divides: B = 75 (a ragged row
+    tile) with W = 301 (two W tiles, the second ragged; an odd W, so the
+    bytes take the byte-wise path) and B = 128 with W = 512 (the bytes by
+    16-byte copies), three rows MISSING, among them the last. Then B tiles
+    of several row tiles, whose g add into one γ partial, at shapes small
+    enough to check (V2_WIDE_MIN_CTAS lowered: `v2_b_tile`): B = 300 in B
+    tiles of 256 (4 row tiles, then 1 of 44 rows) and B = 200 in B tiles
+    of 128 (2 row tiles, then 2 with 8 rows in the second). One launch,
+    against its twin at the tolerances of K <= 64 (f32 TOL, bf16
+    BF16_PASS, the fast divide 5e-3), bitwise on a re-run."""
+    b, w, min_ctas = shape
+    monkeypatch.setattr(stats_packed, "V2_WIDE_MIN_CTAS", min_ctas)
+    assert stats_packed.v2_b_tile(b, w, k, dtype) == (
+        {1: 256, 3: 128}.get(min_ctas, 64))
+    rows, up, lamb = _problem(cuda_device, b, 4 * w, k, seed=k + b)
+    rows[[0, 40, b - 1]] = 0xFF
+    u = stats_packed.planes_to_flat(up).contiguous()
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    fn = stats_packed.batch_stats_fused_v2_packed
+    count = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(fn, count)
+    got = fn(rows, u, t1, t0, approx_div=approx_div, dtype=dtype)
+    assert getattr(fn, count) == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, fn(rows, u, t1, t0, approx_div=approx_div, dtype=dtype)))
+    g, l0, l1 = stats_packed.batch_stats_fused_twin(
+        rows, up, t1, t0, approx_div=approx_div, dtype=dtype)
+    want = (u * stats_packed.planes_to_flat(g), t1 * l0, t0 * l1)
+    tol = (dict(rtol=5e-3, atol=5e-3) if approx_div else
+           TOL if dtype == torch.float32 else BF16_PASS)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **tol)
 
 
 # The K-width of 12 that the gamma pass and K7 instantiate (K = 9..12) and
@@ -919,7 +968,8 @@ def test_rep_lambda_stats_is_the_single_pass_per_replicate(
 def test_rep_kernels_refuse_k_above_64(cuda_device):
     """K > 64 with the replicate axis, which raised before the K-chunked
     bodies took it (the name is kept from then): K1, K4, K5, K6, K7 and
-    K8 at K = 72 and 130 (3 and 5 chunks, ragged B and W), R = 3, f32 and
+    K8 at K = 72, 128 and 130 (3, 4 and 5 chunks; K7 one piece of 80, one
+    of 128, two of 80; ragged B and W), R = 3, f32 and
     bf16, one launch each, counted in rep_launches, each replicate
     bitwise its single wide call, a re-run bitwise; K1 on the plain and
     the tol-gated accel schedules, held to its twin at f32: on the plain
@@ -928,7 +978,7 @@ def test_rep_kernels_refuse_k_above_64(cuda_device):
     the accel tail's clamped Aitken step the twin differs on a few entries
     of g: measured 8 of 50,400 beyond TOL at K = 72 on NVIDIA H100 80GB
     HBM3, 700 W; the single call as much)."""
-    for k in (72, 130):
+    for k in (72, 128, 130):
         rows, up, lamb = _rep_problem(cuda_device, 3, 40, 700, k, seed=k)
         rows[1, :20] = 0xFF
         t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
