@@ -21,11 +21,12 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    twins on ragged B, odd W, K = 3..33, whole rows MISSING and a null
    group, with a bitwise re-run of each; K3 against `index_select` in
    turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
-   and G = 1; the K > 64 bodies (K1, K2, K4 and K8 at K = 72 and 256, K5
-   and K6 at K = 72, 130 and 256, K7 at K = 65, 72, 96, 128, 129, 130, 256
-   and 1000 at f32 and bf16 with both divides, and at the big-N shape
-   with K = 72, against their twins and their own second runs; one timed
-   shape per family); the bf16 bodies
+   and G = 1; the K > 64 bodies (the λ pass's, through K1, K2, K4 and
+   K8, at K = 65, 72, 96, 128, 129, 256 and 1000, K7 at K = 65..1000 too,
+   at f32 and bf16 with both divides; K5 and K6 at K = 72, 130 and 256;
+   K8 at the big-N step's subsample and K7 at the big-N shape with
+   K = 72, both dtypes and divides; against their twins and their own
+   second runs; one timed shape per family); the bf16 bodies
    (compute_dtype="bfloat16") of K1, K2, K4 and of the λ and γ passes
    against their bf16 twins at the TGP shape, config #1's and config #3's
    K2 step, ragged B, odd W, K = 3..33 and 72, rows MISSING, a null group,
@@ -167,7 +168,7 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    (`phase_replicates_wide`): (a) the fused branch at config #3's width
    (2,504 x 1M, phase 3's data), K = 72, B = 1,024, snp_group 1, R = 4:
    100 steps of fit_replicates_batched's chunk runner, K1[rep] once a
-   step (its K-chunked passes), K2 and K3 never, no twin, each replicate
+   step (its K > 64 passes), K2 and K3 never, no twin, each replicate
    bitwise its single 100 steps, then one batched eval through K4[rep],
    each score its single scorer's; (b) the big-N branch on phase 4's
    data, K = 72, B = 4,096, R = 2: 10 steps, K8[rep] 7 and K7[rep] 1 a
@@ -231,16 +232,19 @@ is no CUDA card.
 stops after phase 1 and prints the kernels' line (without launch counts)
 and the card line: the quick check and timing of a changed kernel. It also
 times the lambda pass at other column splits than the one `lambda_grid`
-chooses.
+chooses, at K <= 64 and at K > 64 (`split_sweep`).
 
     python3 chip_smoke.py --digest
 
 prints a digest of each kernel's outputs on seeded inputs at K <= 64 and
-at K = 72 (the K-chunked bodies), the eager time of the K3 and K4
+at K = 72 (the K > 64 bodies), the eager time of the K3 and K4
 wrappers and the host cost of the calls they make for the device and
 the stream, the device time of K7 and K8 at bf16 at the big-N shapes,
-and of K7 at K > 64 (the big-N shape at K = 72, B = 1,024 W = 2,048
-K = 256, and R = 4 at K = 72; f32 and bf16), through the wrappers only:
+of K7 at K > 64 (the big-N shape at K = 72, B = 1,024 W = 2,048
+K = 256, and R = 4 at K = 72; f32 and bf16), and of the λ pass at K > 64
+(`wide_lambda_ms`: K8 on the big-N subsample, single and R = 4; K4 at
+config #3's width, K = 72 and 256; K1 there on the accel schedule; f32
+and bf16), through the wrappers only:
 a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
 prints that tree's bits and times.
@@ -750,11 +754,16 @@ def phase_kernels(dev, rec, sweep=False):
     phase_kernels_bign(dev, rec)
     phase_kernels_dma(dev, rec)
     phase_kernels_tiling(dev, rec)
+    tr = time.time()
     phase_kernels_wide(dev, rec)
+    log(f"  the K > 64 bodies in {time.time() - tr:.1f} s")
     phase_kernels_bf16(dev, rec)
     phase_kernels_rep(dev, rec)
     phase_kernels_rep_bign(dev, rec)
+    tr = time.time()
     phase_kernels_rep_wide(dev, rec)
+    log(f"  the K > 64 bodies with the replicate axis in "
+        f"{time.time() - tr:.1f} s")
 
 
 # B, W, K at which the paths run one lambda pass: K1 at the TGP shape; K2
@@ -788,20 +797,50 @@ def phase_lambda_pass(dev, rec, sweep=False):
         log(f"  share of the bound {e['share_of_bound']:.4f}")
         r["passes"].append(e)
         if sweep:
-            # the same pass at other column splits (chunks of 16..256 byte
-            # columns), beside the split `lambda_grid` chose
-            chosen = stats_packed.lambda_grid(b, w)[0]
-            e["split_sweep_ms"] = {}
-            for chunk in (16, 32, 48, 64, 96, 128, 256):
-                nsplit = -(-w // chunk)
-                if nsplit in e["split_sweep_ms"]:
-                    continue
-                e["split_sweep_ms"][nsplit] = device_ms(
-                    lambda: stats_packed.launch_lambda_stats_packed(
-                        rows, up, t1, t0, nsplit, False))
-            log(f"  column splits (chosen {chosen}): " + ", ".join(
-                f"{n}: {t:.4f}" for n, t in e["split_sweep_ms"].items())
-                + " ms")
+            split_sweep(e, (rows, up, t1, t0), k, SWEEP_CHUNKS, device_ms)
+    if sweep:
+        for b, w, k in WIDE_SWEEP_SHAPES:
+            x = wide_lambda_inputs(dev, "K4", b, w, k)[0]
+            e = dict(shape=f"B={b} W={w} K={k}")
+            split_sweep(e, (x[0], x[1], x[3], x[4]), k, WIDE_SWEEP_CHUNKS,
+                        lambda fn: time_ms(fn, 10), (False, True))
+            r.setdefault("wide_split_sweep", []).append(e)
+
+
+# The λ pass at other column splits than `lambda_grid`'s (--kernels):
+# chunks of byte columns at K <= 64 (PASS_SHAPES), and at K > 64 K8's
+# shape (through K4's entry: the same body over packed rows), config #3's
+# width and the K = 256 timed shape
+SWEEP_CHUNKS = (16, 32, 48, 64, 96, 128, 256)
+WIDE_SWEEP_CHUNKS = (*range(32, 257, 16), 512)
+WIDE_SWEEP_SHAPES = [(BIGN[0], BIGN_SUB_W, 72), (1024, 640, 72),
+                     (1024, 2048, 256)]
+
+
+def split_sweep(e, x, k, chunks, timer, bf16s=(False,)):
+    """Device ms (`timer`) of the λ pass through K4's entry, exact divide,
+    on x = (rows, up, t1, t0) at the column splits that chunks of `chunks`
+    byte columns give, into e["split_sweep_ms"] (and e["bf16_split_sweep_ms"]
+    where True is in bf16s), logged beside the split `lambda_grid` chose."""
+    rows, up, t1, t0 = x
+    b, w = rows.shape
+    keys = {False: "split_sweep_ms", True: "bf16_split_sweep_ms"}
+    e["chosen"] = stats_packed.lambda_grid(b, w, k)[0]
+    for bf16 in bf16s:
+        e[keys[bf16]] = {}
+    for chunk in chunks:
+        nsplit = -(-w // chunk)
+        if nsplit in e[keys[bf16s[0]]]:
+            continue
+        for bf16 in bf16s:
+            e[keys[bf16]][nsplit] = timer(
+                lambda: stats_packed.launch_lambda_stats_packed(
+                    rows, up, t1, t0, nsplit, False, bf16))
+    log(f"  λ pass {e['shape']}, column splits (chosen {e['chosen']}): "
+        + ", ".join(f"{n}: " + " / ".join(f"{e[keys[f]][n]:.4f}"
+                                          for f in bf16s)
+                    for n in e[keys[bf16s[0]]])
+        + " ms" + (" (f32 / bf16)" if len(bf16s) > 1 else ""))
 
 
 def phase_kernels_tiling(dev, rec):
@@ -1076,37 +1115,22 @@ def phase_kernels_km12(dev, rec):
 
 
 def phase_kernels_wide(dev, rec):
-    """K > 64: the K-chunked bodies. K1, K2, K4 and K8 at K = 72 and 256
-    (ragged B, odd W, rows MISSING, a null group for K2, both divides),
-    K5, K6 and K7 at K = 72, 130 and 256, each against its twin and
-    bitwise against its second run; one timed shape per family beside its
-    bound."""
+    """K > 64. K1, K2, K4 and K8 (the λ pass's K > 64 body,
+    `lambda_pass_wide_kernel`) at K = 65..1000 (WIDE_LAMBDA_KS: one piece
+    of K up to 128, then two and eight), f32 and bf16, both divides (K1's
+    loop passes: the Newton step, or fast), ragged B, odd W, rows MISSING,
+    a null group for K2; K5, K6 and K7 at K = 72, 130 and 256 (K7 at
+    K7_WIDE_KS, both dtypes); each against its twin and bitwise against
+    its second run, K2 bitwise K1 on the gathered rows. Then K8 at the
+    big-N step's subsample held to its twin at both dtypes and divides,
+    and one timed shape per family beside its bound."""
     plain = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0)
-    for k in (72, 256):
+    for k in WIDE_LAMBDA_KS:
         rows, up, lamb = _solve_inputs(40, 235, k, k, dev)
         rows[5] = 0xFF
         rows[-1] = 0xFF
         t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
         a1, a0 = stats_packed.decode_count_planes(rows)
-        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
-            want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
-                                                         approx_div=approx)
-            hold(rec, "lambda_stats_packed", f"K4 wide B=40 W=235 K={k} "
-                 f"approx={approx}", twice("K4 wide", lambda: stats_packed.
-                                           lambda_stats_packed(
-                                               rows, up, t1, t0,
-                                               approx_div=approx)), want, tol)
-            hold(rec, "lambda_stats_acat",
-                 f"K8 wide B=40 W=235 K={k} approx={approx}",
-                 twice("K8 wide", lambda: stats_packed.lambda_stats_acat(
-                     a1, a0, up, t1, t0, approx_div=approx)), want, tol)
-            kw = dict(plain, approx_div=approx)
-            hold(rec, "fused_local_solve",
-                 f"K1 wide B=40 W=235 K={k} approx={approx}",
-                 twice("K1 wide", lambda: fused_step.fused_local_solve(
-                     rows, up, lamb, **kw)),
-                 fused_step.fused_local_solve_twin(rows, up, lamb, **kw), tol)
-
         b, g, l = 40, 8, 1024
         packed, up2, lamb2 = _solve_inputs(l, 256, k, k + 1, dev)
         lamb2 = lamb2[:b].contiguous()
@@ -1117,18 +1141,48 @@ def phase_kernels_wide(dev, rec):
         rows2 = packed[(idx0.long().clamp(max=l - g)[:, None]
                         + torch.arange(g, device=dev)).reshape(b)]
         rows2[g:2 * g] = 0xFF
-        for approx, tol in ((False, TOL), (True, TOL_APPROX)):
-            kw = dict(plain, approx_div=approx, warm_start=True)
+        for dtype, approx in ((torch.float32, False), (torch.float32, True),
+                              (BF16, False), (BF16, True)):
+            bf16 = dtype == BF16
+            tag = "[bf16]" if bf16 else ""
+            tol = (TOL_APPROX if approx else
+                   TOL_BF16_PASS if bf16 else TOL)
+            stol = (TOL_APPROX if approx else
+                    TOL_BF16_SOLVE if bf16 else TOL)
+            kind = f"{'bf16' if bf16 else 'f32'} approx={approx}"
+            shape = f"B=40 W=235 K={k} {kind}"
+            want = stats_packed.lambda_stats_packed_twin(
+                rows, up, t1, t0, approx_div=approx, dtype=dtype)
+            hold(rec, f"lambda_stats_packed{tag}", f"K4 wide {shape}",
+                 twice("K4 wide", lambda: stats_packed.lambda_stats_packed(
+                     rows, up, t1, t0, approx_div=approx, dtype=dtype)),
+                 want, tol)
+            hold(rec, f"lambda_stats_acat{tag}", f"K8 wide {shape}",
+                 twice("K8 wide", lambda: stats_packed.lambda_stats_acat(
+                     a1, a0, up, t1, t0, approx_div=approx, dtype=dtype)),
+                 want, tol)
+            kw = dict(plain, approx_div=approx, dtype=dtype)
+            got = twice("K1 wide", lambda: fused_step.fused_local_solve(
+                rows, up, lamb, **kw))
+            want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+            hold(rec, f"fused_local_solve{tag}", f"K1 wide {shape} g",
+                 got[1:], want[1:], stol)
+            hold(rec, f"fused_local_solve{tag}", f"K1 wide {shape} lambda",
+                 got[:1], want[:1], stol, FLIP_FRAC if bf16 else 0.0)
+            kw = dict(kw, warm_start=True)
             got = twice("K2 wide", lambda: fused_step.fused_local_solve_dma(
                 idx0, packed, up2, lamb2, group=g, **kw))
             k1 = fused_step.fused_local_solve(rows2, up2, lamb2, **kw)
             if not all(torch.equal(a, c) for a, c in zip(got, k1)):
-                raise AssertionError("K2 wide: differs from K1 on the "
-                                     "gathered rows")
-            hold(rec, "fused_local_solve_dma", f"K2 wide B=40 W=256 K={k} g=8 "
-                 f"approx={approx}", got,
-                 fused_step.fused_local_solve_twin(rows2, up2, lamb2, **kw),
-                 tol)
+                raise AssertionError(f"K2 wide {shape}: differs from K1 on "
+                                     "the gathered rows")
+            want = fused_step.fused_local_solve_twin(rows2, up2, lamb2, **kw)
+            hold(rec, f"fused_local_solve_dma{tag}",
+                 f"K2 wide B=40 W=256 K={k} g=8 {kind} g", got[1:],
+                 want[1:], stol)
+            hold(rec, f"fused_local_solve_dma{tag}",
+                 f"K2 wide B=40 W=256 K={k} g=8 {kind} lambda",
+                 got[:1], want[:1], stol, FLIP_FRAC if bf16 else 0.0)
 
     for kk in K7_WIDE_KS:
         rows3, up3, u3, t13, t03 = _stats_inputs(40, 300, kk, kk, dev)
@@ -1159,9 +1213,36 @@ def phase_kernels_wide(dev, rec):
                  twin_stats(rows3, up3, t13, t03, approx, dtype), tol)
     log("  wide bodies: every second run bitwise equal; K2 bitwise K1")
 
+    # K8 at the big-N step's subsample (B = 4,096, 4 x 2,048 individuals,
+    # K = 72; 7 a step there, with the fast divide): held to its twin at
+    # both dtypes and both divides, then timed beside its bound
+    b, w, k = BIGN[0], BIGN_SUB_W, REP_WIDE_K
+    x, call = wide_lambda_inputs(dev, "K8", b, w, k)
+    a1, a0, up, t1, t0 = x
+    for dtype, approx in ((torch.float32, False), (torch.float32, True),
+                          (BF16, False), (BF16, True)):
+        bf16 = dtype == BF16
+        hold(rec, "lambda_stats_acat[bf16]" if bf16 else "lambda_stats_acat",
+             f"K8 wide B={b} (4, {w}) K={k} {'bf16' if bf16 else 'f32'} "
+             f"approx={approx}",
+             twice("K8 wide", lambda: call(dtype, approx)),
+             stats_packed.lambda_stats_acat_twin(
+                 a1, a0, up, t1, t0, approx_div=approx, dtype=dtype),
+             TOL_APPROX if approx else TOL_BF16_PASS if bf16 else TOL)
+    e = dict(shape=f"B={b} (4, {w}) K={k} approx", plain_ms=None)
+    moved = nbytes(a1, a0, up, t1, t0, t1, t0)
+    entries = int(((a1 + a0) > 0).sum())
+    _timed(e, f"K8 wide {e['shape']}", lambda: call(approx=True),
+           lambda: stats_packed.lambda_stats_acat_twin(a1, a0, up, t1, t0,
+                                                       approx_div=True),
+           entries * lambda_pass_flops(k), moved, reps=20)
+    _wide_lambda_bf16(e, lambda: call(BF16, True), entries, k, moved)
+    rec["lambda_stats_acat"]["wide"] = [e]
+    del x, call, up, t1, t0, a1, a0
+
     # one timed shape per family at K = 72 and 256, beside its bound (the
     # work of the function: 8K+2 operations per present entry for a lambda
-    # or gamma pass, 12K+2 for K6/K7, whatever the chunks recompute); the
+    # or gamma pass, 12K+2 for K6/K7, whatever a body recomputes); the
     # twins only at K = 72 (at K = 256 their dense (B, 4W, K) products
     # would hold ~9 GB each)
     for name in ("lambda_stats_packed", "gamma_stats_packed",
@@ -1169,14 +1250,11 @@ def phase_kernels_wide(dev, rec):
         rec[name]["wide"] = []
     for k in (72, 256):
         b, w = 1024, 640
-        rows, up, lamb = _solve_inputs(b, w, k, 74, dev)
-        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        (rows, up, _, t1, t0), call = wide_lambda_inputs(dev, "K4", b, w, k)
         e = dict(shape=f"B={b} W={w} K={k}", body="wide λ pass (K4's entry)",
                  plain_ms=None)
-        e["ms"] = device_ms(lambda: stats_packed.lambda_stats_packed(
-            rows, up, t1, t0))
-        e["approx_ms"] = device_ms(lambda: stats_packed.lambda_stats_packed(
-            rows, up, t1, t0, approx_div=True))
+        e["ms"] = device_ms(call)
+        e["approx_ms"] = device_ms(lambda: call(approx=True))
         if k == 72:
             e["plain_ms"] = time_ms(
                 lambda: stats_packed.lambda_stats_packed_twin(rows, up, t1, t0))
@@ -1184,6 +1262,8 @@ def phase_kernels_wide(dev, rec):
             f"{e['approx_ms']:.4f} ms (CUDA graph); twin {e['plain_ms']} ms")
         set_bound(e, present(rows) * lambda_pass_flops(k),
                   nbytes(rows, up, t1, t0, t1, t0))
+        _wide_lambda_bf16(e, lambda: call(BF16), present(rows), k,
+                          nbytes(rows, up, t1, t0, t1, t0), graph=True)
         rec["lambda_stats_packed"]["wide"].append(e)
 
         b, w = 1024, 2048
@@ -1264,6 +1344,28 @@ def phase_kernels_wide(dev, rec):
     del rows, up, u, t1, t0, x
 
 
+def wide_lambda_inputs(dev, kernel, b, w, k):
+    """The λ pass at K > 64 through K8's entry (kernel "K8": the count
+    planes of rows from the seed 8, as the big-N step's subsample) or K4's
+    (packed rows from the seed b + w + k): its inputs x, (a1, a0, up, t1,
+    t0) or (rows, up, λ, t1, t0), and call(dtype, approx), one pass on
+    them. phase_kernels_wide and --digest build and time it so."""
+    if kernel == "K8":
+        rows, up, _, t1, t0 = _stats_inputs(b, w, k, 8, dev)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        del rows
+        return (a1, a0, up, t1, t0), (
+            lambda dtype=torch.float32, approx=False:
+            stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
+                                           approx_div=approx, dtype=dtype))
+    rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    return (rows, up, lamb, t1, t0), (
+        lambda dtype=torch.float32, approx=False:
+        stats_packed.lambda_stats_packed(rows, up, t1, t0,
+                                         approx_div=approx, dtype=dtype))
+
+
 def k7_wide_inputs(dev, b, w, k, r=None):
     """K7's inputs at K > 64 from the seed b + w + k: rows, u planes, u,
     t1 and t0, each with a leading r where r is given (`_rep_inputs`)."""
@@ -1293,6 +1395,17 @@ def _k7_wide_bf16(e, x, k, moved, reps):
     set_bound_bf16(tmp, present(x[0]), k, moved, sums=2)
     e["bf16_bound_ms"] = tmp["bound_ms"]
     log(f"  K7[bf16] wide {e['shape']}: kernel {e['bf16_ms']:.4f} ms, "
+        f"bound {e['bf16_bound_ms']:.5f} ms")
+
+
+def _wide_lambda_bf16(e, kernel, entries, k, moved, graph=False):
+    """The K > 64 λ pass's bf16 body timed beside the f32 body's entry e
+    (from a CUDA graph where `graph`), with its bf16 bound."""
+    e["bf16_ms"] = (device_ms if graph else time_ms)(kernel, 20)
+    tmp = {}
+    set_bound_bf16(tmp, entries, k, moved)
+    e["bf16_bound_ms"] = tmp["bound_ms"]
+    log(f"  wide λ pass[bf16] {e['shape']}: kernel {e['bf16_ms']:.4f} ms, "
         f"bound {e['bf16_bound_ms']:.5f} ms")
 
 
@@ -1345,6 +1458,10 @@ def in_turns(fa, fb, timer="events", reps=20):
 # of 80, 96 and 128 columns) and several (129, 130: two of 80; 256: two of
 # 128; 1000: eight of 128)
 K7_WIDE_KS = (65, 72, 96, 128, 129, 130, 256, 1000)
+# The λ pass at K > 64 (`lambda_pass_wide_kernel`, K1, K2, K4, K8), the
+# same tile: one piece of K (65..128: run 80 wide to K = 80, else 128),
+# two (129: two of 80; 256: two of 128) and eight (1000)
+WIDE_LAMBDA_KS = (65, 72, 96, 128, 129, 256, 1000)
 R_REP = 4    # replicates of the replicate-axis checks and of phase 9
 # B, W, K of the replicate-axis cases and the kernels each runs there:
 # first the shapes phase 9 runs (pad_width makes config #1's 1,000 and
@@ -1709,7 +1826,7 @@ def _time_rep_bign(rec, x):
             f"{R_REP} twins {r['plain_ms']:.3f} ms")
 
 
-# The K-chunked bodies (K > 64) with the replicate axis, R_REP replicates
+# The K > 64 bodies with the replicate axis, R_REP replicates
 # each of its own inputs: every kernel at K = 72 and 256 on ragged shapes
 # (held to the twins, bitwise per replicate and on a re-run), then timed at
 # K = 72 where the batched paths run them (phase 14): K1 at config #3's
@@ -1798,11 +1915,11 @@ def _hold_wide(rec, kernel, label, got, want, dtype, approx):
 
 def phase_kernels_rep_wide(dev, rec):
     """K1, K4, K5, K6, K7 and K8 with the replicate axis (R = 4) at
-    K = 72 and 256 (K7 at K = 128 too, its widest single piece of K): the
-    K-chunked bodies hold R x their chunks in the grid's z, K7's the
-    replicate alone; ragged shapes (B = 40, odd W, a replicate's rows
-    MISSING), f32 and bf16, both divides at K = 72 (K1, K4, K7, K8) and
-    128 (K7): each
+    K = 72 and 256 (K1, K4, K7 and K8 at K = 128 too, the widest single
+    piece of K of their bodies): the K-chunked bodies (K5, K6) hold R x
+    their chunks in the grid's z, the others the replicate alone; ragged
+    shapes (B = 40, odd W, a replicate's rows MISSING), f32 and bf16, both
+    divides at K = 72 and 128 (K1, K4, K7, K8): each
     replicate bitwise its single wide call, a re-run bitwise, held to the
     twins at the K <= 64 [rep] tolerances; K1 also bitwise per replicate
     on the main path's cold accel schedule. Then at K = 72 at the batched
@@ -1813,8 +1930,8 @@ def phase_kernels_rep_wide(dev, rec):
         rec[name]["wide"] = []
     for k in (REP_WIDE_K, 128, 256):
         for kernel, name in REP_WIDE.items():
-            if k == 128 and kernel != "K7":   # K7's widest single piece
-                continue
+            if k == 128 and kernel in ("K5", "K6"):   # the widest single
+                continue                              # piece of K1-K4-K7-K8
             w = 235 if kernel in ("K1", "K4", "K8") else 300
             x = _wide_rep_inputs(40, w, k, dev)
             for dtype in (torch.float32, BF16):
@@ -1840,7 +1957,7 @@ def phase_kernels_rep_wide(dev, rec):
                                         REP_WIDE_MAIN)["K1"][0](),
                         [_single_wide(x, i, "K1", dtype, False, REP_WIDE_MAIN)
                          for i in range(R_REP)])
-        log(f"  {'K7' if k == 128 else 'K1, K4, K5-K8'}[rep] wide "
+        log(f"  {'K1, K4, K7, K8' if k == 128 else 'K1, K4, K5-K8'}[rep] wide "
             f"R={R_REP} K={k}: each replicate bitwise its single wide call, "
             "re-runs bitwise")
     for kernel in REP_WIDE:
@@ -1935,7 +2052,7 @@ def phase_kernels_bf16(dev, rec):
     twin (TOL_BF16_PASS, TOL_BF16_SOLVE; approx_div TOL_APPROX), re-run
     bitwise, and pinned against the f32 body; K2 bitwise against K1 on the
     gathered rows. Cases: the TGP shape, config #1's, config #3's K2 step,
-    ragged B, odd W, K = 3..33 and 72 (the K-chunked bodies), rows
+    ragged B, odd W, K = 3..33 and 72 (the K > 64 bodies), rows
     MISSING, a null group, both divides, the stored-λ warm start. Times in
     turns with the f32 bodies, beside the bf16 bounds."""
     for name in ("fused_local_solve[bf16]", "fused_local_solve_dma[bf16]",
@@ -2009,7 +2126,7 @@ def phase_kernels_bf16(dev, rec):
                 timed=not approx)
 
     # ragged B, odd W, K across the instantiated widths, K = 72 (the
-    # K-chunked bodies), whole rows MISSING, both divides
+    # K > 64 bodies), whole rows MISSING, both divides
     for b, w, k in ((33, 235, 3), (1000, 626, 7), (33, 626, 10),
                     (1000, 235, 16), (72, 640, 33), (40, 235, 72)):
         rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
@@ -2100,7 +2217,7 @@ def phase_kernels_bf16(dev, rec):
 
 # B, W, K of the big-N bf16 cases: the step's shape, a ragged B (the pad
 # path), K = 8 and 16 (the K-widths around K7's 12), K = 3, and K = 72
-# (the K-chunked bodies); K8 runs on the first 2,048 columns (the step's
+# (the K > 64 bodies); K8 runs on the first 2,048 columns (the step's
 # subsample width) or all of a narrower W
 BIGN_BF16_SHAPES = [BIGN, (4092, 25_088, 10), (300, 385, 8), (300, 385, 12),
                     (300, 385, 16), (33, 235, 3), (75, 235, 33),
@@ -3366,7 +3483,7 @@ def phase_replicates_bign(dev, rec, bign):
         REP_BIGN_ABSENT + tuple(n for n in KERNELS if n.endswith("[bf16]")))
 
 
-# Phase 14: batched replicates at K > 64 (the K-chunked bodies with the
+# Phase 14: batched replicates at K > 64 (the K > 64 bodies with the
 # replicate axis) and with kernel="dense".
 WIDE_K = 72
 
@@ -3408,7 +3525,7 @@ def phase_replicates_wide(dev, rec, tgp_data, bign):
     """Batched replicates at K > 64 and with kernel="dense": (a) the fused
     branch at config #3's width (2,504 x 1M), K = 72, B = 1,024,
     snp_group 1, R = 4: 100 steps of fit_replicates_batched's chunk
-    runner, K1[rep] once a step (its K-chunked passes), K2 and K3 never,
+    runner, K1[rep] once a step (its K > 64 passes), K2 and K3 never,
     no twin, each replicate bitwise its single 100 steps; then one
     batched eval through K4[rep], each replicate's score its single
     scorer's; (b) the big-N branch on phase 4's data (100K x 100K),
@@ -4659,7 +4776,7 @@ def digests(dev):
             out[f"K7 {shape} approx={approx}"] = h(
                 *stats_packed.batch_stats_fused_v2_packed(
                     rows, u, t1, t0, approx_div=approx))
-    # K > 64: every K-chunked body
+    # K > 64: every K > 64 body
     b, w, k = 40, 256, 72
     packed, up, lamb = _solve_inputs(1024, w, k, 72, dev)
     idx0 = torch.arange(0, 1024, 8 * 5, dtype=torch.int32, device=dev)[:b // 8]
@@ -4801,6 +4918,51 @@ def wide_k7_ms(dev):
     return out
 
 
+# The λ pass at K > 64 as --digest times it (`wide_lambda_ms`): K8 on the
+# big-N step's subsample (B = 4,096, 4 x 2,048, K = 72, the step's fast
+# divide), single and with the replicate axis (R = 4); K4 at config #3's
+# width (B = 1,024, W = 640) at K = 72 and 256, and K1 and K2 there on the
+# main path's accel schedule (REP_WIDE_MAIN); f32 and bf16.
+def wide_lambda_ms(dev):
+    """Device ms a call of the wrappers that run the λ pass at K > 64 (CUDA
+    events after a warm-up): --digest prints them in whichever tree's
+    package is imported, so that two trees' bodies are timed in turns."""
+    out = {}
+    dtypes = ((torch.float32, ""), (BF16, "[bf16]"))
+    b, w, k = BIGN[0], BIGN_SUB_W, REP_WIDE_K
+    call = wide_lambda_inputs(dev, "K8", b, w, k)[1]
+    x = _wide_rep_inputs(b, w, k, dev)
+    for dtype, tag in dtypes:
+        out[f"K8{tag} wide B={b} (4, {w}) K={k} approx"] = time_ms(
+            lambda: call(dtype, True), 20)
+        out[f"K8{tag}[rep] wide R={R_REP} B={b} (4, {w}) K={k} approx"] = \
+            time_ms(_wide_rep_calls(x, dtype, True)["K8"][0], 5)
+    del call, x
+    b, w = 1024, 640
+    for k in (REP_WIDE_K, 256):
+        (rows, up, lamb, _, _), call = wide_lambda_inputs(dev, "K4", b, w, k)
+        for dtype, tag in dtypes:
+            out[f"K4{tag} wide B={b} W={w} K={k}"] = time_ms(
+                lambda: call(dtype), 20)
+            if k == REP_WIDE_K:
+                out[f"K1{tag} wide B={b} W={w} K={k} accel7"] = time_ms(
+                    lambda: fused_step.fused_local_solve(
+                        rows, up, lamb, dtype=dtype, **REP_WIDE_MAIN), 10)
+    # K2 at config #3's step: 128 groups of 8 rows out of a 65,536-row
+    # matrix
+    packed, up, lamb = _solve_inputs(65_536, w, REP_WIDE_K, 21, dev)
+    idx0 = torch.randperm(65_536 // 8, generator=torch.Generator(
+        device=dev).manual_seed(21), device=dev)[:b // 8].int() * 8
+    lamb = lamb[:b].contiguous()
+    for dtype, tag in dtypes:
+        out[f"K2{tag} wide L=65536 B={b} W={w} K={REP_WIDE_K} g=8 "
+            "accel7"] = time_ms(lambda: fused_step.fused_local_solve_dma(
+                idx0, packed, up, lamb, group=8, dtype=dtype,
+                **REP_WIDE_MAIN), 10)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=()) -> int:
     if list(argv) not in ([], ["--kernels"], ["--digest"]):
         print("usage: chip_smoke.py [--kernels | --digest]", file=sys.stderr)
@@ -4830,12 +4992,15 @@ def main(argv=()) -> int:
         print(json.dumps({"digests": digests(dev),
                           "wrapper_eager_ms": wrapper_eager_ms(dev),
                           "bign_bf16_ms": bign_bf16_ms(dev),
-                          "wide_k7_ms": wide_k7_ms(dev)}))
+                          "wide_k7_ms": wide_k7_ms(dev),
+                          "wide_lambda_ms": wide_lambda_ms(dev)}))
         print(card)
         return 0
 
     log("phase 1: kernels vs twins")
+    tr = time.time()
     phase_kernels(dev, rec, sweep=argv == ["--kernels"])
+    log(f"  phase 1 in {time.time() - tr:.1f} s")
     if argv:
         log(f"phases 0 and 1 in {time.time() - t0:.1f} s")
         print(json.dumps({"kernels": [dict(name=name, **rec[name])
@@ -4843,26 +5008,40 @@ def main(argv=()) -> int:
         print(card)
         return 0
     f32 = {}
+    tr = time.time()
     log("phase 2: canonical drive, config #1")
     f32["config #1 local"] = phase_canonical(dev, rec)
     log("phase 2b: config #1, stored lambda mode")
     f32["config #1 stored"] = phase_canonical(dev, rec, lambda_mode="stored")
     log("phase 2c: K = 72 through the fused branch")
     phase_wide_paths(dev, rec)
+    log(f"  phase 2 in {time.time() - tr:.1f} s")
     log("phase 3: TGP shape")
+    tr = time.time()
     tgp = phase_tgp(dev, rec)
+    log(f"  phase 3 in {time.time() - tr:.1f} s")
     log("phase 4: big-N shape")
+    tr = time.time()
     bign = phase_bign(dev, rec)
+    log(f"  phase 4 in {time.time() - tr:.1f} s")
     log("phase 5: config #3, group-addressed solve (K2)")
+    tr = time.time()
     f32["config #3 local"] = phase_config3(dev, rec, *tgp)
+    log(f"  phase 5 in {time.time() - tr:.1f} s")
     log("phase 6: compute_dtype bfloat16: config #1 (both lambda modes), "
         "config #3")
+    tr = time.time()
     phase_bf16_drives(dev, rec, *tgp, f32)
+    log(f"  phase 6 in {time.time() - tr:.1f} s")
     log("phase 7: compute_dtype bfloat16 on the big-N shape")
+    tr = time.time()
     phase_bign_bf16(dev, rec, bign)
+    log(f"  phase 7 in {time.time() - tr:.1f} s")
     log("phase 8: out-of-core streaming from a .bed through an on-disk "
         "cache")
+    tr = time.time()
     phase_stream(dev, rec, bign)
+    log(f"  phase 8 in {time.time() - tr:.1f} s")
     log("phase 9: batched replicates (fit_replicates_batched)")
     tr = time.time()
     phase_replicates(dev, rec)

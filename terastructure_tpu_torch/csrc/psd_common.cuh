@@ -67,15 +67,16 @@
 // solve's loop passes).
 //
 // These bodies are instantiated for K-widths KM = 4..64 (`pick_km`; the
-// gamma pass also KM = 12). K > 64
-// goes to the K-chunked bodies of psd_wide.cuh, which the launchers below
-// (`launch_lambda_pass`, `launch_gamma_stats`) pick by K; both kinds take
-// the replicate axis (`Rep`). At compute dtype
-// bf16 (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
-// planes) and K7's statistics run tensor-core bodies (psd_mma.cuh,
-// stats_fused.cuh); K6's statistics run its SIMT body with the operands
-// rounded (`operand`); K > 64 runs the K-chunked bodies with their
-// operands rounded.
+// gamma pass also KM = 12). K > 64 goes, by K, through the launchers below
+// (`launch_lambda_pass`, `launch_gamma_stats`) to the λ pass of
+// lambda_wide.cuh (K in pieces of up to 128 columns, D once an entry, on
+// the tile of wide_tile.cuh) and the K-chunked gamma pass of psd_wide.cuh;
+// every kind takes the replicate axis (`Rep`). At compute dtype bf16
+// (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
+// planes), the λ pass at K > 64 and K7's statistics run tensor-core bodies
+// (psd_mma.cuh, lambda_wide.cuh, stats_fused.cuh); K6's statistics and the
+// K-chunked gamma pass run their SIMT bodies with the operands rounded
+// (`operand`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -152,13 +153,13 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
 
 // x as an operand of a product: at compute dtype bf16 (kBf16) rounded to
 // bf16 to nearest even and held in f32, else x itself. The K-chunked bf16
-// bodies (psd_wide.cuh) round T and U where they stage them and R after
-// the f32 divide; the product of two bf16 values is exact in f32 and the
-// sums stay f32, so they compute the reference's bf16 kernels
-// (fused_step.py:270-302, stats_pallas.py:68-93) up to the order of the
-// sums. kBf16 = false leaves the f32 bodies' code as it was. (At K <= 64
-// the bf16 passes and K7 run on the tensor cores, psd_mma.cuh and
-// stats_fused.cuh; K6 is the one K <= 64 body that rounds with this.)
+// gamma pass (psd_wide.cuh) and K6's bodies round T and U where they stage
+// them and R after the f32 divide; the product of two bf16 values is exact
+// in f32 and the sums stay f32, so they compute the reference's bf16
+// kernels (fused_step.py:270-302, stats_pallas.py:68-93) up to the order
+// of the sums. kBf16 = false leaves the f32 bodies' code as it was. (The
+// other bf16 passes and K7 run on the tensor cores: psd_mma.cuh,
+// lambda_wide.cuh, stats_fused.cuh.)
 template <bool kBf16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
@@ -810,7 +811,8 @@ inline int split_chunk(int W, int nsplit) {
 }
 
 // The K-width a pass runs at: the smallest instantiated KM holding K,
-// kWide for K > 64 (psd_wide.cuh), -1 for K < 1. The gamma pass and K7
+// kWide for K > 64 (lambda_wide.cuh, psd_wide.cuh), -1 for K < 1. The
+// gamma pass and K7
 // also instantiate KM = 12 (`km12`), so that K = 9..12 (K = 10 in the
 // big-N configs) runs 12 wide instead of 16; the lambda pass keeps
 // {4, 8, 16, 32, 64}.
@@ -827,6 +829,7 @@ inline int pick_km(int K, bool km12 = false) {
 }  // namespace tt
 
 #include "psd_wide.cuh"
+#include "lambda_wide.cuh"
 
 // Expand F(KM) for the instantiated K-widths (switch on km).
 #define TT_DISPATCH_KM(km, F)        \
@@ -858,9 +861,9 @@ namespace tt {
 // kNewton is set: only the fused solve builds it); `active` as in
 // `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
 // tensor-core body (psd_mma.cuh) for either loader, packed rows (K1, K2,
-// K4) or count planes (K8), above it the K-chunked body. R replicates in
-// the grid's z at the strides of `rep` (the K-chunked bodies: R x their
-// chunks, psd_wide.cuh `wide_z`).
+// K4) or count planes (K8). K > 64 runs `lambda_pass_wide_kernel`
+// (lambda_wide.cuh) at either dtype. R replicates in the grid's z at the
+// strides of `rep`.
 template <class Loader, bool kNewton = false, bool kBf16 = false>
 int launch_lambda_pass(Loader ld, const float* up, const float* t1,
                        const float* t0, int ts, int tk, float* part, int B,

@@ -1,66 +1,53 @@
-// The K-chunked ("wide") bodies of the lambda pass and the gamma pass, for
-// K > 64. Included by psd_common.cuh after the K <= 64 bodies, whose
-// loaders, row sources and divides they reuse; K6's wide body, built the
-// same way, is in stats_fused.cuh (K7's K > 64 body there is not
-// K-chunked).
+// The K-chunked ("wide") body of the gamma pass, for K > 64: K1's and
+// K2's last pass and K5 (`gamma_stats_wide`, which `launch_gamma_stats` in
+// psd_common.cuh picks by K). Included by psd_common.cuh after the K <= 64
+// bodies, whose row sources and divides it reuses. The K-chunking helpers
+// here (`kKC`, `wide_z`, `wide_grid_z`) also serve K6's K > 64 body in
+// stats_fused.cuh. The λ pass at K > 64 is no longer K-chunked: it is
+// lambda_wide.cuh's `lambda_pass_wide_kernel`, on the tile that K7's K > 64
+// body walks too (wide_tile.cuh).
 //
-// They stand for the same TPU kernels as the K <= 64 bodies: the lambda
-// pass for terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass`
-// (:252-308, K1 and K2) and ops/stats_pallas.py `_lambda_kernel` (K4) and
-// `_lambda_acat_kernel` (K8); the gamma pass for K1's last pass and
-// stats_pallas.py `_gamma_kernel` (K5). On the TPU K is padded to 128
-// lanes (fused_step.py:141), so K = 65..128 costs the reference nothing
-// more than K = 8 does.
+// It stands for the same TPU kernel as the K <= 64 gamma bodies: K1's last
+// pass (terastructure_tpu/ops/fused_step.py `_make_kernel.one_pass`,
+// :252-308) and ops/stats_pallas.py `_gamma_kernel` (K5). On the TPU K is
+// padded to 128 lanes (fused_step.py:141), so K = 65..128 costs the
+// reference nothing more than K = 8 does.
 //
-// Why a second body: the K <= 64 bodies keep KM floats per K-vector in
-// registers (t1, t0, s1, s0 in the lambda pass; u, g in the gamma pass).
-// KM = 64 already spills, and KM = 128 would not fit the 48 KB of static
-// shared memory either. So a wide CTA splits the K output columns into
-// chunks of kKC = 32 (blockIdx.z), which hold in registers what KM = 32
-// holds. Each CTA computes the whole D1 = sum_k t1[b,k] u[n,k] (and D0)
-// over all K, then adds only its chunk's sums.
+// Why K-chunked: the K <= 64 bodies keep KM floats per K-vector in
+// registers (u and g). KM = 64 already spills, and KM = 128 would not fit
+// the 48 KB of static shared memory either. So a wide CTA splits the K
+// output columns into chunks of kKC = 32 (blockIdx.z), which hold in
+// registers what KM = 32 holds. Each CTA computes the whole D1 = sum_k
+// t1[b,k] u[n,k] (and D0) over all K, then adds only its chunk's sums.
 //
 // Any K: D's operands are staged a piece at a time, piece p being the
 // columns [32p, 32p + 32) of K (the chunks' own split), and D is summed
-// over the pieces. So a CTA's shared memory does not grow with K: it is
-// static, 46 KB (lambda pass, count-plane loader) and 25 KB (gamma pass).
-// A CTA takes its own chunk's piece last, so that the staged piece serves
-// the chunk's sums too; D's sum thus starts at a different piece in each
-// chunk (the chunks' R of one entry differ in rounding only).
-//   lambda pass: per tile of kWideCols = 8 byte columns (32 individuals),
-//     a piece's t of the CTA's 64 rows (float2, k-major: a lane, one row,
-//     reads consecutive words) and u of the tile's 32 individuals (rows of
-//     32 floats, read as float4 broadcasts). A lane adds the piece into D
-//     of its row and the 32 individuals, kept in shared memory in the
-//     lane's own column (no lane reads another's); then each entry's
-//     R = A / (D + eps) goes into the chunk's sums.
-//   gamma pass: per block of kWideGRows = 32 rows, a piece's u of the
-//     CTA's 128 individuals (k-major, stride 129: a thread, one individual,
-//     reads its own column; the staging writes hit 32 banks) and t of the
-//     rows (float2 rows, read as float4 broadcasts); a thread keeps D of
-//     its individual and the 32 rows in registers.
+// over the pieces, so a CTA's shared memory (25 KB, static) does not grow
+// with K. A CTA takes its own chunk's piece last, so that the staged piece
+// serves the chunk's sums too; D's sum thus starts at a different piece in
+// each chunk (the chunks' R of one entry differ in rounding only). Per
+// block of kWideGRows = 32 rows, a piece's u of the CTA's 128 individuals
+// (k-major, stride 129: a thread, one individual, reads its own column;
+// the staging writes hit 32 banks) and t of the rows (float2 rows, read as
+// float4 broadcasts); a thread keeps D of its individual and the 32 rows
+// in registers.
 //
-// What bounds it at K > 64: the shared-memory load rate and the recompute.
-// D is computed ceil(K / 32) times: at K = 72, 3 x 2K + 2K = 8K FMAs an
-// entry against the 4K an unchunked pass would do, and at K = 256 8 x 2K +
-// 2K = 18K against 4K. These bodies are a repair, not a redesign: the
-// K <= 64 bodies are unchanged, and no K the reference's acceptance
-// configs run goes here. K7's K-chunked body, the costliest of the kind
-// (115.8 ms a call at the big-N shape with K = 72, NVIDIA H100 80GB HBM3,
-// 700 W), has been redesigned: stats_fused.cuh `stats_v2_wide_kernel`
-// computes D once an entry with no chunks, in 13.1-13.4 ms at f32 and
-// 4.9 at bf16 (its note; PERF.md). The lambda pass's (K8 wide: 7 a big-N
-// step) and the gamma pass's are next.
+// What bounds it at K > 64: the shared-memory load rate and the
+// recompute. D is computed ceil(K / 32) times: at K = 72, 3 x 2K + 2K =
+// 8K FMAs an entry against the 4K an unchunked pass would do, and at
+// K = 256 8 x 2K + 2K = 18K against 4K. This body is a repair, not a
+// redesign; K7's and the λ pass's K-chunked bodies have been redesigned
+// (stats_fused.cuh `stats_v2_wide_kernel`, lambda_wide.cuh; their notes
+// and PERF.md give their times), and this one is next.
 //
 // No atomics: each chunk writes its own k columns of the same partial-sum
-// buffers as the K <= 64 bodies (part (nsplit, B, K, 2), gpart (nsplit,
-// 4W, K)), and the split reductions add them in split order, so a re-run
-// is bitwise equal.
+// buffer as the K <= 64 body (gpart (nsplit, 4W, K)), and the split
+// reduction adds them in split order, so a re-run is bitwise equal.
 //
 // The replicate axis (batched replicates, the reference's kernels under
 // jax.vmap): R problems share the grid's z with the chunks, z = r x
-// chunks + c (`wide_z`), so gridDim.z is R x ceil(K / 32) (the launchers
-// keep it within 65,535). CTA (x, y, z) offsets its pointers by
+// chunks + c (`wide_z`), so gridDim.z is R x ceil(K / 32) (the launcher
+// keeps it within 65,535). CTA (x, y, z) offsets its pointers by
 // replicate r's `Rep` strides in its prologue, before any staging, and
 // then runs chunk c exactly as the single call's CTA (x, y, c) does: a
 // replicate's result is bitwise its single call's. R = 1 is that call.
@@ -69,8 +56,6 @@
 namespace tt {
 
 constexpr int kKC = 32;          // columns of K in a chunk and in a piece
-constexpr int kWideCols = 8;     // byte columns of a wide lambda-pass tile
-constexpr int kWideU = 4 * kWideCols;    // ... its individuals (u rows)
 constexpr int kWideGRows = 32;   // rows of a wide gamma CTA's block
 constexpr int kUStride = kGThreads + 1;  // wide gamma pass: u's k stride
 
@@ -100,155 +85,6 @@ inline unsigned wide_grid_z(int K, int R) {
 // Columns of piece p: 32, or what is left of K rounded up to 4.
 __device__ __forceinline__ int piece_width(int K, int p) {
   return min(kKC, round4(K) - p * kKC);
-}
-
-// The wide lambda pass. grid (ceil(B/kRowsPerCta), nsplit, R x
-// wide_chunks(K)), block kThreads. Arguments as lambda_pass_kernel's; the
-// CTA of chunk c writes part[..., k, :] for k in [32 c, 32 c + 32) of its
-// replicate (`wide_z`). kBf16: the bf16 body (t, u and R rounded as
-// products' operands, `operand`).
-template <class Loader, int kDiv, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads)
-lambda_pass_wide_kernel(Loader ld, const float* __restrict__ up,
-                        const float* __restrict__ t1g,
-                        const float* __restrict__ t0g, int ts, int tk,
-                        float* __restrict__ part, int B, int W, int K,
-                        int wchunk, const int* __restrict__ active, Rep rep) {
-  const WideZ z = wide_z(K);
-  if (active != nullptr && active[z.r] == 0) return;
-  ld = ld.shifted(z.r * rep.rows);
-  up += z.r * rep.u;
-  t1g += z.r * rep.t;
-  t0g += z.r * rep.t;
-  part += z.r * rep.part;
-  constexpr int TC = kWideCols;
-  constexpr int G = 2;                             // entries at once
-  constexpr int UB = 8;                            // u rows D holds at once
-  __shared__ uint32_t tile[Loader::words(TC)];
-  __shared__ __align__(16) float2 tsm[kKC * kRowsPerCta];  // (k, row)
-  __shared__ __align__(16) float us[kWideU * kKC];         // (u row, k)
-  __shared__ float2 dsm[kWideU * kRowsPerCta];             // (u row, row)
-  __shared__ const uint8_t* rowp[kRowsPerCta];
-
-  const int r = threadIdx.x;                       // the lane's row in the CTA
-  const int b0 = blockIdx.x * kRowsPerCta;
-  const int b = b0 + r;
-  const bool row_ok = b < B;
-  const int wbeg = blockIdx.y * wchunk;
-  const int wend = min(W, wbeg + wchunk);
-  const int np = z.np;                             // pieces = chunks
-  const int kc0 = z.c * kKC;
-  const int kwc = piece_width(K, z.c);             // the chunk's columns
-
-  ld.prepare(rowp, b0, B, W);  // visible after the first tile's barrier
-  float s1[kKC], s0[kKC];
-#pragma unroll
-  for (int j = 0; j < kKC; ++j) s1[j] = s0[j] = 0.f;
-
-  for (int w0 = wbeg; w0 < wend; w0 += TC) {
-    const int nb = min(TC, wend - w0);
-    const int nc = min(TC, (nb + 3) & ~3);
-    __syncthreads();  // the previous tile is consumed
-    ld.template stage<TC>(tile, rowp, b0, B, W, w0, nb);
-    for (int q = 1; q <= np; ++q) {
-      const int p = (z.c + q) % np;                // the chunk's own last
-      const int k0 = p * kKC, kw = piece_width(K, p);
-      if (q > 1) __syncthreads();                  // the last piece is read
-      for (int i = threadIdx.x; i < kw * kRowsPerCta; i += kThreads) {
-        const int k = i / kRowsPerCta, rr = i % kRowsPerCta;
-        const long long o =
-            (long long)(b0 + rr) * ts + (long long)(k0 + k) * tk;
-        tsm[i] = b0 + rr < B && k0 + k < K
-                     ? make_float2(operand<kBf16>(t1g[o]),
-                                   operand<kBf16>(t0g[o]))
-                     : make_float2(0.f, 0.f);
-      }
-      // u rows of the tile's columns, zero beyond K and beyond nb (a packed
-      // word reaches up to 3 columns past nb; they read as MISSING)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float* ug = up + ((long long)s * W + w0) * K + k0;
-        for (int i = threadIdx.x; i < nc * kw; i += kThreads) {
-          const int c = i / kw, k = i % kw;
-          us[(s * TC + c) * kKC + k] =
-              c < nb && k0 + k < K ? operand<kBf16>(__ldg(ug + c * K + k))
-                                   : 0.f;
-        }
-      }
-      __syncthreads();
-      for (int u0 = 0; u0 < kWideU; u0 += UB) {
-        float d1[UB], d0[UB];
-#pragma unroll
-        for (int i = 0; i < UB; ++i) {
-          const float2 d = q > 1 ? dsm[(u0 + i) * kRowsPerCta + r]
-                                 : make_float2(0.f, 0.f);
-          d1[i] = d.x;
-          d0[i] = d.y;
-        }
-        for (int k4 = 0; k4 < kw / 4; ++k4) {
-          const float2* tk4 = tsm + 4 * k4 * kRowsPerCta + r;
-          const float2 ta = tk4[0], tb = tk4[kRowsPerCta],
-                       tc = tk4[2 * kRowsPerCta], td = tk4[3 * kRowsPerCta];
-#pragma unroll
-          for (int i = 0; i < UB; ++i) {
-            const float4 v =
-                reinterpret_cast<const float4*>(us + (u0 + i) * kKC)[k4];
-            d1[i] = fmaf(ta.x, v.x, d1[i]);
-            d0[i] = fmaf(ta.y, v.x, d0[i]);
-            d1[i] = fmaf(tb.x, v.y, d1[i]);
-            d0[i] = fmaf(tb.y, v.y, d0[i]);
-            d1[i] = fmaf(tc.x, v.z, d1[i]);
-            d0[i] = fmaf(tc.y, v.z, d0[i]);
-            d1[i] = fmaf(td.x, v.w, d1[i]);
-            d0[i] = fmaf(td.y, v.w, d0[i]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < UB; ++i)
-          dsm[(u0 + i) * kRowsPerCta + r] = make_float2(d1[i], d0[i]);
-      }
-    }
-    // the chunk's sums: us holds the chunk's own piece
-    const int nunits = Loader::units(nb);
-    for (int unit = 0; unit < nunits; ++unit) {
-      uint32_t w[Loader::kWords];
-      if (!Loader::template load<TC>(tile, r, unit, w)) continue;
-#pragma unroll
-      for (int e0 = 0; e0 < Loader::kEntries; e0 += G) {
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          int urow;
-          float a1, a0;
-          Loader::template entry<TC>(w, unit, e0 + i, urow, a1, a0);
-          const float2 d = dsm[urow * kRowsPerCta + r];
-          const float r1 = operand<kBf16>(ratio<kDiv>(a1, d.x));
-          const float r0 = operand<kBf16>(ratio<kDiv>(a0, d.y));
-          const float4* q = reinterpret_cast<const float4*>(us + urow * kKC);
-#pragma unroll
-          for (int j = 0; j < kKC / 4; ++j) {
-            if (4 * j < kwc) {                       // the same for all lanes
-              const float4 v = q[j];
-              s1[4 * j] = fmaf(r1, v.x, s1[4 * j]);
-              s0[4 * j] = fmaf(r0, v.x, s0[4 * j]);
-              s1[4 * j + 1] = fmaf(r1, v.y, s1[4 * j + 1]);
-              s0[4 * j + 1] = fmaf(r0, v.y, s0[4 * j + 1]);
-              s1[4 * j + 2] = fmaf(r1, v.z, s1[4 * j + 2]);
-              s0[4 * j + 2] = fmaf(r0, v.z, s0[4 * j + 2]);
-              s1[4 * j + 3] = fmaf(r1, v.w, s1[4 * j + 3]);
-              s0[4 * j + 3] = fmaf(r0, v.w, s0[4 * j + 3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  if (!row_ok) return;
-  float2* out = reinterpret_cast<float2*>(
-      part + ((long long)blockIdx.y * B + b) * K * 2);
-#pragma unroll
-  for (int j = 0; j < kKC; ++j)
-    if (kc0 + j < K) out[kc0 + j] = make_float2(s1[j], s0[j]);
 }
 
 // The wide gamma pass. grid (ceil(4W/kGThreads), nsplit, R x
@@ -385,33 +221,6 @@ int gamma_stats_wide(Rows src, const float* up, const float* t1g,
   const long long ng = 4LL * W * K;
   gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
                         stream>>>(gpart, nsplit, ng, g, rep.part, rep.out);
-  TT_CHECK_LAUNCH();
-  return 0;
-}
-
-// Launch one wide lambda pass (as launch_lambda_pass, R replicates at the
-// strides of `rep`).
-template <class Loader, bool kNewton, bool kBf16>
-int launch_lambda_pass_wide(Loader ld, const float* up, const float* t1,
-                            const float* t0, int ts, int tk, float* part,
-                            int B, int W, int K, int nsplit, int div,
-                            const int* active, cudaStream_t stream, int R,
-                            Rep rep) {
-  const unsigned gz = wide_grid_z(K, R);
-  if (gz == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, nsplit, gz);
-  const int wchunk = split_chunk(W, nsplit);
-#define TT_WIDE(DIV)                                                       \
-  lambda_pass_wide_kernel<Loader, DIV, kBf16><<<grid, kThreads, 0, stream>>>( \
-      ld, up, t1, t0, ts, tk, part, B, W, K, wchunk, active, rep)
-  if (div == kDivFast) {
-    TT_WIDE(kDivFast);
-  } else if (div == kDivExact) {
-    TT_WIDE(kDivExact);
-  } else if constexpr (kNewton) {
-    TT_WIDE(kDivNewton);
-  }
-#undef TT_WIDE
   TT_CHECK_LAUNCH();
   return 0;
 }

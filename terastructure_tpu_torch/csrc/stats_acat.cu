@@ -26,7 +26,7 @@
 // (psd_mma.cuh) with `tt::AcatLoader`'s count-plane staging: a lane reads
 // the (a1, a0) pairs of its row for the four individuals its D
 // accumulators hold, as they are (any bf16 count, never re-coded). K > 64
-// runs the K-chunked body's bf16 form.
+// runs `tt::lambda_pass_wide_kernel` (lambda_wide.cuh) at either dtype.
 //
 // Every pass runs (`active` is null): at the big-N shape the reference's
 // tol test lets all of the solve's loop passes run (PERF.md §6),

@@ -119,7 +119,10 @@
 // M-rows x 4 individuals of D, 8 M-rows x KP / 16 columns of S, 4
 // individuals x KP / 16 columns of g; float4 operand reads), no TF32.
 // bf16: the three products on mma.sync m16n8k16, R rounded once and read
-// by ldmatrix as S's A operand and, transposed, as g's B operand.
+// by ldmatrix as S's A operand and, transposed, as g's B operand. The
+// staging, the shared-memory layout and the D and S products are
+// wide_tile.cuh's, which the K > 64 λ pass (lambda_wide.cuh) walks too;
+// K7's decode, divide and g product are below (`w7_ratios`, `w7_g_write`).
 //
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at f32 the FP32
 // issue of its FMAs (6 KP an entry, K padded to the piece) and the exact
@@ -1136,603 +1139,220 @@ stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
 // K in pieces of KP columns: D = t u^T, R = A / (D + eps), S += R u and
 // g = t^T R, three products over the tile.
 
-constexpr int kW7Threads = 256;          // 8 warps
-constexpr int kW7Rows = 64;              // rows of a row tile
+using tt::cp_async_commit;
+using tt::cp_async_wait_group;
+using tt::kW7Cols;
+using tt::kW7Ind;
+using tt::kW7M;
+using tt::kW7Rows;
+using tt::kW7Threads;
+using tt::W7;
+using tt::w7_m;
+using tt::w7_piece_cols;
+using tt::w7_pieces;
+using tt::w7_stage_t;
+using tt::w7_stage_u;
+using tt::W7Mma;
+using tt::W7Simt;
+
 constexpr int kW7Group = 4;              // the most row tiles of a B tile
-constexpr int kW7M = 2 * kW7Rows;        // its M-rows: t1 and t0 of each row
-constexpr int kW7Cols = 16;              // byte columns of a sub-tile ...
-constexpr int kW7Ind = 4 * kW7Cols;      // ... its 64 individuals
-constexpr int kW7Piece = 128;            // the widest piece of K
-
-// K in w7_pieces(K) pieces of w7_piece_cols(K) columns, a multiple of 16
-// (80..128 at K > 64): K = 65..128 is one piece.
-__host__ __device__ constexpr int w7_pieces(int K) {
-  return (K + kW7Piece - 1) / kW7Piece;
-}
-__host__ __device__ constexpr int w7_piece_cols(int K) {
-  return ((K + w7_pieces(K) - 1) / w7_pieces(K) + 15) / 16 * 16;
-}
-
-// The M-row of CTA row r (0..63) and allele a (0: t1, R1; 1: t0, R0): the
-// m16 tile r / 8 holds t1 of its 8 rows, then t0 of the same rows.
-__device__ __forceinline__ int w7_m(int r, int a) {
-  return 16 * (r >> 3) + 8 * a + (r & 7);
-}
-
-// cp.async of 16 (or 4) bytes, filled with zeros past `bytes` (0: none read).
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            int bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(a),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(a),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Dynamic shared memory of the body: u as staged (f32, two buffers), t of
-// the CTA's M-rows for a piece, R of the sub-tile, bf(u) at bf16, and the
-// sub-tile's packed bytes (two buffers). Row strides are padded so that
-// the float4 and ldmatrix reads of 8 rows hit 32 distinct banks.
-template <int KP, bool kBf16>
-struct W7 {
-  static constexpr int FS = KP + 4;          // floats a staged u or f32 t row
-  static constexpr int HS = KP + 8;          // bf16 a t or u row
-  static constexpr int RFS = kW7Ind + 4;     // floats an f32 R row
-  static constexpr int RHS = kW7Ind + 8;     // bf16 a bf16 R row
-  static constexpr int kUf = 2 * kW7Ind * FS * 4;
-  static constexpr int kT = kW7M * (kBf16 ? 2 * HS : 4 * FS);
-  static constexpr int kR = kW7M * (kBf16 ? 2 * RHS : 4 * RFS);
-  static constexpr int kUb = kBf16 ? 2 * kW7Ind * HS : 0;
-  static constexpr int kCodes = 2 * kW7Rows * kW7Cols;
-  static constexpr int kBytes = kUf + kT + kR + kUb + kCodes;
-  static_assert(kBytes <= 232448, "a CTA's shared memory on the H100");
-
-  float* uf;           // 2 x (64 individuals, FS): row 16 s + c, plane s
-  void* t;             // (128 M-rows, FS floats | HS bf16)
-  void* r;             // (128 M-rows, RFS floats | RHS bf16)
-  __nv_bfloat16* ub;   // (64 individuals, HS): bf(u) (kBf16)
-  uint8_t* codes;      // 2 x (64 rows, 16 bytes)
-
-  __device__ explicit W7(unsigned char* p)
-      : uf(reinterpret_cast<float*>(p)),
-        t(p + kUf),
-        r(p + kUf + kT),
-        ub(reinterpret_cast<__nv_bfloat16*>(p + kUf + kT + kR)),
-        codes(p + kUf + kT + kR + kUb) {}
-  __device__ float* ufb(int buf) const { return uf + buf * kW7Ind * FS; }
-  __device__ uint8_t* cb(int buf) const {
-    return codes + buf * kW7Rows * kW7Cols;
-  }
-};
-
-// u of the sub-tile at byte column wc, columns [k0, k0 + KP) of K, into a
-// staging buffer by cp.async (row n = 16 s + c: plane s, column wc + c),
-// zero past K and wend; 16-byte copies where K % 4 == 0.
-template <int KP>
-__device__ __forceinline__ void w7_stage_u(float* uf,
-                                           const float* __restrict__ up,
-                                           int W, int K, int wc, int wend,
-                                           int k0) {
-  constexpr int Q = KP / 4, FS = KP + 4;
-  const bool vec = (K & 3) == 0;
-  for (int j = threadIdx.x; j < kW7Ind * Q; j += kW7Threads) {
-    const int n = j / Q, q = j - n * Q;
-    const int w = wc + (n & 15), k = k0 + 4 * q;
-    float* dst = uf + n * FS + 4 * q;
-    const bool ok = w < wend;
-    const float* src =
-        up + (ok ? ((long long)(n >> 4) * W + w) * K + k : 0);
-    if (vec) {
-      cp_async16z(dst, ok && k < K ? src : up, ok && k < K ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool rd = ok && k + e < K;
-        cp_async4z(dst + e, rd ? src + e : up, rd ? 4 : 0);
-      }
-    }
-  }
-}
 
 // The packed bytes of rows [b0, b0 + 64) at byte columns [wc, wc + 16),
-// MISSING past B and wend: a 16-byte cp.async a row where the row lies
-// whole and aligned, else byte loads.
+// MISSING past B and wend (`tt::w7_stage_code_row`, a thread a row).
 __device__ __forceinline__ void w7_stage_codes(uint8_t* cs,
                                                const uint8_t* __restrict__ rows,
                                                int B, int W, int b0, int wc,
                                                int wend) {
   const int r = threadIdx.x;
   if (r >= kW7Rows) return;
-  uint8_t* dst = cs + r * kW7Cols;
   const long long b = b0 + r;
-  const uint8_t* src = rows + b * W + wc;
-  if (b < B && wc + kW7Cols <= wend &&
-      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    cp_async16z(dst, src, 16);
-    return;
-  }
-  uint32_t v[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    v[q] = 0xFFFFFFFFu;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 4 * q + e;
-      if (b < B && wc + c < wend) {
-        v[q] &= ~(0xFFu << (8 * e));
-        v[q] |= (uint32_t)__ldg(src + c) << (8 * e);
-      }
-    }
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  tt::w7_stage_code_row(cs + r * kW7Cols, b < B ? rows + b * W : nullptr,
+                        wc, wend);
 }
 
-// t1, t0 of the CTA's rows, columns [k0, k0 + KP) of K, into its M-rows
-// (f32, or rounded to bf16), zero past B and K.
-template <int KP, bool kBf16>
-__device__ __forceinline__ void w7_stage_t(void* ts,
-                                           const float* __restrict__ t1g,
-                                           const float* __restrict__ t0g,
-                                           int B, int K, int b0, int k0) {
-  constexpr int P = KP / 2;                 // column pairs
-  for (int j = threadIdx.x; j < kW7M * P; j += kW7Threads) {
-    const int m = j / P, kp = j - m * P, k = k0 + 2 * kp;
-    const float* tg = (m >> 3) & 1 ? t0g : t1g;
-    const long long b = b0 + 8 * (m >> 4) + (m & 7);
-    const float x0 = b < B && k < K ? tg[b * K + k] : 0.f;
-    const float x1 = b < B && k + 1 < K ? tg[b * K + k + 1] : 0.f;
-    if constexpr (kBf16)
-      reinterpret_cast<uint32_t*>(ts)[m * (KP + 8) / 2 + kp] =
-          tt::pack_bf16(x0, x1);
-    else
-      reinterpret_cast<float2*>(ts)[m * (KP + 4) / 2 + kp] =
-          make_float2(x0, x1);
+// K7's decode, divide and g product over the shared tile's products
+// (wide_tile.cuh): the f32 SIMT forms, then the bf16 tensor-core ones.
+
+// R = A / (D + eps) of the thread's 16 entries into the R tile
+template <int KP, class L>
+__device__ __forceinline__ void w7_ratios(W7Simt<KP>& body, const L& sm,
+                                          const uint8_t* codes, int approx) {
+  constexpr int RFS = W7Simt<KP>::RFS;
+  auto& d = body.d;
+  const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+  float* rf = static_cast<float*>(sm.r);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 4 * q + e;
+    const uint32_t byte = codes[r * kW7Cols + c];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t code = (byte >> (2 * p)) & 3u;
+      const bool miss = code == 3u;
+      const float x = (float)code;
+      rf[w7_m(r, 0) * RFS + 16 * p + c] =
+          tt::ratio(miss ? 0.f : x, d[e][0][p], approx);
+      rf[w7_m(r, 1) * RFS + 16 * p + c] =
+          tt::ratio(miss ? 0.f : 2.f - x, d[e][1][p], approx);
+    }
   }
 }
 
-// ---- its f32 products: SIMT, register-blocked ----
-//
-// Thread (q, c) = (tid / 16, tid % 16). D: rows 4q..4q+3 (both alleles:
-// 8 M-rows) x the 4 individuals of byte column c (planes 0..3), t and u
-// read as float4 along K. S: the same 8 M-rows x K columns c + 16 j, R
-// read as float4 along the individuals. g: individuals 4q..4q+3 x K
-// columns c + 16 j, an M-row at a time. Every sum runs in a fixed order.
-template <int KP>
-struct W7Simt {
-  static constexpr int KS = KP / 16;        // K columns a thread: c + 16 j
-  static constexpr int FS = KP + 4, RFS = kW7Ind + 4;
-  float s[4][2][KS];                        // S of rows 4q + e, allele a
-  float d[4][2][4];                         // D of rows 4q + e, planes 0..3
-
-  __device__ __forceinline__ void zero_s() {
+// g = t^T R over the 128 M-rows, in M-row order, into the B tile's
+// gamma partial at K columns k0 + (c + 16 j), summed onto what is there
+// where `add`
+template <int KP, class L>
+__device__ __forceinline__ void w7_g_write(const W7Simt<KP>&, const L& sm,
+                                           float* gtile, int W, int K,
+                                           int wc, int wend, int k0,
+                                           bool add) {
+  constexpr int KS = W7Simt<KP>::KS, FS = W7Simt<KP>::FS,
+                RFS = W7Simt<KP>::RFS;
+  const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+  const float* tf = static_cast<const float*>(sm.t) + c;
+  const float* rf = static_cast<const float*>(sm.r) + 4 * q;
+  // g starts at the partial so far where `add` (every load issued
+  // before the first product waits on them)
+  float g[4][KS];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i, w = wc + (n & 15);
+    const float* in = gtile + ((long long)(n >> 4) * W + w) * K + k0;
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int j = 0; j < KS; ++j) s[e][a][j] = 0.f;
+    for (int j = 0; j < KS; ++j)
+      g[i][j] =
+          add && w < wend && k0 + c + 16 * j < K ? in[c + 16 * j] : 0.f;
   }
-
-  // nothing to convert: the products read the staged u
-  template <class L>
-  __device__ __forceinline__ void prepare(const L&, int) {}
-
-  // D (+)= t u^T over columns [0, nk) of the staged piece (nk % 4 == 0)
-  template <class L>
-  __device__ __forceinline__ void d_product(const L& sm, int buf, int nk,
-                                            bool first) {
-    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
-    const float* tf = static_cast<const float*>(sm.t);
-    const float* ur = sm.ufb(buf) + c * FS;
-    if (first) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int p = 0; p < 4; ++p) d[e][a][p] = 0.f;
-    }
-#pragma unroll 2
-    for (int k = 0; k < nk; k += 4) {
-      float4 u[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        u[p] = *reinterpret_cast<const float4*>(ur + 16 * p * FS + k);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const float4 t = *reinterpret_cast<const float4*>(
-              tf + w7_m(4 * q + e, a) * FS + k);
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            float x = d[e][a][p];
-            x = fmaf(t.x, u[p].x, x);
-            x = fmaf(t.y, u[p].y, x);
-            x = fmaf(t.z, u[p].z, x);
-            d[e][a][p] = fmaf(t.w, u[p].w, x);
-          }
-        }
-    }
-  }
-
-  // R = A / (D + eps) of the thread's 16 entries into the R tile
-  template <class L>
-  __device__ __forceinline__ void ratios(const L& sm, const uint8_t* codes,
-                                         int approx) {
-    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
-    float* rf = static_cast<float*>(sm.r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 4 * q + e;
-      const uint32_t byte = codes[r * kW7Cols + c];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const uint32_t code = (byte >> (2 * p)) & 3u;
-        const bool miss = code == 3u;
-        const float x = (float)code;
-        rf[w7_m(r, 0) * RFS + 16 * p + c] =
-            tt::ratio(miss ? 0.f : x, d[e][0][p], approx);
-        rf[w7_m(r, 1) * RFS + 16 * p + c] =
-            tt::ratio(miss ? 0.f : 2.f - x, d[e][1][p], approx);
-      }
-    }
-  }
-
-  // S += R u over the sub-tile's 64 individuals, in individual order
-  template <class L>
-  __device__ __forceinline__ void s_product(const L& sm, int buf) {
-    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
-    const float* rf = static_cast<const float*>(sm.r);
-    const float* uf = sm.ufb(buf) + c;
-#pragma unroll 1
-    for (int n4 = 0; n4 < kW7Ind; n4 += 4) {
-      float4 rv[4][2];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-          rv[e][a] = *reinterpret_cast<const float4*>(
-              rf + w7_m(4 * q + e, a) * RFS + n4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float uv[KS];
-#pragma unroll
-        for (int j = 0; j < KS; ++j) uv[j] = uf[(n4 + i) * FS + 16 * j];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 v = rv[e][a];
-            const float x = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-#pragma unroll
-            for (int j = 0; j < KS; ++j)
-              s[e][a][j] = fmaf(x, uv[j], s[e][a][j]);
-          }
-      }
-    }
-  }
-
-  // g = t^T R over the 128 M-rows, in M-row order, into the B tile's
-  // gamma partial at K columns k0 + (c + 16 j), summed onto what is there
-  // where `add`
-  template <class L>
-  __device__ __forceinline__ void g_write(const L& sm, float* gtile, int W,
-                                          int K, int wc, int wend, int k0,
-                                          bool add) {
-    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
-    const float* tf = static_cast<const float*>(sm.t) + c;
-    const float* rf = static_cast<const float*>(sm.r) + 4 * q;
-    // g starts at the partial so far where `add` (every load issued
-    // before the first product waits on them)
-    float g[4][KS];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = 4 * q + i, w = wc + (n & 15);
-      const float* in = gtile + ((long long)(n >> 4) * W + w) * K + k0;
-#pragma unroll
-      for (int j = 0; j < KS; ++j)
-        g[i][j] =
-            add && w < wend && k0 + c + 16 * j < K ? in[c + 16 * j] : 0.f;
-    }
 #pragma unroll 4
-    for (int m = 0; m < kW7M; ++m) {
-      const float4 rv = *reinterpret_cast<const float4*>(rf + m * RFS);
+  for (int m = 0; m < kW7M; ++m) {
+    const float4 rv = *reinterpret_cast<const float4*>(rf + m * RFS);
 #pragma unroll
-      for (int j = 0; j < KS; ++j) {
-        const float tv = tf[m * FS + 16 * j];
-        g[0][j] = fmaf(rv.x, tv, g[0][j]);
-        g[1][j] = fmaf(rv.y, tv, g[1][j]);
-        g[2][j] = fmaf(rv.z, tv, g[2][j]);
-        g[3][j] = fmaf(rv.w, tv, g[3][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = 4 * q + i, w = wc + (n & 15);
-      if (w >= wend) continue;
-      float* out = gtile + ((long long)(n >> 4) * W + w) * K + k0;
-#pragma unroll
-      for (int j = 0; j < KS; ++j)
-        if (k0 + c + 16 * j < K)
-          out[c + 16 * j] = g[i][j];
+    for (int j = 0; j < KS; ++j) {
+      const float tv = tf[m * FS + 16 * j];
+      g[0][j] = fmaf(rv.x, tv, g[0][j]);
+      g[1][j] = fmaf(rv.y, tv, g[1][j]);
+      g[2][j] = fmaf(rv.z, tv, g[2][j]);
+      g[3][j] = fmaf(rv.w, tv, g[3][j]);
     }
   }
-
-  // S of the thread's rows into the W tile's lambda partial (S1, S0) at
-  // K columns k0 + (c + 16 j), added to what is there where `add`
-  __device__ __forceinline__ void flush_s(float* ltile, int B, int K,
-                                          int b0, int k0, bool add) {
-    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long b = b0 + 4 * q + e;
-      if (b >= B) continue;
-      float2* out = reinterpret_cast<float2*>(ltile + b * K * 2) + k0;
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i, w = wc + (n & 15);
+    if (w >= wend) continue;
+    float* out = gtile + ((long long)(n >> 4) * W + w) * K + k0;
 #pragma unroll
-      for (int j = 0; j < KS; ++j) {
-        const int k = c + 16 * j;
-        if (k0 + k >= K) continue;
-        float2 v = make_float2(s[e][0][j], s[e][1][j]);
-        if (add) {
-          const float2 o = out[k];
-          v = make_float2(o.x + v.x, o.y + v.y);
-        }
-        out[k] = v;
-      }
-    }
+    for (int j = 0; j < KS; ++j)
+      if (k0 + c + 16 * j < K)
+        out[c + 16 * j] = g[i][j];
   }
-};
+}
 
-// ---- its bf16 products: on the tensor cores (mma.sync m16n8k16) ----
-//
-// D: warp w takes m16 tile w (rows 8w..8w+7: bf(t1) in rows 0-7, bf(t0)
-// in 8-15) x the 64 individuals (8 n8 tiles), K the MMAs' k; R on the
-// accumulators, rounded to bf16 once, into the R tile. S: warp (wm, wn) =
-// (w % 4, w / 4) takes m16 tiles 2wm, 2wm + 1 x the n8 tiles of K half wn
-// (KP / 16 each), A from the R tile (ldmatrix), B from bf(u) (ldmatrix
-// .trans), the sums in registers for the W tile. g^T = bf(t)^T R: warp
-// (gm, gn) = (w / 4, w % 4) takes m16 tiles of K [gm MH, gm MH + MH) x the
-// 16 individuals of plane gn, k the 128 M-rows: A from the t tile and B
-// from the R tile, both by ldmatrix .trans.
-template <int KP>
-struct W7Mma {
-  static constexpr int KH = KP / 16;        // S: n8 tiles a warp; g: m16 tiles
-  static constexpr int MH = (KH + 1) / 2;   // g: m16 tiles a warp
-  static constexpr int HS = KP + 8, RHS = kW7Ind + 8;
-  float s[2][KH][4];                        // S: rows g (S1), g + 8 (S0)
-  float d[8][4];                            // D: n8 tile j
-
-  __device__ __forceinline__ void zero_s() {
+// R = A / (D + eps) on the accumulators, rounded, into the R tile: the
+// thread's row 8w + g, individuals 8j + 2t (+1) of n8 tile j (plane
+// j / 2, byte column 8 (j % 2) + 2t (+1))
+template <int KP, class L>
+__device__ __forceinline__ void w7_ratios(W7Mma<KP>& body, const L& sm,
+                                          const uint8_t* codes, int approx) {
+  constexpr int RHS = W7Mma<KP>::RHS;
+  auto& d = body.d;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint4 cw =
+      *reinterpret_cast<const uint4*>(codes + (8 * w + g) * kW7Cols);
+  const uint32_t lo = t >> 1 ? cw.y : cw.x, hi = t >> 1 ? cw.w : cw.z;
+  uint32_t* r1 = reinterpret_cast<uint32_t*>(
+                     static_cast<__nv_bfloat16*>(sm.r) + (16 * w + g) * RHS) +
+                 t;
+  uint32_t* r0 = r1 + 4 * RHS;           // 8 M-rows on (bf16 pairs)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t word = j & 1 ? hi : lo;
+    float x[4];
 #pragma unroll
-      for (int j = 0; j < KH; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
-  }
-
-  // bf(u) of staging buffer buf into the bf16 u tile
-  template <class L>
-  __device__ __forceinline__ void prepare(const L& sm, int buf) {
-    constexpr int Q = KP / 4, FS = KP + 4;
-    const float* uf = sm.ufb(buf);
-    for (int j = threadIdx.x; j < kW7Ind * Q; j += kW7Threads) {
-      const int n = j / Q, q = j - n * Q;
-      const float4 v = *reinterpret_cast<const float4*>(uf + n * FS + 4 * q);
-      *reinterpret_cast<uint2*>(sm.ub + n * HS + 4 * q) =
-          make_uint2(tt::pack_bf16(v.x, v.y), tt::pack_bf16(v.z, v.w));
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t code =
+          (word >> (8 * (2 * (t & 1) + e) + 2 * (j >> 1))) & 3u;
+      const bool miss = code == 3u;
+      const float a1 = (float)code;
+      x[e] = tt::ratio(miss ? 0.f : a1, d[j][e], approx);
+      x[2 + e] = tt::ratio(miss ? 0.f : 2.f - a1, d[j][2 + e], approx);
     }
-    __syncthreads();
+    r1[4 * j] = tt::pack_bf16(x[0], x[1]);
+    r0[4 * j] = tt::pack_bf16(x[2], x[3]);
   }
+}
 
-  // D (+)= bf(t) bf(u)^T over columns [0, nk) of the piece (nk % 16 == 0)
-  template <class L>
-  __device__ __forceinline__ void d_product(const L& sm, int, int nk,
-                                            bool first) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
-    const __nv_bfloat16* ta =
-        tb + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) * HS +
-        8 * (lane >> 4);
-    const __nv_bfloat16* bb =
-        sm.ub + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
-    if (first) {
+// g^T = bf(t)^T R over the 128 M-rows, 16 at a time, into the B tile's
+// gamma partial at K columns k0 + (16 mt + g (+ 8)), added to what is
+// there where `add`
+template <int KP, class L>
+__device__ __forceinline__ void w7_g_write(const W7Mma<KP>&, const L& sm,
+                                           float* gtile, int W, int K,
+                                           int wc, int wend, int k0,
+                                           bool add) {
+  constexpr int KH = W7Mma<KP>::KH, MH = W7Mma<KP>::MH,
+                HS = W7Mma<KP>::HS, RHS = W7Mma<KP>::RHS;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gm = w >> 2, gn = w & 3, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
+  const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
+  float acc[MH][2][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+  for (int mi = 0; mi < MH; ++mi)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
-    }
+    for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
+  const __nv_bfloat16* br =
+      rb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RHS + 16 * gn +
+      8 * (lane >> 4);
+  const __nv_bfloat16* at =
+      tb + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
 #pragma unroll 1
-    for (int k = 0; k < nk; k += 16) {
+  for (int m0 = 0; m0 < kW7M; m0 += 16) {
+    uint32_t bq[4];
+    tt::ldsm_x4_trans(bq, br + m0 * RHS);
+#pragma unroll
+    for (int mi = 0; mi < MH; ++mi) {
+      const int mt = gm * MH + mi;
+      if (mt >= KH) continue;              // the warp's last tile (KH odd)
       uint32_t a[4];
-      tt::ldsm_x4(a, ta + k);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bq[4];
-        tt::ldsm_x4(bq, bb + 16 * jp * HS + k);
-        tt::mma_bf16(d[2 * jp], a, bq[0], bq[1]);
-        tt::mma_bf16(d[2 * jp + 1], a, bq[2], bq[3]);
-      }
+      tt::ldsm_x4_trans(a, at + m0 * HS + 16 * mt);
+      tt::mma_bf16(acc[mi][0], a, bq[0], bq[1]);
+      tt::mma_bf16(acc[mi][1], a, bq[2], bq[3]);
     }
   }
-
-  // R = A / (D + eps) on the accumulators, rounded, into the R tile: the
-  // thread's row 8w + g, individuals 8j + 2t (+1) of n8 tile j (plane
-  // j / 2, byte column 8 (j % 2) + 2t (+1))
-  template <class L>
-  __device__ __forceinline__ void ratios(const L& sm, const uint8_t* codes,
-                                         int approx) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    const uint4 cw =
-        *reinterpret_cast<const uint4*>(codes + (8 * w + g) * kW7Cols);
-    const uint32_t lo = t >> 1 ? cw.y : cw.x, hi = t >> 1 ? cw.w : cw.z;
-    uint32_t* r1 = reinterpret_cast<uint32_t*>(
-                       static_cast<__nv_bfloat16*>(sm.r) + (16 * w + g) * RHS) +
-                   t;
-    uint32_t* r0 = r1 + 4 * RHS;           // 8 M-rows on (bf16 pairs)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t word = j & 1 ? hi : lo;
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const uint32_t code =
-            (word >> (8 * (2 * (t & 1) + e) + 2 * (j >> 1))) & 3u;
-        const bool miss = code == 3u;
-        const float a1 = (float)code;
-        x[e] = tt::ratio(miss ? 0.f : a1, d[j][e], approx);
-        x[2 + e] = tt::ratio(miss ? 0.f : 2.f - a1, d[j][2 + e], approx);
-      }
-      r1[4 * j] = tt::pack_bf16(x[0], x[1]);
-      r0[4 * j] = tt::pack_bf16(x[2], x[3]);
-    }
-  }
-
-  // S += R bf(u) over the sub-tile's 64 individuals, 16 at a time
-  template <class L>
-  __device__ __forceinline__ void s_product(const L& sm, int) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int wm = w & 3, wn = w >> 2;
-    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
-    const int row = (lane & 7) + 8 * ((lane >> 3) & 1);
-#pragma unroll 1
-    for (int i0 = 0; i0 < kW7Ind; i0 += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        tt::ldsm_x4(a[mt], rb + (16 * (2 * wm + mt) + row) * RHS + i0 +
-                               8 * (lane >> 4));
-      const __nv_bfloat16* bb = sm.ub + (i0 + row) * HS + 8 * wn * KH;
-#pragma unroll
-      for (int jp = 0; jp < KH / 2; ++jp) {
-        uint32_t bq[4];
-        tt::ldsm_x4_trans(bq, bb + 16 * jp + 8 * (lane >> 4));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          tt::mma_bf16(s[mt][2 * jp], a[mt], bq[0], bq[1]);
-          tt::mma_bf16(s[mt][2 * jp + 1], a[mt], bq[2], bq[3]);
-        }
-      }
-      if constexpr (KH % 2) {
-        uint32_t bq[2];
-        tt::ldsm_x2_trans(bq, bb + 8 * (KH - 1));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          tt::mma_bf16(s[mt][KH - 1], a[mt], bq[0], bq[1]);
-      }
-    }
-  }
-
-  // g^T = bf(t)^T R over the 128 M-rows, 16 at a time, into the B tile's
-  // gamma partial at K columns k0 + (16 mt + g (+ 8)), added to what is
-  // there where `add`
-  template <class L>
-  __device__ __forceinline__ void g_write(const L& sm, float* gtile, int W,
-                                          int K, int wc, int wend, int k0,
-                                          bool add) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int gm = w >> 2, gn = w & 3, g = lane >> 2, t = lane & 3;
-    const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
-    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
-    float acc[MH][2][4];
+  // the partial so far, every load issued before the first add
+  float* gb = gtile + ((long long)gn * W + wc + 2 * t) * K + k0;
+  if (add) {
 #pragma unroll
     for (int mi = 0; mi < MH; ++mi)
 #pragma unroll
       for (int jn = 0; jn < 2; ++jn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
-    const __nv_bfloat16* br =
-        rb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RHS + 16 * gn +
-        8 * (lane >> 4);
-    const __nv_bfloat16* at =
-        tb + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
-#pragma unroll 1
-    for (int m0 = 0; m0 < kW7M; m0 += 16) {
-      uint32_t bq[4];
-      tt::ldsm_x4_trans(bq, br + m0 * RHS);
-#pragma unroll
-      for (int mi = 0; mi < MH; ++mi) {
-        const int mt = gm * MH + mi;
-        if (mt >= KH) continue;              // the warp's last tile (KH odd)
-        uint32_t a[4];
-        tt::ldsm_x4_trans(a, at + m0 * HS + 16 * mt);
-        tt::mma_bf16(acc[mi][0], a, bq[0], bq[1]);
-        tt::mma_bf16(acc[mi][1], a, bq[2], bq[3]);
-      }
-    }
-    // the partial so far, every load issued before the first add
-    float* gb = gtile + ((long long)gn * W + wc + 2 * t) * K + k0;
-    if (add) {
-#pragma unroll
-      for (int mi = 0; mi < MH; ++mi)
-#pragma unroll
-        for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int mt = gm * MH + mi;
-            const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
-            acc[mi][jn][e] = (mt < KH && wc + 2 * t + dw < wend && k0 + k < K
-                                  ? gb[dw * K + k]
-                                  : 0.f) +
-                             acc[mi][jn][e];
-          }
-    }
-#pragma unroll
-    for (int mi = 0; mi < MH; ++mi) {
-      const int mt = gm * MH + mi;
-      if (mt >= KH) continue;
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
         for (int e = 0; e < 4; ++e) {
+          const int mt = gm * MH + mi;
           const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
-          if (wc + 2 * t + dw < wend && k0 + k < K)
-            gb[dw * K + k] = acc[mi][jn][e];
+          acc[mi][jn][e] = (mt < KH && wc + 2 * t + dw < wend && k0 + k < K
+                                ? gb[dw * K + k]
+                                : 0.f) +
+                           acc[mi][jn][e];
         }
-    }
   }
-
-  // S of the warp's tiles into the W tile's lambda partial (S1, S0) at K
-  // columns k0 + (8 (wn KH + j) + 2t (+1)), added where `add`
-  __device__ __forceinline__ void flush_s(float* ltile, int B, int K,
-                                          int b0, int k0, bool add) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int wm = w & 3, wn = w >> 2, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const long long b = b0 + 8 * (2 * wm + mt) + g;
-      if (b >= B) continue;
-      float2* out = reinterpret_cast<float2*>(ltile + b * K * 2) + k0;
+  for (int mi = 0; mi < MH; ++mi) {
+    const int mt = gm * MH + mi;
+    if (mt >= KH) continue;
 #pragma unroll
-      for (int j = 0; j < KH; ++j)
+    for (int jn = 0; jn < 2; ++jn)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = 8 * (wn * KH + j) + 2 * t + e;
-          if (k0 + k >= K) continue;
-          float2 v = make_float2(s[mt][j][e], s[mt][j][2 + e]);
-          if (add) {
-            const float2 o = out[k];
-            v = make_float2(o.x + v.x, o.y + v.y);
-          }
-          out[k] = v;
-        }
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
+        if (wc + 2 * t + dw < wend && k0 + k < K)
+          gb[dw * K + k] = acc[mi][jn][e];
+      }
   }
-};
-
+}
 // K7, K > 64. grid (ceil(W/tile_cols), ceil(B/tile_rows), R); block
 // kW7Threads; dynamic shared memory W7<KP, kBf16>::kBytes; KP =
 // w7_piece_cols(K). A CTA's B tile of tile_rows (64, 128 or 256) is walked
@@ -1783,7 +1403,7 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
   // bytes), staged and waited for: several pieces only
   auto stage_piece = [&](int p, int b0, int wc, bool bytes) {
     __syncthreads();                     // the last piece's readers are done
-    w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, B, K, b0, p * KP);
+    w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, K, 1, B, K, b0, p * KP);
     w7_stage_u<KP>(sm.ufb(0), up, W, K, wc, wend, p * KP);
     if (bytes) w7_stage_codes(sm.cb(0), rows, B, W, b0, wc, wend);
     cp_async_commit();
@@ -1805,7 +1425,8 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
     if (np == 1) {
       // t of the row tile: its last readers passed the barrier that ends
       // the sub-tile before
-      if (i == 0) w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, B, K, b0, 0);
+      if (i == 0)
+        w7_stage_t<KP, kBf16>(sm.t, t1g, t0g, K, 1, B, K, b0, 0);
       if (it + 1 < nrt * nsub) {         // the next sub-tile's, of this row
         const int wn = last ? wbeg : wc + kW7Cols;  // tile or the next
         w7_stage_u<KP>(sm.ufb(buf ^ 1), up, W, K, wn, wend, 0);
@@ -1824,7 +1445,7 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
         body.d_product(sm, 0, span(p), p == 0);
       }
     }
-    body.ratios(sm, sm.cb(buf), approx);
+    w7_ratios(body, sm, sm.cb(buf), approx);
     for (int p = 0; p < np; ++p) {
       if (np == 1) {
         __syncthreads();                 // the R tile is written
@@ -1834,7 +1455,7 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
         body.zero_s();
       }
       body.s_product(sm, buf);
-      body.g_write(sm, gtile, W, K, wc, wend, p * KP, rt > 0);
+      w7_g_write(body, sm, gtile, W, K, wc, wend, p * KP, rt > 0);
       if (np > 1) body.flush_s(ltile, B, K, b0, p * KP, i > 0);
     }
     if (np == 1) {

@@ -182,7 +182,7 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     Returns (lamb_out, g)."""
     dev = u_planes.device
     k = u_planes.shape[-1]
-    nsplit_w, _ = lambda_grid(b, w)
+    nsplit_w, _ = lambda_grid(b, w, k)
     nsplit_b = gamma_grid(b, w, k)
     nupd = -(-b * k // 256)
     lead = () if r is None else (r,)
@@ -228,7 +228,7 @@ def fused_local_solve(rows: torch.Tensor, u_planes: torch.Tensor,
     (R, B, K, 2) run R solves in one launch sequence (counted in
     `rep_launches` as well), each with its own tol exit; returns
     (R, B, K, 2) and (R, 4, W, K), replicate r bitwise the single solve's
-    on its inputs, at any K (K > 64: the K-chunked passes with the axis).
+    on its inputs, at any K (K > 64: the wide passes with the axis).
     """
     name = "fused_local_solve"
     r = _check_replicates(name, rows, u_planes, lamb_init)

@@ -20,25 +20,28 @@ CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
 
 The last four carry the big-N step (svi/engine.step_core_packed). Every
 kernel takes any K the twins take: K <= 64 runs the bodies instantiated
-at K-widths 4..64, K > 64 their K-chunked ("wide") bodies
-(csrc/psd_wide.cuh, csrc/stats_fused.cuh), but K7, whose K > 64 body
-computes D once an entry with K in pieces of up to 128 columns
-(csrc/stats_fused.cuh `stats_v2_wide_kernel`).
+at K-widths 4..64, K > 64 their "wide" bodies: for the λ pass (K4, K8)
+and K7 bodies that compute D once an entry with K in pieces of up to 128
+columns (csrc/lambda_wide.cuh `lambda_pass_wide_kernel`, csrc/
+stats_fused.cuh `stats_v2_wide_kernel`, on the tile of
+csrc/wide_tile.cuh), for K5 and K6 K-chunked ones (csrc/psd_wide.cuh,
+csrc/stats_fused.cuh).
 
 Every kernel also takes dtype=torch.bfloat16 (compute_dtype
 "bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
 f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
-passes (K4, K5, K8), and K7 at any K, run on the tensor cores
-(csrc/psd_mma.cuh, csrc/stats_fused.cuh); K6 runs its SIMT body with the
+passes (K4, K5, K8), and the λ pass (K4, K8) and K7 at any K, run on the
+tensor cores (csrc/psd_mma.cuh, csrc/lambda_wide.cuh,
+csrc/stats_fused.cuh); K6 and K5 at K > 64 run their SIMT bodies with the
 operands rounded where they are staged. Each wrapper counts its bf16
 launches in `bf16_launches` (`count_launch`).
 
 Batched replicates: every kernel also takes a leading R axis on each
 per-replicate input (K4's rows may be shared) and runs the R calls in
 one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`; the
-K-chunked bodies share z with their chunks, csrc/psd_wide.cuh
-`wide_z`), at any K, each replicate bitwise its single call; counted in
-`rep_launches` as well. On CPU tensors the twin of a batched call is the
+K-chunked bodies of K5 and K6 share z with their chunks,
+csrc/psd_wide.cuh `wide_z`), at any K, each replicate bitwise its single
+call; counted in `rep_launches` as well. On CPU tensors the twin of a batched call is the
 single twin of each replicate, stacked (`stack_twins`).
 """
 
@@ -267,20 +270,42 @@ def gamma_grid(b: int, w: int, k: int) -> int:
 
 
 LAMBDA_ROWS = 64        # rows of a lambda-pass CTA: 2 warps, a row a lane
+# K > 64 (csrc/lambda_wide.cuh): a CTA of 8 warps takes its 64 rows' chunk
+# in sub-tiles of LAMBDA_WIDE_COLS byte columns
+LAMBDA_WIDE_COLS = 16
 
 
-def lambda_grid(b: int, w: int):
-    """The lambda pass's column split at a batch of b rows of w bytes:
-    (nsplit, chunk), with CTA (i, j) taking rows [64 i, 64 i + 64) and byte
-    columns [j chunk, (j + 1) chunk). A warp walks its 32 rows' chunk
-    alone, so the chunk sets how many warps there are: it is a multiple
-    of 16 between 16 and 128 columns, chosen so that about 16 warps an SM
-    are in flight where the batch allows. A function of the shape only,
-    so the summation order, and the result, never depend on anything
-    else."""
-    row_warps = -(-b // 32)
-    chunk = w * row_warps // (16 * SM_COUNT) // 16 * 16
-    chunk = max(16, min(128, chunk))
+def lambda_grid(b: int, w: int, k: int):
+    """The lambda pass's column split at a batch of b rows of w bytes and
+    K = k: (nsplit, chunk), with CTA (i, j) taking rows [64 i, 64 i + 64)
+    and byte columns [j chunk, (j + 1) chunk).
+
+    K <= 64: a warp walks its 32 rows' chunk alone, so the chunk sets how
+    many warps there are: it is a multiple of 16 between 16 and 128
+    columns, chosen so that about 16 warps an SM are in flight where the
+    batch allows. K > 64: a CTA of 8 warps walks its chunk in sub-tiles of
+    16 columns and pays for staging t and writing its sums once a chunk,
+    and at f32 one CTA fills an SM; so the chunk is the widest multiple
+    of 16 between 32 and 256 columns whose CTAs fill their last wave on
+    the card's SMs at least 95% as well as the best chunk does (a count
+    of CTAs just past a multiple of the SMs costs a wave nearly empty:
+    chip_smoke.py --kernels, `split_sweep`). A function of the shape
+    only, so the summation order, and the result, never depend on
+    anything else."""
+    if k > 64:
+        tiles = -(-b // LAMBDA_ROWS)
+
+        def fill(chunk):
+            ctas = tiles * -(-w // chunk)
+            return ctas / (-(-ctas // SM_COUNT) * SM_COUNT)
+
+        chunks = range(2 * LAMBDA_WIDE_COLS, 257, LAMBDA_WIDE_COLS)
+        best = max(fill(c) for c in chunks)
+        chunk = max(c for c in chunks if fill(c) >= 0.95 * best)
+    else:
+        row_warps = -(-b // 32)
+        chunk = w * row_warps // (16 * SM_COUNT) // 16 * 16
+        chunk = max(16, min(128, chunk))
     nsplit = -(-w // chunk)
     # the chunk the kernels derive from nsplit (csrc: tt::split_chunk)
     return nsplit, -(-(-(-w // nsplit)) // 16) * 16
@@ -336,7 +361,7 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
-                                     lambda_grid(b, w)[0], approx_div,
+                                     lambda_grid(b, w, k)[0], approx_div,
                                      dtype == torch.bfloat16)
     count_launch(lambda_stats_packed, dtype, r)
     return out
@@ -444,7 +469,7 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
         return stack_twins(lambda_stats_acat_twin, r, *args, **kw)
     _build.require_cuda(name, a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
-    nsplit, _ = lambda_grid(b, w)
+    nsplit, _ = lambda_grid(b, w, k)
     lead = () if r is None else (r,)
     dev = a1.device
     l0 = torch.empty((*lead, b, k), dtype=torch.float32, device=dev)

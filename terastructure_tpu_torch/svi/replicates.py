@@ -30,7 +30,7 @@ lambda, which the batched fit does not make, as the reference does not).
 Ported, in both lambda modes at both compute dtypes, at any K: the
 fused branch (K1 on gathered rows), the big-N path where the fused gate
 refuses the shape (K8, K7, K4 with their replicate axis; K5 or K6 under
-stats_kernel "pair" or "fused"; K > 64 the K-chunked bodies with the
+stats_kernel "pair" or "fused"; K > 64 the wide bodies with the
 axis) and kernel="dense" (each replicate's dense step; the eval K4 with
 the axis). K2's group DMA raises NotImplementedError, as the reference
 has no batched path through it (engine.check_replicate_path).

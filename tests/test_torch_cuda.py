@@ -304,34 +304,66 @@ def test_lambda_pass_tiling_k2_bitwise_k1(cuda_device, shape):
         np.testing.assert_allclose(a.cpu().numpy(), w_.cpu().numpy(), **TOL)
 
 
-# K above the widest instantiated K-width (64): the K-chunked ("wide")
-# bodies, at ragged B and odd W, each against its twin.
+# K above the widest instantiated K-width (64): the λ pass's own K > 64
+# body (`lambda_pass_wide_kernel`: K in pieces of at most 128 columns, run
+# 80 or 128 wide; one piece at K = 65..128, two at 129, 200 (the second 72
+# wide) and 256, eight at 1000) and the K-chunked γ pass, at ragged B and
+# odd W, each against its twin.
+WIDE_LAMBDA_KS = [65, 72, 96, 128, 129, 200, 256, 1000]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [72, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("approx_div", [False, True])
-def test_k_above_64_runs_the_wide_lambda_pass(cuda_device, approx_div, k):
-    """K = 72 and 256 (3 and 8 pieces of K): K4, K8 and K1 (wide λ and γ
-    passes) at B = 40, W = 235 with whole rows MISSING; K2 at a shape its
-    gate admits, with a null group, bitwise K1 on the gathered rows."""
+@pytest.mark.parametrize("k", WIDE_LAMBDA_KS)
+def test_k_above_64_runs_the_wide_lambda_pass(cuda_device, k, approx_div,
+                                              dtype):
+    """K4, K8 and K1 (its loop passes divide by the Newton step, or fast
+    with approx_div; its last pass exactly) at B = 40, W = 235 with whole
+    rows MISSING, f32 and bf16: one launch each, against the twins at the
+    K <= 64 tolerances (f32 TOL; bf16 BF16_PASS for a pass, BF16_SOLVE for
+    K1 with at most 0.1% of lambda beyond it; the fast divide 5e-3),
+    bitwise on a re-run. K2 at a shape its gate admits, with a null group,
+    bitwise K1 on the gathered rows."""
     rows, up, lamb = _tiling_problem(cuda_device, 40, 235, k)
     t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
     a1, a0 = stats_packed.decode_count_planes(rows)
-    tol = dict(rtol=5e-3, atol=5e-3) if approx_div else TOL
+    bf16 = dtype == torch.bfloat16
+    count = "bf16_launches" if bf16 else "launches"
+    fast = dict(rtol=5e-3, atol=5e-3)
+    tol = fast if approx_div else BF16_PASS if bf16 else TOL
     want = stats_packed.lambda_stats_packed_twin(rows, up, t1, t0,
-                                                 approx_div=approx_div)
-    for got in (stats_packed.lambda_stats_packed(rows, up, t1, t0,
-                                                 approx_div=approx_div),
-                stats_packed.lambda_stats_acat(a1, a0, up, t1, t0,
-                                               approx_div=approx_div)):
+                                                 approx_div=approx_div,
+                                                 dtype=dtype)
+    for fn, call in (
+            (stats_packed.lambda_stats_packed,
+             lambda: stats_packed.lambda_stats_packed(
+                 rows, up, t1, t0, approx_div=approx_div, dtype=dtype)),
+            (stats_packed.lambda_stats_acat,
+             lambda: stats_packed.lambda_stats_acat(
+                 a1, a0, up, t1, t0, approx_div=approx_div, dtype=dtype))):
+        before = getattr(fn, count)
+        got = call()
+        assert getattr(fn, count) == before + 1
+        assert all(torch.equal(g, a) for g, a in zip(got, call()))
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                        **tol)
+        assert float(got[0][5].abs().max()) == 0.0  # a MISSING row adds 0
     kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
-              approx_div=approx_div)
+              approx_div=approx_div, dtype=dtype)
     got = fused_step.fused_local_solve(rows, up, lamb, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(
+        got, fused_step.fused_local_solve(rows, up, lamb, **kw)))
     want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+    tol = fast if approx_div else BF16_SOLVE if bf16 else TOL
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **tol)
+    if bf16:
+        _flips(got[0], want[0], tol, 1e-3)
+    else:
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), **tol)
 
     b, g, l = 40, 8, 1024
     packed, up, lamb = _problem(cuda_device, l, 4 * 256, k, seed=9)
@@ -346,24 +378,80 @@ def test_k_above_64_runs_the_wide_lambda_pass(cuda_device, approx_div, k):
                                            **kw)
     k1 = fused_step.fused_local_solve(rows, up, lamb, **kw)
     want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
-    for a, c, w in zip(got, k1, want):
+    for a, c, w in zip(got[1:], k1[1:], want[1:]):
         assert torch.equal(a, c)
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), **tol)
+    assert torch.equal(got[0], k1[0])
+    if bf16:
+        _flips(got[0], want[0], tol, 1e-3)
+    else:
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), **tol)
 
 
 @pytest.mark.cuda
-def test_wide_fused_solve_reruns_bitwise(cuda_device):
-    """K1 at K = 72 with the accel tail and a tol exit: no atomics in the
-    wide bodies, so a second run is bitwise equal."""
-    rows, up, lamb = _problem(cuda_device, 256, 4 * 256, 72, seed=11)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [72, 256])
+def test_wide_fused_solve_reruns_bitwise(cuda_device, k, dtype):
+    """K1 at K = 72 and 256 with the accel tail and a tol exit, f32 and
+    bf16, and K4 and K8 (both divides) at B = 256, W = 256 (8 column
+    splits of 2 sub-tiles): no atomics in the wide bodies, so a second
+    run is bitwise equal."""
+    rows, up, lamb = _problem(cuda_device, 256, 4 * 256, k, seed=11)
     kw = dict(local_iters=7, local_tol=1e-3, accel=True, beta_a=1.0,
-              beta_b=1.0)
-    before = fused_step.fused_local_solve.launches
-    a = fused_step.fused_local_solve(rows, up, lamb, **kw)
-    c = fused_step.fused_local_solve(rows, up, lamb, **kw)
-    assert fused_step.fused_local_solve.launches == before + 2
+              beta_b=1.0, dtype=dtype)
+    fn = fused_step.fused_local_solve
+    count = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(fn, count)
+    a = fn(rows, up, lamb, **kw)
+    c = fn(rows, up, lamb, **kw)
+    assert getattr(fn, count) == before + 2
     for x, y in zip(a, c):
         assert torch.equal(x, y)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    for approx_div in (False, True):
+        for call in (lambda: stats_packed.lambda_stats_packed(
+                         rows, up, t1, t0, approx_div=approx_div,
+                         dtype=dtype),
+                     lambda: stats_packed.lambda_stats_acat(
+                         a1, a0, up, t1, t0, approx_div=approx_div,
+                         dtype=dtype)):
+            assert all(torch.equal(x, y) for x, y in zip(call(), call()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_lambda_pass_gate_skips_a_replicate(cuda_device, dtype):
+    """K1[rep] at K = 72, R = 3, on the tol-gated accel schedule: one
+    replicate's tol test ends its loop early, so the wide λ pass's
+    `active` gate skips its CTAs in the later loop passes while the others
+    run on; each replicate bitwise its single call. f32: replicate 0 warm
+    at its fixed point (200 plain passes) exits after the first pass, and
+    its solve with the loop forced on (local_tol -1) differs (the gate did
+    skip). bf16 (whose rounding keeps a fixed point's change above the
+    tol): replicate 0's rows all MISSING, its g exactly 0."""
+    rows, up, lamb = _rep_problem(cuda_device, 3, 64, 512, 72, seed=21)
+    f32 = dtype == torch.float32
+    lam0 = lamb.clone()
+    if f32:
+        lam0[0] = fused_step.fused_local_solve(
+            rows[0], up[0], lamb[0], local_iters=200, local_tol=-1.0,
+            beta_a=1.0, beta_b=1.0, warm_start=True)[0]
+    else:
+        rows[0] = 0xFF
+    kw = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+              beta_b=1.0, warm_start=f32, dtype=dtype)
+    got = fused_step.fused_local_solve(rows, up, lam0, **kw)
+    for i in range(3):
+        one = fused_step.fused_local_solve(rows[i], up[i], lam0[i], **kw)
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+    if f32:
+        forced = fused_step.fused_local_solve(rows[0], up[0], lam0[0],
+                                              **dict(kw, local_tol=-1.0))
+        assert not torch.equal(forced[1], got[1][0])
+    else:
+        assert float(got[1][0].abs().max()) == 0.0
 
 
 @pytest.mark.cuda

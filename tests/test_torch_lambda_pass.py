@@ -3,7 +3,7 @@ K-width, and the lambda re-solve and a dense fit at bf16 (CPU).
 
 K = 72 is above the widest instantiated K-width (64): on CPU tensors the
 wrappers run their twins, which take any K, and match the reference's
-kernels in interpret mode. On CUDA tensors they launch the K-chunked
+kernels in interpret mode. On CUDA tensors they launch the K > 64
 ("wide") bodies, held to the twins in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
@@ -30,6 +30,8 @@ from terastructure_tpu_torch.svi import engine, fit, postprocess
 
 TOL = dict(rtol=2e-4, atol=2e-4)    # f32, the two packages' sum orders
 K_WIDE = 72
+# the K <= 64 body's split (K > 64: tests/test_torch_lambda_wide.py)
+K_NARROW = 8
 
 
 # --- the grid -----------------------------------------------------------
@@ -38,7 +40,7 @@ PATH_SHAPES = [(1024, 640), (4096, 640), (256, 256), (4096, 2048), (33, 235)]
 
 @pytest.mark.parametrize("b,w", PATH_SHAPES)
 def test_lambda_grid_covers_w_in_16_byte_chunks(b, w):
-    nsplit, chunk = stats_packed.lambda_grid(b, w)
+    nsplit, chunk = stats_packed.lambda_grid(b, w, K_NARROW)
     assert chunk % 16 == 0 and 16 <= chunk <= 128
     assert nsplit * chunk >= w               # the splits cover W ...
     assert (nsplit - 1) * chunk < w          # ... and none is empty
@@ -48,21 +50,22 @@ def test_lambda_grid_covers_w_in_16_byte_chunks(b, w):
 
 @pytest.mark.parametrize("b,w", PATH_SHAPES)
 def test_lambda_grid_is_a_function_of_the_shape_only(b, w):
-    first = stats_packed.lambda_grid(b, w)
+    first = stats_packed.lambda_grid(b, w, K_NARROW)
     torch.manual_seed(b)                     # no hidden state enters
     stats_packed.lambda_stats_packed.launches += 1
-    assert stats_packed.lambda_grid(b, w) == first
+    assert stats_packed.lambda_grid(b, w, K_NARROW) == first
     stats_packed.lambda_stats_packed.launches -= 1
-    # the rows of a ragged last warp change nothing
-    assert stats_packed.lambda_grid(32 * (-(-b // 32)), w) == first
+    # the rows of a ragged last warp change nothing, nor K up to 64
+    assert stats_packed.lambda_grid(32 * (-(-b // 32)), w, K_NARROW) == first
+    assert stats_packed.lambda_grid(b, w, 64) == first
 
 
 def test_lambda_grid_fills_the_card_at_config3():
-    nsplit, _ = stats_packed.lambda_grid(1024, 640)
+    nsplit, _ = stats_packed.lambda_grid(1024, 640, K_NARROW)
     assert (1024 // stats_packed.LAMBDA_ROWS) * nsplit >= 2 * 132
     # and a bigger batch takes wider chunks, not more partial sums
-    assert (stats_packed.lambda_grid(4096, 640)[1]
-            > stats_packed.lambda_grid(1024, 640)[1])
+    assert (stats_packed.lambda_grid(4096, 640, K_NARROW)[1]
+            > stats_packed.lambda_grid(1024, 640, K_NARROW)[1])
 
 
 @pytest.mark.parametrize("b,w", PATH_SHAPES)

@@ -240,7 +240,7 @@ def test_launch_grids_and_workspaces_hold_at_config5_width():
     k = 10
     for w in (250_000, 250_112):
         for b in (4096, 4092, 1024):
-            nsplit, chunk = pk.lambda_grid(b, w)       # K4 (eval, export)
+            nsplit, chunk = pk.lambda_grid(b, w, k)    # K4 (eval, export)
             assert 1 <= nsplit <= 65_535 and chunk % 16 == 0
             assert (nsplit - 1) * chunk < w <= nsplit * chunk
             assert -(-b // pk.LAMBDA_ROWS) < 2 ** 31
@@ -251,7 +251,7 @@ def test_launch_grids_and_workspaces_hold_at_config5_width():
                 nbt = -(-b // pk.v2_tile_rows(k, dtype))
                 assert nwt < 2 ** 31 and nbt <= 65_535
         # K8 runs on the subsample's 2,048 columns at every N
-        assert pk.lambda_grid(4096, 2048)[0] <= 65_535
+        assert pk.lambda_grid(4096, 2048, k)[0] <= 65_535
     # K7's partials at the step's shape, f32: (B/128, 4W, K) gamma and
     # (W/256, B, K, 2) lambda floats, ~1.3 GB and ~0.32 GB
     w, b = 250_112, 4096
