@@ -13,8 +13,9 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s); K2
    also bitwise against K1 on the gathered rows; the lambda pass alone
    (one launch of the body K1, K2, K4 and K8 share) and the gamma pass
-   alone (K1's and K2's last pass, through K5's entry) timed at the
-   shapes the paths run them, beside their bounds; K7 at the big-N shape
+   alone (K1's and K2's last pass, through K5's entry; at K = 72 and
+   config #3's width too, f32 and bf16, held to its twin first) timed at
+   the shapes the paths run them, beside their bounds; K7 at the big-N shape
    at K = 8, 10 and 16; K7 (both divides) and K5 against their twins at
    K = 9, 10, 12 and 13, where the K-width of 12 begins and ends, with a
    bitwise re-run of each; K1, K2, K4 and K8 against their
@@ -23,9 +24,10 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    turns, from a CUDA graph and eagerly, and at odd W (the 8-byte path)
    and G = 1; the K > 64 bodies (the λ pass's, through K1, K2, K4 and
    K8, at K = 65, 72, 96, 128, 129, 256 and 1000, K7 at K = 65..1000 too,
-   at f32 and bf16 with both divides; K5 and K6 at K = 72, 130 and 256;
-   K8 at the big-N step's subsample and K7 at the big-N shape with
-   K = 72, both dtypes and divides; against their twins and their own
+   at f32 and bf16 with both divides; the γ pass's through K5 at K = 72,
+   130 and 256, both dtypes; K6 at K = 72, 130 and 256; K8 at the big-N
+   step's subsample and K7 and K5 at the big-N shape with K = 72, both
+   dtypes (and divides); against their twins and their own
    second runs; one timed shape per family); the bf16 bodies
    (compute_dtype="bfloat16") of K1, K2, K4 and of the λ and γ passes
    against their bf16 twins at the TGP shape, config #1's and config #3's
@@ -232,7 +234,8 @@ is no CUDA card.
 stops after phase 1 and prints the kernels' line (without launch counts)
 and the card line: the quick check and timing of a changed kernel. It also
 times the lambda pass at other column splits than the one `lambda_grid`
-chooses, at K <= 64 and at K > 64 (`split_sweep`).
+chooses, at K <= 64 and at K > 64 (`split_sweep`), and the γ pass at
+K > 64 at other row splits than `gamma_grid`'s (`gamma_split_sweep`).
 
     python3 chip_smoke.py --digest
 
@@ -241,10 +244,12 @@ at K = 72 (the K > 64 bodies), the eager time of the K3 and K4
 wrappers and the host cost of the calls they make for the device and
 the stream, the device time of K7 and K8 at bf16 at the big-N shapes,
 of K7 at K > 64 (the big-N shape at K = 72, B = 1,024 W = 2,048
-K = 256, and R = 4 at K = 72; f32 and bf16), and of the λ pass at K > 64
+K = 256, and R = 4 at K = 72; f32 and bf16), of the λ pass at K > 64
 (`wide_lambda_ms`: K8 on the big-N subsample, single and R = 4; K4 at
 config #3's width, K = 72 and 256; K1 there on the accel schedule; f32
-and bf16), through the wrappers only:
+and bf16) and of the γ pass at K > 64 (`wide_gamma_ms`: K5 at the big-N
+shape with K = 72, single and R = 4; the γ pass alone at config #3's
+width with K = 72; f32 and bf16), through the wrappers only:
 a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
 prints that tree's bits and times.
@@ -751,6 +756,8 @@ def phase_kernels(dev, rec, sweep=False):
     set_bound(r, present(rows) * lambda_pass_flops(k),
               nbytes(rows, up, t1, t0, t1, t0))
     phase_lambda_pass(dev, rec, sweep)
+    if sweep:
+        gamma_split_sweep(dev, rec)
     phase_kernels_bign(dev, rec)
     phase_kernels_dma(dev, rec)
     phase_kernels_tiling(dev, rec)
@@ -1067,27 +1074,89 @@ def phase_kernels_bign(dev, rec):
 
 
 # B, W, K at which the paths run one gamma pass: K1's at the TGP shape,
-# K2's at config #3
+# K2's at config #3; at K > 64 K1's and K2's at config #3's width
 GAMMA_SHAPES = [(4096, 640, 8), (1024, 640, 8)]
+GAMMA_WIDE_SHAPES = [(1024, 640, 72)]
 
 
 def phase_gamma_pass(dev, rec):
     """The gamma pass alone, through K5's entry (the pass body K1 and K2
     end with, plus its slice reduction), at the shapes the paths run it,
-    from a CUDA graph of 100 calls, beside its bound."""
+    from a CUDA graph of 100 calls, beside its bound; at K > 64
+    (`gamma_pass_wide_kernel`) f32 and bf16, each held to its twin and
+    bitwise on a re-run first."""
     r = rec["gamma_stats_packed"]
     r["passes"] = []
-    for b, w, k in GAMMA_SHAPES:
+    for b, w, k in GAMMA_SHAPES + GAMMA_WIDE_SHAPES:
         rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
         t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
-        e = dict(shape=f"B={b} W={w} K={k}", ms=device_ms(
-            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0)))
+        e = dict(shape=f"B={b} W={w} K={k}")
+        if k > 64:
+            for dtype, name, tol in (
+                    (torch.float32, "gamma_stats_packed", TOL),
+                    (BF16, "gamma_stats_packed[bf16]", TOL_BF16_PASS)):
+                hold(rec, name, f"γ pass {e['shape']} {dtype}",
+                     twice("γ pass", lambda: [stats_packed.gamma_stats_packed(
+                         rows, up, t1, t0, dtype)]),
+                     [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0,
+                                                           dtype)], tol)
+        e["ms"] = device_ms(
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0))
         log(f"  gamma pass {e['shape']}: {e['ms']:.4f} ms (device time, "
             "launches replayed from a CUDA graph)")
         set_bound(e, present(rows) * lambda_pass_flops(k),
                   nbytes(rows, up, t1, t0, up))
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        if k > 64:
+            e["bf16_ms"] = device_ms(lambda: stats_packed.gamma_stats_packed(
+                rows, up, t1, t0, BF16))
+            tmp = {}
+            set_bound_bf16(tmp, present(rows), k, nbytes(rows, up, t1, t0, up))
+            e["bf16_bound_ms"] = tmp["bound_ms"]
+            log(f"  gamma pass[bf16] {e['shape']}: {e['bf16_ms']:.4f} ms "
+                "(CUDA graph)")
         r["passes"].append(e)
+
+
+# The γ pass at K > 64 at other row splits than `gamma_grid`'s
+# (--kernels): config #3's width, the big-N shape and the K = 256 timed
+# shape, at row splits of 1 to 64 row tiles
+GAMMA_SWEEP_SHAPES = [(1024, 640, 72), (BIGN[0], BIGN[1], 72),
+                      (1024, 2048, 256)]
+GAMMA_SWEEP_TILES = (1, 2, 3, 4, 6, 8, 16, 32, 64)
+
+
+def gamma_split_sweep(dev, rec):
+    """Device ms of the γ pass at K > 64 through K5's entry, f32 and bf16,
+    at the row splits that slices of GAMMA_SWEEP_TILES row tiles give
+    (from a CUDA graph of 50 calls; at the big-N shape CUDA events over 3
+    launches), logged beside the split `gamma_grid` chose."""
+    out = rec["gamma_stats_packed"].setdefault("wide_split_sweep", [])
+    for b, w, k in GAMMA_SWEEP_SHAPES:
+        rows, up, _, t1, t0 = k7_wide_inputs(dev, b, w, k)
+        tiles = -(-b // 64)
+        e = dict(shape=f"B={b} W={w} K={k}",
+                 chosen=stats_packed.gamma_grid(b, w, k),
+                 split_sweep_ms={}, bf16_split_sweep_ms={})
+        def timer(fn):
+            return time_ms(fn, 3) if w > 4096 else device_ms(fn, 50)
+
+        for n in GAMMA_SWEEP_TILES:
+            nsplit = -(-tiles // n)
+            if nsplit in e["split_sweep_ms"] or n > tiles:
+                continue
+            for key, bf16 in (("split_sweep_ms", False),
+                              ("bf16_split_sweep_ms", True)):
+                e[key][nsplit] = timer(
+                    lambda: stats_packed.launch_gamma_stats_packed(
+                        rows, up, t1, t0, nsplit, bf16))
+        log(f"  γ pass {e['shape']}, row splits (chosen {e['chosen']}): "
+            + ", ".join(f"{n}: {e['split_sweep_ms'][n]:.4f} / "
+                        f"{e['bf16_split_sweep_ms'][n]:.4f}"
+                        for n in e["split_sweep_ms"]) + " ms (f32 / bf16)")
+        out.append(e)
+        del rows, up, t1, t0
+        torch.cuda.empty_cache()
 
 
 def phase_kernels_km12(dev, rec):
@@ -1189,11 +1258,14 @@ def phase_kernels_wide(dev, rec):
         rows3[3] = 0xFF
         shape = f"B=40 W=300 K={kk}"
         if kk in (72, 130, 256):
-            hold(rec, "gamma_stats_packed", f"K5 wide {shape}",
-                 twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
-                     rows3, up3, t13, t03)]),
-                 [stats_packed.gamma_stats_packed_twin(rows3, up3, t13,
-                                                       t03)], TOL)
+            for dtype, name, tol in (
+                    (torch.float32, "gamma_stats_packed", TOL),
+                    (BF16, "gamma_stats_packed[bf16]", TOL_BF16_PASS)):
+                hold(rec, name, f"K5 wide {shape} {dtype}",
+                     twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
+                         rows3, up3, t13, t03, dtype)]),
+                     [stats_packed.gamma_stats_packed_twin(
+                         rows3, up3, t13, t03, dtype)], tol)
             hold(rec, "batch_stats_fused_packed", f"K6 wide {shape}",
                  twice("K6 wide",
                        lambda: stats_packed.batch_stats_fused_packed(
@@ -1341,7 +1413,68 @@ def phase_kernels_wide(dev, rec):
             _k7_wide_bf16(e, x, k, moved, 3)
         rec[name]["wide"].append(e)
         torch.cuda.empty_cache()
+    # K5 at the big-N shape with K = 72 (`gamma_pass_wide_kernel`: 1,568
+    # column tiles walking all 64 row tiles), held to its twin at both
+    # dtypes, bitwise on a re-run, then timed beside its bounds
+    for dtype, name, tol in ((torch.float32, "gamma_stats_packed", TOL),
+                             (BF16, "gamma_stats_packed[bf16]",
+                              TOL_BF16_PASS)):
+        hold(rec, name, f"K5 wide {shape} {dtype}",
+             twice("K5 wide", lambda: [stats_packed.gamma_stats_packed(
+                 rows, up, t1, t0, dtype)]),
+             [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0, dtype)],
+             tol)
+        torch.cuda.empty_cache()
+    e = dict(shape=shape, plain_ms=None)
+    moved = nbytes(rows, up, t1, t0, up)
+    _timed(e, f"K5 wide {shape}",
+           lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0),
+           lambda: stats_packed.gamma_stats_packed_twin(rows, up, t1, t0),
+           pr * lambda_pass_flops(k), moved)
+    e["bf16_ms"] = time_ms(lambda: stats_packed.gamma_stats_packed(
+        rows, up, t1, t0, BF16), 5)
+    tmp = {}
+    set_bound_bf16(tmp, pr, k, moved)
+    e["bf16_bound_ms"] = tmp["bound_ms"]
+    log(f"  K5[bf16] wide {shape}: kernel {e['bf16_ms']:.4f} ms, bound "
+        f"{e['bf16_bound_ms']:.5f} ms")
+    rec["gamma_stats_packed"]["wide"].append(e)
+    torch.cuda.empty_cache()
     del rows, up, u, t1, t0, x
+    # K2 at config #3's step with K = 72 on the main path's accel schedule
+    # (`wide_k2_inputs`): bitwise K1 on the gathered rows, then timed
+    # beside its bound (its λ passes and its γ pass over the gathered
+    # rows' present entries) and its twin, f32 and bf16
+    idx0, packed, up2, lamb2, rows2 = wide_k2_inputs(dev)
+    b, w = rows2.shape
+    e = dict(shape=f"L={packed.shape[0]} B={b} W={w} K={k} g=8 accel7")
+    for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
+        kw = dict(REP_WIDE_MAIN, dtype=dtype)
+
+        def call():
+            return fused_step.fused_local_solve_dma(idx0, packed, up2, lamb2,
+                                                    group=8, **kw)
+
+        if not all(torch.equal(a, c) for a, c in zip(
+                call(), fused_step.fused_local_solve(rows2, up2, lamb2,
+                                                     **kw))):
+            raise AssertionError(f"K2 wide {e['shape']} {dtype}: differs "
+                                 "from K1 on the gathered rows")
+        e[key + "ms"] = time_ms(call, 10)
+        tmp = {}
+        solve_bound(tmp, rows2, up2, lamb2, kw, extra_bytes=nbytes(idx0))
+        e[key + "bound_ms"] = tmp["bound_ms"]
+        if not key:
+            e["bound_by"] = tmp["bound_by"]
+    e["plain_ms"] = time_ms(lambda: fused_step.fused_local_solve_twin(
+        rows2, up2, lamb2, **dict(REP_WIDE_MAIN)), 2)
+    e["library_ms"] = None
+    log(f"  K2 wide {e['shape']}: bitwise K1 on the gathered rows; kernel "
+        f"{e['ms']:.4f} ms (bf16 {e['bf16_ms']:.4f}), bound "
+        f"{e['bound_ms']:.4f} (bf16 {e['bf16_bound_ms']:.5f}) ms, twin "
+        f"{e['plain_ms']:.3f} ms")
+    rec["fused_local_solve_dma"]["wide"] = [e]
+    del idx0, packed, up2, lamb2, rows2
 
 
 def wide_lambda_inputs(dev, kernel, b, w, k):
@@ -1364,6 +1497,19 @@ def wide_lambda_inputs(dev, kernel, b, w, k):
         lambda dtype=torch.float32, approx=False:
         stats_packed.lambda_stats_packed(rows, up, t1, t0,
                                          approx_div=approx, dtype=dtype))
+
+
+def wide_k2_inputs(dev, b=1024, w=640, k=72, l=65_536, g=8):
+    """K2 at config #3's step with K > 64: g-row groups of a (L, W) matrix
+    from the seed 21, b / g distinct group starts, and lambda of its first
+    b rows: (idx0, packed, u planes, lambda, the gathered rows).
+    phase_kernels_wide and --digest build and time it so."""
+    packed, up, lamb = _solve_inputs(l, w, k, 21, dev)
+    idx0 = torch.randperm(l // g, generator=torch.Generator(
+        device=dev).manual_seed(21), device=dev)[:b // g].int() * g
+    rows = packed[(idx0.long()[:, None]
+                   + torch.arange(g, device=dev)).reshape(b)]
+    return idx0, packed, up, lamb[:b].contiguous(), rows
 
 
 def k7_wide_inputs(dev, b, w, k, r=None):
@@ -4950,16 +5096,45 @@ def wide_lambda_ms(dev):
                         rows, up, lamb, dtype=dtype, **REP_WIDE_MAIN), 10)
     # K2 at config #3's step: 128 groups of 8 rows out of a 65,536-row
     # matrix
-    packed, up, lamb = _solve_inputs(65_536, w, REP_WIDE_K, 21, dev)
-    idx0 = torch.randperm(65_536 // 8, generator=torch.Generator(
-        device=dev).manual_seed(21), device=dev)[:b // 8].int() * 8
-    lamb = lamb[:b].contiguous()
+    idx0, packed, up, lamb, _ = wide_k2_inputs(dev, b, w, REP_WIDE_K)
     for dtype, tag in dtypes:
         out[f"K2{tag} wide L=65536 B={b} W={w} K={REP_WIDE_K} g=8 "
             "accel7"] = time_ms(lambda: fused_step.fused_local_solve_dma(
                 idx0, packed, up, lamb, group=8, dtype=dtype,
                 **REP_WIDE_MAIN), 10)
     torch.cuda.empty_cache()
+    return out
+
+
+# The γ pass at K > 64 as --digest times it (`wide_gamma_ms`): K5 at the
+# big-N shape with K = 72, single and with the replicate axis (R = 4),
+# and the γ pass alone through K5's entry at config #3's width with
+# K = 72 (K1's and K2's last pass there); f32 and bf16
+def wide_gamma_ms(dev):
+    """Device ms a call of K5 at K > 64 (CUDA events after a warm-up; the
+    γ pass alone from a CUDA graph): --digest prints them in whichever
+    tree's package is imported, so that two trees' bodies are timed in
+    turns."""
+    out = {}
+    dtypes = ((torch.float32, ""), (BF16, "[bf16]"))
+    b, w, _ = BIGN
+    k = REP_WIDE_K
+    for r, reps in ((None, 5), (R_REP, 2)):
+        rows, up, _, t1, t0 = k7_wide_inputs(dev, b, w, k, r)
+        for dtype, tag in dtypes:
+            rep = f"[rep] wide R={r}" if r else " wide"
+            out[f"K5{tag}{rep} B={b} W={w} K={k}"] = time_ms(
+                lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                        dtype), reps)
+        del rows, up, t1, t0
+        torch.cuda.empty_cache()
+    for b, w, k in GAMMA_WIDE_SHAPES:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        for dtype, tag in dtypes:
+            out[f"γ pass{tag} B={b} W={w} K={k}"] = device_ms(
+                lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                        dtype))
     return out
 
 
@@ -4993,7 +5168,8 @@ def main(argv=()) -> int:
                           "wrapper_eager_ms": wrapper_eager_ms(dev),
                           "bign_bf16_ms": bign_bf16_ms(dev),
                           "wide_k7_ms": wide_k7_ms(dev),
-                          "wide_lambda_ms": wide_lambda_ms(dev)}))
+                          "wide_lambda_ms": wide_lambda_ms(dev),
+                          "wide_gamma_ms": wide_gamma_ms(dev)}))
         print(card)
         return 0
 

@@ -43,8 +43,8 @@
 // within 1 ulp); the final pass and the gamma pass always give the bits
 // of the IEEE divide (tt::kDivExact). The f32 path stays outside the
 // tensor cores (TF32 would change its numbers). K > 64 runs the λ pass of
-// lambda_wide.cuh and the K-chunked γ pass of psd_wide.cuh through the
-// same launchers.
+// lambda_wide.cuh and the γ pass of gamma_wide.cuh through the same
+// launchers.
 //
 // At compute dtype bf16 (kBf16, the reference's dtype=jnp.bfloat16) the
 // passes take their bf16 bodies: T, U and R enter the products rounded to
@@ -59,8 +59,7 @@
 // independent solves, each with its own rows, u planes, lambda and
 // scratch, R x the single solve's arrays back to back. Every kernel of the
 // sequence runs replicate z in blockIdx.z (delta_kernel: a CTA a
-// replicate; the K-chunked γ pass at K > 64: z = r x chunks + c,
-// psd_wide.cuh) on the grid a single solve would use, and each replicate has
+// replicate) on the grid a single solve would use, and each replicate has
 // its own `active[z]`: a replicate's tol loop ends on its own, as the
 // reference's vmapped while_loop does, while the others run on. The
 // launch sequence (and the host's enqueue) is paid once for all R. R = 1

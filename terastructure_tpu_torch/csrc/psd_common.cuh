@@ -69,14 +69,14 @@
 // These bodies are instantiated for K-widths KM = 4..64 (`pick_km`; the
 // gamma pass also KM = 12). K > 64 goes, by K, through the launchers below
 // (`launch_lambda_pass`, `launch_gamma_stats`) to the λ pass of
-// lambda_wide.cuh (K in pieces of up to 128 columns, D once an entry, on
-// the tile of wide_tile.cuh) and the K-chunked gamma pass of psd_wide.cuh;
-// every kind takes the replicate axis (`Rep`). At compute dtype bf16
+// lambda_wide.cuh and the γ pass of gamma_wide.cuh (K in pieces of up to
+// 128 columns, D once an entry, on the tile of wide_tile.cuh); every kind
+// takes the replicate axis (`Rep`). At compute dtype bf16
 // (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
-// planes), the λ pass at K > 64 and K7's statistics run tensor-core bodies
-// (psd_mma.cuh, lambda_wide.cuh, stats_fused.cuh); K6's statistics and the
-// K-chunked gamma pass run their SIMT bodies with the operands rounded
-// (`operand`).
+// planes), the λ and γ passes at K > 64 and K7's statistics run
+// tensor-core bodies (psd_mma.cuh, lambda_wide.cuh, gamma_wide.cuh,
+// stats_fused.cuh); K6's statistics run their SIMT bodies with the
+// operands rounded (`operand`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -152,14 +152,14 @@ __device__ __forceinline__ float ratio(float a, float d, int approx) {
 }
 
 // x as an operand of a product: at compute dtype bf16 (kBf16) rounded to
-// bf16 to nearest even and held in f32, else x itself. The K-chunked bf16
-// gamma pass (psd_wide.cuh) and K6's bodies round T and U where they stage
-// them and R after the f32 divide; the product of two bf16 values is exact
-// in f32 and the sums stay f32, so they compute the reference's bf16
-// kernels (fused_step.py:270-302, stats_pallas.py:68-93) up to the order
-// of the sums. kBf16 = false leaves the f32 bodies' code as it was. (The
-// other bf16 passes and K7 run on the tensor cores: psd_mma.cuh,
-// lambda_wide.cuh, stats_fused.cuh.)
+// bf16 to nearest even and held in f32, else x itself. K6's bodies round
+// T and U where they stage them and R after the f32 divide; the product
+// of two bf16 values is exact in f32 and the sums stay f32, so they
+// compute the reference's bf16 kernels (fused_step.py:270-302,
+// stats_pallas.py:68-93) up to the order of the sums. kBf16 = false
+// leaves the f32 bodies' code as it was. (The other bf16 passes and K7 run
+// on the tensor cores: psd_mma.cuh, lambda_wide.cuh, gamma_wide.cuh,
+// stats_fused.cuh.)
 template <bool kBf16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
@@ -811,7 +811,7 @@ inline int split_chunk(int W, int nsplit) {
 }
 
 // The K-width a pass runs at: the smallest instantiated KM holding K,
-// kWide for K > 64 (lambda_wide.cuh, psd_wide.cuh), -1 for K < 1. The
+// kWide for K > 64 (lambda_wide.cuh, gamma_wide.cuh), -1 for K < 1. The
 // gamma pass and K7
 // also instantiate KM = 12 (`km12`), so that K = 9..12 (K = 10 in the
 // big-N configs) runs 12 wide instead of 16; the lambda pass keeps
@@ -830,6 +830,7 @@ inline int pick_km(int K, bool km12 = false) {
 
 #include "psd_wide.cuh"
 #include "lambda_wide.cuh"
+#include "gamma_wide.cuh"
 
 // Expand F(KM) for the instantiated K-widths (switch on km).
 #define TT_DISPATCH_KM(km, F)        \

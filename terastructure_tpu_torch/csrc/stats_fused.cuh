@@ -80,8 +80,8 @@
 // latency at 16 warps an SM, or issue.
 //
 // K > 64, K6: `stats_v1_wide_kernel`, the same tile step with the K
-// outputs cut into chunks of tt::kKC = 32 (blockIdx.z), as the wide
-// bodies of psd_wide.cuh (whose note says why). Each CTA computes D over
+// outputs cut into chunks of tt::kKC = 32 (blockIdx.z; psd_wide.cuh's
+// helpers), so that a chunk's sums hold in registers. Each CTA computes D over
 // all K a piece of 32 columns of K at a time (u of the 128 individuals
 // k-major, stride 129, each thread reading its own column; t of the 32
 // rows as float2 rows, read as broadcasts), adding each piece into R1/R0,
@@ -120,9 +120,10 @@
 // individuals x KP / 16 columns of g; float4 operand reads), no TF32.
 // bf16: the three products on mma.sync m16n8k16, R rounded once and read
 // by ldmatrix as S's A operand and, transposed, as g's B operand. The
-// staging, the shared-memory layout and the D and S products are
-// wide_tile.cuh's, which the K > 64 λ pass (lambda_wide.cuh) walks too;
-// K7's decode, divide and g product are below (`w7_ratios`, `w7_g_write`).
+// staging, the shared-memory layout and the D, S and g products are
+// wide_tile.cuh's (the K > 64 λ and γ passes, lambda_wide.cuh and
+// gamma_wide.cuh, walk the same tile); K7's decode and divide are below
+// (`w7_ratios`).
 //
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at f32 the FP32
 // issue of its FMAs (6 KP an entry, K padded to the piece) and the exact
@@ -1170,8 +1171,8 @@ __device__ __forceinline__ void w7_stage_codes(uint8_t* cs,
                         wc, wend);
 }
 
-// K7's decode, divide and g product over the shared tile's products
-// (wide_tile.cuh): the f32 SIMT forms, then the bf16 tensor-core ones.
+// K7's decode and divide over the shared tile's products (wide_tile.cuh):
+// the f32 SIMT form, then the bf16 tensor-core one.
 
 // R = A / (D + eps) of the thread's 16 entries into the R tile
 template <int KP, class L>
@@ -1195,55 +1196,6 @@ __device__ __forceinline__ void w7_ratios(W7Simt<KP>& body, const L& sm,
       rf[w7_m(r, 1) * RFS + 16 * p + c] =
           tt::ratio(miss ? 0.f : 2.f - x, d[e][1][p], approx);
     }
-  }
-}
-
-// g = t^T R over the 128 M-rows, in M-row order, into the B tile's
-// gamma partial at K columns k0 + (c + 16 j), summed onto what is there
-// where `add`
-template <int KP, class L>
-__device__ __forceinline__ void w7_g_write(const W7Simt<KP>&, const L& sm,
-                                           float* gtile, int W, int K,
-                                           int wc, int wend, int k0,
-                                           bool add) {
-  constexpr int KS = W7Simt<KP>::KS, FS = W7Simt<KP>::FS,
-                RFS = W7Simt<KP>::RFS;
-  const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const float* tf = static_cast<const float*>(sm.t) + c;
-  const float* rf = static_cast<const float*>(sm.r) + 4 * q;
-  // g starts at the partial so far where `add` (every load issued
-  // before the first product waits on them)
-  float g[4][KS];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = 4 * q + i, w = wc + (n & 15);
-    const float* in = gtile + ((long long)(n >> 4) * W + w) * K + k0;
-#pragma unroll
-    for (int j = 0; j < KS; ++j)
-      g[i][j] =
-          add && w < wend && k0 + c + 16 * j < K ? in[c + 16 * j] : 0.f;
-  }
-#pragma unroll 4
-  for (int m = 0; m < kW7M; ++m) {
-    const float4 rv = *reinterpret_cast<const float4*>(rf + m * RFS);
-#pragma unroll
-    for (int j = 0; j < KS; ++j) {
-      const float tv = tf[m * FS + 16 * j];
-      g[0][j] = fmaf(rv.x, tv, g[0][j]);
-      g[1][j] = fmaf(rv.y, tv, g[1][j]);
-      g[2][j] = fmaf(rv.z, tv, g[2][j]);
-      g[3][j] = fmaf(rv.w, tv, g[3][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = 4 * q + i, w = wc + (n & 15);
-    if (w >= wend) continue;
-    float* out = gtile + ((long long)(n >> 4) * W + w) * K + k0;
-#pragma unroll
-    for (int j = 0; j < KS; ++j)
-      if (k0 + c + 16 * j < K)
-        out[c + 16 * j] = g[i][j];
   }
 }
 
@@ -1282,77 +1234,6 @@ __device__ __forceinline__ void w7_ratios(W7Mma<KP>& body, const L& sm,
   }
 }
 
-// g^T = bf(t)^T R over the 128 M-rows, 16 at a time, into the B tile's
-// gamma partial at K columns k0 + (16 mt + g (+ 8)), added to what is
-// there where `add`
-template <int KP, class L>
-__device__ __forceinline__ void w7_g_write(const W7Mma<KP>&, const L& sm,
-                                           float* gtile, int W, int K,
-                                           int wc, int wend, int k0,
-                                           bool add) {
-  constexpr int KH = W7Mma<KP>::KH, MH = W7Mma<KP>::MH,
-                HS = W7Mma<KP>::HS, RHS = W7Mma<KP>::RHS;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int gm = w >> 2, gn = w & 3, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
-  const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
-  float acc[MH][2][4];
-#pragma unroll
-  for (int mi = 0; mi < MH; ++mi)
-#pragma unroll
-    for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
-  const __nv_bfloat16* br =
-      rb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RHS + 16 * gn +
-      8 * (lane >> 4);
-  const __nv_bfloat16* at =
-      tb + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
-#pragma unroll 1
-  for (int m0 = 0; m0 < kW7M; m0 += 16) {
-    uint32_t bq[4];
-    tt::ldsm_x4_trans(bq, br + m0 * RHS);
-#pragma unroll
-    for (int mi = 0; mi < MH; ++mi) {
-      const int mt = gm * MH + mi;
-      if (mt >= KH) continue;              // the warp's last tile (KH odd)
-      uint32_t a[4];
-      tt::ldsm_x4_trans(a, at + m0 * HS + 16 * mt);
-      tt::mma_bf16(acc[mi][0], a, bq[0], bq[1]);
-      tt::mma_bf16(acc[mi][1], a, bq[2], bq[3]);
-    }
-  }
-  // the partial so far, every load issued before the first add
-  float* gb = gtile + ((long long)gn * W + wc + 2 * t) * K + k0;
-  if (add) {
-#pragma unroll
-    for (int mi = 0; mi < MH; ++mi)
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int mt = gm * MH + mi;
-          const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
-          acc[mi][jn][e] = (mt < KH && wc + 2 * t + dw < wend && k0 + k < K
-                                ? gb[dw * K + k]
-                                : 0.f) +
-                           acc[mi][jn][e];
-        }
-  }
-#pragma unroll
-  for (int mi = 0; mi < MH; ++mi) {
-    const int mt = gm * MH + mi;
-    if (mt >= KH) continue;
-#pragma unroll
-    for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
-        if (wc + 2 * t + dw < wend && k0 + k < K)
-          gb[dw * K + k] = acc[mi][jn][e];
-      }
-  }
-}
 // K7, K > 64. grid (ceil(W/tile_cols), ceil(B/tile_rows), R); block
 // kW7Threads; dynamic shared memory W7<KP, kBf16>::kBytes; KP =
 // w7_piece_cols(K). A CTA's B tile of tile_rows (64, 128 or 256) is walked
@@ -1455,7 +1336,8 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
         body.zero_s();
       }
       body.s_product(sm, buf);
-      w7_g_write(body, sm, gtile, W, K, wc, wend, p * KP, rt > 0);
+      decltype(body)::G::write(sm, gtile, W, K, wc, wend, p * KP,
+                               rt > 0);
       if (np > 1) body.flush_s(ltile, B, K, b0, p * KP, i > 0);
     }
     if (np == 1) {

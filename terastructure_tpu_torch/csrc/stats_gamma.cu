@@ -15,7 +15,8 @@
 // Bound on the H100: FP32 issue (4K FMAs and two divides per row and
 // individual). At the big-N shape (B=4096, W=25,088, K=10) that is
 // ~16 G FMA and ~0.8 G divides against 103 MB of packed rows. K > 64
-// runs the K-chunked gamma body (psd_wide.cuh).
+// runs `tt::gamma_pass_wide_kernel` (gamma_wide.cuh: D once an entry, K in
+// pieces of up to 128 columns, a column tile walking 64-row tiles).
 //
 // tt_gamma_stats_packed_bf16 is the same pass at compute dtype bf16 (u, t
 // and R rounded to bf16 as the products' operands, sums in f32): the γ

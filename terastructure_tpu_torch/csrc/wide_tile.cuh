@@ -1,24 +1,29 @@
 // The tile that the K > 64 bodies redesigned for the H100 walk: K7's
-// `stats_v2_wide_kernel` (stats_fused.cuh) and the λ pass's
-// `lambda_pass_wide_kernel` (lambda_wide.cuh: K1, K2, K4 and K8). Included
-// by lambda_wide.cuh, after psd_mma.cuh's MMA helpers.
+// `stats_v2_wide_kernel` (stats_fused.cuh), the λ pass's
+// `lambda_pass_wide_kernel` (lambda_wide.cuh: K1, K2, K4 and K8) and the
+// γ pass's `gamma_pass_wide_kernel` (gamma_wide.cuh: K1's and K2's last
+// pass, K5). Included by lambda_wide.cuh, after psd_mma.cuh's MMA helpers.
 //
-// A CTA of 8 warps holds a row tile of 64 rows as 128 M-rows (t1 and t0
-// of each row, `w7_m`) and walks byte columns in sub-tiles of 16 (64
-// individuals: plane s, byte column c is the staged u row 16 s + c), with
-// K in pieces of at most 128 columns (`w7_pieces`, `w7_piece_cols`: K =
-// 65..128, which the reference's 128-lane padding runs at the cost of
-// K = 8, is one piece). What both bodies run is here:
+// The tile is 64 rows, held as 128 M-rows (t1 and t0 of each row,
+// `w7_m`), against 16 byte columns (64 individuals: plane s, byte column c
+// is the staged u row 16 s + c), with K in pieces of at most 128 columns
+// (`w7_pieces`, `w7_piece_cols`: K = 65..128, which the reference's
+// 128-lane padding runs at the cost of K = 8, is one piece). A CTA of 8
+// warps walks it: K7 and the λ pass keep a row tile and walk byte
+// columns in sub-tiles, the γ pass keeps a column tile and walks row
+// tiles. What the bodies run is here:
 //   - the staging: u of a sub-tile (`w7_stage_u`, 16-byte cp.async into
 //     one of two buffers), t of the row tile at the strides a caller gives
 //     (`w7_stage_t`), a row's 16 packed bytes (`w7_stage_code_row`), and
 //     the cp.async primitives;
 //   - the dynamic shared memory (`W7`);
-//   - two products and a flush: D = t u^T and S += R u over the sub-tile,
-//     and S into a (B, K, 2) partial (S1, S0); f32 register-blocked SIMT
-//     (`W7Simt`, no TF32), bf16 on mma.sync m16n8k16 (`W7Mma`).
+//   - three products and their writes: D = t u^T and S += R u over the
+//     tile, and S into a (B, K, 2) partial (S1, S0); f32 register-blocked
+//     SIMT (`W7Simt`, no TF32), bf16 on mma.sync m16n8k16 (`W7Mma`); and
+//     g = t^T R into a (4W, K) partial (`W7SimtG`, `W7MmaG`: K7 and the
+//     γ pass).
 // Each body adds its own decode and divide (R = A / (D + eps) into the R
-// tile between the two products); K7 adds g = t^T R.
+// tile between D and the products that read R).
 #pragma once
 
 namespace tt {
@@ -192,11 +197,13 @@ __device__ __forceinline__ void w7_stage_t(void* tsm,
 // Thread (q, c) = (tid / 16, tid % 16). D: rows 4q..4q+3 (both alleles:
 // 8 M-rows) x the 4 individuals of byte column c (planes 0..3), t and u
 // read as float4 along K. S: the same 8 M-rows x K columns c + 16 j, R
-// read as float4 along the individuals (K7's g product, stats_fused.cuh:
-// individuals 4q..4q+3 x K columns c + 16 j, an M-row at a time). Every
-// sum runs in a fixed order.
+// read as float4 along the individuals. g: `W7SimtG` (the end of this
+// file). Every sum runs in a fixed order.
+template <int KP>
+struct W7SimtG;
 template <int KP>
 struct W7Simt {
+  using G = W7SimtG<KP>;                    // its g product
   static constexpr int KS = KP / 16;        // K columns a thread: c + 16 j
   static constexpr int FS = KP + 4, RFS = kW7Ind + 4;
   float s[4][2][KS];                        // S of rows 4q + e, allele a
@@ -320,14 +327,13 @@ struct W7Simt {
 // accumulators, rounded to bf16 once, into the R tile. S: warp (wm, wn) =
 // (w % 4, w / 4) takes m16 tiles 2wm, 2wm + 1 x the n8 tiles of K half wn
 // (KP / 16 each), A from the R tile (ldmatrix), B from bf(u) (ldmatrix
-// .trans), the sums in registers across sub-tiles. (K7's g^T = bf(t)^T
-// R, stats_fused.cuh: warp (gm, gn) = (w / 4, w % 4) takes m16 tiles of K
-// [gm MH, gm MH + MH) x the 16 individuals of plane gn, k the 128 M-rows:
-// A from the t tile and B from the R tile, both by ldmatrix .trans.)
+// .trans), the sums in registers across sub-tiles. g: `W7MmaG`.
+template <int KP>
+struct W7MmaG;
 template <int KP>
 struct W7Mma {
-  static constexpr int KH = KP / 16;        // S: n8 tiles a warp; g: m16 tiles
-  static constexpr int MH = (KH + 1) / 2;   // g: m16 tiles a warp
+  using G = W7MmaG<KP>;                     // its g product
+  static constexpr int KH = KP / 16;        // S: n8 tiles a warp
   static constexpr int HS = KP + 8, RHS = kW7Ind + 8;
   float s[2][KH][4];                        // S: rows g (S1), g + 8 (S0)
   float d[8][4];                            // D: n8 tile j
@@ -446,6 +452,201 @@ struct W7Mma {
           out[k] = v;
         }
     }
+  }
+};
+
+// ---- g = t^T R over the row tile's 128 M-rows ----
+//
+// K7's g product (stats_fused.cuh), and the γ pass's at K > 64
+// (gamma_wide.cuh). f32 (`W7SimtG`): thread (q, c) takes individuals
+// 4q..4q+3 of the sub-tile x K columns c + 16 j, an M-row at a time, R
+// read as float4 along the individuals. bf16 (`W7MmaG`): warp (gm, gn) =
+// (w / 4, w % 4) takes m16 tiles of K [gm MH, gm MH + MH) x the 16
+// individuals of plane gn, k the 128 M-rows: A from the t tile and B from
+// the R tile, both by ldmatrix .trans. `write` is K7's form: the partial
+// so far (where `add`) and the tile's product, stored; the γ pass with one
+// piece of K keeps g in registers across its row tiles (`zero`, `product`
+// a row tile, `store` once).
+template <int KP>
+struct W7SimtG {
+  static constexpr int KS = KP / 16, FS = KP + 4, RFS = kW7Ind + 4;
+  float g[4][KS];                           // individual 4q + i, column j
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KS; ++j) g[i][j] = 0.f;
+  }
+
+  // g = the partial at gtile's K columns k0 + (c + 16 j) where `add`, else
+  // 0 (every load issued before the first product waits on them)
+  __device__ __forceinline__ void load(const float* gtile, int W, int K,
+                                       int wc, int wend, int k0, bool add) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i, w = wc + (n & 15);
+      const float* in = gtile + ((long long)(n >> 4) * W + w) * K + k0;
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+        g[i][j] =
+            add && w < wend && k0 + c + 16 * j < K ? in[c + 16 * j] : 0.f;
+    }
+  }
+
+  // g += t^T R over the 128 M-rows, in M-row order
+  template <class L>
+  __device__ __forceinline__ void product(const L& sm) {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+    const float* tf = static_cast<const float*>(sm.t) + c;
+    const float* rf = static_cast<const float*>(sm.r) + 4 * q;
+#pragma unroll 4
+    for (int m = 0; m < kW7M; ++m) {
+      const float4 rv = *reinterpret_cast<const float4*>(rf + m * RFS);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const float tv = tf[m * FS + 16 * j];
+        g[0][j] = fmaf(rv.x, tv, g[0][j]);
+        g[1][j] = fmaf(rv.y, tv, g[1][j]);
+        g[2][j] = fmaf(rv.z, tv, g[2][j]);
+        g[3][j] = fmaf(rv.w, tv, g[3][j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* gtile, int W, int K, int wc,
+                                        int wend, int k0) const {
+    const int q = threadIdx.x >> 4, c = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i, w = wc + (n & 15);
+      if (w >= wend) continue;
+      float* out = gtile + ((long long)(n >> 4) * W + w) * K + k0;
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+        if (k0 + c + 16 * j < K) out[c + 16 * j] = g[i][j];
+    }
+  }
+
+  // the tile's g into the partial at K columns k0 + (c + 16 j), summed
+  // onto what is there where `add` (K7's form)
+  template <class L>
+  __device__ __forceinline__ static void write(const L& sm, float* gtile,
+                                               int W, int K, int wc,
+                                               int wend, int k0, bool add) {
+    W7SimtG x;
+    x.load(gtile, W, K, wc, wend, k0, add);
+    x.product(sm);
+    x.store(gtile, W, K, wc, wend, k0);
+  }
+};
+
+template <int KP>
+struct W7MmaG {
+  static constexpr int KH = KP / 16;        // m16 tiles of K
+  static constexpr int MH = (KH + 1) / 2;   // ... a warp
+  static constexpr int HS = KP + 8, RHS = kW7Ind + 8;
+  using Acc = float[MH][2][4];
+  Acc acc;
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int mi = 0; mi < MH; ++mi)
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
+  }
+
+  // acc += bf(t)^T R over the 128 M-rows, 16 at a time
+  template <class L>
+  __device__ __forceinline__ static void product(Acc& acc, const L& sm) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int gm = w >> 2, gn = w & 3;
+    const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(sm.t);
+    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(sm.r);
+    const __nv_bfloat16* br =
+        rb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RHS + 16 * gn +
+        8 * (lane >> 4);
+    const __nv_bfloat16* at =
+        tb + ((lane & 7) + 8 * (lane >> 4)) * HS + 8 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int m0 = 0; m0 < kW7M; m0 += 16) {
+      uint32_t bq[4];
+      ldsm_x4_trans(bq, br + m0 * RHS);
+#pragma unroll
+      for (int mi = 0; mi < MH; ++mi) {
+        const int mt = gm * MH + mi;
+        if (mt >= KH) continue;              // the warp's last tile (KH odd)
+        uint32_t a[4];
+        ldsm_x4_trans(a, at + m0 * HS + 16 * mt);
+        mma_bf16(acc[mi][0], a, bq[0], bq[1]);
+        mma_bf16(acc[mi][1], a, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // acc into the partial at K columns k0 + (16 mt + g (+ 8)), added to
+  // what is there where `add` (every load issued before the first add)
+  __device__ __forceinline__ static void store(Acc& acc, float* gtile, int W,
+                                               int K, int wc, int wend,
+                                               int k0, bool add) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int gm = w >> 2, gn = w & 3, g = lane >> 2, t = lane & 3;
+    float* gb = gtile + ((long long)gn * W + wc + 2 * t) * K + k0;
+    if (add) {
+#pragma unroll
+      for (int mi = 0; mi < MH; ++mi)
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int mt = gm * MH + mi;
+            const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
+            acc[mi][jn][e] = (mt < KH && wc + 2 * t + dw < wend && k0 + k < K
+                                  ? gb[dw * K + k]
+                                  : 0.f) +
+                             acc[mi][jn][e];
+          }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MH; ++mi) {
+      const int mt = gm * MH + mi;
+      if (mt >= KH) continue;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int dw = 8 * jn + (e & 1), k = 16 * mt + g + 8 * (e >> 1);
+          if (wc + 2 * t + dw < wend && k0 + k < K)
+            gb[dw * K + k] = acc[mi][jn][e];
+        }
+    }
+  }
+
+  // the γ pass's g, held across row tiles
+  __device__ __forceinline__ void zero() { zero(acc); }
+  template <class L>
+  __device__ __forceinline__ void product(const L& sm) {
+    product(acc, sm);
+  }
+  __device__ __forceinline__ void store(float* gtile, int W, int K, int wc,
+                                        int wend, int k0) {
+    store(acc, gtile, W, K, wc, wend, k0, false);
+  }
+
+  // the tile's g into the partial at K columns k0 + (16 mt + g (+ 8)),
+  // added to what is there where `add` (K7's form, its sums in a local
+  // array)
+  template <class L>
+  __device__ __forceinline__ static void write(const L& sm, float* gtile,
+                                               int W, int K, int wc,
+                                               int wend, int k0, bool add) {
+    Acc a;
+    zero(a);
+    product(a, sm);
+    store(a, gtile, W, K, wc, wend, k0, add);
   }
 };
 

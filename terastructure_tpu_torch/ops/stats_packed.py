@@ -20,28 +20,28 @@ CUDA kernel on CUDA tensors, and counts `launches` / `twin_calls`):
 
 The last four carry the big-N step (svi/engine.step_core_packed). Every
 kernel takes any K the twins take: K <= 64 runs the bodies instantiated
-at K-widths 4..64, K > 64 their "wide" bodies: for the λ pass (K4, K8)
-and K7 bodies that compute D once an entry with K in pieces of up to 128
-columns (csrc/lambda_wide.cuh `lambda_pass_wide_kernel`, csrc/
-stats_fused.cuh `stats_v2_wide_kernel`, on the tile of
-csrc/wide_tile.cuh), for K5 and K6 K-chunked ones (csrc/psd_wide.cuh,
-csrc/stats_fused.cuh).
+at K-widths 4..64, K > 64 their "wide" bodies: for the λ pass (K4, K8),
+the γ pass (K5) and K7 bodies that compute D once an entry with K in
+pieces of up to 128 columns (csrc/lambda_wide.cuh
+`lambda_pass_wide_kernel`, csrc/gamma_wide.cuh `gamma_pass_wide_kernel`,
+csrc/stats_fused.cuh `stats_v2_wide_kernel`, on the tile of
+csrc/wide_tile.cuh), for K6 a K-chunked one (csrc/stats_fused.cuh).
 
 Every kernel also takes dtype=torch.bfloat16 (compute_dtype
 "bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
 f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
-passes (K4, K5, K8), and the λ pass (K4, K8) and K7 at any K, run on the
-tensor cores (csrc/psd_mma.cuh, csrc/lambda_wide.cuh,
-csrc/stats_fused.cuh); K6 and K5 at K > 64 run their SIMT bodies with the
-operands rounded where they are staged. Each wrapper counts its bf16
+passes (K4, K5, K8), and the λ and γ passes (K4, K5, K8) and K7 at any
+K, run on the tensor cores (csrc/psd_mma.cuh, csrc/lambda_wide.cuh,
+csrc/gamma_wide.cuh, csrc/stats_fused.cuh); K6 runs its SIMT bodies with
+the operands rounded where they are staged. Each wrapper counts its bf16
 launches in `bf16_launches` (`count_launch`).
 
 Batched replicates: every kernel also takes a leading R axis on each
 per-replicate input (K4's rows may be shared) and runs the R calls in
-one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`; the
-K-chunked bodies of K5 and K6 share z with their chunks,
-csrc/psd_wide.cuh `wide_z`), at any K, each replicate bitwise its single
-call; counted in `rep_launches` as well. On CPU tensors the twin of a batched call is the
+one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`; K6's
+K-chunked body shares z with its chunks, csrc/psd_wide.cuh `wide_z`), at
+any K, each replicate bitwise its single call; counted in
+`rep_launches` as well. On CPU tensors the twin of a batched call is the
 single twin of each replicate, stacked (`stack_twins`).
 """
 
@@ -253,19 +253,37 @@ def _device_of(name, x):
 
 
 GAMMA_COLS = 32         # byte columns of a γ-pass CTA (4 warps, a plane each)
+# K > 64 (csrc/gamma_wide.cuh): a CTA of 8 warps takes GAMMA_WIDE_COLS
+# byte columns and walks its row split in row tiles of GAMMA_WIDE_ROWS
+GAMMA_WIDE_COLS = 16
+GAMMA_WIDE_ROWS = 64
 
 
 def gamma_grid(b: int, w: int, k: int) -> int:
     """The γ pass's row split at a batch of b rows of w bytes: CTA (i, j)
-    takes byte columns [32 i, 32 i + 32) and the j-th of `nsplit` slices
-    of rows, walked in order. At K <= 64 about four CTAs an SM where the
-    batch allows (slices of at least 32 rows); the K-chunked body (K > 64)
-    keeps its split of about two CTAs an SM (slices of at least 64 rows).
-    A function of the shape only, so the summation order, and the result,
-    never depend on anything else."""
-    ncol = -(-w // GAMMA_COLS)
+    takes its byte columns and the j-th of `nsplit` slices of rows,
+    walked in order. At K <= 64 CTAs of 32 byte columns, about four CTAs
+    an SM where the batch allows (slices of at least 32 rows). At K > 64
+    CTAs of 16 byte columns walk slices of whole 64-row tiles (the
+    kernels' slice: ceil(b / nsplit) rounded up to 64), at f32 one CTA an
+    SM: the slice is the longest, up to 64 row tiles, whose CTAs fill
+    their last wave on the card's SMs at least 95% as well as the best
+    slice does (`lambda_grid`'s rule; chip_smoke.py --kernels,
+    `gamma_split_sweep`). A function of the shape only, so the summation
+    order, and the result, never depend on anything else."""
     if k > 64:
-        return max(1, min(-(-b // 64), -(-2 * SM_COUNT // ncol)))
+        cols = -(-w // GAMMA_WIDE_COLS)
+        tiles = -(-b // GAMMA_WIDE_ROWS)
+
+        def fill(n):
+            ctas = cols * -(-tiles // n)
+            return ctas / (-(-ctas // SM_COUNT) * SM_COUNT)
+
+        lengths = range(1, min(tiles, 64) + 1)
+        best = max(fill(n) for n in lengths)
+        n = max(n for n in lengths if fill(n) >= 0.95 * best)
+        return -(-tiles // n)
+    ncol = -(-w // GAMMA_COLS)
     return max(1, min(-(-b // 32), 4 * SM_COUNT // ncol))
 
 
@@ -556,18 +574,31 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
                            t0, dtype=dtype)
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
-    nsplit = gamma_grid(b, w, k)
-    lead = () if r is None else (r,)
+    g = launch_gamma_stats_packed(rows, u_planes, t1, t0,
+                                  gamma_grid(b, w, k), dtype == torch.bfloat16)
+    count_launch(gamma_stats_packed, dtype, r)
+    return g
+
+
+def launch_gamma_stats_packed(rows, u_planes, t1, t0, nsplit, bf16=False):
+    """K5's launch at a given row split (validated CUDA tensors).
+    `gamma_stats_packed` passes `gamma_grid`'s; chip_smoke.py's sweep
+    passes others to show where the chosen split stands. bf16: the bf16
+    body's entry. rows (R, B, W) with u_planes (R, 4, W, K) and t1, t0
+    (R, B, K) launch R replicates."""
+    b, w = rows.shape[-2:]
+    k = u_planes.shape[-1]
+    lead = tuple(u_planes.shape[:-3])
     dev = rows.device
     g = torch.empty((*lead, 4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((*lead, nsplit, 4 * w, k), dtype=torch.float32,
                         device=dev)
-    err = _entry("tt_gamma_stats_packed", dtype)(
-        r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
-        t0.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w, k, nsplit,
-        _build.stream_ptr(dev))
-    _build.check(err, name)
-    count_launch(gamma_stats_packed, dtype, r)
+    entry = "tt_gamma_stats_packed_bf16" if bf16 else "tt_gamma_stats_packed"
+    err = getattr(_build.lib(), entry)(
+        lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
+        t1.data_ptr(), t0.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w,
+        k, nsplit, _build.stream_ptr(dev))
+    _build.check(err, "gamma_stats_packed")
     return g
 
 

@@ -457,17 +457,22 @@ def test_wide_lambda_pass_gate_skips_a_replicate(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [65, 72, 96, 128, 129, 130, 256, 1000])
 def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
-    """K5, K7 (both divides) and K6 at K = 65..1000, B = 40, W = 300:
-    shared memory does not grow with K (K7 takes K in pieces of at most
-    128 columns: one piece at K = 65..128, two at 129 and 130)."""
+    """K5 (f32 and bf16: the γ pass's K > 64 body, `gamma_pass_wide_kernel`,
+    K in pieces of at most 128 columns), K7 (both divides) and K6 at
+    K = 65..1000, B = 40, W = 300: shared memory does not grow with K (one
+    piece at K = 65..128, two at 129 and 130). K5 bitwise on a re-run and
+    held to its twin at TOL, at bf16 at BF16_PASS."""
     rows, up, lamb = _problem(cuda_device, 40, 4 * 300, k, seed=k)
     rows[3] = 0xFF
     u = stats_packed.planes_to_flat(up).contiguous()
     t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
-    np.testing.assert_allclose(
-        stats_packed.gamma_stats_packed(rows, up, t1, t0).cpu().numpy(),
-        stats_packed.gamma_stats_packed_twin(rows, up, t1, t0).cpu().numpy(),
-        **TOL)
+    for dtype, tol in ((torch.float32, TOL), (BF16, BF16_PASS)):
+        got = stats_packed.gamma_stats_packed(rows, up, t1, t0, dtype)
+        assert torch.equal(got, stats_packed.gamma_stats_packed(
+            rows, up, t1, t0, dtype))
+        np.testing.assert_allclose(
+            got.cpu().numpy(), stats_packed.gamma_stats_packed_twin(
+                rows, up, t1, t0, dtype).cpu().numpy(), **tol)
     for name, approx_div in (("batch_stats_fused_v2_packed", False),
                              ("batch_stats_fused_v2_packed", True),
                              ("batch_stats_fused_packed", False)):
@@ -486,6 +491,104 @@ def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
 # widths 80, 96 and 128) and several (129, 130: two of 80; 256: two of
 # 128; 1000: eight of 128)
 K7_WIDE_KS = [65, 72, 96, 128, 129, 130, 256, 1000]
+
+
+# The γ pass at K > 64 (`gamma_pass_wide_kernel`, csrc/gamma_wide.cuh):
+# one piece of K (65..128: 80 wide to K = 80, else 128), two (129: two of
+# 80; 256: two of 128) and eight (1000)
+WIDE_GAMMA_KS = [65, 72, 128, 129, 256, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [72, 129, 256])
+def test_wide_gamma_pass_at_any_row_split(cuda_device, k, dtype):
+    """K5 at K > 64 through its launch at row splits of 1, 2, 3, 5 and 16
+    (B = 1000: 16 row tiles, the last ragged; 5 splits of 256 rows leave
+    the fifth empty, which writes a zero partial) and the split
+    `gamma_grid` chooses, W = 301 (a ragged column tile), rows MISSING:
+    each held to the twin (TOL; bf16 BF16_PASS) and bitwise on a re-run."""
+    rows, up, lamb = _problem(cuda_device, 1000, 4 * 301, k, seed=k + 3)
+    rows[[7, 500, 999]] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    bf16 = dtype == BF16
+    want = stats_packed.gamma_stats_packed_twin(rows, up, t1, t0,
+                                                dtype).cpu().numpy()
+    for nsplit in (1, 2, 3, 5, 16, stats_packed.gamma_grid(1000, 301, k)):
+        got = stats_packed.launch_gamma_stats_packed(rows, up, t1, t0,
+                                                     nsplit, bf16)
+        assert torch.equal(got, stats_packed.launch_gamma_stats_packed(
+            rows, up, t1, t0, nsplit, bf16))
+        np.testing.assert_allclose(got.cpu().numpy(), want,
+                                   **(BF16_PASS if bf16 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", WIDE_GAMMA_KS)
+def test_k_above_64_gamma_of_k1_and_k2(cuda_device, k, dtype):
+    """The γ statistic K1 and K2 end with at K > 64 (t interleaved (B, K,
+    2), so the wide γ pass stages it by 4-byte copies) at B = 200 (four
+    row tiles, the last ragged), W = 256, rows MISSING and a null group:
+    K1's g held to its twin (TOL; bf16 BF16_SOLVE), bitwise on a re-run,
+    one launch each; K2 bitwise K1 on the gathered rows."""
+    b, g, l = 200, 8, 2048
+    packed, up, lamb = _problem(cuda_device, l, 4 * 256, k, seed=k + 5)
+    lamb = lamb[:b].contiguous()
+    idx0 = _groups(cuda_device, l, b, g, seed=k)
+    idx0[2] = l                                  # reads as all MISSING
+    packed[int(idx0[0]) + 3] = 0xFF              # a whole row MISSING
+    rows = packed[(idx0.long().clamp(max=l - g)[:, None]
+                   + torch.arange(g, device=cuda_device)).reshape(-1)]
+    rows[2 * g:3 * g] = 0xFF
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              warm_start=True, dtype=dtype)
+    bf16 = dtype == BF16
+    fn = fused_step.fused_local_solve
+    count = "bf16_launches" if bf16 else "launches"
+    before = getattr(fn, count)
+    k1 = fn(rows, up, lamb, **kw)
+    assert getattr(fn, count) == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(k1, fn(rows, up, lamb,
+                                                        **kw)))
+    want = fused_step.fused_local_solve_twin(rows, up, lamb, **kw)
+    np.testing.assert_allclose(k1[1].cpu().numpy(), want[1].cpu().numpy(),
+                               **(BF16_SOLVE if bf16 else TOL))
+    k2 = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
+                                          **kw)
+    assert all(torch.equal(a, c) for a, c in zip(k2, k1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [72, 256])
+def test_wide_gamma_rep_is_the_single_call_per_replicate(cuda_device, k,
+                                                         dtype):
+    """K5[rep] and K1[rep] at K > 64, R = 3, B = 200 (four row tiles),
+    W = 301, one replicate's rows partly MISSING: one launch each,
+    counted in rep_launches, each replicate bitwise its single call, a
+    re-run bitwise."""
+    rows, up, lamb = _rep_problem(cuda_device, 3, 200, 4 * 301, k, seed=k)
+    rows[1, :70] = 0xFF
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    kw = dict(local_iters=4, local_tol=-1.0, beta_a=1.0, beta_b=1.0,
+              dtype=dtype)
+    for fn, call, one in (
+            (stats_packed.gamma_stats_packed,
+             lambda: [stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                      dtype)],
+             lambda i: [stats_packed.gamma_stats_packed(
+                 rows[i], up[i], t1[i], t0[i], dtype)]),
+            (fused_step.fused_local_solve,
+             lambda: fused_step.fused_local_solve(rows, up, lamb, **kw),
+             lambda i: fused_step.fused_local_solve(rows[i], up[i], lamb[i],
+                                                    **kw))):
+        before = fn.rep_launches
+        got = call()
+        assert fn.rep_launches == before + 1
+        assert all(torch.equal(a, c) for a, c in zip(got, call()))
+        for i in range(3):
+            assert all(torch.equal(a[i], c) for a, c in zip(got, one(i)))
 
 
 @pytest.mark.cuda

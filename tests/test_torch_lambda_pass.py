@@ -76,7 +76,7 @@ def test_gamma_grid_keeps_four_ctas_an_sm_and_32_row_slices(b, w):
     assert nsplit == 1 or ncol * nsplit <= 4 * stats_packed.SM_COUNT
     torch.manual_seed(w)                     # ... and no hidden state
     assert stats_packed.gamma_grid(b, w, 8) == nsplit
-    # the K-chunked body (K > 64) keeps its own split, 64-row slices
+    # the wide body (K > 64) keeps its own split, of whole 64-row tiles
     assert stats_packed.gamma_grid(b, w, 72) <= -(-b // 64)
 
 
