@@ -25,7 +25,9 @@ capability 9.0. Phases, each of which must pass (no phase is caught):
    and G = 1; the K > 64 bodies (the λ pass's, through K1, K2, K4 and
    K8, at K = 65, 72, 96, 128, 129, 256 and 1000, K7 at K = 65..1000 too,
    at f32 and bf16 with both divides; the γ pass's through K5 at K = 72,
-   130 and 256, both dtypes; K6 at K = 72, 130 and 256; K8 at the big-N
+   130 and 256, both dtypes; K6 at K = 72, 130 and 256, both dtypes
+   (K6 is K7's launch at the exact divide: wherever it runs it is held
+   bitwise to K7 there); K8 at the big-N
    step's subsample and K7 and K5 at the big-N shape with K = 72, both
    dtypes (and divides); against their twins and their own
    second runs; one timed shape per family); the bf16 bodies
@@ -249,7 +251,10 @@ K = 256, and R = 4 at K = 72; f32 and bf16), of the λ pass at K > 64
 config #3's width, K = 72 and 256; K1 there on the accel schedule; f32
 and bf16) and of the γ pass at K > 64 (`wide_gamma_ms`: K5 at the big-N
 shape with K = 72, single and R = 4; the γ pass alone at config #3's
-width with K = 72; f32 and bf16), through the wrappers only:
+width with K = 72; f32 and bf16), of K6 (`k6_ms`: the big-N shape at
+K = 10 and 72, single and R = 4, K7 beside it at K = 10; f32 and bf16)
+and of the big-N step with stats_kernel "fused" (K6) and "fused_v2"
+(K7) at K = 10 and 72 (`bign_step_ms`), through the wrappers only:
 a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
 prints that tree's bits and times.
@@ -982,6 +987,18 @@ def _timed(rec, label, kernel, twin, flops, moved, reps=5):
     set_bound(rec, flops, moved)
 
 
+def k6_is_k7(label, rows, u, t1, t0, dtype=torch.float32):
+    """K6 is K7's launch at the exact divide: its outputs must be K7's
+    bitwise, and bitwise on a re-run."""
+    k6 = twice(label, lambda: stats_packed.batch_stats_fused_packed(
+        rows, u, t1, t0, dtype=dtype))
+    k7 = stats_packed.batch_stats_fused_v2_packed(rows, u, t1, t0,
+                                                  dtype=dtype)
+    if not all(torch.equal(a, c) for a, c in zip(k6, k7)):
+        raise AssertionError(f"{label}: K6 differs from K7 (exact divide)")
+    log(f"  {label}: bitwise K7 (exact divide) and its own re-run")
+
+
 def phase_kernels_bign(dev, rec):
     """K5-K8 against their twins at the big-N step's shapes and at a
     ragged small shape (B=12, W=384, K=3)."""
@@ -1008,6 +1025,7 @@ def phase_kernels_bign(dev, rec):
         check("batch_stats_fused_packed", f"K6 {shape}",
               lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
               lambda: twin_stats(rows, up, t1, t0), TOL)
+        k6_is_k7(f"K6 {shape}", rows, u, t1, t0)
         check("gamma_stats_packed", f"K5 {shape}",
               lambda: [stats_packed.gamma_stats_packed(rows, up, t1, t0)],
               lambda: [stats_packed.gamma_stats_packed_twin(rows, up, t1,
@@ -1266,11 +1284,16 @@ def phase_kernels_wide(dev, rec):
                          rows3, up3, t13, t03, dtype)]),
                      [stats_packed.gamma_stats_packed_twin(
                          rows3, up3, t13, t03, dtype)], tol)
-            hold(rec, "batch_stats_fused_packed", f"K6 wide {shape}",
-                 twice("K6 wide",
-                       lambda: stats_packed.batch_stats_fused_packed(
-                           rows3, u3, t13, t03)),
-                 twin_stats(rows3, up3, t13, t03), TOL)
+            for dtype, name, tol in (
+                    (torch.float32, "batch_stats_fused_packed", TOL),
+                    (BF16, "batch_stats_fused_packed[bf16]", TOL_BF16_PASS)):
+                hold(rec, name, f"K6 wide {shape} {dtype}",
+                     twice("K6 wide",
+                           lambda: stats_packed.batch_stats_fused_packed(
+                               rows3, u3, t13, t03, dtype=dtype)),
+                     twin_stats(rows3, up3, t13, t03, dtype=dtype), tol)
+                k6_is_k7(f"K6 wide {shape} {dtype}", rows3, u3, t13, t03,
+                         dtype)
         for dtype, approx in ((torch.float32, False), (torch.float32, True),
                               (BF16, False), (BF16, True)):
             tol = (TOL_APPROX if approx else
@@ -1359,26 +1382,28 @@ def phase_kernels_wide(dev, rec):
                  pr * (12 * k + 2), nbytes(rows, u, t1, t0, u, t1, t0))):
             e = dict(shape=f"B={b} W={w} K={k}")
             label = f"{name} wide {e['shape']}"
-            k7 = name == "batch_stats_fused_v2_packed"
+            fused = name != "gamma_stats_packed"
+            k6 = name == "batch_stats_fused_packed"
             if k == 72:
                 _timed(e, label, kernel, twin, flops, moved)
             else:
                 e["ms"], e["plain_ms"] = (
-                    k7_wide_ms(x, torch.float32, 5) if k7
+                    k7_wide_ms(x, torch.float32, 5, k6) if fused
                     else time_ms(kernel, 3), None)
                 log(f"  {label}: kernel {e['ms']:.4f} ms")
                 set_bound(e, flops, moved)
-            if k7:
-                _k7_wide_bf16(e, x, k, moved, 3 if k == 72 else 5)
+            if fused:
+                _k7_wide_bf16(e, x, k, moved, 3 if k == 72 else 5, k6)
             rec[name]["wide"].append(e)
         del rows, up, u, t1, t0, x
 
     # K7 and K6 at the big-N shape with K = 72: their partial buffers
-    # (K7: B tiles of `v2_b_tile` rows of gamma, 256 here; K6: B/32)
-    # beside the kernel's time. K7 is held to its twin there first, f32
-    # and bf16, both divides: the shape its B tiles of 4 row tiles and 98
-    # W tiles of 16 sub-tiles take on the main path (the twin's (B, 4W)
-    # temporaries, ~10 GB, freed before the timing)
+    # (B tiles of `v2_b_tile` rows of gamma, 256 here, for both) beside
+    # the kernel's time. K7 is held to its twin there first, f32 and bf16,
+    # both divides, and K6 bitwise to K7 at the exact divide: the shape
+    # their B tiles of 4 row tiles and 98 W tiles of 16 sub-tiles take on
+    # the main path (the twin's (B, 4W) temporaries, ~10 GB, freed before
+    # the timing)
     b, w, _ = BIGN
     k = 72
     x = rows, up, u, t1, t0 = k7_wide_inputs(dev, b, w, k)
@@ -1395,22 +1420,21 @@ def phase_kernels_wide(dev, rec):
              TOL_APPROX if approx else
              TOL if dtype == torch.float32 else TOL_BF16_PASS)
         torch.cuda.empty_cache()
-    for name, kernel, slices in (
-            ("batch_stats_fused_v2_packed", None,
-             stats_packed.v2_partial_shapes(b, w, k)[1][0]),
-            ("batch_stats_fused_packed",
-             lambda: stats_packed.batch_stats_fused_packed(rows, u, t1, t0),
-             -(-b // 32))):
-        e = dict(shape=shape, plain_ms=None,
-                 gamma_partials_bytes=slices * 4 * w * k * 4)
-        e["ms"] = (k7_wide_ms(x, torch.float32, 3) if kernel is None
-                   else time_ms(kernel, 2))
-        log(f"  {name} wide {e['shape']}: kernel {e['ms']:.4f} ms, gamma "
-            f"partials {e['gamma_partials_bytes'] / 1e9:.3f} GB")
+        if not approx:
+            k6_is_k7(f"K6 wide {shape} {dtype}", rows, u, t1, t0, dtype)
+    plain_ms = time_ms(lambda: twin_stats(rows, up, t1, t0), 2)
+    torch.cuda.empty_cache()
+    for name, k6 in (("batch_stats_fused_v2_packed", False),
+                     ("batch_stats_fused_packed", True)):
+        e = dict(shape=shape, plain_ms=plain_ms, gamma_partials_bytes=(
+            stats_packed.v2_partial_shapes(b, w, k)[1][0] * 4 * w * k * 4))
+        e["ms"] = k7_wide_ms(x, torch.float32, 3, k6)
+        log(f"  {name} wide {e['shape']}: kernel {e['ms']:.4f} ms, twin "
+            f"{plain_ms:.3f} ms, gamma partials "
+            f"{e['gamma_partials_bytes'] / 1e9:.3f} GB")
         moved = nbytes(rows, u, t1, t0, u, t1, t0)
         set_bound(e, pr * (12 * k + 2), moved)
-        if kernel is None:
-            _k7_wide_bf16(e, x, k, moved, 3)
+        _k7_wide_bf16(e, x, k, moved, 3, k6)
         rec[name]["wide"].append(e)
         torch.cuda.empty_cache()
     # K5 at the big-N shape with K = 72 (`gamma_pass_wide_kernel`: 1,568
@@ -1522,26 +1546,27 @@ def k7_wide_inputs(dev, b, w, k, r=None):
     return rows, up, stats_packed.planes_to_flat(up).contiguous(), t1, t0
 
 
-def k7_wide_ms(x, dtype, reps):
-    """Device ms of a call of K7 through its wrapper on x
+def k7_wide_ms(x, dtype, reps, k6=False):
+    """Device ms of a call of K7 (K6 where `k6`) through its wrapper on x
     (`k7_wide_inputs`) at dtype: CUDA events over reps launches after a
     warm-up. phase_kernels_wide and --digest time it so."""
     rows, _, u, t1, t0 = x
-    ms = time_ms(lambda: stats_packed.batch_stats_fused_v2_packed(
-        rows, u, t1, t0, dtype=dtype), reps)
+    fn = (stats_packed.batch_stats_fused_packed if k6
+          else stats_packed.batch_stats_fused_v2_packed)
+    ms = time_ms(lambda: fn(rows, u, t1, t0, dtype=dtype), reps)
     torch.cuda.empty_cache()
     return ms
 
 
-def _k7_wide_bf16(e, x, k, moved, reps):
-    """K7's bf16 body at K > 64 timed beside the f32 body's entry e
-    (`k7_wide_ms`), with its bf16 bound."""
-    e["bf16_ms"] = k7_wide_ms(x, BF16, reps)
+def _k7_wide_bf16(e, x, k, moved, reps, k6=False):
+    """K7's (K6's where `k6`) bf16 body at K > 64 timed beside the f32
+    body's entry e (`k7_wide_ms`), with its bf16 bound."""
+    e["bf16_ms"] = k7_wide_ms(x, BF16, reps, k6)
     tmp = {}
     set_bound_bf16(tmp, present(x[0]), k, moved, sums=2)
     e["bf16_bound_ms"] = tmp["bound_ms"]
-    log(f"  K7[bf16] wide {e['shape']}: kernel {e['bf16_ms']:.4f} ms, "
-        f"bound {e['bf16_bound_ms']:.5f} ms")
+    log(f"  {'K6' if k6 else 'K7'}[bf16] wide {e['shape']}: kernel "
+        f"{e['bf16_ms']:.4f} ms, bound {e['bf16_bound_ms']:.5f} ms")
 
 
 def _wide_lambda_bf16(e, kernel, entries, k, moved, graph=False):
@@ -1947,7 +1972,7 @@ def _time_rep_bign(rec, x):
                  if kernel == "K8" else
                  f"R={R_REP} B={rows.shape[1]} W={rows.shape[2]} K={k}")
         e = dict(shape=shape)
-        reps = 2 if kernel == "K6" else 5 if kernel != "K8" else 20
+        reps = 5 if kernel != "K8" else 20
         for dtype, key in ((torch.float32, ""), (BF16, "bf16_")):
             singles = [_bign_rep_calls(_one(x, i), dtype, approx)[kernel][0]
                        for i in range(R_REP)]
@@ -2061,9 +2086,8 @@ def _hold_wide(rec, kernel, label, got, want, dtype, approx):
 
 def phase_kernels_rep_wide(dev, rec):
     """K1, K4, K5, K6, K7 and K8 with the replicate axis (R = 4) at
-    K = 72 and 256 (K1, K4, K7 and K8 at K = 128 too, the widest single
-    piece of K of their bodies): the K-chunked bodies (K5, K6) hold R x
-    their chunks in the grid's z, the others the replicate alone; ragged
+    K = 72 and 256 (K1, K4 and K6-K8 at K = 128 too, the widest single
+    piece of K of their bodies), the replicate alone in the grid's z; ragged
     shapes (B = 40, odd W, a replicate's rows MISSING), f32 and bf16, both
     divides at K = 72 and 128 (K1, K4, K7, K8): each
     replicate bitwise its single wide call, a re-run bitwise, held to the
@@ -2076,8 +2100,8 @@ def phase_kernels_rep_wide(dev, rec):
         rec[name]["wide"] = []
     for k in (REP_WIDE_K, 128, 256):
         for kernel, name in REP_WIDE.items():
-            if k == 128 and kernel in ("K5", "K6"):   # the widest single
-                continue                              # piece of K1-K4-K7-K8
+            if k == 128 and kernel == "K5":   # the widest single piece
+                continue                      # of K1, K4 and K6-K8
             w = 235 if kernel in ("K1", "K4", "K8") else 300
             x = _wide_rep_inputs(40, w, k, dev)
             for dtype in (torch.float32, BF16):
@@ -2103,7 +2127,7 @@ def phase_kernels_rep_wide(dev, rec):
                                         REP_WIDE_MAIN)["K1"][0](),
                         [_single_wide(x, i, "K1", dtype, False, REP_WIDE_MAIN)
                          for i in range(R_REP)])
-        log(f"  {'K1, K4, K7, K8' if k == 128 else 'K1, K4, K5-K8'}[rep] wide "
+        log(f"  {'K1, K4, K6-K8' if k == 128 else 'K1, K4, K5-K8'}[rep] wide "
             f"R={R_REP} K={k}: each replicate bitwise its single wide call, "
             "re-runs bitwise")
     for kernel in REP_WIDE:
@@ -2400,6 +2424,8 @@ def phase_kernels_bign_bf16(dev, rec):
                       rows, u, t1, t0, dtype=dt),
                   lambda: twin_stats(rows, up, t1, t0, dtype=BF16),
                   TOL_BF16_PASS)
+        torch.cuda.empty_cache()
+        k6_is_k7(f"K6[bf16] {shape}", rows, u, t1, t0, BF16)
         hold_bf16(rec, names["K5"], f"K5[bf16] {shape}",
                   lambda dt: [stats_packed.gamma_stats_packed(
                       rows, up, t1, t0, dt)],
@@ -2430,7 +2456,7 @@ def phase_kernels_bign_bf16(dev, rec):
                         lambda dt: stats_packed.batch_stats_fused_packed(
                             rows, u, t1, t0, dtype=dt),
                         lambda: twin_stats(rows, up, t1, t0, dtype=BF16),
-                        pr, k, fused_bytes, sums=2, reps=2)
+                        pr, k, fused_bytes, sums=2)
             _timed_bf16(rec[names["K5"]], f"K5[bf16] {shape}",
                         lambda dt: stats_packed.gamma_stats_packed(
                             rows, up, t1, t0, dt),
@@ -5064,6 +5090,56 @@ def wide_k7_ms(dev):
     return out
 
 
+# K6 as --digest times it (`k6_ms`), at the big-N shape: K = 10 and 72,
+# single and with the replicate axis (R = 4); (K, R or None, launches
+# timed). K7 beside it at K = 10 (`wide_k7_ms` times it at K = 72).
+K6_TIMED = ((10, None, 5), (72, None, 3), (10, R_REP, 3), (72, R_REP, 1))
+
+
+def k6_ms(dev):
+    """Device ms a call of K6 (and of K7 at K = 10) through the wrappers,
+    f32 and bf16, at K6_TIMED: --digest prints them in whichever tree's
+    package is imported, so that two trees' K6 are timed in turns."""
+    out = {}
+    b, w, _ = BIGN
+    for k, r, reps in K6_TIMED:
+        x = k7_wide_inputs(dev, b, w, k, r)
+        rep = f"[rep] R={r} " if r else " "
+        for dtype, tag in ((torch.float32, ""), (BF16, "[bf16]")):
+            out[f"K6{tag}{rep}B={b} W={w} K={k}"] = k7_wide_ms(x, dtype, reps,
+                                                                True)
+            if k <= 64:
+                out[f"K7{tag}{rep}B={b} W={w} K={k}"] = k7_wide_ms(
+                    x, dtype, reps)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def bign_step_ms(dev):
+    """ms a big-N step (100K x 100K packed bytes drawn on the card, B =
+    4,096, snp_group 8; 10-step chunks, `steady_step_ms`) with
+    stats_kernel "fused" (K6) and "fused_v2" (K7), K = 10 and 72, f32:
+    --digest prints them in whichever tree's package is imported."""
+    n = l = 100_000
+    g = torch.Generator(device=dev).manual_seed(1)
+    packed = torch.randint(0, 256, (l, n // 4), generator=g, device=dev,
+                           dtype=torch.uint8)
+    out = {}
+    for k in (10, 72):
+        for sk in ("fused", "fused_v2"):
+            cfg = SVIConfig(n=n, l=l, k=k, batch_size=4096, rfreq=10,
+                            max_steps=10, seed=0, snp_group=8,
+                            stats_kernel=sk)
+            state = engine.init_state(cfg, l_padded=l, device=dev)
+            chunk = engine.make_run_chunk(cfg, 10, l)
+            out[f"step {sk} K={k}"] = steady_step_ms(chunk, state, packed,
+                                                     10)
+            del state, chunk
+            torch.cuda.empty_cache()
+    return out
+
+
 # The λ pass at K > 64 as --digest times it (`wide_lambda_ms`): K8 on the
 # big-N step's subsample (B = 4,096, 4 x 2,048, K = 72, the step's fast
 # divide), single and with the replicate axis (R = 4); K4 at config #3's
@@ -5168,6 +5244,8 @@ def main(argv=()) -> int:
                           "wrapper_eager_ms": wrapper_eager_ms(dev),
                           "bign_bf16_ms": bign_bf16_ms(dev),
                           "wide_k7_ms": wide_k7_ms(dev),
+                          "k6_ms": k6_ms(dev),
+                          "bign_step_ms": bign_step_ms(dev),
                           "wide_lambda_ms": wide_lambda_ms(dev),
                           "wide_gamma_ms": wide_gamma_ms(dev)}))
         print(card)

@@ -64,12 +64,10 @@ SIGNATURES = {
     "tt_gamma_stats_packed_bf16": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     # R, rows, u_planes, t1, t0, l0, l1, g, lpart, gpart, B, W, K,
     # tile_rows, tile_cols, approx, stream
+    # (K6 calls it at approx 0)
     "tt_batch_stats_fused_v2": [_I] + [_P] * 9 + [_I] * 6 + [_P],
-    # R, rows, u_planes, t1, t0, l0, l1, g, gpart, B, W, K, stream
-    "tt_batch_stats_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P],
     # the bf16 bodies of K7 and K6: the same arguments
     "tt_batch_stats_fused_v2_bf16": [_I] + [_P] * 9 + [_I] * 6 + [_P],
-    "tt_batch_stats_fused_bf16": [_I] + [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

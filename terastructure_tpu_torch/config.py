@@ -93,7 +93,7 @@ class SVIConfig:
     # Which kernel computes the exact full-N statistics pass of the
     # big-N step (engine.step_core_packed):
     #   "pair"     - the lambda pass (K4) and the gamma pass (K5);
-    #   "fused"    - one pass, lambda in registers per row block (K6, v1);
+    #   "fused"    - one pass (K6, v1): K7's kernel at the exact divide;
     #   "fused_v2" - one pass, lambda as per-column-tile partials (K7).
     stats_kernel: str = "fused_v2"
 

@@ -73,10 +73,9 @@
 // 128 columns, D once an entry, on the tile of wide_tile.cuh); every kind
 // takes the replicate axis (`Rep`). At compute dtype bf16
 // (kBf16) the passes at K <= 64 (K1, K2, K4, K5, and K8 over count
-// planes), the λ and γ passes at K > 64 and K7's statistics run
-// tensor-core bodies (psd_mma.cuh, lambda_wide.cuh, gamma_wide.cuh,
-// stats_fused.cuh); K6's statistics run their SIMT bodies with the
-// operands rounded (`operand`).
+// planes), the λ and γ passes at K > 64 and the statistics of K7 and K6
+// run tensor-core bodies (psd_mma.cuh, lambda_wide.cuh, gamma_wide.cuh,
+// stats_fused.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -149,21 +148,6 @@ __device__ __forceinline__ float ratio(float a, float d) {
 
 __device__ __forceinline__ float ratio(float a, float d, int approx) {
   return approx ? ratio<kDivFast>(a, d) : ratio<kDivExact>(a, d);
-}
-
-// x as an operand of a product: at compute dtype bf16 (kBf16) rounded to
-// bf16 to nearest even and held in f32, else x itself. K6's bodies round
-// T and U where they stage them and R after the f32 divide; the product
-// of two bf16 values is exact in f32 and the sums stay f32, so they
-// compute the reference's bf16 kernels (fused_step.py:270-302,
-// stats_pallas.py:68-93) up to the order of the sums. kBf16 = false
-// leaves the f32 bodies' code as it was. (The other bf16 passes and K7 run
-// on the tensor cores: psd_mma.cuh, lambda_wide.cuh, gamma_wide.cuh,
-// stats_fused.cuh.)
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
 }
 
 // The replicate axis (batched replicates, svi/replicates.py): one launch
@@ -828,7 +812,6 @@ inline int pick_km(int K, bool km12 = false) {
 
 }  // namespace tt
 
-#include "psd_wide.cuh"
 #include "lambda_wide.cuh"
 #include "gamma_wide.cuh"
 

@@ -1,7 +1,7 @@
-// K7: batch_stats_fused_v2_packed and K6: batch_stats_fused_packed at
-// compute dtype f32. The bodies, their design note and their launchers
-// are in stats_fused.cuh; stats_fused_bf16.cu holds the bf16 entries
-// (same arguments).
+// K7: batch_stats_fused_v2_packed, and K6: batch_stats_fused_packed,
+// which calls it at the exact divide, at compute dtype f32. The bodies,
+// their design note and their launcher are in stats_fused.cuh;
+// stats_fused_bf16.cu holds the bf16 entry (same arguments).
 
 #include "stats_fused.cuh"
 
@@ -13,13 +13,4 @@ extern "C" int tt_batch_stats_fused_v2(
   return batch_stats_fused_v2<false>(R, rows, up, t1, t0, l0, l1, g, lpart,
                                     gpart, B, W, K, tile_rows, tile_cols,
                                     approx, stream);
-}
-
-extern "C" int tt_batch_stats_fused(int R, const uint8_t* rows,
-                                    const float* up, const float* t1,
-                                    const float* t0, float* l0, float* l1,
-                                    float* g, float* gpart, int B, int W,
-                                    int K, cudaStream_t stream) {
-  return batch_stats_fused<false>(R, rows, up, t1, t0, l0, l1, g, gpart, B, W,
-                                 K, stream);
 }

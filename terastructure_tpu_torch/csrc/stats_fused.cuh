@@ -15,7 +15,8 @@
 // revisiting its output block over the batch axis; v1 also sums lambda by
 // a read-modify-write of a (B, K) block, v2 writes per-W-tile lambda
 // partials. Hopper has no sequential grid, so the two sums are made in a
-// fixed order without atomics (a seed reproduces gamma bitwise):
+// fixed order without float atomics (a seed reproduces gamma bitwise).
+// K6 is K7's launch at the exact divide (the K6 note below).
 //
 // K7 (K <= 64), `stats_v2_kernel`: grid (W tiles of 256 byte columns, B
 // tiles of 128 rows), CTAs of 4 warps. Warp q owns rows [32q, 32q + 32)
@@ -57,17 +58,19 @@
 // that K = 10 ran before; so KM = 12 saves about 1.1 ms of the 3.1 ms
 // gained (an estimate: K = 10 at KM = 16 was not run).
 //
-// K6 (`stats_v1_kernel`): CTAs of 128 threads take a sub-tile of 32 byte
-// columns x 4 planes (128 individuals) against a chunk of 32 rows in two
-// phases: phase 1, one thread per individual, D1, D0, R into shared
-// memory and g += R^T T in registers; phase 2, one lane per row and one
-// warp per plane, S += R U over the warp's 32 individuals. grid (B / 32):
-// a CTA owns 32 rows and walks every sub-tile of W in order with lambda in
-// registers (the in-kernel lambda accumulation of v1; the warps add in
-// warp order at the end, written straight to (l0, l1)); gamma goes out
-// per sub-tile as the row tile's partial, (B/32, 4W, K): 514 MB at the
-// big-N shape, reduced in order. It is the non-default option, kept as the
-// reference keeps v1, with its first body.
+// K6 (stats_kernel="fused") is K7's launch, `batch_stats_fused_v2`, at
+// the exact divide: its g, l0 and l1 are K7's bit for bit, at every K,
+// both dtypes and under the replicate axis. The reference's v1 differs
+// from v2 only where it adds lambda, into a (B, K) block revisited over W
+// tiles in W-tile order; K7's `split_reduce_kernel` adds the W tiles'
+// partials in that order too. K6's first body, a CTA of 32 rows walking
+// all of W, launched 128 CTAs at the big-N shape with K = 10 (K7: 98 x
+// 32), kept 514 MB of gamma partials (K7: 128 MB), computed D three times
+// an entry at K = 72 and ran bf16 on SIMT with rounded operands: 15.2 ms
+// at K = 10 against K7's 2.36 (PERF.md). A lambda finished inside K7's
+// bodies (the B tile's last CTA, found by an integer arrival count, adding
+// the W tiles' partials in order) gave the same bits and was 3-7% slower
+// than K7's two launches (PERF.md), so K6 has no body of its own.
 //
 // Bound on the H100: FP32 issue. Per row and individual, 6K FMAs and two
 // divides (the pair, K4 + K5, does 8K and four); at the big-N shape that
@@ -78,17 +81,6 @@
 // individuals (t read once for both: a third fewer broadcasts) was no
 // faster at KM = 8 and spilled above it (PERF.md), so the rest is
 // latency at 16 warps an SM, or issue.
-//
-// K > 64, K6: `stats_v1_wide_kernel`, the same tile step with the K
-// outputs cut into chunks of tt::kKC = 32 (blockIdx.z; psd_wide.cuh's
-// helpers), so that a chunk's sums hold in registers. Each CTA computes D over
-// all K a piece of 32 columns of K at a time (u of the 128 individuals
-// k-major, stride 129, each thread reading its own column; t of the 32
-// rows as float2 rows, read as broadcasts), adding each piece into R1/R0,
-// which hold D until phase 1 turns them into R. The chunk's own piece
-// comes last and serves its g (phase 1) and lambda (phase 2) sums. Shared
-// memory does not grow with K (58 KB). Each chunk writes its own k
-// columns of the gamma partials; the reduction is the K <= 64 path's.
 //
 // K > 64, K7: `stats_v2_wide_kernel<KP, kBf16>`, a body of its own, with
 // no K chunks: the grid is (W tiles of 256 byte columns, B tiles,
@@ -105,9 +97,9 @@
 //     the W tile, leaving once as the row tile's lambda partial;
 //   g = t^T R (K x 64 individuals, k = the 128 M-rows): added, row tile
 //     after row tile, into the B tile's gamma partial.
-// A B tile holds 4 row tiles (256 rows, the K-chunked body's tile: 0.46
-// GB of gamma partials at the big-N shape with K = 72, 18.4 GB at N = 1M
-// with R = 4), or 2 or 1 where 4 would leave fewer than 256 CTAs a
+// A B tile holds 4 row tiles (256 rows: 0.46 GB of gamma partials at the
+// big-N shape with K = 72, 18.4 GB at N = 1M with R = 4), or 2 or 1
+// where 4 would leave fewer than 256 CTAs a
 // replicate (ops/stats_packed.py `v2_b_tile`); each partial is written
 // and read back by one CTA, in row-tile order, so no atomics. t of a row
 // tile is staged once; u and the packed bytes of the next sub-tile arrive
@@ -144,21 +136,16 @@
 // `_ratios_tile` and the dots of `_batch_stats_v2_kernel` and
 // `_batch_stats_kernel`, stats_pallas.py:68-93, :225-259, :317-350) D =
 // bf(t) bf(u), the gamma sums bf(R) bf(t) and the lambda sums bf(R) bf(u),
-// each product exact in f32 and the sums f32. K7 runs tensor-core bodies,
-// `stats_v2_mma_kernel` at K <= 64 (below, with its note) and
-// `stats_v2_wide_kernel` above; K6 and its K > 64 body are the f32 bodies
-// with their operands rounded to bf16 (`tt::operand`) where they stage
-// them: t where the CTA stages its rows' t, u where it stages the
-// sub-tile's u, R once after the divide. kBf16 = false is the f32 code as
-// it was.
+// each product exact in f32 and the sums f32. K7 and K6 run tensor-core
+// bodies, `stats_v2_mma_kernel` at K <= 64 (below, with its note) and
+// `stats_v2_wide_kernel` above.
 //
 // The replicate axis (batched replicates, the reference's passes under
 // jax.vmap): one launch runs R independent calls, replicate z in the
-// grid's z (K6's K-chunked body: z = r x chunks + c, tt::wide_z), over
-// arrays that are R x the single call's, back to back.
+// grid's z, over arrays that are R x the single call's, back to back.
 // Each body offsets its pointers in its prologue (rows by B W bytes, u by
 // 4 W K, t1 and t0 by B K, the lambda partials by a call's W tiles x B K
-// 2, the gamma partials by its row tiles x 4 W K, K6's l0 and l1 by B K),
+// 2, the gamma partials by its row tiles x 4 W K),
 // before it stages anything, and each replicate runs on the grid its own
 // call would, so its sums add in the same order: its result is bitwise
 // the single call's. The reductions take R in z at the same strides. R =
@@ -170,131 +157,6 @@
 #include "psd_common.cuh"
 
 namespace {
-
-constexpr int kFThreads = 128;          // 4 warps
-constexpr int kFRows = 32;              // rows per chunk, one per lane
-constexpr int kFCols = 32;              // byte columns per sub-tile
-constexpr int kFInd = 4 * kFCols;       // individuals per sub-tile: 1/thread
-constexpr int kRStride = kFInd + 1;     // odd: conflict-free lane reads
-
-// Shared floats of the tile step: R1, R0, t of the chunk, u of the sub-tile.
-template <int KM>
-__host__ __device__ constexpr int tile_floats() {
-  return 2 * kFRows * kRStride + kFRows * KM * 2 + kFInd * KM;
-}
-
-struct Tile {
-  float* r1;   // (32 rows, kRStride)
-  float* r0;
-  float* ts;   // (32 rows, KM, 2): t1, t0 interleaved
-  float* us;   // (128 individuals, KM)
-};
-
-template <int KM>
-__device__ __forceinline__ Tile carve(float* smem) {
-  Tile t;
-  t.r1 = smem;
-  t.r0 = t.r1 + kFRows * kRStride;
-  t.ts = t.r0 + kFRows * kRStride;
-  t.us = t.ts + kFRows * KM * 2;
-  return t;
-}
-
-// Thread -> individual of the sub-tile at byte column wc: plane
-// s = warp, column wc + lane (a warp's byte reads are one 32-byte run).
-template <int KM, bool kBf16>
-__device__ __forceinline__ void load_u(const float* __restrict__ up, int W,
-                                       int K, int wc, float* uk, float* us) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-#pragma unroll
-  for (int k = 0; k < KM; ++k) {
-    uk[k] = ok && k < K
-                ? tt::operand<kBf16>(up[((long long)s * W + w) * K + k])
-                : 0.f;
-    us[threadIdx.x * KM + k] = uk[k];
-  }
-}
-
-template <int KM, bool kBf16>
-__device__ __forceinline__ void load_t(const float* __restrict__ t1g,
-                                       const float* __restrict__ t0g, int rb,
-                                       int B, int K, float* ts) {
-  for (int j = threadIdx.x; j < kFRows * KM * 2; j += kFThreads) {
-    const int r = j / (KM * 2), rem = j % (KM * 2), k = rem / 2;
-    const int b = rb + r;
-    const float* tg = rem % 2 ? t0g : t1g;
-    ts[j] = (k < K && b < B) ? tt::operand<kBf16>(tg[(long long)b * K + k])
-                             : 0.f;
-  }
-}
-
-// Phase 1: R of rows [rb, rb+32) x the thread's individual into shared
-// memory, and g += r1 t1 + r0 t0.
-template <int KM, bool kBf16>
-__device__ __forceinline__ void ratios_gamma(const uint8_t* __restrict__ rows,
-                                             int B, int W, int rb, int wc,
-                                             const float* uk, const Tile& sm,
-                                             float* g, int approx) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-  for (int r = 0; r < kFRows; ++r) {
-    const int b = rb + r;
-    const uint32_t code =
-        ok && b < B ? (rows[(long long)b * W + w] >> (2 * s)) & 3u : 3u;
-    float x1 = 0.f, x0 = 0.f;
-    if (code != 3u) {
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      const float* tr = sm.ts + r * KM * 2;
-      float d1 = 0.f, d0 = 0.f;
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        d1 = fmaf(tr[2 * k], uk[k], d1);
-        d0 = fmaf(tr[2 * k + 1], uk[k], d0);
-      }
-      x1 = tt::operand<kBf16>(tt::ratio(a1, d1, approx));
-      x0 = tt::operand<kBf16>(tt::ratio(a0, d0, approx));
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        g[k] = fmaf(x1, tr[2 * k], g[k]);
-        g[k] = fmaf(x0, tr[2 * k + 1], g[k]);
-      }
-    }
-    sm.r1[r * kRStride + threadIdx.x] = x1;
-    sm.r0[r * kRStride + threadIdx.x] = x0;
-  }
-}
-
-// Phase 2: lane = row of the chunk, warp = plane; s += R U over the warp's
-// 32 individuals, in column order.
-template <int KM>
-__device__ __forceinline__ void lambda_accum(const Tile& sm, float* s1,
-                                             float* s0) {
-  const int lane = threadIdx.x & 31, j0 = (threadIdx.x >> 5) * 32;
-  for (int jj = 0; jj < 32; ++jj) {
-    const int j = j0 + jj;
-    const float x1 = sm.r1[lane * kRStride + j];
-    const float x0 = sm.r0[lane * kRStride + j];
-    const float* u = sm.us + j * KM;
-#pragma unroll
-    for (int k = 0; k < KM; ++k) {
-      s1[k] = fmaf(x1, u[k], s1[k]);
-      s0[k] = fmaf(x0, u[k], s0[k]);
-    }
-  }
-}
-
-template <int KM>
-__device__ __forceinline__ void write_gamma(float* gtile, int W, int K,
-                                            int wc, const float* g) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  if (w >= W) return;
-  float* out = gtile + ((long long)s * W + w) * K;
-#pragma unroll
-  for (int k = 0; k < KM; ++k)
-    if (k < K) out[k] = g[k];
-}
 
 // ---- K7, K <= 64 -----------------------------------------------------------
 
@@ -828,309 +690,6 @@ stats_v2_mma_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// K6. grid (ceil(B/32), 1, R); dynamic shared memory tile_floats floats.
-// l0, l1 (B, K) final raw sums; gpart (gridDim.x, 4W, K).
-template <int KM, bool kBf16>
-__global__ void __launch_bounds__(kFThreads)
-stats_v1_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ up,
-                const float* __restrict__ t1g, const float* __restrict__ t0g,
-                float* __restrict__ l0, float* __restrict__ l1,
-                float* __restrict__ gpart, int B, int W, int K) {
-  const long long z = blockIdx.z;        // the replicate
-  rows += z * B * W;
-  up += 4 * z * W * K;
-  t1g += z * B * K;
-  t0g += z * B * K;
-  l0 += z * B * K;
-  l1 += z * B * K;
-  gpart += 4 * z * gridDim.x * W * K;
-  extern __shared__ float smem[];
-  const Tile sm = carve<KM>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rb = blockIdx.x * kFRows;
-  load_t<KM, kBf16>(t1g, t0g, rb, B, K, sm.ts);  // the CTA's rows, kept
-  float* gtile = gpart + (long long)blockIdx.x * 4 * W * K;
-  float s1[KM], s0[KM];
-#pragma unroll
-  for (int k = 0; k < KM; ++k) s1[k] = s0[k] = 0.f;
-
-  for (int wc = 0; wc < W; wc += kFCols) {
-    float uk[KM], g[KM];
-#pragma unroll
-    for (int k = 0; k < KM; ++k) g[k] = 0.f;
-    __syncthreads();  // t is staged; the last sub-tile's R and u are consumed
-    load_u<KM, kBf16>(up, W, K, wc, uk, sm.us);
-    ratios_gamma<KM, kBf16>(rows, B, W, rb, wc, uk, sm, g, 0);
-    write_gamma<KM>(gtile, W, K, wc, g);
-    __syncthreads();
-    lambda_accum<KM>(sm, s1, s0);
-  }
-
-  float* red = sm.r1;  // (32 rows, KM, 2) fits in R1's 32 x 129 floats
-  for (int j = 0; j < 4; ++j) {  // warps add in warp order
-    __syncthreads();
-    if (warp == j) {
-#pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        float* r = red + (lane * KM + k) * 2;
-        r[0] = j ? r[0] + s1[k] : s1[k];
-        r[1] = j ? r[1] + s0[k] : s0[k];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kFRows * K; i += kFThreads) {
-    const int r = i / K, k = i % K;
-    if (rb + r < B) {
-      l0[(long long)(rb + r) * K + k] = red[(r * KM + k) * 2];
-      l1[(long long)(rb + r) * K + k] = red[(r * KM + k) * 2 + 1];
-    }
-  }
-}
-
-// ---- the K-chunked bodies (K > 64) ----------------------------------------
-
-constexpr int kUS = kFInd + 1;   // u's k stride (individuals + 1)
-
-// Shared floats of the wide tile step: R1, R0 (D, then R), t of the chunk's
-// 32 rows for one piece (float2 rows of 32), u of the sub-tile for one
-// piece (32 x kUS).
-constexpr int kWideTileFloats =
-    2 * kFRows * kRStride + kFRows * tt::kKC * 2 + tt::kKC * kUS;
-
-struct WideTile {
-  float* r1;   // (32 rows, kRStride)
-  float* r0;
-  float2* ts;  // (32 rows, 32): t1, t0
-  float* us;   // (32, kUS): u, k-major
-};
-
-__device__ __forceinline__ WideTile carve_wide(float* smem) {
-  WideTile t;
-  t.r1 = smem;
-  t.r0 = t.r1 + kFRows * kRStride;
-  t.ts = reinterpret_cast<float2*>(t.r0 + kFRows * kRStride);
-  t.us = reinterpret_cast<float*>(t.ts + kFRows * tt::kKC);
-  return t;
-}
-
-// Stage piece [k0, k0 + kw) of u of the sub-tile at byte column wc
-// (individual n = plane n / 32, column wc + n % 32; coalesced reads along
-// K, conflict-free k-major writes) and of t of rows [rb, rb + 32).
-template <bool kBf16>
-__device__ __forceinline__ void stage_piece_wide(
-    const float* __restrict__ up, const float* __restrict__ t1g,
-    const float* __restrict__ t0g, int B, int W, int K, int rb, int wc,
-    int k0, int kw, const WideTile& sm) {
-  for (int j = threadIdx.x; j < kFInd * kw; j += kFThreads) {
-    const int n = j / kw, k = j % kw;
-    const int w = wc + (n & 31);
-    sm.us[k * kUS + n] =
-        w < W && k0 + k < K
-            ? tt::operand<kBf16>(up[((long long)(n >> 5) * W + w) * K + k0 + k])
-            : 0.f;
-  }
-  for (int j = threadIdx.x; j < kFRows * kw; j += kFThreads) {
-    const int r = j / kw, k = j % kw;
-    const long long o = (long long)(rb + r) * K + k0 + k;
-    sm.ts[r * tt::kKC + k] =
-        k0 + k < K && rb + r < B
-            ? make_float2(tt::operand<kBf16>(t1g[o]), tt::operand<kBf16>(t0g[o]))
-            : make_float2(0.f, 0.f);
-  }
-}
-
-// D of rows [rb, rb+32) x the thread's individual over the staged piece,
-// added into its own column of R1/R0 (first piece: stored).
-__device__ __forceinline__ void d_piece_wide(const WideTile& sm, int kw,
-                                             bool first) {
-  constexpr int RB = 8;  // rows at once
-  const int n = threadIdx.x;
-  for (int r0 = 0; r0 < kFRows; r0 += RB) {
-    float d1[RB], d0[RB];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      d1[i] = first ? 0.f : sm.r1[(r0 + i) * kRStride + n];
-      d0[i] = first ? 0.f : sm.r0[(r0 + i) * kRStride + n];
-    }
-    for (int k = 0; k < kw; k += 4) {
-      const float u0 = sm.us[k * kUS + n], u1 = sm.us[(k + 1) * kUS + n],
-                  u2 = sm.us[(k + 2) * kUS + n], u3 = sm.us[(k + 3) * kUS + n];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        // (t1, t0) of columns k .. k + 3
-        const float4* tr =
-            reinterpret_cast<const float4*>(sm.ts + (r0 + i) * tt::kKC + k);
-        const float4 a = tr[0], c = tr[1];
-        d1[i] = fmaf(a.x, u0, d1[i]);
-        d0[i] = fmaf(a.y, u0, d0[i]);
-        d1[i] = fmaf(a.z, u1, d1[i]);
-        d0[i] = fmaf(a.w, u1, d0[i]);
-        d1[i] = fmaf(c.x, u2, d1[i]);
-        d0[i] = fmaf(c.y, u2, d0[i]);
-        d1[i] = fmaf(c.z, u3, d1[i]);
-        d0[i] = fmaf(c.w, u3, d0[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      sm.r1[(r0 + i) * kRStride + n] = d1[i];
-      sm.r0[(r0 + i) * kRStride + n] = d0[i];
-    }
-  }
-}
-
-// D over all K of rows [rb, rb+32) x the sub-tile at wc into R1/R0, a
-// piece at a time, the chunk's own piece (c of np) last.
-template <bool kBf16>
-__device__ __forceinline__ void d_all_wide(
-    const float* __restrict__ up, const float* __restrict__ t1g,
-    const float* __restrict__ t0g, int B, int W, int K, int rb, int wc,
-    int c, int np, const WideTile& sm) {
-  for (int q = 1; q <= np; ++q) {
-    const int p = (c + q) % np;
-    const int kw = min(tt::kKC, tt::round4(K) - p * tt::kKC);
-    __syncthreads();  // the last piece, R and lambda block are read
-    stage_piece_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, p * tt::kKC, kw,
-                            sm);
-    __syncthreads();
-    d_piece_wide(sm, kw, q == 1);
-  }
-}
-
-// Phase 1, wide: R = A / (D + eps) of rows [rb, rb+32) x the thread's
-// individual in place of D (the exact divide, K6's only), and g += r1 t1
-// + r0 t0 over the chunk's kwc columns (the staged piece).
-template <bool kBf16>
-__device__ __forceinline__ void ratios_gamma_wide(
-    const uint8_t* __restrict__ rows, int B, int W, int rb, int wc, int kwc,
-    const WideTile& sm, float* g) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  const bool ok = w < W;
-  for (int r = 0; r < kFRows; ++r) {
-    const int b = rb + r;
-    const uint32_t code =
-        ok && b < B ? (rows[(long long)b * W + w] >> (2 * s)) & 3u : 3u;
-    float x1 = 0.f, x0 = 0.f;
-    if (code != 3u) {
-      const float a1 = (float)code;
-      const float a0 = 2.f - a1;
-      x1 = tt::operand<kBf16>(
-          tt::ratio<tt::kDivExact>(a1, sm.r1[r * kRStride + threadIdx.x]));
-      x0 = tt::operand<kBf16>(
-          tt::ratio<tt::kDivExact>(a0, sm.r0[r * kRStride + threadIdx.x]));
-      const float2* tr = sm.ts + r * tt::kKC;
-#pragma unroll
-      for (int j = 0; j < tt::kKC; ++j) {
-        if (j < kwc) {
-          const float2 t = tr[j];
-          g[j] = fmaf(x1, t.x, g[j]);
-          g[j] = fmaf(x0, t.y, g[j]);
-        }
-      }
-    }
-    sm.r1[r * kRStride + threadIdx.x] = x1;
-    sm.r0[r * kRStride + threadIdx.x] = x0;
-  }
-}
-
-// Phase 2, wide: lane = row, warp = plane; s += R U over the warp's 32
-// individuals for the chunk's kwc columns (the staged piece), in column
-// order.
-__device__ __forceinline__ void lambda_accum_wide(const WideTile& sm,
-                                                  int kwc, float* s1,
-                                                  float* s0) {
-  const int lane = threadIdx.x & 31, j0 = (threadIdx.x >> 5) * 32;
-  for (int jj = 0; jj < 32; ++jj) {
-    const int j = j0 + jj;
-    const float x1 = sm.r1[lane * kRStride + j];
-    const float x0 = sm.r0[lane * kRStride + j];
-#pragma unroll
-    for (int kk = 0; kk < tt::kKC; ++kk) {
-      if (kk < kwc) {
-        const float u = sm.us[kk * kUS + j];
-        s1[kk] = fmaf(x1, u, s1[kk]);
-        s0[kk] = fmaf(x0, u, s0[kk]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void write_gamma_wide(float* gtile, int W, int K,
-                                                 int wc, int kc0,
-                                                 const float* g) {
-  const int s = threadIdx.x >> 5, w = wc + (threadIdx.x & 31);
-  if (w >= W) return;
-  float* out = gtile + ((long long)s * W + w) * K;
-#pragma unroll
-  for (int j = 0; j < tt::kKC; ++j)
-    if (kc0 + j < K) out[kc0 + j] = g[j];
-}
-
-// K6, wide. grid (ceil(B/32), 1, R x ceil(K/32)); dynamic shared memory
-// kWideTileFloats floats. l0, l1 (B, K); gpart (gridDim.x, 4W, K): the
-// CTA of chunk c writes k in [32 c, 32 c + 32) of its replicate
-// (tt::wide_z; the replicate's arrays at stats_v1_kernel's strides).
-template <bool kBf16>
-__global__ void __launch_bounds__(kFThreads)
-stats_v1_wide_kernel(const uint8_t* __restrict__ rows,
-                     const float* __restrict__ up,
-                     const float* __restrict__ t1g,
-                     const float* __restrict__ t0g, float* __restrict__ l0,
-                     float* __restrict__ l1, float* __restrict__ gpart, int B,
-                     int W, int K) {
-  const tt::WideZ z = tt::wide_z(K);
-  rows += z.r * B * W;
-  up += 4 * z.r * W * K;
-  t1g += z.r * B * K;
-  t0g += z.r * B * K;
-  l0 += z.r * B * K;
-  l1 += z.r * B * K;
-  gpart += 4 * z.r * gridDim.x * W * K;
-  extern __shared__ __align__(16) float wide_smem[];
-  const WideTile sm = carve_wide(wide_smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rb = blockIdx.x * kFRows;
-  const int kc0 = z.c * tt::kKC;
-  const int kwc = min(tt::kKC, tt::round4(K) - kc0);
-  float* gtile = gpart + (long long)blockIdx.x * 4 * W * K;
-  float s1[tt::kKC], s0[tt::kKC];
-#pragma unroll
-  for (int j = 0; j < tt::kKC; ++j) s1[j] = s0[j] = 0.f;
-
-  for (int wc = 0; wc < W; wc += kFCols) {
-    float g[tt::kKC];
-#pragma unroll
-    for (int j = 0; j < tt::kKC; ++j) g[j] = 0.f;
-    d_all_wide<kBf16>(up, t1g, t0g, B, W, K, rb, wc, z.c, z.np, sm);
-    ratios_gamma_wide<kBf16>(rows, B, W, rb, wc, kwc, sm, g);
-    write_gamma_wide(gtile, W, K, wc, kc0, g);
-    __syncthreads();
-    lambda_accum_wide(sm, kwc, s1, s0);
-  }
-
-  float* red = sm.r1;  // (32 rows, kKC, 2) fits in R1's 32 x 129 floats
-  for (int j = 0; j < 4; ++j) {  // warps add in warp order
-    __syncthreads();
-    if (warp == j) {
-#pragma unroll
-      for (int kk = 0; kk < tt::kKC; ++kk) {
-        float* r = red + (lane * tt::kKC + kk) * 2;
-        r[0] = j ? r[0] + s1[kk] : s1[kk];
-        r[1] = j ? r[1] + s0[kk] : s0[kk];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kFRows * tt::kKC; i += kFThreads) {
-    const int r = i / tt::kKC, kk = i % tt::kKC;
-    if (rb + r < B && kc0 + kk < K) {
-      l0[(long long)(rb + r) * K + kc0 + kk] = red[i * 2];
-      l1[(long long)(rb + r) * K + kc0 + kk] = red[i * 2 + 1];
-    }
-  }
-}
-
 // ---- K7, K > 64 -------------------------------------------------------------
 //
 // `stats_v2_wide_kernel<KP, kBf16>` (the note at the top of this file says
@@ -1356,10 +915,10 @@ stats_v2_wide_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// K7's launch: the body K picks (at bf16 and K <= 64 the tensor-core
-// body; K > 64 `stats_v2_wide_kernel` at the piece width K takes), then
-// the lambda partials' and the gamma partials' reductions in tile order.
-// Arguments as tt_batch_stats_fused_v2; tile_rows must be the body's
+// K7's and K6's launch (K6: approx = 0): the body K picks (at bf16 and
+// K <= 64 the tensor-core body; K > 64 `stats_v2_wide_kernel` at the
+// piece width K takes), then the lambda partials' and the gamma partials'
+// reductions in tile order. Arguments as tt_batch_stats_fused_v2; tile_rows must be the body's
 // (ops/stats_packed.py `v2_tile_rows`), at K > 64 1, 2 or 4 times it
 // (`v2_b_tile`). R replicates, replicate z in the grid's z.
 template <bool kBf16>
@@ -1456,51 +1015,6 @@ int batch_stats_fused_v2(int R, const uint8_t* rows, const float* up,
   const int bk = B * K;
   tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
       lpart, nwt, bk, l0, l1, 2LL * nwt * bk, bk);
-  TT_CHECK_LAUNCH();
-  const long long ng = 4LL * W * K;
-  tt::gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,
-                            stream>>>(gpart, nbt, ng, g, nbt * ng, ng);
-  TT_CHECK_LAUNCH();
-  return 0;
-}
-
-// K6's launch: the body K picks, then the gamma partials' reduction in
-// row-tile order. Arguments as tt_batch_stats_fused. R replicates (the
-// K-chunked body: R x its chunks in z).
-template <bool kBf16>
-int batch_stats_fused(int R, const uint8_t* rows, const float* up,
-                      const float* t1, const float* t0, float* l0, float* l1,
-                      float* g, float* gpart, int B, int W, int K,
-                      cudaStream_t stream) {
-  const int km = tt::pick_km(K);
-  if (B <= 0 || W <= 0 || km < 0 || R < 1 ||
-      (km == tt::kWide && tt::wide_grid_z(K, R) == 0))
-    return (int)cudaErrorInvalidValue;
-  const int nbt = (B + kFRows - 1) / kFRows;
-  if (km == tt::kWide) {
-    const int bytes = kWideTileFloats * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_v1_wide_kernel<kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    stats_v1_wide_kernel<kBf16>
-        <<<dim3(nbt, 1, tt::wide_grid_z(K, R)), kFThreads, bytes, stream>>>(
-            rows, up, t1, t0, l0, l1, gpart, B, W, K);
-  } else {
-#define TT_LAUNCH(KM)                                                        \
-  {                                                                          \
-    const int bytes = tile_floats<KM>() * (int)sizeof(float);                \
-    const cudaError_t e = cudaFuncSetAttribute(                              \
-        stats_v1_kernel<KM, kBf16>,                                          \
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                 \
-    if (e != cudaSuccess) return (int)e;                                     \
-    stats_v1_kernel<KM, kBf16>                                               \
-        <<<dim3(nbt, 1, R), kFThreads, bytes, stream>>>(                     \
-        rows, up, t1, t0, l0, l1, gpart, B, W, K);                           \
-  }
-  TT_DISPATCH_KM(km, TT_LAUNCH)
-#undef TT_LAUNCH
-  }
   TT_CHECK_LAUNCH();
   const long long ng = 4LL * W * K;
   tt::gamma_reduce_kernel<<<dim3((unsigned)((ng + 255) / 256), 1, R), 256, 0,

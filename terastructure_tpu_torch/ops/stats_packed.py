@@ -24,22 +24,20 @@ at K-widths 4..64, K > 64 their "wide" bodies: for the λ pass (K4, K8),
 the γ pass (K5) and K7 bodies that compute D once an entry with K in
 pieces of up to 128 columns (csrc/lambda_wide.cuh
 `lambda_pass_wide_kernel`, csrc/gamma_wide.cuh `gamma_pass_wide_kernel`,
-csrc/stats_fused.cuh `stats_v2_wide_kernel`, on the tile of
-csrc/wide_tile.cuh), for K6 a K-chunked one (csrc/stats_fused.cuh).
+csrc/stats_fused.cuh `stats_v2_wide_kernel`, which K6 runs too, on the
+tile of csrc/wide_tile.cuh).
 
 Every kernel also takes dtype=torch.bfloat16 (compute_dtype
 "bfloat16"): T, U and R enter the products rounded to bf16, the sums stay
 f32, and the wrappers scale by the unrounded t and u. At K <= 64 the
-passes (K4, K5, K8), and the λ and γ passes (K4, K5, K8) and K7 at any
-K, run on the tensor cores (csrc/psd_mma.cuh, csrc/lambda_wide.cuh,
-csrc/gamma_wide.cuh, csrc/stats_fused.cuh); K6 runs its SIMT bodies with
-the operands rounded where they are staged. Each wrapper counts its bf16
+passes (K4, K5, K8), and the λ and γ passes (K4, K5, K8) and K7 and K6
+at any K, run on the tensor cores (csrc/psd_mma.cuh, csrc/lambda_wide.cuh,
+csrc/gamma_wide.cuh, csrc/stats_fused.cuh). Each wrapper counts its bf16
 launches in `bf16_launches` (`count_launch`).
 
 Batched replicates: every kernel also takes a leading R axis on each
 per-replicate input (K4's rows may be shared) and runs the R calls in
-one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`; K6's
-K-chunked body shares z with its chunks, csrc/psd_wide.cuh `wide_z`), at
+one launch, replicate z in the grid's z (csrc/psd_common.cuh `Rep`), at
 any K, each replicate bitwise its single call; counted in
 `rep_launches` as well. On CPU tensors the twin of a batched call is the
 single twin of each replicate, stacked (`stack_twins`).
@@ -703,22 +701,14 @@ def _fused_outputs(b, w, k, r, dev):
     return l0, torch.empty_like(l0), g, lead
 
 
-def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
-                                t1: torch.Tensor, t0: torch.Tensor, *,
-                                approx_div: bool = False,
-                                dtype=torch.float32):
-    """The exact full-N statistics pass in one kernel (K7): each D feeds
-    the λ sums (per-W-tile partials) and the γ sums (per-B-tile
-    partials), both added in tile order. Same returns as
-    `batch_stats_packed`. approx_div: fast divide (stats_approx_div).
-    dtype: the products' operand type (the bf16 body counts in
-    `bf16_launches`). Batched replicates: rows (R, B, W), u (R, 4W, K),
-    t1, t0 (R, B, K), each return with a leading R."""
-    name = "batch_stats_fused_v2_packed"
+def _batch_stats(fn, name, rows, u, t1, t0, approx_div, dtype):
+    """K7's launch, for K7 and K6 (K6 at the exact divide): the twin on
+    CPU tensors, else K7's bodies on their grid (V2_TILE_COLS,
+    `v2_b_tile`) with their partial buffers, counted on fn."""
     u_planes, r, b, w, k = _stats_args(name, rows, u, t1, t0)
     check_dtype(name, dtype)
     if _device_of(name, rows) == "cpu":
-        batch_stats_fused_v2_packed.twin_calls += 1
+        fn.twin_calls += 1
         g, l0, l1 = _fused_twin(rows, u_planes, t1, t0, r,
                                 approx_div=approx_div, dtype=dtype)
         return u * planes_to_flat(g), t1 * l0, t0 * l1
@@ -736,8 +726,24 @@ def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
         lpart.data_ptr(), gpart.data_ptr(), b, w, k, tile_rows, V2_TILE_COLS,
         int(approx_div), _build.stream_ptr(dev))
     _build.check(err, name)
-    count_launch(batch_stats_fused_v2_packed, dtype, r)
+    count_launch(fn, dtype, r)
     return u * planes_to_flat(g), t1 * l0, t0 * l1
+
+
+def batch_stats_fused_v2_packed(rows: torch.Tensor, u: torch.Tensor,
+                                t1: torch.Tensor, t0: torch.Tensor, *,
+                                approx_div: bool = False,
+                                dtype=torch.float32):
+    """The exact full-N statistics pass in one kernel (K7): each D feeds
+    the λ sums (per-W-tile partials) and the γ sums (per-B-tile
+    partials), both added in tile order. Same returns as
+    `batch_stats_packed`. approx_div: fast divide (stats_approx_div).
+    dtype: the products' operand type (the bf16 body counts in
+    `bf16_launches`). Batched replicates: rows (R, B, W), u (R, 4W, K),
+    t1, t0 (R, B, K), each return with a leading R."""
+    return _batch_stats(batch_stats_fused_v2_packed,
+                        "batch_stats_fused_v2_packed", rows, u, t1, t0,
+                        approx_div, dtype)
 
 
 batch_stats_fused_v2_packed.launches = 0
@@ -749,30 +755,13 @@ batch_stats_fused_v2_packed.twin_calls = 0
 def batch_stats_fused_packed(rows: torch.Tensor, u: torch.Tensor,
                              t1: torch.Tensor, t0: torch.Tensor, *,
                              dtype=torch.float32):
-    """The exact full-N statistics pass, v1 (K6): a CTA owns 32 rows and
-    walks all of W in order with λ in registers; γ goes out as per-row-
-    tile partials added in order. Same returns as `batch_stats_packed`.
-    dtype and batched replicates: as `batch_stats_fused_v2_packed`'s."""
-    name = "batch_stats_fused_packed"
-    u_planes, r, b, w, k = _stats_args(name, rows, u, t1, t0)
-    check_dtype(name, dtype)
-    if _device_of(name, rows) == "cpu":
-        batch_stats_fused_packed.twin_calls += 1
-        g, l0, l1 = _fused_twin(rows, u_planes, t1, t0, r, dtype=dtype)
-        return u * planes_to_flat(g), t1 * l0, t0 * l1
-    _build.require_cuda(name, rows, u_planes, t1, t0,
-                        dtypes=(torch.uint8,) + (torch.float32,) * 3)
-    dev = rows.device
-    l0, l1, g, lead = _fused_outputs(b, w, k, r, dev)
-    gpart = torch.empty((*lead, -(-b // 32), 4 * w, k), dtype=torch.float32,
-                        device=dev)
-    err = _entry("tt_batch_stats_fused", dtype)(
-        r or 1, rows.data_ptr(), u_planes.data_ptr(), t1.data_ptr(),
-        t0.data_ptr(), l0.data_ptr(), l1.data_ptr(), g.data_ptr(),
-        gpart.data_ptr(), b, w, k, _build.stream_ptr(dev))
-    _build.check(err, name)
-    count_launch(batch_stats_fused_packed, dtype, r)
-    return u * planes_to_flat(g), t1 * l0, t0 * l1
+    """The exact full-N statistics pass, v1 (K6): K7's launch at the exact
+    divide, so bitwise K7's. The reference's v1 adds λ over W tiles in
+    W-tile order, as K7's λ reduction does. Same returns as
+    `batch_stats_packed`; counted on its own counters. dtype and batched
+    replicates: as `batch_stats_fused_v2_packed`'s."""
+    return _batch_stats(batch_stats_fused_packed, "batch_stats_fused_packed",
+                        rows, u, t1, t0, False, dtype)
 
 
 batch_stats_fused_packed.launches = 0

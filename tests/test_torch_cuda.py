@@ -215,6 +215,10 @@ def test_stats_pass_kernels_match_twin(cuda_device, name, approx_div, shape):
     if not approx_div:      # no atomics: a second launch is bitwise equal
         for a, b in zip(got, fn(rows, u, t1, t0)):
             assert torch.equal(a, b)
+    if name == "batch_stats_fused_packed":   # K6: K7's bodies and sum order
+        for a, b in zip(got, stats_packed.batch_stats_fused_v2_packed(
+                rows, u, t1, t0)):
+            assert torch.equal(a, b)
 
 
 # What the lambda pass's tiling can break: ragged row blocks, byte widths
@@ -461,7 +465,8 @@ def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
     K in pieces of at most 128 columns), K7 (both divides) and K6 at
     K = 65..1000, B = 40, W = 300: shared memory does not grow with K (one
     piece at K = 65..128, two at 129 and 130). K5 bitwise on a re-run and
-    held to its twin at TOL, at bf16 at BF16_PASS."""
+    held to its twin at TOL, at bf16 at BF16_PASS; K6 bitwise K7 at the
+    exact divide."""
     rows, up, lamb = _problem(cuda_device, 40, 4 * 300, k, seed=k)
     rows[3] = 0xFF
     u = stats_packed.planes_to_flat(up).contiguous()
@@ -485,6 +490,10 @@ def test_k_above_64_runs_the_wide_gamma_and_stats_bodies(cuda_device, k):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        **tol)
+        if name == "batch_stats_fused_v2_packed" and not approx_div:
+            k7 = got
+    # K6 runs K7's wide body: bitwise K7 at the exact divide
+    assert all(torch.equal(a, b) for a, b in zip(got, k7))
 
 
 # K7 at K > 64 (`stats_v2_wide_kernel`): one piece of K (65..128, piece
@@ -828,6 +837,9 @@ def test_bf16_bign_bodies_match_twins(cuda_device, k, approx_div):
     _bign_bf16_case(v1, lambda: v1(rows, u, t1, t0, dtype=BF16),
                     lambda: twin_stats(False), BF16_PASS,
                     lambda: v1(rows, u, t1, t0))
+    # K6[bf16] runs K7[bf16]'s tensor-core bodies: bitwise K7 (exact)
+    assert all(torch.equal(a, b) for a, b in zip(
+        v1(rows, u, t1, t0, dtype=BF16), v2(rows, u, t1, t0, dtype=BF16)))
     k5 = stats_packed.gamma_stats_packed
     _bign_bf16_case(
         k5, lambda: [k5(rows, up, t1, t0, BF16)],
@@ -966,6 +978,124 @@ def test_bf16_k7_and_k8_reach_the_tensor_core_kernels(cuda_device):
     assert "stats_v2_kernel" not in bf16 and "lambda_pass_kernel" not in bf16
     assert "stats_v2_kernel" in f32 and "lambda_pass_kernel" in f32
     assert "_mma_kernel" not in f32
+
+
+# --- K6 (`batch_stats_fused_packed`): K7's launch at the exact divide
+# (csrc/stats_fused.cuh) ------------------------------------------------------
+K6_BIGN_W = 25_088                     # the big-N shape's byte columns
+# B, K: K <= 64 (K = 10, the KM = 12 body), one piece of K > 64 (72) and
+# two (130: two of 80; 256: two of 128), a ragged B among them
+K6_BIGN = [(4096, 10), (4092, 10), (4096, 72), (4092, 72), (4096, 130),
+           (4096, 256)]
+
+
+def _k6_inputs(dev, r, b, w, k, seed):
+    """r replicates' rows (r, B, W), u planes (r, 4, W, K), u (r, 4W, K),
+    t1 and t0 (r, B, K), drawn on the card (numpy would take minutes at
+    the big-N shape), three rows of each MISSING."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(0, 256, (r, b, w), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    rows[:, [0, b // 2, b - 1]] = 0xFF
+    gamma = 0.3 + 2.7 * torch.rand((r, 4 * w, k), generator=gen, device=dev)
+    u = exp_elog_theta(gamma).contiguous()
+    up = stats_packed.u_to_planes(u)
+    lamb = 0.5 + 2.5 * torch.rand((r, b, k, 2), generator=gen, device=dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    return rows, up, u, t1.contiguous(), t0.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("b,k", K6_BIGN)
+def test_k6_at_the_big_n_shape(cuda_device, b, k, dtype):
+    """K6 at the big-N shape (W = 25,088): one launch, counted on K6,
+    held to its twin (TOL; bf16 BF16_PASS), bitwise on a re-run and
+    bitwise K7 at the exact divide (K7's launch); at R = 4 each replicate
+    bitwise its single call; two replays of one CUDA graph of the call
+    bitwise the eager call."""
+    rows, up, u, t1, t0 = _k6_inputs(cuda_device, 4, b, K6_BIGN_W, k,
+                                     seed=b + k)
+    fn = stats_packed.batch_stats_fused_packed
+    count = "bf16_launches" if dtype == BF16 else "launches"
+
+    def one(i):
+        return fn(rows[i], u[i], t1[i], t0[i], dtype=dtype)
+
+    before = getattr(fn, count)
+    got = one(0)
+    assert getattr(fn, count) == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(got, one(0)))
+    k7 = stats_packed.batch_stats_fused_v2_packed(rows[0], u[0], t1[0],
+                                                  t0[0], dtype=dtype)
+    assert all(torch.equal(a, c) for a, c in zip(got, k7))
+    del k7
+    g, l0, l1 = stats_packed.batch_stats_fused_twin(rows[0], up[0], t1[0],
+                                                    t0[0], dtype=dtype)
+    want = (u[0] * stats_packed.planes_to_flat(g), t1[0] * l0, t0[0] * l1)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   **(BF16_PASS if dtype == BF16 else TOL))
+    del g, l0, l1, want
+    torch.cuda.empty_cache()
+
+    before = fn.rep_launches
+    batched = fn(rows, u, t1, t0, dtype=dtype)
+    assert fn.rep_launches == before + 1
+    for i in range(4):
+        single = got if i == 0 else one(i)
+        assert all(torch.equal(a[i], c) for a, c in zip(batched, single)), i
+    del batched
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = one(0)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(out, got))
+    del graph, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 72])
+def test_k6_launches_the_tensor_core_body_at_bf16(cuda_device, k):
+    """K6's launch (kernel names from torch.profiler): at bf16 the
+    tensor-core body (`stats_v2_mma_kernel` at K <= 64, the bf16
+    `stats_v2_wide_kernel` above) and no f32 body, at f32 the SIMT body;
+    at both K7's λ and γ reductions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, up, u, t1, t0 = (x[0] for x in _k6_inputs(cuda_device, 1, 300,
+                                                     700, k, seed=k))
+
+    def kernels(dtype):
+        stats_packed.batch_stats_fused_packed(rows, u, t1, t0, dtype=dtype)
+        torch.cuda.synchronize()
+        for _ in range(3):   # a profile may come back without device records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stats_packed.batch_stats_fused_packed(rows, u, t1, t0,
+                                                      dtype=dtype)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            if any("gamma_reduce_kernel" in n for n in names):
+                break        # every launch of K6 runs its γ reduction
+        return names
+
+    for dtype in (BF16, torch.float32):
+        names = kernels(dtype)
+        bodies = [n for n in names if "stats_v2" in n]
+        assert len(bodies) == 1, names
+        if k > 64:
+            assert "stats_v2_wide_kernel" in bodies[0]
+            assert ("true>" if dtype == BF16 else "false>") in bodies[0], \
+                bodies[0]
+        else:
+            assert ("stats_v2_mma_kernel" if dtype == BF16
+                    else "stats_v2_kernel") in bodies[0], bodies[0]
+        assert any("gamma_reduce_kernel" in n for n in names)
+        assert any("split_reduce_kernel" in n for n in names)
 
 
 def _stream_setup(dev, n=4096, l=512, g=8, seed=3):

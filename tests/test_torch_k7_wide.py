@@ -50,7 +50,11 @@ def test_v2_tile_rows(k, dtype, rows):
     (40, 300, 72, torch.float32, 64),
     # K <= 64: the body's row tile whatever the shape
     (4096, 25_088, 10, torch.float32, 128),
-    (4096, 25_088, 64, torch.bfloat16, 32)])
+    (4096, 25_088, 64, torch.bfloat16, 32),
+    # config #1's step (B = 256, N = 1,000): one W tile, so one row tile
+    # at K > 64 and the body's row tile at K <= 64
+    (256, 250, 72, torch.float32, 64), (256, 250, 72, torch.bfloat16, 64),
+    (256, 250, 10, torch.float32, 128), (256, 250, 10, torch.bfloat16, 128)])
 def test_v2_b_tile(b, w, k, dtype, rows):
     """K > 64: 4 row tiles of 64 a B tile (one γ partial), or 2 or 1
     where 4 would leave fewer than V2_WIDE_MIN_CTAS CTAs; K <= 64: the
@@ -76,6 +80,10 @@ def test_v2_b_tile(b, w, k, dtype, rows):
     # K <= 64 as before: 128-row tiles at f32, 32 at bf16 K = 64
     (4096, 25_088, 10, torch.float32, (98, 4096, 10, 2), (32, 100_352, 10)),
     (4096, 640, 64, torch.bfloat16, (3, 4096, 64, 2), (128, 2560, 64)),
+    # config #1's step: one W tile; 4 row tiles of 64 at K = 72, 2 of 128
+    # at K = 10
+    (256, 250, 72, torch.float32, (1, 256, 72, 2), (4, 1000, 72)),
+    (256, 250, 10, torch.bfloat16, (1, 256, 10, 2), (2, 1000, 10)),
 ])
 def test_v2_partial_shapes(b, w, k, dtype, lpart, gpart):
     """The λ partials (W tiles, B, K, 2) and the γ partials (B tiles, 4W,
