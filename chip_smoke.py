@@ -236,8 +236,10 @@ is no CUDA card.
 stops after phase 1 and prints the kernels' line (without launch counts)
 and the card line: the quick check and timing of a changed kernel. It also
 times the lambda pass at other column splits than the one `lambda_grid`
-chooses, at K <= 64 and at K > 64 (`split_sweep`), and the γ pass at
-K > 64 at other row splits than `gamma_grid`'s (`gamma_split_sweep`).
+chooses, at K <= 64 (f32 and bf16, and K8 on the big-N subsample) and at
+K > 64 (`split_sweep`), and the γ pass at other row splits than
+`gamma_grid`'s, at K <= 64 and K > 64, f32 and bf16
+(`gamma_split_sweep`).
 
     python3 chip_smoke.py --digest
 
@@ -254,7 +256,10 @@ shape with K = 72, single and R = 4; the γ pass alone at config #3's
 width with K = 72; f32 and bf16), of K6 (`k6_ms`: the big-N shape at
 K = 10 and 72, single and R = 4, K7 beside it at K = 10; f32 and bf16)
 and of the big-N step with stats_kernel "fused" (K6) and "fused_v2"
-(K7) at K = 10 and 72 (`bign_step_ms`), through the wrappers only:
+(K7) at K = 10 and 72 (`bign_step_ms`), and of the λ and γ passes at
+K <= 64 (`narrow_ms`: K5 at the big-N shape, the passes alone at the TGP
+and config #3 shapes, K1, K2, K4 and K8 at their paths' shapes, K1, K4
+and K5 with R = 4; f32 and bf16), through the wrappers only:
 a copy of this script run from
 another tree's root (an earlier commit unpacked with `git archive`)
 prints that tree's bits and times.
@@ -809,8 +814,31 @@ def phase_lambda_pass(dev, rec, sweep=False):
         log(f"  share of the bound {e['share_of_bound']:.4f}")
         r["passes"].append(e)
         if sweep:
-            split_sweep(e, (rows, up, t1, t0), k, SWEEP_CHUNKS, device_ms)
+            split_sweep(e, (rows, up, t1, t0), k, SWEEP_CHUNKS, device_ms,
+                        (False, True))
     if sweep:
+        for b, w, k in NARROW_SWEEP_SHAPES:
+            rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+            t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+            e = dict(shape=f"B={b} W={w} K={k}")
+            split_sweep(e, (rows, up, t1, t0), k, SWEEP_CHUNKS,
+                        lambda fn: time_ms(fn, 5), (False, True))
+            r.setdefault("narrow_split_sweep", []).append(e)
+            if w == BIGN_SUB_W and hasattr(stats_packed,
+                                           "launch_lambda_stats_acat"):
+                # K8 on the step's subsample, its fast divide
+                a1, a0 = stats_packed.decode_count_planes(rows)
+                e = dict(shape=f"K8 B={b} (4, {w}) K={k} approx")
+                split_sweep(e, (rows, up, t1, t0), k, SWEEP_CHUNKS,
+                            lambda fn: time_ms(fn, 20), (False, True),
+                            lambda nsplit, bf16: (
+                                stats_packed.launch_lambda_stats_acat(
+                                    a1, a0, up, t1, t0, nsplit, True, bf16)))
+                rec["lambda_stats_acat"].setdefault(
+                    "narrow_split_sweep", []).append(e)
+                del a1, a0
+            del rows, up, lamb, t1, t0
+            torch.cuda.empty_cache()
         for b, w, k in WIDE_SWEEP_SHAPES:
             x = wide_lambda_inputs(dev, "K4", b, w, k)[0]
             e = dict(shape=f"B={b} W={w} K={k}")
@@ -820,24 +848,41 @@ def phase_lambda_pass(dev, rec, sweep=False):
 
 
 # The λ pass at other column splits than `lambda_grid`'s (--kernels):
-# chunks of byte columns at K <= 64 (PASS_SHAPES), and at K > 64 K8's
-# shape (through K4's entry: the same body over packed rows), config #3's
-# width and the K = 256 timed shape
-SWEEP_CHUNKS = (16, 32, 48, 64, 96, 128, 256)
+# chunks of byte columns at K <= 64 (PASS_SHAPES, then K8's shape and
+# K5's big-N shape through K4's entry: the same body over packed rows;
+# f32 and bf16), and at K > 64 K8's shape, config #3's width and the
+# K = 256 timed shape
+SWEEP_CHUNKS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 1024, 2048)
+NARROW_SWEEP_SHAPES = [(BIGN[0], BIGN_SUB_W, BIGN[2]), BIGN]
 WIDE_SWEEP_CHUNKS = (*range(32, 257, 16), 512)
 WIDE_SWEEP_SHAPES = [(BIGN[0], BIGN_SUB_W, 72), (1024, 640, 72),
                      (1024, 2048, 256)]
 
 
-def split_sweep(e, x, k, chunks, timer, bf16s=(False,)):
-    """Device ms (`timer`) of the λ pass through K4's entry, exact divide,
-    on x = (rows, up, t1, t0) at the column splits that chunks of `chunks`
-    byte columns give, into e["split_sweep_ms"] (and e["bf16_split_sweep_ms"]
-    where True is in bf16s), logged beside the split `lambda_grid` chose."""
+def bf16_grid(grid, b, w, k):
+    """grid(b, w, k) at bf16, in a tree whose grids take the dtype (an
+    older tree's take the shape alone)."""
+    import inspect
+    if "dtype" in inspect.signature(grid).parameters:
+        return grid(b, w, k, BF16)
+    return grid(b, w, k)
+
+
+def split_sweep(e, x, k, chunks, timer, bf16s=(False,), launch=None):
+    """Device ms (`timer`) of the λ pass through K4's entry, exact divide
+    (or of launch(nsplit, bf16)), on x = (rows, up, t1, t0) at the column
+    splits that chunks of `chunks` byte columns give, into
+    e["split_sweep_ms"] (and e["bf16_split_sweep_ms"] where True is in
+    bf16s), logged beside the split `lambda_grid` chose."""
     rows, up, t1, t0 = x
+    if launch is None:
+        def launch(nsplit, bf16):
+            return stats_packed.launch_lambda_stats_packed(
+                rows, up, t1, t0, nsplit, False, bf16)
     b, w = rows.shape
     keys = {False: "split_sweep_ms", True: "bf16_split_sweep_ms"}
     e["chosen"] = stats_packed.lambda_grid(b, w, k)[0]
+    e["bf16_chosen"] = bf16_grid(stats_packed.lambda_grid, b, w, k)[0]
     for bf16 in bf16s:
         e[keys[bf16]] = {}
     for chunk in chunks:
@@ -845,10 +890,9 @@ def split_sweep(e, x, k, chunks, timer, bf16s=(False,)):
         if nsplit in e[keys[bf16s[0]]]:
             continue
         for bf16 in bf16s:
-            e[keys[bf16]][nsplit] = timer(
-                lambda: stats_packed.launch_lambda_stats_packed(
-                    rows, up, t1, t0, nsplit, False, bf16))
-    log(f"  λ pass {e['shape']}, column splits (chosen {e['chosen']}): "
+            e[keys[bf16]][nsplit] = timer(lambda: launch(nsplit, bf16))
+    log(f"  λ pass {e['shape']}, column splits (chosen {e['chosen']}, "
+        f"bf16 {e['bf16_chosen']}): "
         + ", ".join(f"{n}: " + " / ".join(f"{e[keys[f]][n]:.4f}"
                                           for f in bf16s)
                     for n in e[keys[bf16s[0]]])
@@ -1144,11 +1188,46 @@ GAMMA_SWEEP_SHAPES = [(1024, 640, 72), (BIGN[0], BIGN[1], 72),
 GAMMA_SWEEP_TILES = (1, 2, 3, 4, 6, 8, 16, 32, 64)
 
 
+# The γ pass at K <= 64 at other row splits than `gamma_grid`'s
+# (--kernels): the shapes K1 and K2 end with and K5's big-N shape, at
+# GAMMA_NARROW_SPLITS row slices (none under 32 rows)
+GAMMA_NARROW_SWEEP_SHAPES = GAMMA_SHAPES + [BIGN]
+GAMMA_NARROW_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 20, 26, 32, 48, 64, 128)
+
+
 def gamma_split_sweep(dev, rec):
-    """Device ms of the γ pass at K > 64 through K5's entry, f32 and bf16,
-    at the row splits that slices of GAMMA_SWEEP_TILES row tiles give
-    (from a CUDA graph of 50 calls; at the big-N shape CUDA events over 3
-    launches), logged beside the split `gamma_grid` chose."""
+    """Device ms of the γ pass through K5's entry, f32 and bf16, at other
+    row splits than the one `gamma_grid` chose: at K <= 64 at
+    GAMMA_NARROW_SPLITS slices, at K > 64 at the splits that slices of
+    GAMMA_SWEEP_TILES row tiles give (from a CUDA graph of 50 calls; at
+    the big-N shape CUDA events over 3 launches)."""
+    out = rec["gamma_stats_packed"].setdefault("narrow_split_sweep", [])
+    for b, w, k in GAMMA_NARROW_SWEEP_SHAPES:
+        rows, up, _, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+        e = dict(shape=f"B={b} W={w} K={k}", split_sweep_ms={},
+                 bf16_split_sweep_ms={},
+                 chosen=stats_packed.gamma_grid(b, w, k),
+                 bf16_chosen=bf16_grid(stats_packed.gamma_grid, b, w, k))
+
+        def timer(fn):
+            return time_ms(fn, 3) if w > 4096 else device_ms(fn, 50)
+
+        for nsplit in GAMMA_NARROW_SPLITS:
+            if nsplit > -(-b // 32) or (w > 4096 and nsplit > 8):
+                continue
+            for key, bf16 in (("split_sweep_ms", False),
+                              ("bf16_split_sweep_ms", True)):
+                e[key][nsplit] = timer(
+                    lambda: stats_packed.launch_gamma_stats_packed(
+                        rows, up, t1, t0, nsplit, bf16))
+        log(f"  γ pass {e['shape']}, row splits (chosen {e['chosen']}, "
+            f"bf16 {e['bf16_chosen']}): "
+            + ", ".join(f"{n}: {e['split_sweep_ms'][n]:.4f} / "
+                        f"{e['bf16_split_sweep_ms'][n]:.4f}"
+                        for n in e["split_sweep_ms"]) + " ms (f32 / bf16)")
+        out.append(e)
+        del rows, up, t1, t0
+        torch.cuda.empty_cache()
     out = rec["gamma_stats_packed"].setdefault("wide_split_sweep", [])
     for b, w, k in GAMMA_SWEEP_SHAPES:
         rows, up, _, t1, t0 = k7_wide_inputs(dev, b, w, k)
@@ -2496,12 +2575,27 @@ def phase_passes_bf16(dev, rec):
     shapes the paths run them, beside the bf16 bounds; the γ pass (K1's
     and K2's last pass, kept under K1[bf16]) also against its bf16 twin
     and pinned."""
+    # their exact divide: the bits of the IEEE reciprocal on every float
+    # where D + 1e-30 can lie
+    bad = stats_packed.rcp_rn_mismatches(2.0 ** -126, 2.0 ** 126, dev)
+    log(f"  bf16 passes' exact reciprocal against __frcp_rn on every float "
+        f"in [2^-126, 2^126): {bad} differ")
+    if bad:
+        raise AssertionError("the bf16 passes' exact divide is not IEEE's")
     r = rec["lambda_stats_packed[bf16]"]
     r["passes"] = []
     for b, w, k in PASS_SHAPES:
         rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
         t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
         e = dict(shape=f"B={b} W={w} K={k}")
+        for approx in (False, True):
+            hold_bf16(rec, "lambda_stats_packed[bf16]",
+                      f"λ pass[bf16] {e['shape']} approx={approx}",
+                      lambda dt: stats_packed.lambda_stats_packed(
+                          rows, up, t1, t0, approx_div=approx, dtype=dt),
+                      lambda: stats_packed.lambda_stats_packed_twin(
+                          rows, up, t1, t0, approx_div=approx, dtype=BF16),
+                      TOL_APPROX if approx else TOL_BF16_PASS)
         for key, approx in (("ms", False), ("approx_ms", True)):
             e[f"f32_{key}"], e[key] = in_turns(
                 lambda: stats_packed.lambda_stats_packed(
@@ -2535,6 +2629,43 @@ def phase_passes_bf16(dev, rec):
         set_bound_bf16(e, present(rows), k, nbytes(rows, up, t1, t0, up))
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         rec["fused_local_solve[bf16]"].setdefault("gamma_passes", []).append(e)
+    # long walks: B = 200 (four 64-row blocks, the last of 8 rows) and
+    # W = 235 bytes (3.7 λ tiles, a ragged word), rows MISSING, at the n8
+    # and k16 edges of the bodies, the λ and γ passes at one split (a CTA
+    # walks every tile of its rows, every block of its columns) and K8
+    for k in WALK_KS:
+        rows, up, lamb = _solve_inputs(200, 235, k, k, dev)
+        rows[3] = 0xFF
+        rows[-1] = 0xFF
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        a1, a0 = stats_packed.decode_count_planes(rows)
+        shape = f"B=200 W=235 K={k}"
+        for approx in (False, True):
+            tol = TOL_APPROX if approx else TOL_BF16_PASS
+            hold(rec, "lambda_stats_packed[bf16]",
+                 f"λ pass[bf16] {shape} one split approx={approx}",
+                 twice(shape, lambda: stats_packed.launch_lambda_stats_packed(
+                     rows, up, t1, t0, 1, approx, True)),
+                 stats_packed.lambda_stats_packed_twin(
+                     rows, up, t1, t0, approx_div=approx, dtype=BF16), tol)
+            hold(rec, "lambda_stats_acat[bf16]",
+                 f"K8[bf16] {shape} approx={approx}",
+                 twice(shape, lambda: stats_packed.lambda_stats_acat(
+                     a1, a0, up, t1, t0, approx_div=approx, dtype=BF16)),
+                 stats_packed.lambda_stats_acat_twin(
+                     a1, a0, up, t1, t0, approx_div=approx, dtype=BF16), tol)
+        hold(rec, "gamma_stats_packed[bf16]",
+             f"γ pass[bf16] {shape} one split",
+             twice(shape, lambda: [stats_packed.launch_gamma_stats_packed(
+                 rows, up, t1, t0, 1, True)]),
+             [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0, BF16)],
+             TOL_BF16_PASS)
+    log("  bf16 passes on long walks: every re-run bitwise equal")
+
+
+# K of the long walks (`phase_passes_bf16`): the n8 and k16 edges of the
+# tensor-core bodies at K <= 64
+WALK_KS = (1, 8, 9, 16, 17, 64)
 
 
 def phase_wide_paths(dev, rec):
@@ -5214,6 +5345,91 @@ def wide_gamma_ms(dev):
     return out
 
 
+# The bodies at K <= 64 as --digest times them (`narrow_ms`), f32 and
+# bf16: K5 at the big-N shape; the γ pass alone through K5's entry and
+# the λ pass alone through K4's entry at PASS_SHAPES' first two (K1's and
+# K2's passes, K4 in eval and export), from a CUDA graph; K4 eagerly at
+# the eval block; K1 at the TGP step and K2 at config #3's, accel7; K8 on
+# the big-N subsample; K5, K1 and K4 with the replicate axis (R = 4)
+def narrow_ms(dev):
+    """Device ms a call of the wrappers that run the λ and γ passes at
+    K <= 64 (CUDA events after a warm-up; the passes alone from a CUDA
+    graph of 100 calls): --digest prints them in whichever tree's
+    package is imported, so that two trees' bodies are timed in turns."""
+    out = {}
+    dtypes = ((torch.float32, ""), (BF16, "[bf16]"))
+    main = dict(local_iters=7, local_tol=1e-4, accel=True, beta_a=1.0,
+                beta_b=1.0)
+    b, w, k = BIGN
+    rows, up, _, t1, t0 = _stats_inputs(b, w, k, b + w + k, dev)
+    for dtype, tag in dtypes:
+        out[f"K5{tag} B={b} W={w} K={k}"] = time_ms(
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0, dtype),
+            5)
+    del rows, up, t1, t0
+    rows, up, _, t1, t0 = _stats_inputs(b, BIGN_SUB_W, k, 7, dev)
+    a1, a0 = stats_packed.decode_count_planes(rows)
+    for dtype, tag in dtypes:
+        out[f"K8{tag} B={b} (4, {BIGN_SUB_W}) K={k} approx"] = time_ms(
+            lambda: stats_packed.lambda_stats_acat(
+                a1, a0, up, t1, t0, approx_div=True, dtype=dtype), 50)
+    del rows, up, t1, t0, a1, a0
+    for b, w, k in PASS_SHAPES[:2]:
+        rows, up, lamb = _solve_inputs(b, w, k, b + w + k, dev)
+        t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+        shape = f"B={b} W={w} K={k}"
+        for dtype, tag in dtypes:
+            out[f"γ pass{tag} {shape}"] = device_ms(
+                lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0,
+                                                        dtype))
+            for approx in (False, True):
+                out[f"λ pass{tag} {shape}" + " approx" * approx] = device_ms(
+                    lambda: stats_packed.lambda_stats_packed(
+                        rows, up, t1, t0, approx_div=approx, dtype=dtype))
+            if b == 1024:
+                out[f"K4{tag} {shape} eager"] = time_ms(
+                    lambda: stats_packed.lambda_stats_packed(
+                        rows, up, t1, t0, dtype=dtype), 200)
+            else:
+                out[f"K1{tag} {shape} accel7"] = time_ms(
+                    lambda: fused_step.fused_local_solve(
+                        rows, up, lamb, dtype=dtype, **main), 20)
+    l, w, k, b, g = 1_000_000, 640, 8, 1024, 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    packed = torch.randint(0, 256, (l, w), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    gamma = 0.3 + 2.7 * torch.rand((4 * w, k), generator=gen, device=dev)
+    up = stats_packed.u_to_planes(exp_elog_theta(gamma))
+    idx0 = torch.randint(0, l // g, (b // g,), generator=gen, device=dev,
+                         dtype=torch.int32) * g
+    lamb = 0.5 + 2.5 * torch.rand((b, k, 2), generator=gen, device=dev)
+    for dtype, tag in dtypes:
+        out[f"K2{tag} L=1M B={b} W={w} K={k} g={g} accel7"] = time_ms(
+            lambda: fused_step.fused_local_solve_dma(
+                idx0, packed, up, lamb, group=g, dtype=dtype, **main), 20)
+    del packed
+    b, w, k = PASS_SHAPES[0]
+    rows, up, lamb = _rep_inputs(b, w, k, 11, dev)
+    t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
+    for dtype, tag in dtypes:
+        out[f"K1{tag}[rep] R={R_REP} B={b} W={w} K={k} accel7"] = time_ms(
+            lambda: fused_step.fused_local_solve(rows, up, lamb, dtype=dtype,
+                                                 **main), 10)
+        out[f"K4{tag}[rep] R={R_REP} B={b} W={w} K={k} rows shared"] = \
+            time_ms(lambda: stats_packed.lambda_stats_packed(
+                rows[0], up, t1, t0, dtype=dtype), 20)
+    del rows, up, lamb, t1, t0
+    b, w, k = BIGN
+    rows, up, _, t1, t0 = _bign_rep_inputs(b, w, k, dev)[:5]
+    for dtype, tag in dtypes:
+        out[f"K5{tag}[rep] R={R_REP} B={b} W={w} K={k}"] = time_ms(
+            lambda: stats_packed.gamma_stats_packed(rows, up, t1, t0, dtype),
+            2)
+    del rows, up, t1, t0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=()) -> int:
     if list(argv) not in ([], ["--kernels"], ["--digest"]):
         print("usage: chip_smoke.py [--kernels | --digest]", file=sys.stderr)
@@ -5247,7 +5463,8 @@ def main(argv=()) -> int:
                           "k6_ms": k6_ms(dev),
                           "bign_step_ms": bign_step_ms(dev),
                           "wide_lambda_ms": wide_lambda_ms(dev),
-                          "wide_gamma_ms": wide_gamma_ms(dev)}))
+                          "wide_gamma_ms": wide_gamma_ms(dev),
+                          "narrow_ms": narrow_ms(dev)}))
         print(card)
         return 0
 

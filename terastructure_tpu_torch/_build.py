@@ -49,19 +49,25 @@ SIGNATURES = {
     # idx0, packed, L, group, then as tt_fused_local_solve from u_planes
     "tt_fused_local_solve_dma": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
                                 + [_F] * 3 + [_I] * 3 + [_P],
-    # the bf16 bodies of K4, K1 and K2: the same arguments
-    "tt_lambda_stats_packed_bf16": [_I] + [_P] * 7 + [_I] * 5 + [_L, _P],
-    "tt_fused_local_solve_bf16": [_I] + [_P] * 12 + [_I] * 6 + [_F] * 3
+    # the bf16 bodies of K4, K1 and K2: the same arguments and, after part
+    # (K4) or gpart (K1, K2), the scratch of the rounded u (ub) and t (tb)
+    "tt_lambda_stats_packed_bf16": [_I] + [_P] * 8 + [_I] * 5 + [_L, _P],
+    "tt_fused_local_solve_bf16": [_I] + [_P] * 14 + [_I] * 6 + [_F] * 3
                                  + [_I] * 3 + [_P],
-    "tt_fused_local_solve_dma_bf16": [_P, _P, _L, _I] + [_P] * 11 + [_I] * 6
+    "tt_fused_local_solve_dma_bf16": [_P, _P, _L, _I] + [_P] * 13 + [_I] * 6
                                      + [_F] * 3 + [_I] * 3 + [_P],
     # R, a1, a0, u_planes, t1, t0, l0, l1, part, B, W, K, nsplit, approx,
-    # stream (R replicates, every array R x the single call's)
+    # stream (R replicates, every array R x the single call's); bf16: ub
+    # after part
     "tt_lambda_stats_acat": [_I] + [_P] * 8 + [_I] * 5 + [_P],
-    "tt_lambda_stats_acat_bf16": [_I] + [_P] * 8 + [_I] * 5 + [_P],
-    # R, rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream
+    "tt_lambda_stats_acat_bf16": [_I] + [_P] * 9 + [_I] * 5 + [_P],
+    # R, rows, u_planes, t1, t0, g, gpart, B, W, K, nsplit, stream; bf16:
+    # tb after gpart
     "tt_gamma_stats_packed": [_I] + [_P] * 6 + [_I] * 4 + [_P],
-    "tt_gamma_stats_packed_bf16": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "tt_gamma_stats_packed_bf16": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # lo, hi (float bit patterns), bad (one uint64), stream: the bf16
+    # passes' exact reciprocal checked against the IEEE one
+    "tt_rcp_rn_check": [ctypes.c_uint, ctypes.c_uint, _P, _P],
     # R, rows, u_planes, t1, t0, l0, l1, g, lpart, gpart, B, W, K,
     # tile_rows, tile_cols, approx, stream
     # (K6 calls it at approx 0)

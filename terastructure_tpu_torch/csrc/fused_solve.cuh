@@ -50,9 +50,12 @@
 // passes take their bf16 bodies: T, U and R enter the products rounded to
 // bf16 and the sums stay f32; the update beta + t * S, the tol test and
 // Aitken use the unrounded f32 t and lambda (the update kernels below are
-// the f32 path's). The bf16 sequences are instantiated in their own
-// sources (fused_step_bf16.cu, fused_step_dma_bf16.cu), so that nvcc
-// builds them beside the f32 ones in parallel.
+// the f32 path's). At K <= 64 the sequence rounds bf(u) once after init
+// (`tt::round_u`: the tensor-core λ passes stage it) and the final update
+// rounds the γ pass's bf(t) (`update_kernel<true>`), so the bodies of
+// psd_mma.cuh copy and never convert. The bf16 sequences are instantiated
+// in their own sources (fused_step_bf16.cu, fused_step_dma_bf16.cu), so
+// that nvcc builds them beside the f32 ones in parallel.
 //
 // Batched replicates (svi/replicates.py; the reference vmaps this kernel,
 // and Pallas lifts it by a grid dimension): `fused_solve` takes R
@@ -113,14 +116,20 @@ __global__ void init_kernel(const float* __restrict__ lamb_init, int warm,
 //   AITKEN: lam = aitken(lam, mid, new)
 //   FINAL:  out = new
 // and t = T(the lambda the next pass reads) for every mode but FINAL.
+// kRoundT (the bf16 sequence at K <= 64): FINAL also rounds the t that
+// the final pass read, the γ pass's, into tb (2, B, mma_kp(K)) bf16, the
+// layout the γ pass stages (zero past K).
 // Replicate z = blockIdx.z: its part nsplit x 2 bk floats on, its (B, K,
-// 2) arrays 2 bk, its dpart 2 gridDim.x, its flag active[z].
+// 2) arrays 2 bk, its dpart 2 gridDim.x, its tb 2 B mma_kp(K), its flag
+// active[z].
+template <bool kRoundT>
 __global__ void __launch_bounds__(kUpd)
 update_kernel(int mode, const float* __restrict__ part, int nsplit, int bk,
               float beta_a, float beta_b, float* __restrict__ lam,
               float* __restrict__ mid, float* __restrict__ t,
               float* __restrict__ out, float* __restrict__ dpart,
-              const int* __restrict__ active) {
+              const int* __restrict__ active, int K,
+              __nv_bfloat16* __restrict__ tb) {
   const long long z = blockIdx.z, o = z * 2 * bk;
   if (mode == kLoop && active[z] == 0) return;
   part += o * nsplit;
@@ -158,6 +167,18 @@ update_kernel(int mode, const float* __restrict__ part, int nsplit, int bk,
     } else {
       out[2 * i] = n0;
       out[2 * i + 1] = n1;
+      if constexpr (kRoundT) {
+        if (tb != nullptr) {
+          const int kp = tt::mma_kp(K), b = i / K, k = i - b * K;
+          const long long nb = (long long)(bk / K) * kp;
+          __nv_bfloat16* t1b = tb + z * 2 * nb + (long long)b * kp;
+          __nv_bfloat16* t0b = t1b + nb;
+          t1b[k] = __float2bfloat16_rn(t[2 * i]);
+          t0b[k] = __float2bfloat16_rn(t[2 * i + 1]);
+          for (int j = K; k == K - 1 && j < kp; ++j)
+            t1b[j] = t0b[j] = __float2bfloat16_rn(0.f);
+        }
+      }
     }
     if (mode != kFinal) tt::exp_elog_beta(l0, l1, t[2 * i], t[2 * i + 1]);
   }
@@ -208,7 +229,11 @@ delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
 }
 
 // The launch sequence of K1 and K2: they differ only in where the passes
-// read the batch's rows (`Rows`, psd_common.cuh). kBf16: the bf16 bodies.
+// read the batch's rows (`Rows`, psd_common.cuh). kBf16: the bf16 bodies;
+// at K <= 64 ub R x (4W, mma_kp(K)) and tb R x (2, B, mma_kp(K)) bf16
+// take bf(u), rounded once before the loop (`round_u`, one launch) and
+// read by every λ pass, and bf(t) of the γ pass, rounded by the final
+// update (null at f32 and at K > 64).
 // R replicates (K1 only; K2 has R = 1): rows R x (B, W), up R x (4, W,
 // K), lamb_init, lamb_out, lam, mid, t R x (B, K, 2), g R x (4, W, K),
 // part R x (nsplit_w, B, K, 2), dpart R x (nupd, 2), active (R,), gpart
@@ -216,12 +241,15 @@ delta_kernel(const float* __restrict__ dpart, int nblk, int bk, float tol,
 template <class Rows, bool kBf16>
 int fused_solve(Rows src, const float* up, const float* lamb_init,
                 float* lamb_out, float* g, float* lam, float* mid, float* t,
-                float* part, float* dpart, int* active, float* gpart, int B,
-                int W, int K, int nsplit_w, int nsplit_b, int local_iters,
-                float local_tol, float beta_a, float beta_b, int warm_start,
-                int approx_div, int accel, cudaStream_t stream, int R = 1) {
+                float* part, float* dpart, int* active, float* gpart,
+                __nv_bfloat16* ub, __nv_bfloat16* tb, int B, int W, int K,
+                int nsplit_w, int nsplit_b, int local_iters, float local_tol,
+                float beta_a, float beta_b, int warm_start, int approx_div,
+                int accel, cudaStream_t stream, int R = 1) {
+  const bool narrow = kBf16 && K <= 64;
   if (B <= 0 || W <= 0 || nsplit_w <= 0 || nsplit_b <= 0 || R < 1 ||
-      tt::pick_km(K) < 0 || local_iters < 0)
+      tt::pick_km(K) < 0 || local_iters < 0 ||
+      (narrow && (ub == nullptr || tb == nullptr)))
     return (int)cudaErrorInvalidValue;
   const bool acc = accel && local_iters >= 3;
   const int loop_iters = acc ? local_iters - 2 : local_iters;
@@ -242,14 +270,14 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
 
   auto pass = [&](int div, const int* gate) -> int {
     return tt::launch_lambda_pass<tt::PackedLoader<Rows>, true, kBf16>(
-        loader, up, t, t + 1, 2 * K, 2, part, B, W, K, nsplit_w, div, gate,
-        stream, R, lrep);
+        loader, up, ub, t, t + 1, 2 * K, 2, part, B, W, K, nsplit_w, div,
+        gate, stream, R, lrep);
   };
   const dim3 ugrid(nupd, 1, R);
   auto update = [&](int mode) -> int {
-    update_kernel<<<ugrid, kUpd, 0, stream>>>(mode, part, nsplit_w, bk, beta_a,
-                                             beta_b, lam, mid, t, lamb_out,
-                                             dpart, active);
+    update_kernel<kBf16><<<ugrid, kUpd, 0, stream>>>(
+        mode, part, nsplit_w, bk, beta_a, beta_b, lam, mid, t, lamb_out,
+        dpart, active, K, narrow ? tb : nullptr);
     TT_CHECK_LAUNCH();
     return 0;
   };
@@ -258,6 +286,8 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   init_kernel<<<ugrid, kUpd, 0, stream>>>(lamb_init, warm_start, beta_a,
                                           beta_b, lam, t, active, bk);
   TT_CHECK_LAUNCH();
+  if (narrow)
+    if ((err = tt::round_u(up, ub, W, K, R, stream))) return err;
   for (int it = 0; it < loop_iters; ++it) {
     if ((err = pass(loop_div, active))) return err;
     if ((err = update(kLoop))) return err;
@@ -274,7 +304,7 @@ int fused_solve(Rows src, const float* up, const float* lamb_init,
   if ((err = update(kFinal))) return err;
 
   return tt::launch_gamma_stats<Rows, kBf16>(src, up, t, t + 1, 2 * K, 2,
-                                             gpart, g, B, W, K, nsplit_b,
+                                             tb, gpart, g, B, W, K, nsplit_b,
                                              stream, R, grep);
 }
 

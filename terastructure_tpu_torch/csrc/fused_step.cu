@@ -16,6 +16,7 @@ extern "C" int tt_fused_local_solve(
     cudaStream_t stream) {
   return fused_solve<tt::ContiguousRows, false>(
       tt::ContiguousRows{rows}, up, lamb_init, lamb_out, g, lam, mid, t,
-      part, dpart, active, gpart, B, W, K, nsplit_w, nsplit_b, local_iters,
-      local_tol, beta_a, beta_b, warm_start, approx_div, accel, stream, R);
+      part, dpart, active, gpart, nullptr, nullptr, B, W, K, nsplit_w,
+      nsplit_b, local_iters, local_tol, beta_a, beta_b, warm_start,
+      approx_div, accel, stream, R);
 }

@@ -31,7 +31,7 @@ extern "C" int tt_fused_local_solve_dma(
   if (group <= 0 || B % group || L < group) return (int)cudaErrorInvalidValue;
   return fused_solve<tt::GroupedRows, false>(
       tt::GroupedRows{packed, idx0, group, L}, up, lamb_init, lamb_out, g,
-      lam, mid, t, part, dpart, active, gpart, B, W, K, nsplit_w, nsplit_b,
-      local_iters, local_tol, beta_a, beta_b, warm_start, approx_div, accel,
-      stream);
+      lam, mid, t, part, dpart, active, gpart, nullptr, nullptr, B, W, K,
+      nsplit_w, nsplit_b, local_iters, local_tol, beta_a, beta_b, warm_start,
+      approx_div, accel, stream);
 }

@@ -166,6 +166,71 @@ struct Rep {
   long long out = 0;   // floats of the reduced outputs
 };
 
+// cp.async of 16 (or 4) bytes, filled with zeros past `bytes` (0: none
+// read): a tile's copies stay in flight while the CTA computes, until
+// `cp_async_wait_group` (the bodies of psd_mma.cuh and wide_tile.cuh).
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(a),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(a),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// K padded to the k16 steps of D at the K-width a K <= 64 body runs
+// (`pick_km`: 16 to K = 16, then 32, then 64): the row width, in bf16, of
+// the rounded u and t that the tensor-core passes stage (psd_mma.cuh;
+// ops/stats_packed.py `mma_kp`).
+__host__ __device__ constexpr int mma_kp(int K) {
+  return K <= 16 ? 16 : K <= 32 ? 32 : 64;
+}
+
+// Four packed words of a row from byte column c, stopping at byte column
+// `end`: cp.async where a word is whole and aligned, else assembled byte
+// by byte; a null row and bytes at or past `end` read as MISSING.
+__device__ __forceinline__ void stage_words4(uint32_t* dst, const uint8_t* p,
+                                             int c, int end) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e, c += 4) {
+    const uint8_t* q = p + c;
+    if (p != nullptr && c + 4 <= end &&
+        (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+      cp_async4z(dst + e, q, 4);
+    } else {
+      uint32_t v = 0xFFFFFFFFu;
+      for (int j = 0; p != nullptr && j < 4 && c + j < end; ++j) {
+        v &= ~(0xFFu << (8 * j));
+        v |= (uint32_t)__ldg(q + j) << (8 * j);
+      }
+      dst[e] = v;
+    }
+  }
+}
+
+// 16 bytes of packed words of a row from byte column c (stopping at
+// `end`): one cp.async where they are whole and 16-byte aligned.
+__device__ __forceinline__ void stage_words16(uint32_t* dst, const uint8_t* p,
+                                              int c, int end) {
+  const uint8_t* q = p + c;
+  if (p != nullptr && c + 16 <= end &&
+      (reinterpret_cast<uintptr_t>(q) & 15) == 0)
+    cp_async16z(dst, q, 16);
+  else
+    stage_words4(dst, p, c, end);
+}
+
 // Batch row b of a gathered (B, W) matrix starts at rows + b*W.
 struct ContiguousRows {
   const uint8_t* rows;
@@ -287,24 +352,37 @@ struct PackedLoader {
     a0 = missing ? 0.f : 2.f - x;
   }
 
-  // The tensor-core pass (psd_mma.cuh): tiles of 64 byte columns, staged
-  // as above; lane (g, t) of a 16-individual step (a word) takes its row's
-  // word, and from it the counts of individuals 8j + 2t + e.
-  __host__ __device__ static constexpr int mma_cols(int) { return 64; }
+  // The tensor-core pass (psd_mma.cuh): tiles of 64 byte columns where D
+  // and S are one k16 step (K <= 16), else 32, two of them in flight
+  // (kMmaStages), so that both tiles and their u fit the 48 KB of static
+  // shared memory. A tile's rows are staged by 16-byte cp.async in rows of
+  // TC / 4 + 4 words: 16-byte aligned, and the 8 rows g of a warp's read
+  // fall into distinct banks. Lane (g, t) of a 16-individual step (a
+  // word) takes its row's word, and from it the counts of individuals
+  // 8j + 2t + e.
+  __host__ __device__ static constexpr int mma_cols(int kn) {
+    return kn <= 2 ? 64 : 32;
+  }
   __host__ __device__ static constexpr int mma_words(int tc) {
-    return words(tc);
+    return kRowsPerCta * (tc / 4 + 4);
   }
   static constexpr int kMmaWords = 1;
+  static constexpr int kMmaStages = 2;
   template <int TC, int kT>
-  __device__ void stage_mma(uint32_t* tile, const uint8_t* const* rowp,
-                            int b0, int B, int W, int w0, int nb) const {
-    stage<TC, kT>(tile, rowp, b0, B, W, w0, nb);
+  __device__ void stage_mma(uint32_t* tile, const uint8_t* const* rowp, int,
+                            int, int, int w0, int nb) const {
+    const int nq = (nb + 15) >> 4;                 // 16-byte pieces a row
+    for (int i = threadIdx.x; i < kRowsPerCta * nq; i += kT) {
+      const int r = i / nq, q = i - r * nq;
+      stage_words16(tile + r * (TC / 4 + 4) + 4 * q, rowp[r], w0 + 16 * q,
+                    w0 + nb);
+    }
   }
   template <int TC>
   __device__ __forceinline__ static bool mma_load(const uint32_t* tile, int r,
                                                   int unit, int,
                                                   uint32_t (&w)[kMmaWords]) {
-    w[0] = tile[r * (TC / 4 + 1) + unit];
+    w[0] = tile[r * (TC / 4 + 4) + unit];
     return w[0] != 0xFFFFFFFFu;
   }
   __device__ __forceinline__ static void mma_counts(
@@ -414,6 +492,10 @@ struct AcatLoader {
   // that the tile and the staged u fit the 48 KB of static shared memory
   // (NVIDIA H100 80GB HBM3, 700 W, B = 4096, 4 x 2,048 individuals, K =
   // 10: 0.140 ms with 32 columns, 0.172 with 16; the f32 body 0.265).
+  // One stage: the pairs are built in registers (no cp.async), and a
+  // second tile would not fit the static shared memory. Staging the two
+  // planes as they are by 8-byte cp.async, two tiles of 16 columns in
+  // flight, was tried and was slower at K = 10.
   __host__ __device__ static constexpr int mma_cols(int kn) {
     return kn <= 2 ? 32 : 16;
   }
@@ -421,6 +503,7 @@ struct AcatLoader {
     return kRowsPerCta * 4 * (tc + 1);
   }
   static constexpr int kMmaWords = 4;
+  static constexpr int kMmaStages = 1;
   template <int TC, int kT>
   __device__ void stage_mma(uint32_t* tile, const uint8_t* const*, int b0,
                             int B, int W, int w0, int nb) const {
@@ -764,19 +847,20 @@ __global__ void split_reduce_kernel(const float* __restrict__ part,
 
 // Launch the gamma pass over `nsplit` row slices and their reduction.
 // gpart (nsplit, 4W, K) scratch, g (4, W, K). kBf16: the tensor-core body
-// (psd_mma.cuh) with ceil(KM / 8) n8 tiles of K, on the same grid. R
-// replicates in the grid's z at the strides of `rep` (gpart: rep.part,
-// g: rep.out).
+// (psd_mma.cuh) with ceil(KM / 8) n8 tiles of K, on the same grid
+// (`gamma_grid` chooses nsplit by dtype), reading the rounded t `tb`
+// (R, 2, B, mma_kp(K)) bf16 instead of t1g, t0g. R replicates in the
+// grid's z at the strides of `rep` (gpart: rep.part, g: rep.out).
 template <int KM, class Rows, bool kBf16>
 int gamma_stats(Rows src, const float* up, const float* t1g,
-                const float* t0g, int ts, int tk, float* gpart, float* g,
-                int B, int W, int K, int nsplit, cudaStream_t stream, int R,
-                Rep rep) {
+                const float* t0g, int ts, int tk, const __nv_bfloat16* tb,
+                float* gpart, float* g, int B, int W, int K, int nsplit,
+                cudaStream_t stream, int R, Rep rep) {
   const int bchunk = (B + nsplit - 1) / nsplit;
   const dim3 grid((W + kGCols - 1) / kGCols, nsplit, R);
   if constexpr (kBf16)
     gamma_pass_mma_kernel<(KM + 7) / 8, Rows><<<grid, kMmaThreads, 0, stream>>>(
-        src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk, rep);
+        src, up, tb, gpart, B, W, K, bchunk, rep);
   else
     gamma_pass_kernel<KM, Rows><<<grid, kGThreads, 0, stream>>>(
         src, up, t1g, t0g, ts, tk, gpart, B, W, K, bchunk, rep);
@@ -845,17 +929,20 @@ namespace tt {
 // kNewton is set: only the fused solve builds it); `active` as in
 // `lambda_pass_kernel`; kBf16 picks the bf16 bodies: at K <= 64 the
 // tensor-core body (psd_mma.cuh) for either loader, packed rows (K1, K2,
-// K4) or count planes (K8). K > 64 runs `lambda_pass_wide_kernel`
-// (lambda_wide.cuh) at either dtype. R replicates in the grid's z at the
-// strides of `rep`.
+// K4) or count planes (K8), which stages the rounded u `ub` (`round_u`:
+// R x (4W, mma_kp(K)) bf16) instead of reading up. K > 64 runs
+// `lambda_pass_wide_kernel` (lambda_wide.cuh) at either dtype. R
+// replicates in the grid's z at the strides of `rep`.
 template <class Loader, bool kNewton = false, bool kBf16 = false>
-int launch_lambda_pass(Loader ld, const float* up, const float* t1,
-                       const float* t0, int ts, int tk, float* part, int B,
-                       int W, int K, int nsplit, int div, const int* active,
-                       cudaStream_t stream, int R = 1, Rep rep = {}) {
+int launch_lambda_pass(Loader ld, const float* up, const __nv_bfloat16* ub,
+                       const float* t1, const float* t0, int ts, int tk,
+                       float* part, int B, int W, int K, int nsplit, int div,
+                       const int* active, cudaStream_t stream, int R = 1,
+                       Rep rep = {}) {
   const int km = pick_km(K);
   if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
-      (div == kDivNewton && !kNewton))
+      (div == kDivNewton && !kNewton) ||
+      (kBf16 && km != kWide && ub == nullptr))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return launch_lambda_pass_wide<Loader, kNewton, kBf16>(
@@ -866,7 +953,7 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
 #define TT_PASS(KM, DIV)                                                  \
   if constexpr (kBf16) /* the tensor-core body: ceil(KM / 8) n8 tiles */  \
     lambda_pass_mma_kernel<(KM + 7) / 8, Loader, DIV>                     \
-        <<<grid, kMmaThreads, 0, stream>>>(ld, up, t1, t0, ts, tk, part,  \
+        <<<grid, kMmaThreads, 0, stream>>>(ld, ub, t1, t0, ts, tk, part,  \
                                            B, W, K, wchunk, active, rep); \
   else                                                                    \
     lambda_pass_kernel<KM, Loader, DIV>                                   \
@@ -888,22 +975,26 @@ int launch_lambda_pass(Loader ld, const float* up, const float* t1,
 }
 
 // Launch the gamma pass (gamma_stats, or gamma_stats_wide for K > 64);
-// kBf16 picks the bf16 bodies. R replicates as in launch_lambda_pass.
+// kBf16 picks the bf16 bodies, at K <= 64 on the rounded t `tb`
+// (`round_t`, or the fused solve's final update). R replicates as in
+// launch_lambda_pass.
 template <class Rows, bool kBf16 = false>
 int launch_gamma_stats(Rows src, const float* up, const float* t1g,
-                       const float* t0g, int ts, int tk, float* gpart,
-                       float* g, int B, int W, int K, int nsplit,
-                       cudaStream_t stream, int R = 1, Rep rep = {}) {
+                       const float* t0g, int ts, int tk,
+                       const __nv_bfloat16* tb, float* gpart, float* g, int B,
+                       int W, int K, int nsplit, cudaStream_t stream,
+                       int R = 1, Rep rep = {}) {
   const int km = pick_km(K, true);
-  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1)
+  if (B <= 0 || W <= 0 || nsplit <= 0 || km < 0 || R < 1 ||
+      (kBf16 && km != kWide && tb == nullptr))
     return (int)cudaErrorInvalidValue;
   if (km == kWide)
     return gamma_stats_wide<Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g,
                                          B, W, K, nsplit, stream, R, rep);
   int err = 0;
-#define TT_LAUNCH(KM)                                                     \
-  err = gamma_stats<KM, Rows, kBf16>(src, up, t1g, t0g, ts, tk, gpart, g, \
-                                     B, W, K, nsplit, stream, R, rep)
+#define TT_LAUNCH(KM)                                                    \
+  err = gamma_stats<KM, Rows, kBf16>(src, up, t1g, t0g, ts, tk, tb, gpart, \
+                                     g, B, W, K, nsplit, stream, R, rep)
   TT_DISPATCH_KM12(km, TT_LAUNCH)
 #undef TT_LAUNCH
   return err;

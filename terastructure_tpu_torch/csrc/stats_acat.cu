@@ -25,8 +25,10 @@
 // At K <= 64 it is the tensor-core pass `tt::lambda_pass_mma_kernel`
 // (psd_mma.cuh) with `tt::AcatLoader`'s count-plane staging: a lane reads
 // the (a1, a0) pairs of its row for the four individuals its D
-// accumulators hold, as they are (any bf16 count, never re-coded). K > 64
-// runs `tt::lambda_pass_wide_kernel` (lambda_wide.cuh) at either dtype.
+// accumulators hold, as they are (any bf16 count, never re-coded); u is
+// rounded once a call (`tt::round_u`, one launch) and staged by cp.async.
+// K > 64 runs `tt::lambda_pass_wide_kernel` (lambda_wide.cuh) at either
+// dtype.
 //
 // Every pass runs (`active` is null): at the big-N shape the reference's
 // tol test lets all of the solve's loop passes run (PERF.md §6),
@@ -47,17 +49,21 @@ namespace {
 template <bool kBf16>
 int lambda_stats_acat(int R, const uint16_t* a1, const uint16_t* a0,
                       const float* up, const float* t1, const float* t0,
-                      float* l0, float* l1, float* part, int B, int W, int K,
-                      int nsplit, int approx, cudaStream_t stream) {
+                      float* l0, float* l1, float* part, __nv_bfloat16* ub,
+                      int B, int W, int K, int nsplit, int approx,
+                      cudaStream_t stream) {
   const int bk = B * K;
   tt::Rep rep;
   rep.rows = 4LL * B * W;
   rep.u = 4LL * W * K;
   rep.t = rep.out = bk;
   rep.part = 2LL * nsplit * bk;
+  if (kBf16 && K <= 64 && ub != nullptr)
+    if (const int err = tt::round_u(up, ub, W, K, R, stream)) return err;
   if (const int err = tt::launch_lambda_pass<tt::AcatLoader, false, kBf16>(
-          tt::AcatLoader{a1, a0}, up, t1, t0, K, 1, part, B, W, K, nsplit,
-          approx ? tt::kDivFast : tt::kDivExact, nullptr, stream, R, rep))
+          tt::AcatLoader{a1, a0}, up, ub, t1, t0, K, 1, part, B, W, K,
+          nsplit, approx ? tt::kDivFast : tt::kDivExact, nullptr, stream, R,
+          rep))
     return err;
   tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
       part, nsplit, bk, l0, l1, rep.part, rep.out);
@@ -73,16 +79,18 @@ extern "C" int tt_lambda_stats_acat(int R, const uint16_t* a1,
                                     float* l0, float* l1, float* part, int B,
                                     int W, int K, int nsplit, int approx,
                                     cudaStream_t stream) {
-  return lambda_stats_acat<false>(R, a1, a0, up, t1, t0, l0, l1, part, B, W,
-                                  K, nsplit, approx, stream);
+  return lambda_stats_acat<false>(R, a1, a0, up, t1, t0, l0, l1, part,
+                                  nullptr, B, W, K, nsplit, approx, stream);
 }
 
+// ub: scratch for bf(u), R x (4W, mma_kp(K)) bf16 (K <= 64; unused above)
 extern "C" int tt_lambda_stats_acat_bf16(int R, const uint16_t* a1,
                                          const uint16_t* a0, const float* up,
                                          const float* t1, const float* t0,
                                          float* l0, float* l1, float* part,
-                                         int B, int W, int K, int nsplit,
-                                         int approx, cudaStream_t stream) {
-  return lambda_stats_acat<true>(R, a1, a0, up, t1, t0, l0, l1, part, B, W,
-                                 K, nsplit, approx, stream);
+                                         __nv_bfloat16* ub, int B, int W,
+                                         int K, int nsplit, int approx,
+                                         cudaStream_t stream) {
+  return lambda_stats_acat<true>(R, a1, a0, up, t1, t0, l0, l1, part, ub, B,
+                                 W, K, nsplit, approx, stream);
 }

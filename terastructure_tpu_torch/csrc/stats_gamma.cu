@@ -21,7 +21,10 @@
 // tt_gamma_stats_packed_bf16 is the same pass at compute dtype bf16 (u, t
 // and R rounded to bf16 as the products' operands, sums in f32): the γ
 // pass K1 and K2 end with at bf16, through an entry of its own (the
-// reference's gamma_stats_packed(dtype=jnp.bfloat16)).
+// reference's gamma_stats_packed(dtype=jnp.bfloat16)). At K <= 64 it
+// rounds t once (`tt::round_t`, one launch) into the layout the
+// tensor-core body `tt::gamma_pass_mma_kernel` (psd_mma.cuh) stages by
+// cp.async, on `gamma_grid`'s bf16 split.
 //
 // R > 1 runs R replicates of the pass in one launch (blockIdx.z,
 // psd_common.cuh `Rep`): the batched replicates' big-N step with
@@ -51,16 +54,23 @@ extern "C" int tt_gamma_stats_packed(int R, const uint8_t* rows,
                                      int B, int W, int K, int nsplit,
                                      cudaStream_t stream) {
   return tt::launch_gamma_stats(tt::ContiguousRows{rows}, up, t1, t0, K, 1,
-                                gpart, g, B, W, K, nsplit, stream, R,
+                                nullptr, gpart, g, B, W, K, nsplit, stream, R,
                                 gamma_rep(B, W, K, nsplit));
 }
 
+// tb: scratch for bf(t1), bf(t0), R x (2, B, mma_kp(K)) bf16 (K <= 64;
+// unused above), rounded here before the pass
 extern "C" int tt_gamma_stats_packed_bf16(int R, const uint8_t* rows,
                                           const float* up, const float* t1,
                                           const float* t0, float* g,
-                                          float* gpart, int B, int W, int K,
-                                          int nsplit, cudaStream_t stream) {
+                                          float* gpart, __nv_bfloat16* tb,
+                                          int B, int W, int K, int nsplit,
+                                          cudaStream_t stream) {
+  if (K <= 64 && tb != nullptr)
+    if (const int err = tt::round_t(t1, t0, K, 1, (long long)B * K, tb, B, K,
+                                    R, stream))
+      return err;
   return tt::launch_gamma_stats<tt::ContiguousRows, true>(
-      tt::ContiguousRows{rows}, up, t1, t0, K, 1, gpart, g, B, W, K, nsplit,
-      stream, R, gamma_rep(B, W, K, nsplit));
+      tt::ContiguousRows{rows}, up, t1, t0, K, 1, tb, gpart, g, B, W, K,
+      nsplit, stream, R, gamma_rep(B, W, K, nsplit));
 }

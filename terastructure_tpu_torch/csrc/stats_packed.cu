@@ -17,7 +17,9 @@
 // tt_lambda_stats_packed_bf16 is the same pass at compute dtype bf16 (the
 // reference's dtype=jnp.bfloat16: T, U and R rounded to bf16 as the
 // products' operands, sums in f32), the pass of the eval re-solve and the
-// export at bf16.
+// export at bf16. At K <= 64 it rounds u once (`tt::round_u`, one launch)
+// into the layout the tensor-core body `tt::lambda_pass_mma_kernel`
+// (psd_mma.cuh) stages by cp.async, on `lambda_grid`'s bf16 split.
 //
 // R > 1 runs R replicates of the pass in one launch (blockIdx.z,
 // psd_common.cuh `Rep`): the batched replicates' eval re-solve, where
@@ -32,9 +34,10 @@ namespace {
 
 template <bool kBf16>
 int lambda_stats(const uint8_t* rows, const float* up, const float* t1,
-                 const float* t0, float* l0, float* l1, float* part, int B,
-                 int W, int K, int nsplit, int approx, cudaStream_t stream,
-                 int R, long long rows_stride) {
+                 const float* t0, float* l0, float* l1, float* part,
+                 __nv_bfloat16* ub, int B, int W, int K, int nsplit,
+                 int approx, cudaStream_t stream, int R,
+                 long long rows_stride) {
   using Loader = tt::PackedLoader<tt::ContiguousRows>;
   const int bk = B * K;
   tt::Rep rep;
@@ -42,8 +45,10 @@ int lambda_stats(const uint8_t* rows, const float* up, const float* t1,
   rep.u = 4LL * W * K;
   rep.t = rep.out = bk;
   rep.part = 2LL * nsplit * bk;
+  if (kBf16 && K <= 64 && ub != nullptr)
+    if (const int err = tt::round_u(up, ub, W, K, R, stream)) return err;
   if (const int err = tt::launch_lambda_pass<Loader, false, kBf16>(
-          Loader{{rows}}, up, t1, t0, K, 1, part, B, W, K, nsplit,
+          Loader{{rows}}, up, ub, t1, t0, K, 1, part, B, W, K, nsplit,
           approx ? tt::kDivFast : tt::kDivExact, nullptr, stream, R, rep))
     return err;
   tt::split_reduce_kernel<<<dim3((bk + 255) / 256, 1, R), 256, 0, stream>>>(
@@ -58,14 +63,24 @@ extern "C" int tt_lambda_stats_packed(
     int R, const uint8_t* rows, const float* up, const float* t1,
     const float* t0, float* l0, float* l1, float* part, int B, int W, int K,
     int nsplit, int approx, long long rows_stride, cudaStream_t stream) {
-  return lambda_stats<false>(rows, up, t1, t0, l0, l1, part, B, W, K, nsplit,
-                             approx, stream, R, rows_stride);
+  return lambda_stats<false>(rows, up, t1, t0, l0, l1, part, nullptr, B, W,
+                             K, nsplit, approx, stream, R, rows_stride);
 }
 
+// ub: scratch for bf(u), R x (4W, mma_kp(K)) bf16 (K <= 64; unused above)
 extern "C" int tt_lambda_stats_packed_bf16(
     int R, const uint8_t* rows, const float* up, const float* t1,
-    const float* t0, float* l0, float* l1, float* part, int B, int W, int K,
-    int nsplit, int approx, long long rows_stride, cudaStream_t stream) {
-  return lambda_stats<true>(rows, up, t1, t0, l0, l1, part, B, W, K, nsplit,
-                            approx, stream, R, rows_stride);
+    const float* t0, float* l0, float* l1, float* part, __nv_bfloat16* ub,
+    int B, int W, int K, int nsplit, int approx, long long rows_stride,
+    cudaStream_t stream) {
+  return lambda_stats<true>(rows, up, t1, t0, l0, l1, part, ub, B, W, K,
+                            nsplit, approx, stream, R, rows_stride);
+}
+
+// How many floats x with bit patterns in [lo, hi) give a different
+// reciprocal from the tensor-core passes' exact divide (psd_mma.cuh
+// `rcp_rn`) than from __frcp_rn: into *bad (zeroed by the caller).
+extern "C" int tt_rcp_rn_check(unsigned int lo, unsigned int hi,
+                               unsigned long long* bad, cudaStream_t stream) {
+  return tt::rcp_rn_check(lo, hi, bad, stream);
 }

@@ -14,8 +14,8 @@
 // tiles. What the bodies run is here:
 //   - the staging: u of a sub-tile (`w7_stage_u`, 16-byte cp.async into
 //     one of two buffers), t of the row tile at the strides a caller gives
-//     (`w7_stage_t`), a row's 16 packed bytes (`w7_stage_code_row`), and
-//     the cp.async primitives;
+//     (`w7_stage_t`), a row's 16 packed bytes (`w7_stage_code_row`), on
+//     psd_mma.cuh's cp.async primitives;
 //   - the dynamic shared memory (`W7`);
 //   - three products and their writes: D = t u^T and S += R u over the
 //     tile, and S into a (B, K, 2) partial (S1, S0); f32 register-blocked
@@ -48,27 +48,6 @@ __host__ __device__ constexpr int w7_piece_cols(int K) {
 // m16 tile r / 8 holds t1 of its 8 rows, then t0 of the same rows.
 __device__ __forceinline__ int w7_m(int r, int a) {
   return 16 * (r >> 3) + 8 * a + (r & 7);
-}
-
-// cp.async of 16 (or 4) bytes, filled with zeros past `bytes` (0: none read).
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            int bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(a),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(a),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Dynamic shared memory of a body: u as staged (f32, two buffers), t of

@@ -38,8 +38,8 @@ import torch
 from terastructure_tpu_torch import _build
 from terastructure_tpu_torch.ops.stats_dense import as_operand, solve_schedule
 from terastructure_tpu_torch.ops.stats_packed import (
-    check_dtype, check_shapes, count_launch, gamma_grid, lambda_grid,
-    plane_counts, ratios_planar)
+    c_ptr, check_dtype, check_shapes, count_launch, gamma_grid, lambda_grid,
+    plane_counts, ratios_planar, rounded_scratch)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -182,8 +182,8 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     Returns (lamb_out, g)."""
     dev = u_planes.device
     k = u_planes.shape[-1]
-    nsplit_w, _ = lambda_grid(b, w, k)
-    nsplit_b = gamma_grid(b, w, k)
+    nsplit_w, _ = lambda_grid(b, w, k, dtype)
+    nsplit_b = gamma_grid(b, w, k, dtype)
     nupd = -(-b * k // 256)
     lead = () if r is None else (r,)
 
@@ -195,13 +195,16 @@ def _launch_solve(entry, lead_args, u_planes, lamb_init, b, w, *, local_iters,
     part, dpart = f32(nsplit_w, b, k, 2), f32(nupd, 2)
     gpart = f32(nsplit_b, 4 * w, k)
     active = torch.empty(lead or 1, dtype=torch.int32, device=dev)
-    if dtype == torch.bfloat16:
+    scratch = ()
+    if dtype == torch.bfloat16:        # bf(u) and bf(t) at K <= 64
         entry += "_bf16"
+        scratch = (c_ptr(rounded_scratch(lead, 4 * w, k, dev, dtype)),
+                   c_ptr(rounded_scratch(lead, 2 * b, k, dev, dtype)))
     err = getattr(_build.lib(), entry)(
         *lead_args, u_planes.data_ptr(), lamb_init.data_ptr(),
         lamb_out.data_ptr(), g.data_ptr(), lam.data_ptr(), mid.data_ptr(),
         t.data_ptr(), part.data_ptr(), dpart.data_ptr(), active.data_ptr(),
-        gpart.data_ptr(), b, w, k, nsplit_w, nsplit_b, local_iters,
+        gpart.data_ptr(), *scratch, b, w, k, nsplit_w, nsplit_b, local_iters,
         float(local_tol), float(beta_a), float(beta_b), int(warm_start),
         int(approx_div), int(accel), _build.stream_ptr(dev))
     _build.check(err, entry)

@@ -45,6 +45,8 @@ single twin of each replicate, stacked (`stack_twins`).
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from terastructure_tpu_torch import _build
@@ -243,6 +245,43 @@ def _entry(name, dtype):
                    name + "_bf16" if dtype == torch.bfloat16 else name)
 
 
+def mma_kp(k: int) -> int:
+    """K padded to the k16 steps of D at the K-width a body runs (16 to
+    K = 16, then 32, then 64): the row width, in bf16, of the rounded u
+    (R, 4W, KP) and t (R, 2, B, KP) that the bf16 passes at K <= 64
+    stage (csrc/psd_common.cuh `mma_kp`)."""
+    return 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def rounded_scratch(lead, rows, k, dev, dtype):
+    """The scratch of a bf16 pass at K <= 64 (None otherwise): bf16
+    (*lead, rows, mma_kp(k)), which the kernel fills with the rounded u
+    (rows 4W) or t (rows 2B) before the pass reads it."""
+    if dtype != torch.bfloat16 or k > 64:
+        return None
+    return torch.empty((*lead, rows, mma_kp(k)), dtype=torch.bfloat16,
+                       device=dev)
+
+
+def rcp_rn_mismatches(lo: float, hi: float, device) -> int:
+    """How many floats x in [lo, hi) give the bf16 passes' exact
+    reciprocal (csrc/psd_mma.cuh `rcp_rn`, the hardware reciprocal and a
+    Newton step) other bits than the IEEE one, __frcp_rn: 0 means their
+    exact divide is the IEEE divide's bits on that range. On the card."""
+    lo_bits, hi_bits = (struct.unpack("<I", struct.pack("<f", v))[0]
+                        for v in (lo, hi))
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.check(_build.lib().tt_rcp_rn_check(
+        lo_bits, hi_bits, bad.data_ptr(), _build.stream_ptr(bad.device)),
+        "rcp_rn_check")
+    return int(bad.item())
+
+
+def c_ptr(x):
+    """A tensor's pointer for a C entry, None (NULL) for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
 def _device_of(name, x):
     """'cpu' (run the twin) or 'cuda' (launch the kernel); else raise."""
     if x.device.type not in ("cpu", "cuda"):
@@ -251,24 +290,33 @@ def _device_of(name, x):
 
 
 GAMMA_COLS = 32         # byte columns of a γ-pass CTA (4 warps, a plane each)
+# bf16 at K <= 64 (csrc/psd_mma.cuh): the fewest CTAs and the longest
+# slice of rows of the row split (`gamma_grid`)
+GAMMA_MMA_CTAS = 640
+GAMMA_MMA_SLICE = 1024
 # K > 64 (csrc/gamma_wide.cuh): a CTA of 8 warps takes GAMMA_WIDE_COLS
 # byte columns and walks its row split in row tiles of GAMMA_WIDE_ROWS
 GAMMA_WIDE_COLS = 16
 GAMMA_WIDE_ROWS = 64
 
 
-def gamma_grid(b: int, w: int, k: int) -> int:
+def gamma_grid(b: int, w: int, k: int, dtype=torch.float32) -> int:
     """The γ pass's row split at a batch of b rows of w bytes: CTA (i, j)
     takes its byte columns and the j-th of `nsplit` slices of rows,
-    walked in order. At K <= 64 CTAs of 32 byte columns, about four CTAs
-    an SM where the batch allows (slices of at least 32 rows). At K > 64
+    walked in order. At K <= 64 CTAs of 32 byte columns, slices of at
+    least 32 rows: at f32 about four CTAs an SM where the batch allows;
+    at bf16 (the tensor-core body, which walks its slice in 64-row blocks
+    with the next block in flight) at least GAMMA_MMA_CTAS CTAs and
+    slices of at most GAMMA_MMA_SLICE rows, whose CTAs fill the card's
+    waves (K5 at the big-N shape: 4 slices, 0.517 ms against 0.568 at 1;
+    NVIDIA H100 80GB HBM3, chip_smoke.py --kernels). At K > 64
     CTAs of 16 byte columns walk slices of whole 64-row tiles (the
     kernels' slice: ceil(b / nsplit) rounded up to 64), at f32 one CTA an
     SM: the slice is the longest, up to 64 row tiles, whose CTAs fill
     their last wave on the card's SMs at least 95% as well as the best
     slice does (`lambda_grid`'s rule; chip_smoke.py --kernels,
-    `gamma_split_sweep`). A function of the shape only, so the summation
-    order, and the result, never depend on anything else."""
+    `gamma_split_sweep`). A function of the shape and the dtype only, so
+    the summation order, and the result, never depend on anything else."""
     if k > 64:
         cols = -(-w // GAMMA_WIDE_COLS)
         tiles = -(-b // GAMMA_WIDE_ROWS)
@@ -282,6 +330,9 @@ def gamma_grid(b: int, w: int, k: int) -> int:
         n = max(n for n in lengths if fill(n) >= 0.95 * best)
         return -(-tiles // n)
     ncol = -(-w // GAMMA_COLS)
+    if dtype == torch.bfloat16:
+        return min(-(-b // 32), max(-(-GAMMA_MMA_CTAS // ncol),
+                                    -(-b // GAMMA_MMA_SLICE)))
     return max(1, min(-(-b // 32), 4 * SM_COUNT // ncol))
 
 
@@ -289,25 +340,35 @@ LAMBDA_ROWS = 64        # rows of a lambda-pass CTA: 2 warps, a row a lane
 # K > 64 (csrc/lambda_wide.cuh): a CTA of 8 warps takes its 64 rows' chunk
 # in sub-tiles of LAMBDA_WIDE_COLS byte columns
 LAMBDA_WIDE_COLS = 16
+# bf16 at K <= 64 (csrc/psd_mma.cuh): the fewest CTAs and the widest
+# chunk of byte columns of the column split (`lambda_grid`)
+LAMBDA_MMA_CTAS = 512
+LAMBDA_MMA_CHUNK = 512
 
 
-def lambda_grid(b: int, w: int, k: int):
+def lambda_grid(b: int, w: int, k: int, dtype=torch.float32):
     """The lambda pass's column split at a batch of b rows of w bytes and
     K = k: (nsplit, chunk), with CTA (i, j) taking rows [64 i, 64 i + 64)
     and byte columns [j chunk, (j + 1) chunk).
 
-    K <= 64: a warp walks its 32 rows' chunk alone, so the chunk sets how
-    many warps there are: it is a multiple of 16 between 16 and 128
-    columns, chosen so that about 16 warps an SM are in flight where the
-    batch allows. K > 64: a CTA of 8 warps walks its chunk in sub-tiles of
-    16 columns and pays for staging t and writing its sums once a chunk,
-    and at f32 one CTA fills an SM; so the chunk is the widest multiple
-    of 16 between 32 and 256 columns whose CTAs fill their last wave on
-    the card's SMs at least 95% as well as the best chunk does (a count
-    of CTAs just past a multiple of the SMs costs a wave nearly empty:
-    chip_smoke.py --kernels, `split_sweep`). A function of the shape
-    only, so the summation order, and the result, never depend on
-    anything else."""
+    K <= 64 at f32: a warp walks its 32 rows' chunk alone, so the chunk
+    sets how many warps there are: it is a multiple of 16 between 16 and
+    128 columns, chosen so that about 16 warps an SM are in flight where
+    the batch allows. K <= 64 at bf16 (the tensor-core body: a CTA of 4
+    warps walks its chunk in tiles of 64 or 32 columns, the next one in
+    flight): the widest whole number of 64-column tiles, up to
+    LAMBDA_MMA_CHUNK columns, that leaves at least LAMBDA_MMA_CTAS CTAs,
+    else the widest multiple of 16 that does (the TGP shape: 10 splits of
+    64; config #3's B = 1,024: 40 of 16; the big-N shape: 49 of 512;
+    NVIDIA H100 80GB HBM3, chip_smoke.py --kernels). K > 64: a CTA of 8
+    warps walks its chunk in sub-tiles of 16 columns and pays for staging
+    t and writing its sums once a chunk, and at f32 one CTA fills an SM;
+    so the chunk is the widest multiple of 16 between 32 and 256 columns
+    whose CTAs fill their last wave on the card's SMs at least 95% as
+    well as the best chunk does (a count of CTAs just past a multiple of
+    the SMs costs a wave nearly empty: chip_smoke.py --kernels,
+    `split_sweep`). A function of the shape and the dtype only, so the
+    summation order, and the result, never depend on anything else."""
     if k > 64:
         tiles = -(-b // LAMBDA_ROWS)
 
@@ -318,6 +379,12 @@ def lambda_grid(b: int, w: int, k: int):
         chunks = range(2 * LAMBDA_WIDE_COLS, 257, LAMBDA_WIDE_COLS)
         best = max(fill(c) for c in chunks)
         chunk = max(c for c in chunks if fill(c) >= 0.95 * best)
+    elif dtype == torch.bfloat16:
+        tiles = -(-b // LAMBDA_ROWS)
+        chunks = [c for c in range(LAMBDA_MMA_CHUNK, 0, -16)
+                  if tiles * -(-w // c) >= LAMBDA_MMA_CTAS]
+        whole = [c for c in chunks if c % 64 == 0]
+        chunk = (whole or chunks or [16])[0]
     else:
         row_warps = -(-b // 32)
         chunk = w * row_warps // (16 * SM_COUNT) // 16 * 16
@@ -377,8 +444,8 @@ def lambda_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     out = launch_lambda_stats_packed(rows, u_planes, t1, t0,
-                                     lambda_grid(b, w, k)[0], approx_div,
-                                     dtype == torch.bfloat16)
+                                     lambda_grid(b, w, k, dtype)[0],
+                                     approx_div, dtype == torch.bfloat16)
     count_launch(lambda_stats_packed, dtype, r)
     return out
 
@@ -398,13 +465,18 @@ def launch_lambda_stats_packed(rows, u_planes, t1, t0, nsplit, approx_div,
     l1 = torch.empty_like(l0)
     part = torch.empty((*lead, nsplit, b, k, 2), dtype=torch.float32,
                        device=dev)
-    entry = ("tt_lambda_stats_packed_bf16" if bf16
-             else "tt_lambda_stats_packed")
-    err = getattr(_build.lib(), entry)(
-        lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
-        t1.data_ptr(), t0.data_ptr(), l0.data_ptr(), l1.data_ptr(),
-        part.data_ptr(), b, w, k, nsplit, int(approx_div),
-        b * w if rows.dim() == 3 else 0, _build.stream_ptr(dev))
+    args = (lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
+            t1.data_ptr(), t0.data_ptr(), l0.data_ptr(), l1.data_ptr(),
+            part.data_ptr())
+    if bf16:
+        ub = rounded_scratch(lead, 4 * w, k, dev, torch.bfloat16)
+        err = _build.lib().tt_lambda_stats_packed_bf16(
+            *args, c_ptr(ub), b, w, k, nsplit, int(approx_div),
+            b * w if rows.dim() == 3 else 0, _build.stream_ptr(dev))
+    else:
+        err = _build.lib().tt_lambda_stats_packed(
+            *args, b, w, k, nsplit, int(approx_div),
+            b * w if rows.dim() == 3 else 0, _build.stream_ptr(dev))
     _build.check(err, "lambda_stats_packed")
     return l0, l1
 
@@ -485,20 +557,40 @@ def lambda_stats_acat(a1: torch.Tensor, a0: torch.Tensor,
         return stack_twins(lambda_stats_acat_twin, r, *args, **kw)
     _build.require_cuda(name, a1, a0, u_planes, t1, t0,
                         dtypes=(torch.bfloat16,) * 2 + (torch.float32,) * 3)
-    nsplit, _ = lambda_grid(b, w, k)
-    lead = () if r is None else (r,)
+    out = launch_lambda_stats_acat(a1, a0, u_planes, t1, t0,
+                                   lambda_grid(b, w, k, dtype)[0],
+                                   approx_div, dtype == torch.bfloat16)
+    count_launch(lambda_stats_acat, dtype, r)
+    return out
+
+
+def launch_lambda_stats_acat(a1, a0, u_planes, t1, t0, nsplit, approx_div,
+                             bf16=False):
+    """K8's launch at a given column split (validated CUDA tensors), as
+    `launch_lambda_stats_packed` is K4's: `lambda_stats_acat` passes
+    `lambda_grid`'s; chip_smoke.py's sweep passes others. a1, a0 (R, B,
+    4, W) with u_planes (R, 4, W, K) and t1, t0 (R, B, K) launch R
+    replicates."""
+    b, _, w = a1.shape[-3:]
+    k = u_planes.shape[-1]
+    lead = tuple(u_planes.shape[:-3])
     dev = a1.device
     l0 = torch.empty((*lead, b, k), dtype=torch.float32, device=dev)
     l1 = torch.empty_like(l0)
     part = torch.empty((*lead, nsplit, b, k, 2), dtype=torch.float32,
                        device=dev)
-    err = _entry("tt_lambda_stats_acat", dtype)(
-        r or 1, a1.data_ptr(), a0.data_ptr(), u_planes.data_ptr(),
-        t1.data_ptr(), t0.data_ptr(), l0.data_ptr(), l1.data_ptr(),
-        part.data_ptr(), b, w, k, nsplit, int(approx_div),
-        _build.stream_ptr(dev))
-    _build.check(err, name)
-    count_launch(lambda_stats_acat, dtype, r)
+    args = (lead[0] if lead else 1, a1.data_ptr(), a0.data_ptr(),
+            u_planes.data_ptr(), t1.data_ptr(), t0.data_ptr(),
+            l0.data_ptr(), l1.data_ptr(), part.data_ptr())
+    if bf16:
+        ub = rounded_scratch(lead, 4 * w, k, dev, torch.bfloat16)
+        err = _build.lib().tt_lambda_stats_acat_bf16(
+            *args, c_ptr(ub), b, w, k, nsplit, int(approx_div),
+            _build.stream_ptr(dev))
+    else:
+        err = _build.lib().tt_lambda_stats_acat(
+            *args, b, w, k, nsplit, int(approx_div), _build.stream_ptr(dev))
+    _build.check(err, "lambda_stats_acat")
     return l0, l1
 
 
@@ -573,7 +665,8 @@ def gamma_stats_packed(rows: torch.Tensor, u_planes: torch.Tensor,
     _build.require_cuda(name, rows, u_planes, t1, t0,
                         dtypes=(torch.uint8,) + (torch.float32,) * 3)
     g = launch_gamma_stats_packed(rows, u_planes, t1, t0,
-                                  gamma_grid(b, w, k), dtype == torch.bfloat16)
+                                  gamma_grid(b, w, k, dtype),
+                                  dtype == torch.bfloat16)
     count_launch(gamma_stats_packed, dtype, r)
     return g
 
@@ -591,11 +684,15 @@ def launch_gamma_stats_packed(rows, u_planes, t1, t0, nsplit, bf16=False):
     g = torch.empty((*lead, 4, w, k), dtype=torch.float32, device=dev)
     gpart = torch.empty((*lead, nsplit, 4 * w, k), dtype=torch.float32,
                         device=dev)
-    entry = "tt_gamma_stats_packed_bf16" if bf16 else "tt_gamma_stats_packed"
-    err = getattr(_build.lib(), entry)(
-        lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
-        t1.data_ptr(), t0.data_ptr(), g.data_ptr(), gpart.data_ptr(), b, w,
-        k, nsplit, _build.stream_ptr(dev))
+    args = (lead[0] if lead else 1, rows.data_ptr(), u_planes.data_ptr(),
+            t1.data_ptr(), t0.data_ptr(), g.data_ptr(), gpart.data_ptr())
+    if bf16:
+        tb = rounded_scratch(lead, 2 * b, k, dev, torch.bfloat16)
+        err = _build.lib().tt_gamma_stats_packed_bf16(
+            *args, c_ptr(tb), b, w, k, nsplit, _build.stream_ptr(dev))
+    else:
+        err = _build.lib().tt_gamma_stats_packed(
+            *args, b, w, k, nsplit, _build.stream_ptr(dev))
     _build.check(err, "gamma_stats_packed")
     return g
 

@@ -712,6 +712,34 @@ BF16 = torch.bfloat16
 BF16_PASS = dict(rtol=1e-3, atol=1e-6)
 BF16_SOLVE = dict(rtol=2e-3, atol=1e-5)
 BF16_KS = [3, 7, 8, 10, 16, 24, 33, 72]
+# (B, individuals, K) of the bf16 cases: a ragged B and an odd W at
+# BF16_KS, then B = 200 (four 64-row blocks of the γ pass, the last of 8
+# rows) and W = 235 bytes (3.7 tiles of the λ pass, a ragged word) at the
+# n8 and k16 edges of the tensor-core bodies (K = 1, 8, 9, 16, 17, 64),
+# where a CTA of a one-split call walks at least 3 tiles
+WALK_KS = [1, 8, 9, 16, 17, 64]
+BF16_SHAPES = ([(75, 940, k) for k in BF16_KS]
+               + [(200, 940, k) for k in WALK_KS])
+
+
+def _replays_bitwise(fn, want):
+    """Two replays of one CUDA graph of fn() (its allocations included):
+    each bitwise `want`, the eager call's outputs."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(out, want))
+    del graph, out
+
+
+def _rep_bitwise(batched, singles):
+    """A batched call's outputs: replicate i bitwise singles[i]."""
+    for i, single in enumerate(singles):
+        assert all(torch.equal(a[i], c) for a, c in zip(batched, single)), i
 
 
 def _pinned(got, f32):
@@ -728,13 +756,19 @@ def _flips(got, want, tol, frac):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("approx_div", [False, True])
-@pytest.mark.parametrize("k", BF16_KS)
-def test_bf16_lambda_and_gamma_pass_match_twins(cuda_device, k, approx_div):
-    """K4 at bf16 (the tensor-core λ pass at K <= 64, the K-chunked body
+@pytest.mark.parametrize("b,n,k", BF16_SHAPES)
+def test_bf16_lambda_and_gamma_pass_match_twins(cuda_device, b, n, k,
+                                                approx_div):
+    """K4 at bf16 (the tensor-core λ pass at K <= 64, the wide body
     above) and the γ pass at bf16, on a ragged B and an odd W with rows
-    MISSING: against their bf16 twins, bitwise on a re-run, pinned."""
-    rows, up, lamb = _problem(cuda_device, 75, 940, k, seed=k)
+    MISSING: against their bf16 twins, bitwise on a re-run and on two
+    replays of a CUDA graph, pinned; at one split (a CTA walks every tile
+    of its rows, every block of its columns) against the twins again; R =
+    3 replicates (K4 on shared and on own rows, K5) each bitwise its
+    single call."""
+    rows, up, lamb = _problem(cuda_device, b, n, k, seed=k)
     rows[3] = 0xFF
+    rows[-1] = 0xFF
     t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
     before = stats_packed.lambda_stats_packed.bf16_launches
     got = stats_packed.lambda_stats_packed(rows, up, t1, t0, dtype=BF16,
@@ -751,19 +785,52 @@ def test_bf16_lambda_and_gamma_pass_match_twins(cuda_device, k, approx_div):
     _pinned(got, stats_packed.lambda_stats_packed(rows, up, t1, t0,
                                                   approx_div=approx_div))
     g = stats_packed.gamma_stats_packed(rows, up, t1, t0, dtype=BF16)
-    np.testing.assert_allclose(
-        g.cpu().numpy(), stats_packed.gamma_stats_packed_twin(
-            rows, up, t1, t0, BF16).cpu().numpy(), **BF16_PASS)
+    gwant = stats_packed.gamma_stats_packed_twin(rows, up, t1, t0, BF16)
+    np.testing.assert_allclose(g.cpu().numpy(), gwant.cpu().numpy(),
+                               **BF16_PASS)
     _pinned([g], [stats_packed.gamma_stats_packed(rows, up, t1, t0)])
+    _replays_bitwise(lambda: stats_packed.lambda_stats_packed(
+        rows, up, t1, t0, dtype=BF16, approx_div=approx_div), got)
+    _replays_bitwise(lambda: [stats_packed.gamma_stats_packed(
+        rows, up, t1, t0, dtype=BF16)], [g])
+    one = stats_packed.launch_lambda_stats_packed(rows, up, t1, t0, 1,
+                                                  approx_div, True)
+    for a, c in zip(one, want):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **tol)
+    one = stats_packed.launch_gamma_stats_packed(rows, up, t1, t0, 1, True)
+    np.testing.assert_allclose(one.cpu().numpy(), gwant.cpu().numpy(),
+                               **BF16_PASS)
+    rs, ups, lambs = _rep_problem(cuda_device, 3, b, n, k, seed=k)
+    rs[1, ::5] = 0xFF
+    t1s, t0s = fused_step.exp_elog_beta_kernel(lambs)
+    kw = dict(dtype=BF16, approx_div=approx_div)
+    _rep_bitwise(stats_packed.lambda_stats_packed(rs[0], ups, t1s, t0s, **kw),
+                 [stats_packed.lambda_stats_packed(rs[0], ups[i], t1s[i],
+                                                   t0s[i], **kw)
+                  for i in range(3)])
+    _rep_bitwise(stats_packed.lambda_stats_packed(rs, ups, t1s, t0s, **kw),
+                 [stats_packed.lambda_stats_packed(rs[i], ups[i], t1s[i],
+                                                   t0s[i], **kw)
+                  for i in range(3)])
+    _rep_bitwise([stats_packed.gamma_stats_packed(rs, ups, t1s, t0s, BF16)],
+                 [[stats_packed.gamma_stats_packed(rs[i], ups[i], t1s[i],
+                                                   t0s[i], BF16)]
+                  for i in range(3)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["cold_plain", "warm_plain", "approx_div"])
-@pytest.mark.parametrize("k", BF16_KS)
-def test_bf16_fused_solves_match_twin(cuda_device, case, k):
-    """K1 at bf16 against its twin and pinned against f32; K2 at bf16
-    bitwise K1 at bf16 on the gathered rows."""
-    rows, up, lamb = _problem(cuda_device, 64, 512, k, seed=k + len(case))
+@pytest.mark.parametrize("b,n,k", [(64, 512, k) for k in BF16_KS]
+                         + [(200, 940, k) for k in WALK_KS])
+def test_bf16_fused_solves_match_twin(cuda_device, case, b, n, k):
+    """K1 at bf16 against its twin and pinned against f32, bitwise on
+    two replays of a CUDA graph, and with R = 3 replicates each bitwise
+    its single solve; K2 at bf16 bitwise K1 at bf16 on the gathered rows
+    (B = 200: rows MISSING, a ragged word)."""
+    rows, up, lamb = _problem(cuda_device, b, n, k, seed=k + len(case))
+    if b % 64:
+        rows[3] = 0xFF
+        rows[-1] = 0xFF
     kw = dict(K1_CASES[case], beta_a=1.0, beta_b=1.0)
     before = fused_step.fused_local_solve.bf16_launches
     got = fused_step.fused_local_solve(rows, up, lamb, dtype=BF16, **kw)
@@ -775,16 +842,38 @@ def test_bf16_fused_solves_match_twin(cuda_device, case, k):
                                **tol)
     _flips(got[0], want[0], tol, 1e-3)
     _pinned(got, fused_step.fused_local_solve(rows, up, lamb, **kw))
+    _replays_bitwise(lambda: fused_step.fused_local_solve(
+        rows, up, lamb, dtype=BF16, **kw), got)
+    rs, ups, lambs = _rep_problem(cuda_device, 3, b, n, k, seed=k)
+    rs[2, 1::3] = 0xFF
+    _rep_bitwise(fused_step.fused_local_solve(rs, ups, lambs, dtype=BF16,
+                                              **kw),
+                 [fused_step.fused_local_solve(rs[i], ups[i], lambs[i],
+                                               dtype=BF16, **kw)
+                  for i in range(3)])
     g = 8
-    packed = rows[:64].contiguous()
-    idx0 = torch.arange(0, 64, g, dtype=torch.int32,
+    if rows.shape[1] % 128:        # K2's gate: W a multiple of 128 bytes
+        rows, up, lamb = _problem(cuda_device, b, 1024, k, seed=k)
+        rows[3] = 0xFF
+    packed = rows.contiguous()
+    idx0 = torch.arange(0, b, g, dtype=torch.int32,
                         device=cuda_device).flip(0).contiguous()
     gathered = packed.view(-1, g * packed.shape[1])[idx0.long() // g]
     k2 = fused_step.fused_local_solve_dma(idx0, packed, up, lamb, group=g,
                                           dtype=BF16, **kw)
-    k1 = fused_step.fused_local_solve(gathered.view(64, -1), up, lamb,
+    k1 = fused_step.fused_local_solve(gathered.view(b, -1), up, lamb,
                                       dtype=BF16, **kw)
     assert all(torch.equal(a, c) for a, c in zip(k2, k1))
+
+
+@pytest.mark.cuda
+def test_bf16_passes_exact_reciprocal_is_the_ieee_one(cuda_device):
+    """The exact divide of the bf16 passes at K <= 64 (the hardware
+    reciprocal and a Newton step, psd_mma.cuh `rcp_rn`) gives the bits of
+    __frcp_rn for every float in [2^-126, 2^126), where their D + 1e-30
+    lies: the parent bodies' bits."""
+    assert stats_packed.rcp_rn_mismatches(2.0 ** -126, 2.0 ** 126,
+                                          cuda_device) == 0
 
 
 # --- compute dtype bf16 on the big-N step: K5, K6, K7, K8 -----------------
@@ -803,12 +892,14 @@ def _bign_bf16_case(fn, kernel, twin, tol, f32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("approx_div", [False, True])
-@pytest.mark.parametrize("k", BF16_KS)
-def test_bf16_bign_bodies_match_twins(cuda_device, k, approx_div):
+@pytest.mark.parametrize("b,n,k", BF16_SHAPES)
+def test_bf16_bign_bodies_match_twins(cuda_device, b, n, k, approx_div):
     """K7 (both divides), K6, K5 and K8 (both divides) at bf16 on a ragged
     B and an odd W with rows MISSING: against their bf16 twins, bitwise on
-    a re-run, pinned against their f32 bodies."""
-    rows, up, lamb = _problem(cuda_device, 75, 940, k, seed=k + 1)
+    a re-run, pinned against their f32 bodies; K8 and K5 also bitwise on
+    two replays of a CUDA graph and, with R = 3 replicates, each
+    replicate bitwise its single call."""
+    rows, up, lamb = _problem(cuda_device, b, n, k, seed=k + 1)
     rows[3] = 0xFF
     u = stats_packed.planes_to_flat(up).contiguous()
     t1, t0 = fused_step.exp_elog_beta_kernel(lamb)
@@ -831,6 +922,16 @@ def test_bf16_bign_bodies_match_twins(cuda_device, k, approx_div):
         lambda: stats_packed.lambda_stats_acat_twin(
             a1, a0, up, t1, t0, approx_div=approx_div, dtype=BF16),
         tol, lambda: k8(a1, a0, up, t1, t0, approx_div=approx_div))
+    kw = dict(approx_div=approx_div, dtype=BF16)
+    _replays_bitwise(lambda: k8(a1, a0, up, t1, t0, **kw),
+                     k8(a1, a0, up, t1, t0, **kw))
+    rs, ups, lambs = _rep_problem(cuda_device, 3, b, n, k, seed=k + 1)
+    rs[0, 2::7] = 0xFF
+    t1s, t0s = fused_step.exp_elog_beta_kernel(lambs)
+    a1s, a0s = stats_packed.decode_count_planes(rs)
+    _rep_bitwise(k8(a1s, a0s, ups, t1s, t0s, **kw),
+                 [k8(a1s[i], a0s[i], ups[i], t1s[i], t0s[i], **kw)
+                  for i in range(3)])
     if approx_div:
         return
     v1 = stats_packed.batch_stats_fused_packed
@@ -846,6 +947,11 @@ def test_bf16_bign_bodies_match_twins(cuda_device, k, approx_div):
         lambda: [stats_packed.gamma_stats_packed_twin(rows, up, t1, t0,
                                                       BF16)],
         BF16_PASS, lambda: [k5(rows, up, t1, t0)])
+    _replays_bitwise(lambda: [k5(rows, up, t1, t0, BF16)],
+                     [k5(rows, up, t1, t0, BF16)])
+    _rep_bitwise([k5(rs, ups, t1s, t0s, BF16)],
+                 [[k5(rs[i], ups[i], t1s[i], t0s[i], BF16)]
+                  for i in range(3)])
 
 
 @pytest.mark.cuda

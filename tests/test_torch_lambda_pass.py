@@ -87,6 +87,102 @@ def test_gamma_grid_fills_the_card_at_the_main_path_shapes():
         assert 20 * nsplit > 3 * stats_packed.SM_COUNT
 
 
+# --- the grids of the bf16 tensor-core bodies (K <= 64) -------------------
+BF16 = torch.bfloat16
+# the paths' shapes, the big-N step's (and its padded tol batch) and a
+# batch of 200 rows of 235 bytes (the card tests' long walks)
+GRID_SHAPES = PATH_SHAPES + [(4096, 25_088), (4092, 25_088), (200, 235)]
+GRID_KS = [1, 8, 10, 16, 17, 33, 64]
+# lambda_grid and gamma_grid at f32 (K = 8) and at K > 64 (K = 72, both
+# dtypes) as they were before the bf16 branches: (nsplit, chunk), nsplit
+EARLIER_GRIDS = {
+    8: {(1024, 640): ((40, 16), 26), (4096, 640): ((20, 32), 26),
+        (256, 256): ((16, 16), 8), (4096, 2048): ((19, 112), 8),
+        (33, 235): ((15, 16), 2), (4096, 25_088): ((196, 128), 1),
+        (4092, 25_088): ((196, 128), 1), (200, 235): ((15, 16), 7)},
+    72: {(1024, 640): ((8, 80), 16), (4096, 640): ((4, 160), 13),
+         (256, 256): ((8, 32), 4), (4096, 2048): ((8, 256), 1),
+         (33, 235): ((8, 32), 1), (4096, 25_088): ((98, 256), 1),
+         (4092, 25_088): ((98, 256), 1), (200, 235): ((8, 32), 4)},
+}
+
+
+@pytest.mark.parametrize("k", GRID_KS)
+@pytest.mark.parametrize("b,w", GRID_SHAPES)
+def test_bf16_lambda_grid_covers_w_with_no_empty_cta(b, w, k):
+    nsplit, chunk = stats_packed.lambda_grid(b, w, k, BF16)
+    assert chunk % 16 == 0 and chunk >= 16
+    assert nsplit * chunk >= w               # the splits cover W ...
+    assert (nsplit - 1) * chunk < w          # ... and none is empty
+    assert chunk == -(-(-(-w // nsplit)) // 16) * 16   # tt::split_chunk
+    # the launch's grid (row tiles, nsplit, R) within the CUDA limits
+    assert 1 <= nsplit <= 65_535
+    assert -(-b // stats_packed.LAMBDA_ROWS) < 2 ** 31
+
+
+@pytest.mark.parametrize("k", GRID_KS)
+@pytest.mark.parametrize("b,w", GRID_SHAPES)
+def test_bf16_gamma_grid_covers_b_with_no_empty_slice(b, w, k):
+    nsplit = stats_packed.gamma_grid(b, w, k, BF16)
+    bchunk = -(-b // nsplit)                 # the kernels' slice
+    assert 1 <= nsplit <= 65_535             # grid (column tiles, nsplit, R)
+    assert nsplit * bchunk >= b and (nsplit - 1) * bchunk < b
+    assert -(-w // stats_packed.GAMMA_COLS) < 2 ** 31
+
+
+@pytest.mark.parametrize("b,w", GRID_SHAPES)
+def test_bf16_grids_are_functions_of_the_shape_and_dtype_only(b, w):
+    first = [(stats_packed.lambda_grid(b, w, k, BF16),
+              stats_packed.gamma_grid(b, w, k, BF16)) for k in GRID_KS]
+    torch.manual_seed(b)                     # no hidden state enters
+    stats_packed.lambda_stats_packed.bf16_launches += 1
+    stats_packed.gamma_stats_packed.bf16_launches += 1
+    again = [(stats_packed.lambda_grid(b, w, k, BF16),
+              stats_packed.gamma_grid(b, w, k, BF16)) for k in GRID_KS]
+    stats_packed.lambda_stats_packed.bf16_launches -= 1
+    stats_packed.gamma_stats_packed.bf16_launches -= 1
+    assert again == first
+
+
+@pytest.mark.parametrize("k", sorted(EARLIER_GRIDS))
+@pytest.mark.parametrize("b,w", GRID_SHAPES)
+def test_f32_and_wide_grids_are_the_earlier_ones(b, w, k):
+    want = EARLIER_GRIDS[k][(b, w)]
+    dtypes = [torch.float32] + ([BF16] if k > 64 else [])
+    for dtype in dtypes:
+        assert (stats_packed.lambda_grid(b, w, k, dtype),
+                stats_packed.gamma_grid(b, w, k, dtype)) == want
+    assert (stats_packed.lambda_grid(b, w, k),
+            stats_packed.gamma_grid(b, w, k)) == want
+
+
+def _pick_km(k, km12):
+    """The K-width a K <= 64 body runs at (csrc tt::pick_km): the γ pass
+    also instantiates 12."""
+    if km12 and 8 < k <= 12:
+        return 12
+    return next(km for km in (4, 8, 16, 32, 64) if k <= km)
+
+
+@pytest.mark.parametrize("k", range(1, 65))
+def test_mma_kp_is_the_bodies_padded_k(k):
+    # the bodies' KP: 16 x the k16 steps of D for KN = ceil(KM / 8) n8
+    # tiles, at the λ pass's K-widths and the γ pass's
+    for km12 in (False, True):
+        kn = -(-_pick_km(k, km12) // 8)
+        assert stats_packed.mma_kp(k) == 16 * ((kn + 1) // 2)
+
+
+def test_rounded_scratch_only_at_bf16_and_k_up_to_64():
+    cpu = torch.device("cpu")
+    assert stats_packed.rounded_scratch((), 40, 8, cpu, torch.float32) is None
+    assert stats_packed.rounded_scratch((3,), 40, 72, cpu, BF16) is None
+    x = stats_packed.rounded_scratch((3,), 40, 17, cpu, BF16)
+    assert x.shape == (3, 40, 32) and x.dtype == BF16
+    assert stats_packed.rounded_scratch((), 40, 64, cpu, BF16).shape == (40,
+                                                                         64)
+
+
 # --- K above the CUDA kernels' limit, on the CPU ---------------------------
 def _problem(b=16, n=512, k=K_WIDE, seed=0):
     rng = np.random.default_rng(seed)
